@@ -1,0 +1,384 @@
+"""Contact sources: what the band path reads from a contact map.
+
+Counterpart of ``chromosight_tpu/io/cool.py:36-253``.  A source holds a
+chromosome table, a bin table and an upper-triangle pixel table sorted by
+(bin1, bin2) and indexed by ``bin1_offset`` (the cool layout).  It offers
+what the band path and ICE balancing read: ``chromnames``, ``extent``,
+``binsize``, ``weights``, ``bins()``, ``band_upper`` and, for
+``chromosight_tpu.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
+``_chrom_offset``, ``pixel_chunks`` and ``row_slice_raw``.
+
+* ``CoolSource`` reads a ``.cool`` file with h5py, imported when one is
+  opened: the card's machine may not have h5py.
+* ``ArraySource`` holds the tables in memory: from an ``.npz`` export
+  (``to_npz``/``from_npz``) or from the synthetic genome generator of
+  ``tools/make_synthetic_cool.py`` (``from_synthetic``).
+
+Bin tables are dicts of numpy columns (chrom, start, end[, weight]).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from chromosight_tpu import native
+
+
+def native_scatter_available():
+    """Whether ``band_upper`` takes the native (g++-built) scatter rather
+    than its numpy fallback."""
+    return native.get_lib() is not None
+
+
+class _PixelSource:
+    """Accessors shared by the sources.  Subclasses set the tables and
+    implement ``_pixels(lo, hi)`` -> (bin1, bin2, count) of pixel rows
+    [lo, hi) in their stored dtypes."""
+
+    _chrom_names: list
+    _chrom_offset: np.ndarray
+    _bin1_offset: np.ndarray
+    _bin_chrom_ids: np.ndarray
+    _bin_start: np.ndarray
+    _bin_end: np.ndarray
+    _weight: np.ndarray | None
+    binsize: int | None
+
+    @property
+    def chromnames(self):
+        return list(self._chrom_names)
+
+    @property
+    def n_bins(self):
+        return int(self._bin1_offset.shape[0] - 1)
+
+    @property
+    def shape(self):
+        return (self.n_bins, self.n_bins)
+
+    @property
+    def nnz(self):
+        return int(self._bin1_offset[-1])
+
+    @property
+    def weights(self):
+        return self._weight
+
+    def extent(self, chrom):
+        """(first_bin, last_bin_exclusive) of a chromosome."""
+        cid = self._chrom_names.index(chrom)
+        return int(self._chrom_offset[cid]), int(self._chrom_offset[cid + 1])
+
+    def bins(self):
+        """Bin table: chrom (str), start, end (int64)[, weight]."""
+        table = {
+            "chrom": np.asarray(self._chrom_names)[self._bin_chrom_ids],
+            "start": self._bin_start.astype(np.int64),
+            "end": self._bin_end.astype(np.int64),
+        }
+        if self._weight is not None:
+            table["weight"] = self._weight
+        return table
+
+    def band_upper(self, extent, width, balance=False, n_rows=None):
+        """Upper-band tensor B[i, d] = M[s+i, s+i+d], d in [0, width), as
+        float32 (n_rows, width); ``n_rows`` >= e-s adds zero rows.
+
+        The pixel slice of rows [s, e) is filtered to the band, balanced
+        and scattered in one native pass
+        (``chromosight_tpu.native.band_scatter_fused``), with the numpy
+        fallback of ``chromosight_tpu/io/cool.py:242-253``."""
+        s, e = extent
+        if n_rows is None:
+            n_rows = e - s
+        if balance and self._weight is None:
+            raise ValueError(
+                "No 'weight' column in the contact map; balance it first "
+                "or use raw values."
+            )
+        lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
+        if hi <= lo:
+            return np.zeros((n_rows, width), dtype=np.float32)
+        b1, b2, ct = self._pixels(lo, hi)
+        weights = self._weight if balance else None
+        band = native.band_scatter_fused(
+            b1, b2, ct, weights, s, e, width, n_rows=n_rows
+        )
+        if band is not None:
+            return band
+        d = b2.astype(np.int64) - b1.astype(np.int64)
+        keep = (d >= 0) & (d < width) & (b2 < e)
+        b1, d, ct = b1[keep].astype(np.int64), d[keep], ct[keep]
+        vals = ct.astype(np.float32)
+        if balance:
+            vals = (
+                ct.astype(np.float64) * weights[b1] * weights[b1 + d]
+            ).astype(np.float32)
+        band = np.zeros((n_rows, width), dtype=np.float32)
+        band[b1 - s, d] = vals
+        return band
+
+    def row_slice_raw(self, s, e):
+        """``(indptr, bin2, count)`` of rows [s, e) in the stored dtypes;
+        ``indptr`` is the absolute ``bin1_offset[s : e+1]`` slice."""
+        lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
+        _, b2, ct = self._pixels(lo, hi)
+        return self._bin1_offset[s : e + 1], b2, ct
+
+    def pixel_chunks(self, chunksize=10_000_000):
+        """Iterate over the pixel table as (int64, int64, float64) chunks."""
+        for lo in range(0, self.nnz, int(chunksize)):
+            hi = min(lo + int(chunksize), self.nnz)
+            b1, b2, ct = self._pixels(lo, hi)
+            yield (
+                np.asarray(b1, dtype=np.int64),
+                np.asarray(b2, dtype=np.int64),
+                np.asarray(ct, dtype=np.float64),
+            )
+
+
+class CoolSource(_PixelSource):
+    """A single-resolution ``.cool`` file (``file.cool`` or
+    ``file.cool::/group``), read with h5py."""
+
+    def __init__(self, path):
+        import h5py
+
+        self._h5py = h5py
+        self.path = str(path)
+        self.group = "/"
+        if "::" in self.path:
+            self.path, self.group = self.path.split("::", 1)
+        with h5py.File(self.path, "r") as f:
+            g = f[self.group]
+            binsize = g.attrs.get("bin-size")
+            self._chrom_names = [
+                n.decode() if isinstance(n, bytes) else str(n)
+                for n in g["chroms/name"][:]
+            ]
+            self._chrom_offset = g["indexes/chrom_offset"][:].astype(np.int64)
+            self._bin1_offset = g["indexes/bin1_offset"][:].astype(np.int64)
+            self._bin_chrom_ids = g["bins/chrom"][:].astype(np.int64)
+            self._bin_start = g["bins/start"][:].astype(np.int64)
+            self._bin_end = g["bins/end"][:].astype(np.int64)
+            self._weight = (
+                g["bins/weight"][:].astype(np.float64)
+                if "weight" in g["bins"]
+                else None
+            )
+        self.binsize = int(binsize) if binsize is not None else None
+
+    def _pixels(self, lo, hi):
+        with self._h5py.File(self.path, "r") as f:
+            g = f[self.group]
+            return (
+                g["pixels/bin1_id"][lo:hi],
+                g["pixels/bin2_id"][lo:hi],
+                g["pixels/count"][lo:hi],
+            )
+
+
+class ArraySource(_PixelSource):
+    """Chromosome table, bins, upper-triangle pixels and weights held in
+    memory.  Pixels must be sorted by (bin1, bin2) with bin1 <= bin2."""
+
+    def __init__(
+        self,
+        chrom_names,
+        chrom_offset,
+        bin_start,
+        bin_end,
+        bin1,
+        bin2,
+        count,
+        weight=None,
+        binsize=None,
+    ):
+        self._chrom_names = [str(c) for c in chrom_names]
+        self._chrom_offset = np.asarray(chrom_offset, dtype=np.int64)
+        n_bins = int(self._chrom_offset[-1])
+        self._bin_chrom_ids = np.repeat(
+            np.arange(len(self._chrom_names)), np.diff(self._chrom_offset)
+        )
+        self._bin_start = np.asarray(bin_start, dtype=np.int64)
+        self._bin_end = np.asarray(bin_end, dtype=np.int64)
+        self.bin1 = np.asarray(bin1)
+        self.bin2 = np.asarray(bin2)
+        self.count = np.asarray(count)
+        if not (len(self.bin1) == len(self.bin2) == len(self.count)):
+            raise ValueError("bin1, bin2 and count must have one length")
+        if len(self.bin1) and (
+            np.any(np.diff(self.bin1) < 0) or np.any(self.bin2 < self.bin1)
+        ):
+            raise ValueError("pixels must be upper-triangle, sorted by bin1")
+        self._bin1_offset = np.zeros(n_bins + 1, dtype=np.int64)
+        np.cumsum(
+            np.bincount(self.bin1, minlength=n_bins), out=self._bin1_offset[1:]
+        )
+        self._weight = (
+            None if weight is None else np.asarray(weight, dtype=np.float64)
+        )
+        self.binsize = None if binsize is None else int(binsize)
+        self.planted = []  # (chrom, bin_i, bin_j) of synthetic loops
+
+    def _pixels(self, lo, hi):
+        return self.bin1[lo:hi], self.bin2[lo:hi], self.count[lo:hi]
+
+    def store_weights(self, weights, name="weight", stats=None):
+        """Keep balancing weights (``ice_balance(..., store=True)``)."""
+        weights = np.asarray(weights, dtype=np.float64)
+        if weights.shape[0] != self.n_bins:
+            raise ValueError("weights length must equal number of bins")
+        self._weight = weights
+
+    @classmethod
+    def from_source(cls, src):
+        """Copy another source's tables into memory (counts keep their
+        stored dtype)."""
+        bin1, bin2, count = src._pixels(0, src.nnz)
+        return cls(
+            src.chromnames,
+            src._chrom_offset,
+            src._bin_start,
+            src._bin_end,
+            bin1.astype(np.int32),
+            bin2.astype(np.int32),
+            count,
+            weight=src.weights,
+            binsize=src.binsize,
+        )
+
+    def to_npz(self, path):
+        """Write the tables to a compressed ``.npz``."""
+        fields = dict(
+            chrom_names=np.asarray(self._chrom_names),
+            chrom_offset=self._chrom_offset,
+            bin_start=self._bin_start,
+            bin_end=self._bin_end,
+            bin1=self.bin1,
+            bin2=self.bin2,
+            count=self.count,
+            binsize=np.int64(-1 if self.binsize is None else self.binsize),
+        )
+        if self._weight is not None:
+            fields["weight"] = self._weight
+        np.savez_compressed(path, **fields)
+
+    @classmethod
+    def from_npz(cls, path):
+        with np.load(path, allow_pickle=False) as z:
+            binsize = int(z["binsize"])
+            return cls(
+                z["chrom_names"],
+                z["chrom_offset"],
+                z["bin_start"],
+                z["bin_end"],
+                z["bin1"],
+                z["bin2"],
+                z["count"],
+                weight=z["weight"] if "weight" in z.files else None,
+                binsize=None if binsize < 0 else binsize,
+            )
+
+    @classmethod
+    def from_synthetic(cls, chroms, bins, seed=0, binsize=5000):
+        """``chroms`` chromosomes of ``bins`` bins each, drawn exactly as
+        ``tools/make_synthetic_cool.py --chroms C --bins B --seed S``
+        draws them (same ``RandomState`` call sequence), then ICE-balanced
+        with ``ice_balance(cis_only=True)``.  Planted loop anchors are in
+        ``planted`` as (chrom, bin_i, bin_j), local bins."""
+        from chromosight_tpu.ops.balance import ice_balance
+
+        rng = np.random.RandomState(seed)
+        names = [f"chr{c + 1}" for c in range(chroms)]
+        b1_parts, b2_parts, ct_parts, planted = [], [], [], []
+        for c, name in enumerate(names):
+            rows, cols, vals, loops = synth_chrom(bins, rng)
+            offset = c * bins
+            b1_parts.append((rows + offset).astype(np.int32))
+            b2_parts.append((cols + offset).astype(np.int32))
+            ct_parts.append(vals)
+            planted += [(name, i, j) for i, j in loops]
+            del rows, cols, vals
+        start = np.tile(np.arange(bins, dtype=np.int64) * binsize, chroms)
+        src = cls(
+            names,
+            np.arange(chroms + 1, dtype=np.int64) * bins,
+            start,
+            start + binsize,
+            np.concatenate(b1_parts),
+            np.concatenate(b2_parts),
+            np.concatenate(ct_parts),
+            binsize=binsize,
+        )
+        src.planted = planted
+        ice_balance(src, cis_only=True, store=True)
+        return src
+
+
+def synth_chrom(n, rng, max_d=600, loop_density=0.001):
+    """COO triplets (local, sorted) of one synthetic chromosome and its
+    planted loops: ``tools/make_synthetic_cool.py:synth_chrom`` without
+    pandas, drawing from ``rng`` in the same order."""
+    rows_l, cols_l, vals_l = [], [], []
+    for d in range(0, max_d):
+        lam = 80.0 / (1 + d) ** 0.8
+        keep_p = 0.97 if d < 450 else 0.5
+        m = n - d
+        sel = rng.rand(m) < keep_p
+        idx = np.flatnonzero(sel)
+        if len(idx) == 0:
+            continue
+        counts = rng.poisson(max(lam, 0.5), size=len(idx)) + 1
+        rows_l.append(idx)
+        cols_l.append(idx + d)
+        vals_l.append(counts)
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    vals = np.concatenate(vals_l).astype(np.float64)
+    del rows_l, cols_l, vals_l
+
+    n_loops = max(3, int(n * loop_density))
+    loops = []
+    extra_r, extra_c, extra_v = [], [], []
+    for _ in range(n_loops):
+        i = rng.randint(20, n - 420)
+        d = rng.randint(40, 400)
+        j = i + d
+        loops.append((i, j))
+        for u in range(-2, 3):
+            for v in range(-2, 3):
+                w = np.exp(-(u * u + v * v) / 2.0)
+                extra_r.append(i + u)
+                extra_c.append(j + v)
+                extra_v.append(30.0 * w)
+    rows = np.concatenate([rows, np.array(extra_r)])
+    cols = np.concatenate([cols, np.array(extra_c)])
+    vals = np.concatenate([vals, np.array(extra_v)])
+    flat = rows * n + cols
+    order = np.argsort(flat)
+    flat, vals = flat[order], vals[order]
+    del rows, cols, order
+    uniq, start = np.unique(flat, return_index=True)
+    agg = np.add.reduceat(vals, start)
+    return (
+        (uniq // n).astype(np.int64),
+        (uniq % n).astype(np.int64),
+        np.round(agg).astype(np.int32),
+        loops,
+    )
+
+
+def planted_recall(source, table, tol_bins=2):
+    """Share of ``source.planted`` loops with a call of the same chromosome
+    within ``tol_bins`` bins on both anchors (``table``: detect output)."""
+    if not source.planted:
+        raise ValueError("source has no planted loops")
+    found = 0
+    for chrom, i, j in source.planted:
+        start = source.extent(chrom)[0]
+        same = table["chrom1"] == chrom
+        d1 = np.abs(table["bin1"][same] - start - i)
+        d2 = np.abs(table["bin2"][same] - start - j)
+        found += bool(np.any((d1 <= tol_bins) & (d2 <= tol_bins)))
+    return found / len(source.planted)

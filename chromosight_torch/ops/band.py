@@ -1,0 +1,306 @@
+"""Diagonal-band engine ops in plain PyTorch.
+
+Counterpart of ``chromosight_tpu/ops/band.py``.  A chromosome's contact map
+is kept as its upper band ``B[i, d] = M[i, i + d]``, ``d`` in [0, W), and
+the missing-corrected Pearson of a (mk, nk) kernel runs in band
+coordinates with the sheared kernel ``Ksh[u, mk-1-u+v] = K[u, v]``.
+
+Every function here takes tensors on any device.  The Pearson hot spot is
+``ops.band_pearson.band_pearson`` (a CUDA kernel on the card);
+``pearson_reference`` below is its plain twin, and
+``band_normxcorr_reference`` the plain twin of the whole
+``chromosight_tpu.ops.band.band_normxcorr``.
+
+Inputs, coefficients and outputs are float32 and the Pearson algebra runs
+in float32 as in the JAX package, but the six window sums (up to mk*nk
+terms each) are accumulated in float64.  On detrended contact maps the
+covariance in the numerator cancels most of those sums, so their f32
+rounding reaches ~5e-5 in corr, and two f32 engines that sum in different
+orders disagree by that much (the JAX package's own XLA and Pallas
+engines differ by 3.6e-5 on ``data_test/example.cool``).  With float64
+sums the CUDA kernel and its plain twin round to the same float32 sums and
+agree on corr (bit for bit in ``chip_smoke.py`` on an NVIDIA H100), and
+both stay within ~1e-5 of the exact Pearson of the float32 band.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# conv outputs below this magnitude snap to zero (the reference xcorr2
+# default, ``chromosight_tpu/ops/convolve.py:494-497``)
+DEFAULT_THRESHOLD = 1e-4
+
+
+def shear_kernel(kernel):
+    """(mk, nk) matrix-space kernel -> its (mk, nk+mk-1) band-space
+    sheared form ``K_sh[u, v - u + mk - 1] = K[u, v]`` (numpy; a copy of
+    ``chromosight_tpu.ops.band.shear_kernel``, whose module loads jax)."""
+    kernel = np.asarray(kernel)
+    mk, nk = kernel.shape
+    sheared = np.zeros((mk, nk + mk - 1), dtype=kernel.dtype)
+    for u in range(mk):
+        sheared[u, mk - 1 - u : mk - 1 - u + nk] = kernel[u]
+    return sheared
+
+
+def sliding_vector(vec, n_rows, width):
+    """Skew view ``out[i, d] = vec[i + d]`` (no copy)."""
+    if vec.shape[0] < n_rows + width:
+        raise ValueError("vec too short for requested window")
+    return vec.unfold(0, width, 1)[:n_rows]
+
+
+def band_finalize_upload(band, width):
+    """Cast an uploaded band to f32 and zero-pad its columns to ``width``."""
+    band = band.to(torch.float32)
+    pad = width - band.shape[1]
+    return F.pad(band, (0, pad)) if pad else band
+
+
+def _diag_stats(band, detect):
+    """Per-diagonal sums and counts of positive pixels between two
+    detectable bins (the distance law in band space)."""
+    n, width = band.shape
+    dev = band.device
+    i = torch.arange(n, device=dev)[:, None]
+    d = torch.arange(width, device=dev)[None, :]
+    det_j = sliding_vector(
+        torch.cat([detect, detect.new_zeros(width)]), n, width
+    )
+    w = (i + d < n) & (band > 0) & detect[:, None] & det_j
+    sums = torch.where(w, band, 0).sum(0)
+    counts = w.to(band.dtype).sum(0)
+    return sums, counts
+
+
+def band_preprocess(band, detect, max_val, keep_dist, n_diags, zero_nan):
+    """Distance law -> detrend -> ``>= max_val`` reset -> band trim ->
+    optional NaN zeroing, as ``chromosight_tpu.ops.band.band_preprocess``.
+
+    ``detect`` is the (rows,) bool detectable-bin mask; row padding, if
+    any, must be False there."""
+    dt = band.dtype
+    width = band.shape[1]
+    zero = torch.zeros((), dtype=dt, device=band.device)
+    sums, counts = _diag_stats(band, detect)
+    law = torch.where(counts > 0, sums / counts, zero)
+    d_idx = torch.arange(width, device=band.device)
+    law = torch.where(d_idx < n_diags, law, zero)
+    out = torch.where(band != 0, band / law[None, :], zero)
+    if max_val is not None:
+        out = torch.where(out >= max_val, 1.0, out)
+    out = torch.where((d_idx <= keep_dist)[None, :], out, zero)
+    if zero_nan:
+        out = torch.where(torch.isnan(out), zero, out)
+    return out
+
+
+def _pad_band(x, mk, nk):
+    """(mk-1) rows top and bottom, and the sheared reach ``kh + kw``
+    columns on each side, so valid-conv output column c is diagonal c."""
+    r = (mk - 1) // 2 + (nk - 1) // 2
+    return F.pad(x, (r, r, mk - 1, mk - 1))
+
+
+def _frame_mask_rules(pi, pd, n, max_dist, kernel_shape):
+    """Frame cells counted as missing, in padded band coordinates: the
+    top frame, the below-diagonal margin drawn in framed coordinates
+    (offset by nk - mk) and the right margin of the bottom rows
+    (``chromosight_tpu/ops/band.py:560-578``)."""
+    mk, nk = kernel_shape
+    big_k = max(mk, nk)
+    top_frame = pi < 0
+    below_diag = (pd >= mk - nk - big_k) & (pd <= mk - nk - 1)
+    right_margin = (pi + pd >= n) & (pi >= n - max_dist - 2)
+    return top_frame | below_diag | right_margin
+
+
+def band_frame(band, missing, kernel_shape, n, max_dist):
+    """Framed, padded signal band and missing mask (``_band_frame``).
+
+    ``band`` is (n_pad, W) with n_pad >= n; ``missing`` the (n_pad,) bool
+    flags, False on pad rows (masked through ``n``).  Returns f32
+    ``(sig_p, mask_p)`` of shape (n_pad + 2(mk-1), W + 2(kh+kw))."""
+    n_pad, width = band.shape
+    mk, nk = kernel_shape
+    dev = band.device
+    i = torch.arange(n_pad, device=dev)[:, None]
+    d = torch.arange(width, device=dev)[None, :]
+    in_matrix = (i + d < n) & (i < n)
+    sig = torch.where(in_matrix, band, 0).to(torch.float32)
+    miss_j = sliding_vector(
+        torch.cat([missing, missing.new_zeros(width)]), n_pad, width
+    )
+    mask = (missing[:, None] | miss_j) & (d <= max_dist) & in_matrix
+    sig_p = _pad_band(sig, mk, nk)
+    mask_p = _pad_band(mask.to(torch.float32), mk, nk)
+    reach = (mk - 1) // 2 + (nk - 1) // 2
+    pi = torch.arange(sig_p.shape[0], device=dev)[:, None] - (mk - 1)
+    pd = torch.arange(sig_p.shape[1], device=dev)[None, :] - reach
+    frame = _frame_mask_rules(pi, pd, n, max_dist, kernel_shape)
+    return sig_p, mask_p.masked_fill_(frame, 1.0)
+
+
+def kernel_coefficients(kernel):
+    """Host f32 tap table and sums of a (mk, nk) kernel, as the JAX band
+    engine forms them: rows K * (1/ksize), K, K**2 (squared before the
+    f32 cast), with ``ksum = sum(K)`` and ``k2sum = sum(K * K)`` in f32.
+
+    Returns ``(coef (3, mk, nk) f32 CPU tensor, ksum, k2sum)``."""
+    k64 = torch.as_tensor(np.asarray(kernel, dtype=np.float64))
+    if k64.ndim != 2:
+        raise ValueError(f"kernel must be 2-D, got shape {tuple(k64.shape)}")
+    k32 = k64.to(torch.float32)
+    inv_ksize = 1.0 / torch.tensor(float(k64.numel()), dtype=torch.float32)
+    coef = torch.stack([k32 * inv_ksize, k32, (k64**2).to(torch.float32)])
+    return coef, k32.sum(), (k32 * k32).sum()
+
+
+def _log10p(corr, n_pres):
+    """Two-sided log10 p-value of ``corr`` with ``n_pres`` observations
+    (Fisher z), through ``log_ndtr`` so it never underflows."""
+    z = torch.atanh(corr)
+    logtail = torch.special.log_ndtr(-(z * torch.sqrt(n_pres - 3)).abs())
+    two = torch.tensor(2.0, dtype=corr.dtype)
+    ten = torch.tensor(10.0, dtype=corr.dtype)
+    return (logtail + torch.log(two)) / torch.log(ten)
+
+
+def _trim(corr, n, max_dist, pearson_min):
+    """Zero corr outside d <= max_dist and the matrix; candidate mask."""
+    dev = corr.device
+    oi = torch.arange(corr.shape[0], device=dev)[:, None]
+    od = torch.arange(corr.shape[1], device=dev)[None, :]
+    keep = (od <= max_dist) & (oi < n) & (oi + od < n)
+    corr = torch.where(keep, corr, 0.0)
+    return corr, (corr >= pearson_min) & (corr != 0)
+
+
+def _sheared_sums(x, kernels, n_pad):
+    """Valid correlation of ``x`` with the sheared form of each (mk, nk)
+    kernel on the n_pad output rows,
+    ``out[c, i, d] = sum_{u,w} Ksh_c[u, w] x[i + kh + u, d + w]``,
+    one matmul per kernel row, in float64, rounded to float32.  Sums of
+    float32 products are then exact or nearly so, as in the CUDA kernel,
+    and both round them to the same float32 values."""
+    sheared = torch.stack([torch.from_numpy(shear_kernel(k.numpy())) for k in kernels])
+    sheared = sheared.to(device=x.device, dtype=torch.float64)
+    mk, wk = sheared.shape[1:]
+    kh = (mk - 1) // 2
+    x = x.double()
+    out = 0
+    for u in range(mk):
+        windows = x[kh + u : kh + u + n_pad].unfold(1, wk, 1)
+        out = out + windows @ sheared[:, u].T
+    return out.permute(2, 0, 1).float()
+
+
+def pearson_reference(
+    sig_p,
+    mask_p,
+    kernel,
+    n,
+    max_dist,
+    missing_tol,
+    pearson_min,
+    threshold=DEFAULT_THRESHOLD,
+):
+    """Plain twin of the band Pearson kernel on framed inputs: six
+    correlations with the sheared kernels, each snapped at
+    ``threshold``, the missing-corrected Pearson of
+    ``chromosight_tpu/ops/band.py:581-644``, log10-p from the untrimmed
+    corr, then the diagonal trim and the candidate threshold.
+
+    Returns ``(corr, log10p, cand)``, each (n_pad, W)."""
+    mk, nk = np.shape(kernel)
+    ksize = mk * nk
+    dev = sig_p.device
+    n_pad = sig_p.shape[0] - 2 * (mk - 1)
+    coef, ksum, k2sum = kernel_coefficients(kernel)
+    ones = torch.ones((mk, nk), dtype=torch.float32)
+    inv_ksize = float(1.0 / torch.tensor(float(ksize), dtype=torch.float32))
+
+    def snap(x):
+        return torch.where(x.abs() < threshold, 0.0, x)
+
+    sig_sums = _sheared_sums(sig_p, [coef[0], ones], n_pad)
+    conv_sk = snap(sig_sums[0])
+    # window sums are snapped after the 1/ksize scaling, as the JAX
+    # engine's ws(x, 1/ksize) multiplies by the reciprocal
+    sig_mean0 = snap(sig_sums[1] * inv_ksize)
+    sig2_mean0 = snap(_sheared_sums(sig_p.double() ** 2, [ones], n_pad)[0] * inv_ksize)
+    n_miss, conv_mk, conv_mk2 = (
+        snap(c) for c in _sheared_sums(mask_p, [ones, coef[1], coef[2]], n_pad)
+    )
+
+    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=dev)
+    n_pres = ksize_f - n_miss
+    kmean_eff = (float(ksum) - conv_mk) / n_pres
+    k2mean_eff = (float(k2sum) - conv_mk2) / n_pres
+    corr_f = ksize_f / n_pres
+    sig_mean = sig_mean0 * corr_f
+    sig2_mean = sig2_mean0 * corr_f
+    denom = torch.sqrt((sig2_mean - sig_mean**2) * (k2mean_eff - kmean_eff**2))
+    min_pres = int((1 - missing_tol) * ksize)
+    denom = torch.where(n_pres < min_pres, 0.0, denom)
+    num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
+    inv_denom = torch.where(denom.abs() < 1e-10, 0.0, 1.0 / denom)
+    out = num * inv_denom
+    out = torch.where(torch.isfinite(out), out, 0.0).clamp(-1.0, 1.0)
+    logp = _log10p(out, n_pres)
+
+    corr, cand = _trim(out, n, max_dist, pearson_min)
+    return corr, logp, cand
+
+
+def band_normxcorr_reference(
+    band,
+    missing,
+    kernel,
+    n,
+    max_dist,
+    missing_tol,
+    pearson_min,
+    threshold=DEFAULT_THRESHOLD,
+):
+    """Plain twin of ``chromosight_tpu.ops.band.band_normxcorr``: framing
+    then ``pearson_reference``.  Returns ``(corr, log10p, cand)``."""
+    sig_p, mask_p = band_frame(band, missing, np.shape(kernel), n, max_dist)
+    return pearson_reference(
+        sig_p, mask_p, kernel, n, max_dist, missing_tol, pearson_min, threshold
+    )
+
+
+def extract_candidates(corr, cand):
+    """Row-major ``(rows, diags, values)`` of the candidate pixels."""
+    ii, dd = torch.nonzero(cand, as_tuple=True)
+    return ii, dd, corr[ii, dd]
+
+
+def gather_windows(band, p1, p2, win_h, win_w):
+    """(n_pat, win_h, win_w) raw windows around matrix coords (p1, p2),
+    zero outside the band and the matrix."""
+    n, width = band.shape
+    half_h, half_w = win_h // 2 + 1, win_w // 2 + 1
+    dev = band.device
+    r = p1[:, None] - half_h + 1 + torch.arange(win_h, device=dev)[None, :]
+    c = p2[:, None] - half_w + 1 + torch.arange(win_w, device=dev)[None, :]
+    rr = r[:, :, None]
+    cc = c[:, None, :]
+    d = cc - rr
+    ok = (rr >= 0) & (rr < n) & (d >= 0) & (d < width)
+    vals = band[rr.clamp(0, n - 1), d.clamp(0, width - 1)]
+    return torch.where(ok, vals, 0.0)
+
+
+def gather_tail(corr, logp, band, p1, dsc, win_h, win_w):
+    """Scores, log10-p and raw windows at band coords (p1, p1 + dsc) in one
+    (n_pat, 2 + win_h * win_w) tensor (``gather_tail_packed``)."""
+    r = p1.clamp(0, corr.shape[0] - 1)
+    d = dsc.clamp(0, corr.shape[1] - 1)
+    pair = torch.stack([corr[r, d], logp[r, d]], dim=1)
+    wins = gather_windows(band, p1, p1 + dsc, win_h, win_w)
+    return torch.cat([pair, wins.reshape(p1.shape[0], win_h * win_w)], dim=1)

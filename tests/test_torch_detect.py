@@ -1,0 +1,242 @@
+"""The port's detect slice end to end on CPU: the 89-loop golden from the
+cool file and its npz export, state carried over from the JAX package,
+the synthetic genome source, and the import boundary (no jax, h5py,
+pandas or jsonschema)."""
+
+import contextlib
+import importlib.util
+import io
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+
+import chromosight_tpu.kernels as ck
+from chromosight_torch import NotPortedError
+from chromosight_torch.cli.main import main
+from chromosight_torch.detection import _band_correlate
+from chromosight_torch.io.source import ArraySource, planted_recall
+from chromosight_torch.state import contact_map_from_jax, kernel_config_from_jax
+from chromosight_tpu.detection import _band_correlate as jax_band_correlate
+from chromosight_tpu.runtime.genome import HicGenome as JaxHicGenome
+from torch_parity import assert_pearson_close, torch_one_thread  # noqa: F401
+
+ROOT = pathlib.Path(__file__).parents[1]
+DATA = ROOT / "tests" / "data"
+EXAMPLE_NPZ = DATA / "example_cool.npz"
+
+# chromosight_tpu/cli/main.py TEST_LOG, up to the table line
+GOLDEN_LOG = """pearson set to 0.3 based on config file.
+max_dist set to 2000000 based on config file.
+min_dist set to 20000 based on config file.
+min_separation set to 5000 based on config file.
+max_perc_undetected set to 50.0 based on config file.
+max_perc_zero set to 10.0 based on config file.
+Matrix already balanced, reusing weights
+Preprocessing sub-matrices...
+Detecting patterns...
+89 patterns detected
+Saving patterns in {prefix}.tsv
+"""
+
+
+@pytest.fixture(scope="module")
+def detect_runs(tmp_path_factory):
+    """The port's CLI detect on example.cool and on its npz export: output
+    prefixes, and the stderr of the npz run."""
+    out = tmp_path_factory.mktemp("detect")
+    runs = {}
+    for name, path in (("cool", ROOT / "data_test" / "example.cool"), ("npz", EXAMPLE_NPZ)):
+        runs[name] = str(out / name)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert main(["detect", "--no-plotting", str(path), runs[name]], device="cpu") == 0
+    runs["stderr"] = err.getvalue()
+    return runs
+
+
+def test_detect_reproduces_golden_89_loops(detect_runs):
+    golden = pd.read_csv(DATA / "golden_detect_loops.tsv", sep="\t")
+    ours = pd.read_csv(detect_runs["cool"] + ".tsv", sep="\t")
+    assert len(ours) == len(golden) == 89
+    key = ["bin1", "bin2", "kernel_id", "iteration"]
+    g = golden.sort_values(key).reset_index(drop=True)
+    o = ours.sort_values(key).reset_index(drop=True)
+    for col in key + ["chrom1", "start1", "end1", "chrom2", "start2", "end2"]:
+        assert (g[col] == o[col]).all(), col
+    assert np.abs(g.score - o.score).max() < 5e-5
+    assert np.abs(g.pvalue - o.pvalue).max() < 1e-6
+    assert np.abs(g.qvalue - o.qvalue).max() < 1e-6
+
+
+def test_detect_from_npz_is_byte_identical(detect_runs):
+    for ext in (".tsv", ".json"):
+        a = pathlib.Path(detect_runs["cool"] + ext).read_bytes()
+        b = pathlib.Path(detect_runs["npz"] + ext).read_bytes()
+        assert a == b, ext
+
+
+def test_detect_stderr_matches_golden_log(detect_runs):
+    err = detect_runs["stderr"]
+    lines = [ln.split("\r")[-1].replace("\x1b[K", "") for ln in err.split("\n")]
+    lines = [ln for ln in lines if ln and not ln.startswith(" [")]
+    expected = GOLDEN_LOG.format(prefix=detect_runs["npz"]).strip().split("\n")
+    assert lines[: len(expected)] == expected
+
+
+@pytest.mark.parametrize(
+    "flags,what",
+    [
+        (["--tsvd"], "--tsvd"),
+        (["--dump", "/nonexistent"], "--dump"),
+        (["--smooth-trend"], "--smooth-trend"),
+        (["--inter"], "--inter"),
+        (["--subsample", "0.5"], "--subsample"),
+        (["--norm", "raw"], "--norm raw"),
+        (["--norm", "force"], "--norm force"),
+    ],
+)
+def test_unported_options_raise(tmp_path, flags, what):
+    argv = ["detect", "--no-plotting", *flags, str(EXAMPLE_NPZ), str(tmp_path / "x")]
+    with pytest.raises(NotPortedError, match=r"ROADMAP\.md, queue 1, item \d+") as exc:
+        main(argv, device="cpu")
+    assert what in str(exc.value)
+
+
+def test_unported_subcommand_raises(tmp_path):
+    with pytest.raises(NotPortedError, match="quantify"):
+        main(["quantify", "a.bed2", str(EXAMPLE_NPZ), str(tmp_path / "q")])
+
+
+def test_state_carried_from_jax_gives_same_pearson(tmp_path):
+    """Each example chromosome: a JAX ContactMap after create_mat, carried
+    into the port, gives the JAX band engine's (corr, log10p, cand).
+
+    corr is held to the golden score bound (tests/test_golden_outputs.py:65)
+    rather than 2e-5: on this detrended map the float32 sums of the JAX
+    engine are themselves ~4e-5 from exact, and its own XLA and Pallas
+    engines differ by 3.6e-5 here."""
+    path = str(tmp_path / "example.cool")
+    shutil.copy(ROOT / "data_test" / "example.cool", path)
+    cfg = dict(ck.loops)
+    kernel = np.asarray(cfg["kernels"][0])
+    hg = JaxHicGenome(path, kernel_config=cfg)
+    hg.normalize("auto")
+    hg.compute_max_dist()
+    hg.make_sub_matrices()
+    port_cfg = kernel_config_from_jax(cfg)
+    for _, sub in hg.sub_mats.iterrows():
+        cm = sub.contact_map
+        cm.create_mat()
+        port_cm = contact_map_from_jax(cm, "cpu")
+        got = _band_correlate(port_cm, port_cfg, kernel)
+        rows, width = port_cm.band.shape
+        ref = [np.asarray(a) for a in jax_band_correlate(cm, cfg, kernel, None)]
+        # outside the port's layout the JAX maps hold bucket padding only
+        assert not ref[0][rows:].any() and not ref[0][:, width:].any()
+        ref = [a[:rows, :width] for a in ref]
+        assert_pearson_close(
+            ref, got, cm.shape[0], cm.max_dist, cfg["pearson"], corr_tol=5e-5
+        )
+        assert ref[2].sum() > 0
+
+
+def _make_synthetic_tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_cool", ROOT / "tools" / "make_synthetic_cool.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tool_genome(path, chroms, bins, seed, binsize=5000):
+    """What ``tools/make_synthetic_cool.py --chroms --bins --seed`` writes:
+    the balanced cool file at ``path`` and the planted loops."""
+    from chromosight_tpu.io.cool import CoolFile, create_cool
+    from chromosight_tpu.ops.balance import ice_balance
+
+    tool = _make_synthetic_tool()
+    rng = np.random.RandomState(seed)
+    bins_l, px_l, planted = [], [], []
+    for c in range(chroms):
+        rows, cols, vals, loops = tool.synth_chrom(bins, binsize, rng)
+        start = np.arange(bins) * binsize
+        bins_l.append(
+            pd.DataFrame({"chrom": f"chr{c + 1}", "start": start, "end": start + binsize})
+        )
+        px_l.append(
+            pd.DataFrame(
+                {"bin1_id": rows + c * bins, "bin2_id": cols + c * bins, "count": vals}
+            )
+        )
+        planted += [(f"chr{c + 1}", i, j) for i, j in loops]
+    pixels = pd.concat(px_l, ignore_index=True)
+    pixels["count"] = pixels["count"].astype(np.int32)
+    create_cool(path, pd.concat(bins_l, ignore_index=True), pixels)
+    ice_balance(CoolFile(path), cis_only=True, store=True)
+    return CoolFile(path), planted
+
+
+def test_synthetic_source_matches_generator_tool(tmp_path):
+    """Pixels, planted loops and ICE weights of the synthetic source equal
+    the generator tool's for the same seed."""
+    src = ArraySource.from_synthetic(2, 3000, seed=5)
+    clr, planted = _tool_genome(str(tmp_path / "g.cool"), 2, 3000, seed=5)
+    b1, b2, ct = (np.concatenate(a) for a in zip(*clr.pixel_chunks()))
+    assert np.array_equal(src.bin1, b1)
+    assert np.array_equal(src.bin2, b2)
+    assert np.array_equal(src.count, ct)
+    assert src.planted == planted
+    assert src.chromnames == clr.chromnames
+    assert src.binsize == clr.binsize == 5000
+    assert np.array_equal(src.weights, clr.weights, equal_nan=True)
+
+
+def test_synthetic_genome_detect_matches_jax(tmp_path):
+    """The chip run's genome phase at a CPU size: the port's detect on the
+    synthetic source gives the JAX CLI's calls on the same genome written
+    by the generator tool, and finds the planted loops."""
+    from chromosight_torch.cli.main import detect
+    from chromosight_tpu.cli.args import parse_args
+    from chromosight_tpu.cli.main import main as jax_main
+
+    src = ArraySource.from_synthetic(1, 700, seed=3)
+    cool = str(tmp_path / "g.cool")
+    _tool_genome(cool, 1, 700, seed=3)
+    prefix = str(tmp_path / "port")
+    args = parse_args(["detect", "--no-plotting", "synthetic", prefix], "")
+    table, windows = detect(src, args, device="cpu")
+    assert jax_main(["detect", "--no-plotting", cool, str(tmp_path / "jax")]) == 0
+    ref = pd.read_csv(str(tmp_path / "jax.tsv"), sep="\t")
+    ours = pd.read_csv(prefix + ".tsv", sep="\t")
+    assert len(ours) == len(ref) == len(table["bin1"]) == windows.shape[0] > 0
+    assert (ours.bin1 == ref.bin1).all() and (ours.bin2 == ref.bin2).all()
+    assert np.abs(ours.score - ref.score).max() < 5e-5
+    assert planted_recall(src, table) == 1.0
+
+
+def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
+    """The package and its CLI load with jax, h5py, pandas and jsonschema
+    blocked, and detect runs from the npz (a short scan distance keeps
+    the CPU run quick)."""
+    prefix = str(tmp_path / "blocked")
+    code = f"""
+import sys
+for name in ("jax", "jaxlib", "h5py", "pandas", "jsonschema"):
+    sys.modules[name] = None
+import chromosight_torch, chromosight_torch.cli.main as cli
+import chromosight_torch.state, chromosight_torch.ops.band_pearson
+argv = ["detect", "--no-plotting", "--max-dist", "60000", {str(EXAMPLE_NPZ)!r}, {prefix!r}]
+assert cli.main(argv, device="cpu") == 0
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert len(pathlib.Path(prefix + ".tsv").read_text().splitlines()) > 1
