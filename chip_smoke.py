@@ -12,13 +12,23 @@ Phases, one line or block each; any failure raises (non-zero exit):
             optional packages;
 2. build    nvcc build of chromosight_torch/csrc/*.cu for sm_90a;
 3. kernels  the CUDA band Pearson against its plain PyTorch twin on the
-            card, on random bands (tests/test_pallas.py shapes, the 81x81
-            centromeres kernel) and on one 48,000-row chromosome of the
-            synthetic genome; device times of both at that shape;
-4. golden   ``detect`` on tests/data/example_cool.npz reproduces the 89
-            calls of tests/data/golden_detect_loops.tsv;
-5. genome   ``detect`` (loops) on a synthetic 13 x 48,000-bin genome at
-            5 kb (the bench.py shape), recall of the planted loops.
+            card, in single-kernel mode (random bands of tests/test_pallas.py
+            shapes, the 81x81 centromeres kernel, the --tsvd taps of the
+            loops kernel) and in K-kernel mode (the three borders kernels,
+            nine 5x9 kernels split over two launches), each K-kernel launch
+            bit-identical to K single launches; then chr1 of the synthetic
+            genome, loops and borders, with device times of one fused launch,
+            K single launches and the plain twins;
+4. golden   ``detect`` on tests/data/example_cool.npz reproduces
+            tests/data/golden_detect_loops{,_raw,_smooth,_tsvd}.tsv and
+            golden_detect_borders.tsv (fused), the ``--dump`` snapshots of
+            tests/data/golden_dump/, and ``quantify`` of data_test/example.bed2
+            reproduces golden_quantify_loops.tsv and golden_quantify_borders.tsv;
+5. genome   on a synthetic 13 x 48,000-bin genome at 5 kb (the bench.py
+            shape): ``detect`` with loops (recall of the planted loops) and
+            with borders (13 fused launches), and ``quantify`` of the planted
+            loops written as a bed2d file, scores held against the sweep
+            kernel's; walls, stages, launches and peak device memory.
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line.  Without a
@@ -29,6 +39,7 @@ result.
 import argparse
 import csv
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -42,8 +53,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
 import chromosight_torch.ops.band_pearson as bp  # noqa: E402
-from chromosight_torch.cli.main import detect, main, parse_args  # noqa: E402
-from chromosight_torch.detection import frame_contact_map  # noqa: E402
+from chromosight_torch.cli.main import detect, main, parse_args, quantify  # noqa: E402
+from chromosight_torch.detection import frame_contact_map, quantify_banded  # noqa: E402
 from chromosight_torch.device import reset_stages, stage_seconds  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
 from chromosight_torch.io.source import (  # noqa: E402
@@ -52,12 +63,18 @@ from chromosight_torch.io.source import (  # noqa: E402
     planted_recall,
 )
 from chromosight_torch.ops import _build  # noqa: E402
-from chromosight_torch.ops.band import band_frame, pearson_reference  # noqa: E402
+from chromosight_torch.ops.band import (  # noqa: E402
+    band_frame,
+    pearson_reference,
+    pearson_reference_multi,
+)
 from chromosight_torch.runtime.genome import HicGenome  # noqa: E402
 
 GENOME_CHROMS, GENOME_BINS, BINSIZE = 13, 48_000, 5000
 MISSING_TOL, PEARSON = 0.5, 0.3
+TSVD = 0.999
 DEVICE = torch.device("cuda")
+ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
 
 
 def check(cond, msg):
@@ -73,12 +90,21 @@ def nvidia_smi(query):
     return res.stdout.strip().splitlines()[0]
 
 
+def reset_launches():
+    bp.LAUNCHES = 0
+    bp.LAUNCHES_MULTI = 0
+
+
+def launches():
+    return {"single": bp.LAUNCHES, "multi": bp.LAUNCHES_MULTI}
+
+
 def phase_env():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} driver_version {nvidia_smi('driver_version')}")
     print(f"[env] {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)")
     imports = {}
-    for name in ("triton", "h5py", "pandas", "jsonschema", "jax"):
+    for name in ("triton", "h5py", "pandas", "jsonschema", "scipy", "jax"):
         res = subprocess.run([sys.executable, "-c", f"import {name}"],
                              capture_output=True, timeout=120)
         imports[name] = res.returncode == 0
@@ -91,9 +117,13 @@ def phase_build():
     _build.load()
     info = _build.BUILD_INFO
     print(f"[build] {info['path']} in {info['seconds']:.2f} s")
+    kernels_per_launch = None
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            found = re.search(r"ILi(\d+)E", line)
+            kernels_per_launch = found.group(1) if found else "?"
+        elif "registers" in line or "spill" in line:
+            print(f"[build] K={kernels_per_launch}: {line.split(':', 1)[-1].strip()}")
 
 
 def compare(name, ref, got, n, max_dist, pearson=PEARSON):
@@ -124,10 +154,10 @@ def compare(name, ref, got, n, max_dist, pearson=PEARSON):
     return corr_err
 
 
-def random_case(kernel, n, n_pad, rng):
+def random_case(kernel_shape, n, n_pad, rng):
     """A tests/test_pallas.py band (40% filled, rows 3, 77, 200 missing),
     framed on the card: (sig_p, mask_p, max_dist)."""
-    mk, nk = kernel.shape
+    mk, nk = kernel_shape
     max_dist = 40
     width = max_dist + max(mk, nk) + 1
     band = (rng.rand(n_pad, width) * (rng.rand(n_pad, width) < 0.4)).astype(np.float32)
@@ -137,23 +167,43 @@ def random_case(kernel, n, n_pad, rng):
     band[miss] = 0
     sig_p, mask_p = band_frame(
         torch.from_numpy(band).to(DEVICE), torch.from_numpy(miss).to(DEVICE),
-        kernel.shape, n, max_dist,
+        kernel_shape, n, max_dist,
     )
     return sig_p, mask_p, max_dist
 
 
-def run_both(name, sig_p, mask_p, kernel, n, max_dist, pearson=PEARSON):
-    """Kernel and plain twin on the same framed inputs; returns the corr
-    error and the argument tuple after the inputs."""
+def run_both(name, sig_p, mask_p, kernel, n, max_dist, pearson=PEARSON, tsvd=None):
+    """Single-kernel launch and plain twin on the same framed inputs."""
     args = (kernel, n, max_dist, MISSING_TOL, pearson)
-    got = bp.band_pearson(sig_p, mask_p, *args)
-    ref = pearson_reference(sig_p, mask_p, *args)
+    got = bp.band_pearson(sig_p, mask_p, *args, tsvd=tsvd)
+    ref = pearson_reference(sig_p, mask_p, *args, tsvd=tsvd)
     torch.cuda.synchronize()
-    return compare(name, ref, got, n, max_dist, pearson), args
+    ERRS["single"].append(compare(name, ref, got, n, max_dist, pearson))
+
+
+def run_multi(name, sig_p, mask_p, kernels, n, max_dist, pearson=PEARSON):
+    """K-kernel launch against K single launches (bit for bit on every
+    output, NaN included) and against the plain K-kernel twin."""
+    args = (n, max_dist, MISSING_TOL, pearson)
+    got = bp.band_pearson(sig_p, mask_p, kernels, *args)
+    singles = [bp.band_pearson(sig_p, mask_p, k, *args) for k in kernels]
+    ref = pearson_reference_multi(sig_p, mask_p, kernels, *args)
+    torch.cuda.synchronize()
+    for k, single in enumerate(singles):
+        for out, one in zip(got, single):
+            check(torch.equal(out[k].view(torch.uint8), one.view(torch.uint8)),
+                  f"{name}: K-kernel slice {k} differs from its single launch")
+        ERRS["multi"].append(compare(
+            f"{name} k={k}", [r[k] for r in ref], [g[k] for g in got], n, max_dist,
+            pearson,
+        ))
+    print(f"[kernels] {name}: K={len(kernels)} launch bit-identical to "
+          f"{len(kernels)} single launches")
 
 
 def device_ms(fn, reps=5):
-    """Median device time of ``fn()`` over ``reps`` calls after a warm one."""
+    """Median time of ``fn()`` on the card's stream (CUDA events) over
+    ``reps`` calls after a warm one; it holds any gap the host leaves."""
     fn()
     times = []
     for _ in range(reps):
@@ -167,47 +217,128 @@ def device_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps=5):
+    """Device time per ``fn()`` call of the band_pearson kernels alone,
+    summed from a torch.profiler trace of ``reps`` calls after a warm one,
+    or None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if "band_pearson_kernel" in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def fmt_ms(value):
+    return "not measured" if value is None else f"{value:.3f}"
+
+
 def phase_kernels_small():
-    errs = []
     for preset in ("loops_small", "loops"):
         kernel = np.asarray(load_kernel_config(preset)["kernels"][0], np.float32)
-        case = random_case(kernel, 300, 512, np.random.RandomState(0))
-        errs.append(run_both(f"{preset} n_pad=512", *case[:2], kernel, 300, case[2])[0])
+        case = random_case(kernel.shape, 300, 512, np.random.RandomState(0))
+        run_both(f"{preset} n_pad=512", *case[:2], kernel, 300, case[2])
     for shape in ((5, 9), (3, 17)):
         rng = np.random.RandomState(11)
         kernel = (rng.rand(*shape) + 0.1).astype(np.float32)
-        case = random_case(kernel, 300, 512, rng)
-        errs.append(run_both(f"{shape} n_pad=512", *case[:2], kernel, 300, case[2])[0])
+        case = random_case(shape, 300, 512, rng)
+        run_both(f"{shape} n_pad=512", *case[:2], kernel, 300, case[2])
     cfg = load_kernel_config("centromeres")
     kernel = cfg["kernels"][0]
-    case = random_case(kernel, 400, 400, np.random.RandomState(2))
-    errs.append(run_both("centromeres 81x81 n=400", *case[:2], kernel, 400, case[2],
-                         cfg["pearson"])[0])
-    return max(errs)
+    case = random_case(kernel.shape, 400, 400, np.random.RandomState(2))
+    run_both("centromeres 81x81 n=400", *case[:2], kernel, 400, case[2], cfg["pearson"])
+    kernel = load_kernel_config("loops")["kernels"][0]
+    case = random_case(kernel.shape, 300, 512, np.random.RandomState(0))
+    run_both("loops --tsvd n_pad=512", *case[:2], kernel, 300, case[2], tsvd=TSVD)
+    borders = np.stack(load_kernel_config("borders")["kernels"])
+    case = random_case(borders.shape[1:], 300, 512, np.random.RandomState(0))
+    run_multi("borders n_pad=512", *case[:2], borders, 300, case[2])
+    rng = np.random.RandomState(7)
+    nine = rng.rand(9, 5, 9) + 0.1
+    case = random_case((5, 9), 300, 512, rng)
+    run_multi("nine 5x9 n_pad=512", *case[:2], nine, 300, case[2])
 
 
-def phase_kernels_chromosome(source):
-    """Kernel vs plain, and both device times, on chr1 of the genome, on
-    the framed inputs the main path gives the kernel."""
-    cfg = load_kernel_config("loops")
+def chromosome_case(source, preset):
+    """The framed inputs the main path gives the kernel on chr1, with the
+    preset's scan distance: (contact map, kernels, sig_p, mask_p)."""
+    cfg = load_kernel_config(preset)
     genome = HicGenome(source, cfg, DEVICE)
     genome.normalize("auto")
     genome.make_sub_matrices()
     cm = genome.sub_mats[0].contact_map
     cm.create_mat()
-    kernel = cfg["kernels"][0]
-    sig_p, mask_p = frame_contact_map(cm, kernel.shape)
-    err, args = run_both(
-        f"loops {cm.name} {tuple(cm.band.shape)}", sig_p, mask_p, kernel,
-        cm.shape[0], cm.max_dist,
-    )
-    kernel_ms = device_ms(lambda: bp.band_pearson(sig_p, mask_p, *args))
-    plain_ms = device_ms(lambda: pearson_reference(sig_p, mask_p, *args))
-    print(f"[kernels] device time at {tuple(cm.band.shape)}, loops 17x17 "
-          f"(median of 5, CUDA events): kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
+    kernels = np.stack(cfg["kernels"])
+    sig_p, mask_p = frame_contact_map(cm, kernels.shape[1:])
+    return cm, cfg, kernels, sig_p, mask_p
+
+
+def phase_kernels_chromosome(source):
+    """Kernel vs plain, and device times, on chr1 of the genome: loops
+    (single-kernel mode, and its --tsvd taps) and borders (K = 3) on the
+    framed inputs their main paths give the kernel, then the borders
+    kernels at the loops band's width, where the sweep does real work."""
+    times = {}
+    cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "loops")
+    n, max_dist = cm.shape[0], cm.max_dist
+    shape = tuple(cm.band.shape)
+    run_both(f"loops {cm.name} {shape}", sig_p, mask_p, kernels[0], n, max_dist)
+    run_both(f"loops --tsvd {cm.name} {shape}", sig_p, mask_p, kernels[0], n, max_dist,
+             tsvd=TSVD)
+    args = (n, max_dist, MISSING_TOL, PEARSON)
+    single = {
+        "loops": lambda: bp.band_pearson(sig_p, mask_p, kernels[0], *args),
+        "tsvd": lambda: bp.band_pearson(sig_p, mask_p, kernels[0], *args, tsvd=TSVD),
+    }
+    for key, fn in single.items():
+        tsvd = TSVD if key == "tsvd" else None
+        times[key] = (device_ms(fn), kernel_ms(fn), device_ms(
+            lambda: pearson_reference(sig_p, mask_p, kernels[0], *args, tsvd=tsvd)))
+    borders = np.stack(load_kernel_config("borders")["kernels"])
+    run_multi(f"borders at the loops band {shape}", sig_p, mask_p, borders, n, max_dist)
+    times["borders_wide"] = fused_times(sig_p, mask_p, borders, args)
     cm.destroy_mat()
-    return err, kernel_ms, plain_ms
+    del sig_p, mask_p
+    cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "borders")
+    bshape = tuple(cm.band.shape)
+    bargs = (cm.shape[0], cm.max_dist, cfg["max_perc_undetected"] / 100, cfg["pearson"])
+    run_multi(f"borders {cm.name} {bshape}", sig_p, mask_p, kernels, *bargs[:2],
+              bargs[3])
+    times["borders"] = fused_times(sig_p, mask_p, kernels, bargs)
+    cm.destroy_mat()
+    print("[kernels] ms per call, median of 5 by CUDA events (tap table cached on "
+          "the card; kernel-only time from torch.profiler in brackets)")
+    for key, name in (("loops", "loops 17x17"), ("tsvd", "loops 17x17 --tsvd")):
+        ev, kern, plain = times[key]
+        print(f"[kernels] {name} at {shape}: kernel {ev:.3f} [{fmt_ms(kern)}], "
+              f"plain {plain:.3f}")
+    for key, where in (("borders_wide", shape), ("borders", bshape)):
+        t = times[key]
+        print(f"[kernels] borders K=3 17x17 at {where}: fused launch {t['fused'][0]:.3f} "
+              f"[{fmt_ms(t['fused'][1])}], 3 single launches {t['three'][0]:.3f} "
+              f"[{fmt_ms(t['three'][1])}], plain twin {t['plain']:.3f}")
+    return times
+
+
+def fused_times(sig_p, mask_p, kernels, args):
+    """One K-kernel launch, K single launches (events, profiler) and the
+    plain K-kernel twin (events), on the same framed inputs."""
+    def fused():
+        return bp.band_pearson(sig_p, mask_p, kernels, *args)
+
+    def three():
+        return [bp.band_pearson(sig_p, mask_p, k, *args) for k in kernels]
+
+    return {
+        "fused": (device_ms(fused), kernel_ms(fused)),
+        "three": (device_ms(three), kernel_ms(three)),
+        "plain": device_ms(lambda: pearson_reference_multi(sig_p, mask_p, kernels, *args)),
+    }
 
 
 def read_tsv(path):
@@ -215,55 +346,228 @@ def read_tsv(path):
         return list(csv.DictReader(handle, delimiter="\t"))
 
 
-def phase_golden(workdir):
-    launches = bp.LAUNCHES
-    prefix = f"{workdir}/golden"
-    check(main(["detect", "--no-plotting", "tests/data/example_cool.npz", prefix],
-               device=DEVICE) == 0, "golden detect failed")
-    ours = {(r["chrom1"], r["bin1"], r["bin2"]): r for r in read_tsv(prefix + ".tsv")}
-    golden = {(r["chrom1"], r["bin1"], r["bin2"]): r
-              for r in read_tsv("tests/data/golden_detect_loops.tsv")}
-    check(len(golden) == 89 and ours.keys() == golden.keys(),
-          f"calls differ from the golden: {len(ours)} vs {len(golden)}")
-    err = {c: max(abs(float(ours[k][c]) - float(golden[k][c])) for k in golden)
+def num(value):
+    return float(value) if value != "" else float("nan")
+
+
+def golden_detect(workdir, golden, flags, expect, tol=1e-5):
+    """``detect`` with ``flags`` against tests/data/<golden>.tsv: the same
+    (bin1, bin2, kernel_id, iteration) calls, score within 5e-5, p-value
+    and q-value within ``tol`` (1e-6 for the loops golden, 1e-5 for the
+    others, as tests/test_golden_outputs.py holds them); ``expect`` the
+    launches of each mode."""
+    prefix = f"{workdir}/{golden}"
+    reset_launches()
+    with open(f"{workdir}/stdout.txt", "a") as out:
+        stdout, sys.stdout = sys.stdout, out
+        try:
+            rc = main(["detect", "--no-plotting", *flags,
+                       "tests/data/example_cool.npz", prefix], device=DEVICE)
+        finally:
+            sys.stdout = stdout
+    check(rc == 0, f"{golden}: detect failed")
+    seen = launches()
+    key = ("bin1", "bin2", "kernel_id", "iteration")
+    ours = {tuple(r[k] for k in key): r for r in read_tsv(prefix + ".tsv")}
+    ref = {tuple(r[k] for k in key): r for r in read_tsv(f"tests/data/{golden}.tsv")}
+    check(ours.keys() == ref.keys(),
+          f"{golden}: calls differ from the golden ({len(ours)} vs {len(ref)})")
+    err = {c: max(abs(num(ours[k][c]) - num(ref[k][c])) for k in ref)
            for c in ("score", "pvalue", "qvalue")}
-    grown = bp.LAUNCHES - launches
-    print(f"[golden] 89/89 calls identical; max|d| score {err['score']:.3g}, "
-          f"pvalue {err['pvalue']:.3g}, qvalue {err['qvalue']:.3g}; launches +{grown}")
-    check(err["score"] < 5e-5 and err["pvalue"] < 1e-6 and err["qvalue"] < 1e-6,
-          f"golden scores differ: {err}")
-    check(grown == 3, f"expected 3 kernel launches, saw {grown}")
+    print(f"[golden] {golden}: {len(ref)}/{len(ref)} calls identical; max|d| score "
+          f"{err['score']:.3g}, pvalue {err['pvalue']:.3g}, qvalue {err['qvalue']:.3g} "
+          f"(bound {tol:g}); launches {seen}")
+    check(err["score"] < 5e-5 and err["pvalue"] < tol and err["qvalue"] < tol,
+          f"{golden}: {err}")
+    check(seen == expect, f"{golden}: expected launches {expect}, saw {seen}")
+    return prefix
+
+
+def golden_quantify(workdir, golden, flags, pvalue_tol):
+    """``quantify`` of data_test/example.bed2 against tests/data/<golden>.tsv
+    (tests/test_golden_outputs.py:124-173)."""
+    prefix = f"{workdir}/{golden}"
+    reset_launches()
+    check(main(["quantify", "--no-plotting", *flags, "data_test/example.bed2",
+                "tests/data/example_cool.npz", prefix], device=DEVICE) == 0,
+          f"{golden}: quantify failed")
+    ours = {(r["bin1"], r["bin2"]): r for r in read_tsv(prefix + ".tsv")}
+    ref = {(r["bin1"], r["bin2"]): r for r in read_tsv(f"tests/data/{golden}.tsv")}
+    check(ours.keys() == ref.keys() and len(ref) == 53, f"{golden}: rows differ")
+    err = {}
+    for col in ("score", "pvalue"):
+        a = np.array([num(ours[k][col]) for k in ref])
+        b = np.array([num(ref[k][col]) for k in ref])
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{golden}: NaN {col} differ")
+        ok = ~np.isnan(b)
+        err[col] = float(np.abs(a[ok] - b[ok]).max())
+    check(all(ours[k]["qvalue"] == "" for k in ref), f"{golden}: q-values not NaN")
+    print(f"[golden] {golden}: 53/53 rows, max|d| score {err['score']:.3g}, "
+          f"pvalue {err['pvalue']:.3g}; launches {launches()} (no sweep)")
+    check(err["score"] < 5e-5 and err["pvalue"] < pvalue_tol, f"{golden}: {err}")
+
+
+def golden_dump(workdir):
+    """``--dump`` snapshots against tests/data/golden_dump/ as
+    tests/test_golden_outputs.py:268-330 compares them."""
+    import pathlib
+
+    import scipy.sparse as sp
+
+    dump = pathlib.Path(workdir) / "dump"
+    golden_detect(workdir, "golden_detect_loops", ["--dump", str(dump)],
+                  {"single": 3, "multi": 0}, tol=1e-6)
+    names = sorted(p.name for p in pathlib.Path("tests/data/golden_dump").glob("*.npz"))
+    check(sorted(p.name for p in dump.glob("*.npz")) == names and len(names) == 15,
+          "dump snapshots differ in name")
+    worst = {}
+    for name in names:
+        ref = sp.load_npz(f"tests/data/golden_dump/{name}").toarray()
+        ours = sp.load_npz(dump / name).toarray()
+        stage = name.split("_", 1)[1][:2]
+        check(ours.shape == ref.shape, f"{name}: shape")
+        if stage == "05":
+            check(np.array_equal(ours, ref), f"{name}: foci labels differ")
+            continue
+        if stage == "03":
+            ours04 = sp.load_npz(dump / name.replace("_03_normxcorr2", "_04_diag_trim"))
+            check(np.array_equal(ours, ours04.toarray()), f"{name}: 03 != 04")
+            continue
+        if stage in ("01", "02"):
+            ours, ref = np.triu(ours), np.triu(ref)
+        check(np.array_equal(np.isnan(ours), np.isnan(ref)), f"{name}: NaN differ")
+        d = np.abs(np.nan_to_num(ours) - np.nan_to_num(ref))
+        if stage == "04":
+            check(d.max() < 2e-4, f"{name}: corr differs by {d.max()}")
+        else:
+            check(np.allclose(np.nan_to_num(ours), np.nan_to_num(ref),
+                              rtol=1e-5, atol=1e-6), f"{name}: differs")
+        worst[stage] = max(worst.get(stage, 0.0), float(d.max()))
+    print(f"[golden] --dump: 15/15 snapshots match; max|d| by stage "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in sorted(worst.items())})}")
+
+
+def phase_golden(workdir):
+    golden_detect(workdir, "golden_detect_loops", [], {"single": 3, "multi": 0},
+                  tol=1e-6)
+    for golden, flags in (
+        ("golden_detect_loops_raw", ["--norm", "raw"]),
+        ("golden_detect_loops_smooth", ["--smooth-trend"]),
+        ("golden_detect_loops_tsvd", ["--tsvd"]),
+    ):
+        golden_detect(workdir, golden, flags, {"single": 3, "multi": 0})
+    golden_detect(workdir, "golden_detect_borders", ["--pattern", "borders"],
+                  {"single": 0, "multi": 3})
+    golden_dump(workdir)
+    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6)
+    golden_quantify(workdir, "golden_quantify_borders", ["--pattern", "borders"], 5e-5)
+
+
+def run_genome(name, fn):
+    """One main-path run on the genome: launches counted from 0, stages,
+    wall and peak device memory."""
+    reset_stages()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    seen = launches()
+    print(f"[genome] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[genome] {name} stages (s): "
+          + json.dumps({k: round(v, 3) for k, v in sorted(stage_seconds().items())}))
+    return out, seen
+
+
+def write_planted_bed2d(source, path):
+    """The planted loops as a bed2d file (one-bin anchors)."""
+    with open(path, "w") as handle:
+        handle.write("chrom1\tstart1\tend1\tchrom2\tstart2\tend2\n")
+        for chrom, i, j in source.planted:
+            handle.write(f"{chrom}\t{i * BINSIZE}\t{(i + 1) * BINSIZE}\t"
+                         f"{chrom}\t{j * BINSIZE}\t{(j + 1) * BINSIZE}\n")
+
+
+def check_quantify_against_sweep(source, table):
+    """chr1's quantify scores (patch matmul) against the sweep kernel's
+    corr at the same pixels, on the band quantify scanned."""
+    cfg = load_kernel_config("loops")
+    sel = table["chrom1"] == "chr1"
+    span = int(np.max(table["start2"] - table["start1"]))
+    cfg["max_dist"] = span
+    genome = HicGenome(source, cfg, DEVICE)
+    genome.normalize("auto")
+    genome.make_sub_matrices()
+    cm = genome.sub_mats[0].contact_map
+    cm.create_mat()
+    coords = np.stack([table["bin1"][sel], table["bin2"][sel]], 1).astype(np.int64)
+    at = quantify_banded(cm, cfg, cfg["kernels"], coords)[0][0]
+    sig_p, mask_p = frame_contact_map(cm, cfg["kernels"][0].shape)
+    corr = bp.band_pearson(sig_p, mask_p, cfg["kernels"][0], cm.shape[0], cm.max_dist,
+                           cfg["max_perc_undetected"] / 100, cfg["pearson"])[0]
+    swept = corr[torch.from_numpy(coords[:, 0]).to(DEVICE),
+                 torch.from_numpy(coords[:, 1] - coords[:, 0]).to(DEVICE)].cpu().numpy()
+    ok = ~np.isnan(at["score"])
+    err = float(np.abs(at["score"][ok] - swept[ok]).max())
+    print(f"[genome] quantify chr1: {int(ok.sum())}/{len(ok)} scored pixels within "
+          f"{err:.3g} of the sweep kernel's corr on {tuple(cm.band.shape)}")
+    check(err < 2e-5, f"quantify differs from the sweep by {err}")
+    check(np.allclose(at["score"], table["score"][sel], equal_nan=True),
+          "chr1 quantify differs from the genome run")
+    cm.destroy_mat()
 
 
 def phase_genome(source, workdir):
-    prefix = f"{workdir}/genome"
-    args = parse_args(["detect", "--no-plotting", "synthetic", prefix], "")
-    reset_stages()
-    torch.cuda.reset_peak_memory_stats()
-    bp.LAUNCHES = 0
-    t0 = time.perf_counter()
-    table, _ = detect(source, args, device=DEVICE)
-    wall = time.perf_counter() - t0
-    launches = bp.LAUNCHES
-    stages = stage_seconds()
+    runs = {}
+    args = parse_args(["detect", "--no-plotting", "synthetic", f"{workdir}/genome"], "")
+    (table, _), seen = run_genome("detect loops", lambda: detect(source, args, DEVICE))
+    runs["loops"] = seen
     recall = planted_recall(source, table)
+    print(f"[genome] {len(source.chromnames)} x {GENOME_BINS} bins, loops: "
+          f"{len(table['bin1'])} calls, recall {recall:.4f} ({len(source.planted)} "
+          f"planted, +-2 bins)")
     n_chroms = len(source.chromnames)
-    print(f"[genome] {n_chroms} x {GENOME_BINS} bins, loops: wall {wall:.2f} s, "
-          f"{len(table['bin1'])} calls, recall {recall:.4f} "
-          f"({len(source.planted)} planted, +-2 bins), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {launches}")
-    print("[genome] stages (s): " + json.dumps({k: round(v, 3) for k, v in sorted(stages.items())}))
-    check(launches == n_chroms, f"expected {n_chroms} kernel launches, saw {launches}")
+    check(seen == {"single": n_chroms, "multi": 0}, f"loops launches {seen}")
     check(recall >= 0.95, f"recall {recall} below 0.95")
     check(all(np.isfinite(table["score"])) and all(np.isfinite(table["pvalue"])),
           "non-finite scores")
-    return launches
+
+    args = parse_args(["detect", "--no-plotting", "--pattern", "borders", "synthetic",
+                       f"{workdir}/borders"], "")
+    (table, _), seen = run_genome("detect borders", lambda: detect(source, args, DEVICE))
+    runs["borders"] = seen
+    n_calls = 0 if table is None else len(table["bin1"])
+    print(f"[genome] borders: {n_calls} calls from {seen['multi']} fused launches")
+    check(seen == {"single": 0, "multi": n_chroms}, f"borders launches {seen}")
+    if table is not None:
+        check(all(np.isfinite(table["score"])), "non-finite border scores")
+
+    bed = f"{workdir}/planted.bed2"
+    write_planted_bed2d(source, bed)
+    args = parse_args(["quantify", "--no-plotting", bed, "synthetic",
+                       f"{workdir}/quantify"], "")
+    (table, windows), seen = run_genome(
+        "quantify planted loops", lambda: quantify(source, args, DEVICE)
+    )
+    runs["quantify"] = seen
+    scored = ~np.isnan(table["score"])
+    print(f"[genome] quantify: {len(table['score'])} pairs, {int(scored.sum())} scored, "
+          f"median score {np.nanmedian(table['score']):.4f}, "
+          f"{int((table['score'][scored] >= 0.3).sum())} at or above 0.3")
+    check(len(table["score"]) == len(source.planted) == windows.shape[0],
+          "quantify rows differ from the planted loops")
+    check(scored.mean() > 0.9 and np.nanmedian(table["score"]) > 0.3,
+          "planted loops score low")
+    check(seen == {"single": 0, "multi": 0}, f"quantify swept the band: {seen}")
+    check_quantify_against_sweep(source, table)
+    return runs
 
 
 def run(quick):
     phase_env()
     phase_build()
-    max_err = phase_kernels_small()
+    phase_kernels_small()
     if quick:
         print("[quick] env, build and small kernel checks passed")
         return
@@ -272,22 +576,24 @@ def run(quick):
     print(f"[genome] synthetic genome {GENOME_CHROMS} x {GENOME_BINS} bins, "
           f"{source.nnz} pixels, generated and balanced in "
           f"{time.perf_counter() - t0:.1f} s")
-    err, kernel_ms, plain_ms = phase_kernels_chromosome(source)
-    max_err = max(max_err, err)
+    times = phase_kernels_chromosome(source)
     with tempfile.TemporaryDirectory() as workdir:
         phase_golden(workdir)
-        launches = phase_genome(source, workdir)
+        runs = phase_genome(source, workdir)
     check("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "band_pearson",
+    entry = {
         "route": "cuda",
         "source": "chromosight_torch/csrc/band_pearson.cu",
         "replaces": "chromosight_tpu/ops/pallas_band.py:31",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    }
+    print(json.dumps({"kernels": [
+        {"name": "band_pearson", **entry, "launches": runs["loops"]["single"],
+         "max_abs_err": max(ERRS["single"]), "ms": times["loops"][0],
+         "plain_ms": times["loops"][2]},
+        {"name": "band_pearson_multi", **entry, "launches": runs["borders"]["multi"],
+         "max_abs_err": max(ERRS["multi"]), "ms": times["borders"]["fused"][0],
+         "plain_ms": times["borders"]["plain"]},
+    ]}))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

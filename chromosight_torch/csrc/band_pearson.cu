@@ -25,19 +25,37 @@
 // which is log_ndtr(-a) + log 2 without underflow.  The p-value comes from
 // the untrimmed corr; the trim keeps d <= max_dist, i < n, i + d < n.
 //
-// What bounds it: 2 mk nk loads per pixel (578 for the 17x17 loops kernel),
-// served by L1 through __ldg, against 6 float64 adds or FMAs and 2
-// float32->float64 conversions per tap; neighbouring threads
-// read neighbouring columns, and a warp's rows overlap across u, so the
-// working set stays in L1/L2.  This first version is simple on purpose: one
-// thread per pixel, 32x8 blocks, no shared-memory tiles.  Staging the tile
-// and its (mk-1)-row halo in shared memory (TMA or cp.async), reusing taps
-// along the anti-diagonals in registers, and folding the frame rules into
-// the kernel so sig_p and mask_p are never written are left for later.
+// K kernels per launch.  With a (K, 3, mk, nk) tap table (K <= 8, one
+// template instance per K) each thread still reads x and m once per tap and
+// accumulates the three kernel-independent window sums (x, x^2, m) once,
+// plus 3K float64 sums; the epilogue shares n_pres, the signal means and
+// the corrections across the K kernels and writes (K, n_pad, w_out) maps.
+// Every per-kernel sum takes its taps in the same order as the K = 1
+// instance, so slice k equals a single-kernel launch on kernel k bit for
+// bit.  The tap planes may differ from the kernel (--tsvd convolves the
+// rank-truncated kernels): ksum and k2sum come from `sums`, taken from the
+// original kernel, and only the planes change.
+//
+// Work per tap and pixel: 2 band loads through __ldg (578 per pixel for a
+// 17x17 kernel), 3K tap-table loads (warp-wide broadcasts), 3 + 3K float64
+// adds or FMAs, and 2 + 3K float32->float64 conversions, which sm_90 issues
+// at a fraction of its FP64 FMA rate.  Which of these bounds the kernel is
+// not known: no hardware profile has been taken.  The FP64 work and the
+// conversions both grow with K, the band loads do not.  Neighbouring
+// threads read neighbouring columns, and a warp's rows overlap across u, so
+// the working set stays in L1/L2.  This version is simple on purpose: one
+// thread per pixel, 32x8 blocks, no shared-memory tiles.  A float64 tap
+// table holding the exact casts of the float32 taps would drop the 3K
+// conversions per tap with bit-identical output.
+// Staging the tile and its (mk-1)-row halo in shared memory (TMA or
+// cp.async), reusing taps along the anti-diagonals in registers, and
+// folding the frame rules into the kernel so sig_p and mask_p are never
+// written are left for later.
 //
 // Launch contract: the caller allocates the outputs, the kernel runs on the
 // given stream without synchronising, and the C entry returns
-// cudaGetLastError() so a refused launch is reported.
+// cudaGetLastError() (or cudaErrorInvalidValue for K outside [1, 8]) so a
+// refused launch is reported.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,12 +67,14 @@ __device__ __forceinline__ float snap(float x, float threshold) {
   return fabsf(x) < threshold ? 0.0f : x;
 }
 
+template <int K>
 __global__ void band_pearson_kernel(
     const float* __restrict__ sig, const float* __restrict__ mask,
-    const float* __restrict__ coef,  // (3, mk, nk): K/ksize, K, K^2
+    const float* __restrict__ coef,  // (K, 3, mk, nk): K/ksize, K, K^2
+    const float* __restrict__ sums,  // (K, 2): ksum, k2sum
     int n_pad, int w_out, int w_in, int mk, int nk, int n, int max_dist,
-    float ksum, float k2sum, float min_pres, float threshold,
-    float pearson_min, float* __restrict__ corr, float* __restrict__ logp,
+    float min_pres, float threshold, float pearson_min,
+    float* __restrict__ corr, float* __restrict__ logp,
     uint8_t* __restrict__ cand) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= w_out) return;
@@ -62,9 +82,13 @@ __global__ void band_pearson_kernel(
   const int kh = (mk - 1) / 2;
   const float ksize = (float)taps;
   const float inv_ksize = 1.0f / ksize;
+  const size_t plane = (size_t)n_pad * (size_t)w_out;
   for (int i = blockIdx.y * blockDim.y + threadIdx.y; i < n_pad;
        i += gridDim.y * blockDim.y) {
-    double s_k = 0., s_x = 0., s_x2 = 0., s_m = 0., s_mk = 0., s_mk2 = 0.;
+    double s_x = 0., s_x2 = 0., s_m = 0.;
+    double s_k[K], s_mk[K], s_mk2[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) s_k[k] = s_mk[k] = s_mk2[k] = 0.;
     for (int u = 0; u < mk; ++u) {
       const size_t base =
           (size_t)(i + kh + u) * (size_t)w_in + (size_t)(d + mk - 1 - u);
@@ -72,63 +96,97 @@ __global__ void band_pearson_kernel(
       for (int v = 0; v < nk; ++v) {
         const double x = __ldg(sig + base + v);
         const double m = __ldg(mask + base + v);
-        s_k = fma((double)__ldg(cu + v), x, s_k);
         s_x += x;
         s_x2 = fma(x, x, s_x2);
         s_m += m;
-        s_mk = fma((double)__ldg(cu + taps + v), m, s_mk);
-        s_mk2 = fma((double)__ldg(cu + 2 * taps + v), m, s_mk2);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float* ck = cu + k * 3 * taps + v;
+          s_k[k] = fma((double)__ldg(ck), x, s_k[k]);
+          s_mk[k] = fma((double)__ldg(ck + taps), m, s_mk[k]);
+          s_mk2[k] = fma((double)__ldg(ck + 2 * taps), m, s_mk2[k]);
+        }
       }
     }
-    const float conv_sk = snap((float)s_k, threshold);
     const float sig_mean0 = snap((float)s_x * inv_ksize, threshold);
     const float sig2_mean0 = snap((float)s_x2 * inv_ksize, threshold);
     const float n_miss = snap((float)s_m, threshold);
-    const float conv_mk = snap((float)s_mk, threshold);
-    const float conv_mk2 = snap((float)s_mk2, threshold);
-
     const float n_pres = ksize - n_miss;
-    const float kmean_eff = (ksum - conv_mk) / n_pres;
-    const float k2mean_eff = (k2sum - conv_mk2) / n_pres;
     const float corr_f = ksize / n_pres;
     const float sig_mean = sig_mean0 * corr_f;
     const float sig2_mean = sig2_mean0 * corr_f;
-    float denom = sqrtf((sig2_mean - sig_mean * sig_mean) *
-                        (k2mean_eff - kmean_eff * kmean_eff));
-    if (n_pres < min_pres) denom = 0.f;
-    const float num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f;
-    const float inv_denom = fabsf(denom) < 1e-10f ? 0.f : 1.f / denom;
-    float out = num * inv_denom;
-    if (!isfinite(out)) out = 0.f;
-    out = fminf(fmaxf(out, -1.f), 1.f);
-
-    const float a = fabsf(atanhf(out) * sqrtf(n_pres - 3.f));
-    const float log_tail = logf(0.5f * erfcxf(a * 0.70710678118654752f)) -
-                           0.5f * a * a;
-    const size_t o = (size_t)i * (size_t)w_out + (size_t)d;
-    logp[o] = (log_tail + logf(2.f)) / logf(10.f);
-
+    const float sig_var = sig2_mean - sig_mean * sig_mean;
+    const float sqrt_dof = sqrtf(n_pres - 3.f);
     const bool keep = d <= max_dist && i < n && i + d < n;
-    const float c = keep ? out : 0.f;
-    corr[o] = c;
-    cand[o] = (c >= pearson_min && c != 0.f) ? 1 : 0;
+    const size_t o = (size_t)i * (size_t)w_out + (size_t)d;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float conv_sk = snap((float)s_k[k], threshold);
+      const float conv_mk = snap((float)s_mk[k], threshold);
+      const float conv_mk2 = snap((float)s_mk2[k], threshold);
+      const float kmean_eff = (__ldg(sums + 2 * k) - conv_mk) / n_pres;
+      const float k2mean_eff = (__ldg(sums + 2 * k + 1) - conv_mk2) / n_pres;
+      float denom = sqrtf(sig_var * (k2mean_eff - kmean_eff * kmean_eff));
+      if (n_pres < min_pres) denom = 0.f;
+      const float num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f;
+      const float inv_denom = fabsf(denom) < 1e-10f ? 0.f : 1.f / denom;
+      float out = num * inv_denom;
+      if (!isfinite(out)) out = 0.f;
+      out = fminf(fmaxf(out, -1.f), 1.f);
+
+      const float a = fabsf(atanhf(out) * sqrt_dof);
+      const float log_tail =
+          logf(0.5f * erfcxf(a * 0.70710678118654752f)) - 0.5f * a * a;
+      logp[k * plane + o] = (log_tail + logf(2.f)) / logf(10.f);
+      const float c = keep ? out : 0.f;
+      corr[k * plane + o] = c;
+      cand[k * plane + o] = (c >= pearson_min && c != 0.f) ? 1 : 0;
+    }
   }
+}
+
+template <int K>
+int launch(const float* sig, const float* mask, const float* coef,
+           const float* sums, int n_pad, int w_out, int w_in, int mk, int nk,
+           int n, int max_dist, float min_pres, float threshold,
+           float pearson_min, float* corr, float* logp, uint8_t* cand,
+           cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const int rows = (n_pad + block.y - 1) / block.y;
+  const dim3 grid((w_out + block.x - 1) / block.x, rows < 65535 ? rows : 65535);
+  band_pearson_kernel<K><<<grid, block, 0, stream>>>(
+      sig, mask, coef, sums, n_pad, w_out, w_in, mk, nk, n, max_dist,
+      min_pres, threshold, pearson_min, corr, logp, cand);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// n_k kernels in one launch, 1 <= n_k <= MAX_K.
 extern "C" int band_pearson_f32(const float* sig, const float* mask,
-                                const float* coef, int n_pad, int w_out,
-                                int w_in, int mk, int nk, int n, int max_dist,
-                                float ksum, float k2sum, float min_pres,
+                                const float* coef, const float* sums, int n_k,
+                                int n_pad, int w_out, int w_in, int mk, int nk,
+                                int n, int max_dist, float min_pres,
                                 float threshold, float pearson_min,
                                 float* corr, float* logp, uint8_t* cand,
                                 void* stream) {
-  const dim3 block(32, 8);
-  const int rows = (n_pad + block.y - 1) / block.y;
-  const dim3 grid((w_out + block.x - 1) / block.x, rows < 65535 ? rows : 65535);
-  band_pearson_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sig, mask, coef, n_pad, w_out, w_in, mk, nk, n, max_dist, ksum, k2sum,
-      min_pres, threshold, pearson_min, corr, logp, cand);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define BAND_PEARSON_CASE(K)                                                \
+  case K:                                                                  \
+    return launch<K>(sig, mask, coef, sums, n_pad, w_out, w_in, mk, nk, n, \
+                     max_dist, min_pres, threshold, pearson_min, corr, logp, \
+                     cand, st);
+  switch (n_k) {
+    BAND_PEARSON_CASE(1)
+    BAND_PEARSON_CASE(2)
+    BAND_PEARSON_CASE(3)
+    BAND_PEARSON_CASE(4)
+    BAND_PEARSON_CASE(5)
+    BAND_PEARSON_CASE(6)
+    BAND_PEARSON_CASE(7)
+    BAND_PEARSON_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef BAND_PEARSON_CASE
 }

@@ -7,9 +7,12 @@ coordinates with the sheared kernel ``Ksh[u, mk-1-u+v] = K[u, v]``.
 
 Every function here takes tensors on any device.  The Pearson hot spot is
 ``ops.band_pearson.band_pearson`` (a CUDA kernel on the card);
-``pearson_reference`` below is its plain twin, and
-``band_normxcorr_reference`` the plain twin of the whole
-``chromosight_tpu.ops.band.band_normxcorr``.
+``pearson_reference_multi`` below is its plain twin for K same-shape
+kernels (``pearson_reference`` for one), and ``band_normxcorr_reference``
+the plain twin of the whole ``chromosight_tpu.ops.band.band_normxcorr``.
+With ``tsvd`` the taps are the rank-truncated kernels of ``--tsvd``.
+Quantify scores a few pixels through ``band_normxcorr_at_packed``, a
+patch gather and a float64 matmul with no sweep.
 
 Inputs, coefficients and outputs are float32 and the Pearson algebra runs
 in float32 as in the JAX package, but the six window sums (up to mk*nk
@@ -28,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from chromosight_tpu.preprocessing import factorise_kernel
 
 # conv outputs below this magnitude snap to zero (the reference xcorr2
 # default, ``chromosight_tpu/ops/convolve.py:494-497``)
@@ -60,7 +65,7 @@ def band_finalize_upload(band, width):
     return F.pad(band, (0, pad)) if pad else band
 
 
-def _diag_stats(band, detect):
+def band_diag_stats(band, detect):
     """Per-diagonal sums and counts of positive pixels between two
     detectable bins (the distance law in band space)."""
     n, width = band.shape
@@ -85,7 +90,7 @@ def band_preprocess(band, detect, max_val, keep_dist, n_diags, zero_nan):
     dt = band.dtype
     width = band.shape[1]
     zero = torch.zeros((), dtype=dt, device=band.device)
-    sums, counts = _diag_stats(band, detect)
+    sums, counts = band_diag_stats(band, detect)
     law = torch.where(counts > 0, sums / counts, zero)
     d_idx = torch.arange(width, device=band.device)
     law = torch.where(d_idx < n_diags, law, zero)
@@ -96,6 +101,33 @@ def band_preprocess(band, detect, max_val, keep_dist, n_diags, zero_nan):
     if zero_nan:
         out = torch.where(torch.isnan(out), zero, out)
     return out
+
+
+def band_detrend_trim(band, law, max_val, keep_dist):
+    """Detrend by a given distance law (one value per diagonal), reset
+    values ``>= max_val`` to 1 and zero the columns beyond ``keep_dist``
+    (``chromosight_tpu.ops.band.band_detrend_trim``): the staged
+    preprocess of ``--smooth-trend`` and ``--dump``."""
+    dt = band.dtype
+    width = band.shape[1]
+    law_cols = law[:width].to(device=band.device, dtype=dt)
+    zero = torch.zeros((), dtype=dt, device=band.device)
+    out = torch.where(band != 0, band / law_cols[None, :], zero)
+    if max_val is not None:
+        out = torch.where(out >= max_val, 1.0, out)
+    d_idx = torch.arange(width, device=band.device)
+    return torch.where((d_idx <= keep_dist)[None, :], out, zero)
+
+
+def band_zero_missing(band, missing):
+    """Zero the pixels of missing rows and columns (``missing``: (rows,)
+    bool): what a raw map gets instead of NaN zeroing, as
+    ``ContactMap._zero_missing_band`` of the JAX package."""
+    width = band.shape[1]
+    miss_j = sliding_vector(
+        torch.cat([missing, missing.new_zeros(width)]), band.shape[0], width
+    )
+    return torch.where(missing[:, None] | miss_j, 0.0, band)
 
 
 def _pad_band(x, mk, nk):
@@ -144,19 +176,57 @@ def band_frame(band, missing, kernel_shape, n, max_dist):
     return sig_p, mask_p.masked_fill_(frame, 1.0)
 
 
-def kernel_coefficients(kernel):
+def conv_kernels(kernel, tsvd=None):
+    """The float64 ``(kernel, kernel**2)`` the band engine convolves, or,
+    with ``tsvd`` (the share of singular-value energy kept: 0.999 for
+    ``--tsvd``), their rank-truncated reconstructions ``lk @ rk`` and
+    ``lk2 @ rk2`` (``chromosight_tpu/detection.py:903-912``)."""
+    kernel = np.asarray(kernel, dtype=np.float64)
+    if tsvd is None:
+        return kernel, kernel**2
+    lk, rk = factorise_kernel(kernel, prop_info=tsvd)
+    lk2, rk2 = factorise_kernel(kernel**2, prop_info=tsvd)
+    return lk @ rk, lk2 @ rk2
+
+
+def kernel_coefficients(kernel, conv_k=None, conv_k2=None):
     """Host f32 tap table and sums of a (mk, nk) kernel, as the JAX band
-    engine forms them: rows K * (1/ksize), K, K**2 (squared before the
-    f32 cast), with ``ksum = sum(K)`` and ``k2sum = sum(K * K)`` in f32.
+    engine forms them: planes conv_k * (1/ksize), conv_k, conv_k2, the
+    convolved kernels defaulting to K and K**2 (squared in float64 before
+    the f32 cast).  ``ksum = sum(K)`` and ``k2sum = sum(K * K)`` (f32)
+    always come from the kernel itself: with ``--tsvd`` only the tap
+    planes change (``chromosight_tpu/ops/band.py:818-819``).
 
     Returns ``(coef (3, mk, nk) f32 CPU tensor, ksum, k2sum)``."""
-    k64 = torch.as_tensor(np.asarray(kernel, dtype=np.float64))
+    k64 = np.asarray(kernel, dtype=np.float64)
     if k64.ndim != 2:
-        raise ValueError(f"kernel must be 2-D, got shape {tuple(k64.shape)}")
-    k32 = k64.to(torch.float32)
-    inv_ksize = 1.0 / torch.tensor(float(k64.numel()), dtype=torch.float32)
-    coef = torch.stack([k32 * inv_ksize, k32, (k64**2).to(torch.float32)])
+        raise ValueError(f"kernel must be 2-D, got shape {k64.shape}")
+    if conv_k is None:
+        conv_k, conv_k2 = k64, k64**2
+    planes = [
+        torch.as_tensor(np.asarray(c, dtype=np.float64)).to(torch.float32)
+        for c in (conv_k, conv_k2)
+    ]
+    if any(tuple(p.shape) != k64.shape for p in planes):
+        raise ValueError("convolved kernels must have the kernel's shape")
+    k32 = torch.as_tensor(k64).to(torch.float32)
+    inv_ksize = 1.0 / torch.tensor(float(k64.size), dtype=torch.float32)
+    coef = torch.stack([planes[0] * inv_ksize, planes[0], planes[1]])
     return coef, k32.sum(), (k32 * k32).sum()
+
+
+def kernel_table(kernels, tsvd=None):
+    """Tap tables of K same-shape kernels, stacked: ``(coef (K, 3, mk,
+    nk), sums (K, 2))`` f32 CPU tensors, ``sums[k] = (ksum, k2sum)``."""
+    kernels = np.asarray(kernels, dtype=np.float64)
+    if kernels.ndim != 3:
+        raise ValueError(f"kernels must be (K, mk, nk), got {kernels.shape}")
+    coefs, sums = [], []
+    for kernel in kernels:
+        coef, ksum, k2sum = kernel_coefficients(kernel, *conv_kernels(kernel, tsvd))
+        coefs.append(coef)
+        sums.append(torch.stack([ksum, k2sum]))
+    return torch.stack(coefs), torch.stack(sums)
 
 
 def _log10p(corr, n_pres):
@@ -172,11 +242,55 @@ def _log10p(corr, n_pres):
 def _trim(corr, n, max_dist, pearson_min):
     """Zero corr outside d <= max_dist and the matrix; candidate mask."""
     dev = corr.device
-    oi = torch.arange(corr.shape[0], device=dev)[:, None]
-    od = torch.arange(corr.shape[1], device=dev)[None, :]
+    oi = torch.arange(corr.shape[-2], device=dev)[:, None]
+    od = torch.arange(corr.shape[-1], device=dev)[None, :]
     keep = (od <= max_dist) & (oi < n) & (oi + od < n)
     corr = torch.where(keep, corr, 0.0)
     return corr, (corr >= pearson_min) & (corr != 0)
+
+
+def pearson_from_sums(
+    s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, ksize, missing_tol,
+    threshold=DEFAULT_THRESHOLD,
+):
+    """Missing-corrected Pearson (``chromosight_tpu/ops/band.py:611-634``)
+    from the six window sums of a set of pixels, each rounded to float32
+    and snapped to 0 below ``threshold`` (the signal sums after their
+    1/ksize scaling, as the JAX engine's ``ws(x, 1/ksize)`` multiplies by
+    the reciprocal), then the float32 algebra in the CUDA kernel's order.
+
+    ``s_k``, ``s_mk``, ``s_mk2``: (K, *S) per-kernel sums of K/ksize x,
+    K m, K^2 m; ``s_x``, ``s_x2``, ``s_m``: (*S) sums of x, x^2, m;
+    ``sums``: (K, 2) f32 (ksum, k2sum).  Returns (corr (K, *S),
+    untrimmed, and n_pres (*S))."""
+
+    def snap(t):
+        t = t.float()
+        return torch.where(t.abs() < threshold, 0.0, t)
+
+    dev = s_x.device
+    inv_ksize = float(1.0 / torch.tensor(float(ksize), dtype=torch.float32))
+    per_k = (-1,) + (1,) * s_x.ndim
+    ksum = sums[:, 0].to(dev).reshape(per_k)
+    k2sum = sums[:, 1].to(dev).reshape(per_k)
+    conv_sk, n_miss, conv_mk, conv_mk2 = map(snap, (s_k, s_m, s_mk, s_mk2))
+    sig_mean0 = snap(s_x.float() * inv_ksize)
+    sig2_mean0 = snap(s_x2.float() * inv_ksize)
+    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=dev)
+    n_pres = ksize_f - n_miss
+    kmean_eff = (ksum - conv_mk) / n_pres
+    k2mean_eff = (k2sum - conv_mk2) / n_pres
+    corr_f = ksize_f / n_pres
+    sig_mean = sig_mean0 * corr_f
+    sig2_mean = sig2_mean0 * corr_f
+    denom = torch.sqrt(
+        (sig2_mean - sig_mean * sig_mean) * (k2mean_eff - kmean_eff * kmean_eff)
+    )
+    denom = torch.where(n_pres < float(int((1 - missing_tol) * ksize)), 0.0, denom)
+    num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
+    inv_denom = torch.where(denom.abs() < 1e-10, 0.0, 1.0 / denom)
+    out = num * inv_denom
+    return torch.where(torch.isfinite(out), out, 0.0).clamp(-1.0, 1.0), n_pres
 
 
 def _sheared_sums(x, kernels, n_pad):
@@ -198,6 +312,51 @@ def _sheared_sums(x, kernels, n_pad):
     return out.permute(2, 0, 1).float()
 
 
+def pearson_reference_multi(
+    sig_p,
+    mask_p,
+    kernels,
+    n,
+    max_dist,
+    missing_tol,
+    pearson_min,
+    threshold=DEFAULT_THRESHOLD,
+    tsvd=None,
+):
+    """Plain twin of the band Pearson kernel on framed inputs, for K
+    same-shape kernels (``chromosight_tpu.ops.band.band_normxcorr_multi``
+    after its framing): the three kernel-independent window sums once,
+    3K correlations with the sheared tap planes of ``kernel_table``, the
+    missing-corrected Pearson, log10-p from the untrimmed corr, then the
+    diagonal trim and the candidate threshold.
+
+    ``kernels``: (K, mk, nk).  Returns ``(corr, log10p, cand)``, each
+    (K, n_pad, W)."""
+    kernels = np.asarray(kernels)
+    n_k, mk, nk = kernels.shape
+    n_pad = sig_p.shape[0] - 2 * (mk - 1)
+    coef, sums = kernel_table(kernels, tsvd)
+    ones = torch.ones((mk, nk), dtype=torch.float32)
+    sig_sums = _sheared_sums(sig_p, [*coef[:, 0], ones], n_pad)
+    s_x2 = _sheared_sums(sig_p.double() ** 2, [ones], n_pad)[0]
+    mask_sums = _sheared_sums(mask_p, [ones, *coef[:, 1], *coef[:, 2]], n_pad)
+    out, n_pres = pearson_from_sums(
+        sig_sums[:n_k],
+        sig_sums[n_k],
+        s_x2,
+        mask_sums[0],
+        mask_sums[1 : n_k + 1],
+        mask_sums[n_k + 1 :],
+        sums,
+        mk * nk,
+        missing_tol,
+        threshold,
+    )
+    logp = _log10p(out, n_pres)
+    corr, cand = _trim(out, n, max_dist, pearson_min)
+    return corr, logp, cand
+
+
 def pearson_reference(
     sig_p,
     mask_p,
@@ -207,53 +366,16 @@ def pearson_reference(
     missing_tol,
     pearson_min,
     threshold=DEFAULT_THRESHOLD,
+    tsvd=None,
 ):
-    """Plain twin of the band Pearson kernel on framed inputs: six
-    correlations with the sheared kernels, each snapped at
-    ``threshold``, the missing-corrected Pearson of
-    ``chromosight_tpu/ops/band.py:581-644``, log10-p from the untrimmed
-    corr, then the diagonal trim and the candidate threshold.
-
-    Returns ``(corr, log10p, cand)``, each (n_pad, W)."""
-    mk, nk = np.shape(kernel)
-    ksize = mk * nk
-    dev = sig_p.device
-    n_pad = sig_p.shape[0] - 2 * (mk - 1)
-    coef, ksum, k2sum = kernel_coefficients(kernel)
-    ones = torch.ones((mk, nk), dtype=torch.float32)
-    inv_ksize = float(1.0 / torch.tensor(float(ksize), dtype=torch.float32))
-
-    def snap(x):
-        return torch.where(x.abs() < threshold, 0.0, x)
-
-    sig_sums = _sheared_sums(sig_p, [coef[0], ones], n_pad)
-    conv_sk = snap(sig_sums[0])
-    # window sums are snapped after the 1/ksize scaling, as the JAX
-    # engine's ws(x, 1/ksize) multiplies by the reciprocal
-    sig_mean0 = snap(sig_sums[1] * inv_ksize)
-    sig2_mean0 = snap(_sheared_sums(sig_p.double() ** 2, [ones], n_pad)[0] * inv_ksize)
-    n_miss, conv_mk, conv_mk2 = (
-        snap(c) for c in _sheared_sums(mask_p, [ones, coef[1], coef[2]], n_pad)
+    """``pearson_reference_multi`` for one (mk, nk) kernel, the plain twin
+    of ``chromosight_tpu/ops/band.py:581-644``.  Returns ``(corr, log10p,
+    cand)``, each (n_pad, W)."""
+    out = pearson_reference_multi(
+        sig_p, mask_p, np.asarray(kernel)[None], n, max_dist, missing_tol,
+        pearson_min, threshold, tsvd,
     )
-
-    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=dev)
-    n_pres = ksize_f - n_miss
-    kmean_eff = (float(ksum) - conv_mk) / n_pres
-    k2mean_eff = (float(k2sum) - conv_mk2) / n_pres
-    corr_f = ksize_f / n_pres
-    sig_mean = sig_mean0 * corr_f
-    sig2_mean = sig2_mean0 * corr_f
-    denom = torch.sqrt((sig2_mean - sig_mean**2) * (k2mean_eff - kmean_eff**2))
-    min_pres = int((1 - missing_tol) * ksize)
-    denom = torch.where(n_pres < min_pres, 0.0, denom)
-    num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
-    inv_denom = torch.where(denom.abs() < 1e-10, 0.0, 1.0 / denom)
-    out = num * inv_denom
-    out = torch.where(torch.isfinite(out), out, 0.0).clamp(-1.0, 1.0)
-    logp = _log10p(out, n_pres)
-
-    corr, cand = _trim(out, n, max_dist, pearson_min)
-    return corr, logp, cand
+    return tuple(t[0] for t in out)
 
 
 def band_normxcorr_reference(
@@ -265,13 +387,87 @@ def band_normxcorr_reference(
     missing_tol,
     pearson_min,
     threshold=DEFAULT_THRESHOLD,
+    tsvd=None,
 ):
     """Plain twin of ``chromosight_tpu.ops.band.band_normxcorr``: framing
     then ``pearson_reference``.  Returns ``(corr, log10p, cand)``."""
     sig_p, mask_p = band_frame(band, missing, np.shape(kernel), n, max_dist)
     return pearson_reference(
-        sig_p, mask_p, kernel, n, max_dist, missing_tol, pearson_min, threshold
+        sig_p, mask_p, kernel, n, max_dist, missing_tol, pearson_min, threshold,
+        tsvd,
     )
+
+
+def _stencils(planes, device):
+    """Flattened sheared forms of (mk, nk) planes: (len, mk * wk) f64."""
+    sheared = [torch.from_numpy(shear_kernel(p.numpy())) for p in planes]
+    return torch.stack(sheared).flatten(1).to(device=device, dtype=torch.float64)
+
+
+def band_normxcorr_at_packed(
+    band,
+    missing,
+    rows,
+    diags,
+    kernels,
+    n,
+    max_dist,
+    missing_tol,
+    tsvd=None,
+    threshold=DEFAULT_THRESHOLD,
+):
+    """Pearson and log10-p of K same-shape kernels at T band pixels
+    (rows, diags), without sweeping the band, and the raw windows around
+    them (``chromosight_tpu/ops/band.py:887-1048``).
+
+    The value at (i, d) depends only on the (mk, nk + mk - 1)
+    parallelogram patch of the framed band at rows [i + kh, i + kh + mk)
+    and columns [d, d + nk + mk - 1): each of the six window sums is the
+    dot product of that patch with a fixed stencil, so one patch gather
+    and one matmul per input replace the sweep.  The dots run in float64
+    as the sweep kernel's sums do, and the Pearson algebra is
+    ``pearson_from_sums``.  Out-of-range requests are clipped to the band
+    for the gather; their corr is zeroed (callers mask them).
+
+    ``band``: (rows, W) preprocessed band; ``missing`` its (rows,) flags;
+    ``rows``/``diags``: (T,) int64 tensors; ``kernels``: (K, mk, nk).
+    Returns a (T, 2K + mk*nk) f32 tensor: K scores, K log10-p, then the
+    row-major raw window."""
+    kernels = np.asarray(kernels)
+    n_k, mk, nk = kernels.shape
+    wk = nk + mk - 1
+    kh = (mk - 1) // 2
+    dev = band.device
+    sig_p, mask_p = band_frame(band, missing, (mk, nk), n, max_dist)
+    r0 = (rows + kh).clamp(0, sig_p.shape[0] - mk)
+    c0 = diags.clamp(0, sig_p.shape[1] - wk)
+    ri = r0[:, None, None] + torch.arange(mk, device=dev)[None, :, None]
+    ci = c0[:, None, None] + torch.arange(wk, device=dev)[None, None, :]
+    t = rows.shape[0]
+    patch = sig_p[ri, ci].reshape(t, mk * wk).double()
+    mpatch = mask_p[ri, ci].reshape(t, mk * wk).double()
+    coef, sums = kernel_table(kernels, tsvd)
+    ones = torch.ones((mk, nk), dtype=torch.float32)
+    sig_dots = patch @ _stencils([*coef[:, 0], ones], dev).T
+    s_x2 = (patch * patch) @ _stencils([ones], dev)[0]
+    mask_dots = mpatch @ _stencils([ones, *coef[:, 1], *coef[:, 2]], dev).T
+    out, n_pres = pearson_from_sums(
+        sig_dots[:, :n_k].T,
+        sig_dots[:, n_k],
+        s_x2,
+        mask_dots[:, 0],
+        mask_dots[:, 1 : n_k + 1].T,
+        mask_dots[:, n_k + 1 :].T,
+        sums,
+        mk * nk,
+        missing_tol,
+        threshold,
+    )
+    logp = _log10p(out, n_pres)
+    keep = (diags <= max_dist) & (rows < n) & (rows + diags < n)
+    corr = torch.where(keep, out, 0.0)
+    wins = gather_windows(band, rows, rows + diags, mk, nk).reshape(t, mk * nk)
+    return torch.cat([corr.T, logp.T, wins], dim=1)
 
 
 def extract_candidates(corr, cand):

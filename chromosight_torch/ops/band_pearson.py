@@ -5,8 +5,13 @@
 framed inputs (``ops.band.band_frame``) it returns ``(corr, log10p,
 cand)``:
 
-* a CPU tensor takes the plain twin, ``ops.band.pearson_reference``;
+* a CPU tensor takes the plain twin, ``ops.band.pearson_reference_multi``;
 * a CUDA tensor launches ``csrc/band_pearson.cu`` or raises.
+
+It runs one kernel (single-kernel mode) or a stack of K same-shape
+kernels (K-kernel mode, up to ``MAX_K`` per launch: borders' three
+kernels in one pass over the band), with the kernels' own taps or, for
+``--tsvd``, their rank-truncated reconstructions.
 
 ``band_pearson_emulated`` is a vectorised transcription of the CUDA
 kernel's own arithmetic (one loop over the mk*nk taps, the same
@@ -17,6 +22,7 @@ tests hold the kernel's addressing against the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -25,23 +31,30 @@ import torch
 from chromosight_torch.ops import _build
 from chromosight_torch.ops.band import (
     DEFAULT_THRESHOLD,
-    kernel_coefficients,
-    pearson_reference,
+    kernel_table,
+    pearson_from_sums,
+    pearson_reference_multi,
 )
 
-# Launches of the CUDA kernel in this process (see module docstring).
+# Launches of the CUDA kernel in this process, in single-kernel mode (a
+# 2-D kernel) and in K-kernel mode (a (K, mk, nk) stack).
 LAUNCHES = 0
+LAUNCHES_MULTI = 0
+
+# Kernels per launch; larger stacks split into several launches.
+MAX_K = 8
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 7
-    + [ctypes.c_float] * 5
+    [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 3
     + [ctypes.c_void_p] * 4
 )
 
 
-def _geometry(sig_p, mask_p, kernel):
-    """Validate the framed inputs; returns (mk, nk, n_pad, w_out)."""
+def _geometry(sig_p, mask_p, kernels):
+    """Validate the framed inputs and a (K, mk, nk) kernel stack; returns
+    (mk, nk, n_pad, w_out)."""
     for name, t in (("sig_p", sig_p), ("mask_p", mask_p)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
             raise TypeError(f"{name} must be a float32 tensor")
@@ -49,9 +62,9 @@ def _geometry(sig_p, mask_p, kernel):
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
     if sig_p.shape != mask_p.shape or sig_p.device != mask_p.device:
         raise ValueError("sig_p and mask_p differ in shape or device")
-    if np.ndim(kernel) != 2:
-        raise ValueError("kernel must be a 2-D array")
-    mk, nk = np.shape(kernel)
+    if kernels.ndim != 3 or len(kernels) == 0:
+        raise ValueError("kernel must be a 2-D array or a (K, mk, nk) stack")
+    _, mk, nk = kernels.shape
     n_pad = sig_p.shape[0] - 2 * (mk - 1)
     w_out = sig_p.shape[1] - 2 * ((mk - 1) // 2 + (nk - 1) // 2)
     if n_pad <= 0 or w_out <= 0 or w_out + mk + nk - 2 > sig_p.shape[1]:
@@ -60,6 +73,29 @@ def _geometry(sig_p, mask_p, kernel):
             "kernel (odd kernel sides expected)"
         )
     return mk, nk, n_pad, w_out
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_table(kernel_bytes, shape, tsvd, device):
+    kernels = np.frombuffer(kernel_bytes, dtype=np.float64).reshape(shape)
+    return tuple(t.to(device) for t in kernel_table(kernels, tsvd))
+
+
+def device_table(kernels, tsvd, device):
+    """``kernel_table(kernels, tsvd)`` on ``device``, built and uploaded
+    once per kernel stack: later launches (every chromosome of a genome,
+    every timed repeat) reuse it.  The tensors are shared; never write
+    them."""
+    k64 = np.ascontiguousarray(kernels, dtype=np.float64)
+    return _cached_table(k64.tobytes(), k64.shape, tsvd, device)
+
+
+def _stack(kernel):
+    """(kernels (K, mk, nk), multi): a 2-D kernel becomes a stack of one."""
+    kernels = np.asarray(kernel)
+    if kernels.ndim == 2:
+        return kernels[None], False
+    return kernels, True
 
 
 def band_pearson(
@@ -71,57 +107,72 @@ def band_pearson(
     missing_tol,
     pearson_min,
     threshold=DEFAULT_THRESHOLD,
+    tsvd=None,
 ):
     """Missing-corrected band Pearson, log10-p and candidates.
 
     ``sig_p``/``mask_p``: framed (n_pad + 2(mk-1), W + 2(kh+kw)) float32
-    tensors; ``kernel``: (mk, nk) host array; ``n`` logical rows,
-    ``max_dist`` the diagonal trim, ``missing_tol`` the tolerated missing
-    share of a window, ``pearson_min`` the candidate threshold.  Returns
-    ``(corr, log10p, cand)``, each (n_pad, W), cand bool."""
-    global LAUNCHES
-    mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernel)
+    tensors; ``kernel``: an (mk, nk) host array (single-kernel mode,
+    maps of shape (n_pad, W)) or a (K, mk, nk) stack of same-shape kernels
+    (K-kernel mode, maps of shape (K, n_pad, W), slice k equal bit for bit
+    to single-kernel mode on kernel k); ``n`` logical rows, ``max_dist``
+    the diagonal trim, ``missing_tol`` the tolerated missing share of a
+    window, ``pearson_min`` the candidate threshold; ``tsvd`` the energy
+    share of ``--tsvd`` (convolve rank-truncated kernels) or None.
+    Returns ``(corr, log10p, cand)``, cand bool."""
+    global LAUNCHES, LAUNCHES_MULTI
+    kernels, multi = _stack(kernel)
+    mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernels)
     if sig_p.device.type == "cpu":
-        return pearson_reference(
-            sig_p, mask_p, kernel, n, max_dist, missing_tol, pearson_min,
-            threshold,
+        out = pearson_reference_multi(
+            sig_p, mask_p, kernels, n, max_dist, missing_tol, pearson_min,
+            threshold, tsvd,
         )
+        return out if multi else tuple(t[0] for t in out)
     if sig_p.device.type != "cuda":
         raise ValueError(f"band_pearson runs on cpu or cuda, not {sig_p.device}")
     lib = _build.load()
     fn = lib.band_pearson_f32
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    coef, ksum, k2sum = kernel_coefficients(kernel)
-    coef = coef.to(sig_p.device)
-    corr = torch.empty((n_pad, w_out), dtype=torch.float32, device=sig_p.device)
+    dev = sig_p.device
+    coef, sums = device_table(kernels, tsvd, dev)
+    n_k = len(kernels)
+    corr = torch.empty((n_k, n_pad, w_out), dtype=torch.float32, device=dev)
     logp = torch.empty_like(corr)
-    cand = torch.empty((n_pad, w_out), dtype=torch.uint8, device=sig_p.device)
-    rc = fn(
-        sig_p.data_ptr(),
-        mask_p.data_ptr(),
-        coef.data_ptr(),
-        n_pad,
-        w_out,
-        sig_p.shape[1],
-        mk,
-        nk,
-        int(n),
-        int(max_dist),
-        float(ksum),
-        float(k2sum),
-        float(int((1 - missing_tol) * mk * nk)),
-        float(threshold),
-        float(pearson_min),
-        corr.data_ptr(),
-        logp.data_ptr(),
-        cand.data_ptr(),
-        torch.cuda.current_stream(sig_p.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"band_pearson kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return corr, logp, cand.view(torch.bool)
+    cand = torch.empty((n_k, n_pad, w_out), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k0 in range(0, n_k, MAX_K):
+        k1 = min(k0 + MAX_K, n_k)
+        rc = fn(
+            sig_p.data_ptr(),
+            mask_p.data_ptr(),
+            coef[k0:k1].data_ptr(),
+            sums[k0:k1].data_ptr(),
+            k1 - k0,
+            n_pad,
+            w_out,
+            sig_p.shape[1],
+            mk,
+            nk,
+            int(n),
+            int(max_dist),
+            float(int((1 - missing_tol) * mk * nk)),
+            float(threshold),
+            float(pearson_min),
+            corr[k0].data_ptr(),
+            logp[k0].data_ptr(),
+            cand[k0].data_ptr(),
+            stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"band_pearson kernel launch failed: cudaError {rc}")
+        if multi:
+            LAUNCHES_MULTI += 1
+        else:
+            LAUNCHES += 1
+    out = (corr, logp, cand.view(torch.bool))
+    return out if multi else tuple(t[0] for t in out)
 
 
 def log10_two_sided(a):
@@ -143,59 +194,45 @@ def band_pearson_emulated(
     missing_tol,
     pearson_min,
     threshold=DEFAULT_THRESHOLD,
+    tsvd=None,
 ):
     """``band_pearson``'s CUDA arithmetic on CPU tensors: the same single
     (u, v) tap loop over ``sig[i + kh + u, d + mk-1-u + v]`` into float64
-    sums, the same coefficient table, snaps, float32 Pearson algebra,
-    erfcx p-value, trim and candidate rule, vectorised over the
-    (n_pad, W) output pixels."""
-    mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernel)
-    coef, ksum, k2sum = kernel_coefficients(kernel)
-    ksize = float(mk * nk)
-    inv_ksize = float(1.0 / torch.tensor(ksize, dtype=torch.float32))
+    sums (three shared, three per kernel), the same tap table, snaps,
+    float32 Pearson algebra, erfcx p-value, trim and candidate rule,
+    vectorised over the (n_pad, W) output pixels.  Takes and returns what
+    ``band_pearson`` does, in single- or K-kernel mode."""
+    kernels, multi = _stack(kernel)
+    mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernels)
+    coef, sums = kernel_table(kernels, tsvd)
+    n_k = len(kernels)
     kh = (mk - 1) // 2
     sig64, mask64, coef64 = sig_p.double(), mask_p.double(), coef.double()
-    s_k, s_x, s_x2, s_m, s_mk, s_mk2 = (
-        torch.zeros((n_pad, w_out), dtype=torch.float64) for _ in range(6)
+    s_x, s_x2, s_m = (
+        torch.zeros((n_pad, w_out), dtype=torch.float64) for _ in range(3)
+    )
+    s_k, s_mk, s_mk2 = (
+        torch.zeros((n_k, n_pad, w_out), dtype=torch.float64) for _ in range(3)
     )
     for u in range(mk):
         for v in range(nk):
             col = mk - 1 - u + v
             x = sig64[kh + u : kh + u + n_pad, col : col + w_out]
             m = mask64[kh + u : kh + u + n_pad, col : col + w_out]
-            s_k += coef64[0, u, v] * x
             s_x += x
             s_x2 += x * x
             s_m += m
-            s_mk += coef64[1, u, v] * m
-            s_mk2 += coef64[2, u, v] * m
-
-    def snap(t):
-        t = t.float()
-        return torch.where(t.abs() < threshold, 0.0, t)
-
-    conv_sk, n_miss, conv_mk, conv_mk2 = map(snap, (s_k, s_m, s_mk, s_mk2))
-    sig_mean0 = snap(s_x.float() * inv_ksize)
-    sig2_mean0 = snap(s_x2.float() * inv_ksize)
-    n_pres = ksize - n_miss
-    kmean_eff = (float(ksum) - conv_mk) / n_pres
-    k2mean_eff = (float(k2sum) - conv_mk2) / n_pres
-    # tensor numerator: torch computes `scalar / tensor` as a reciprocal
-    # times the scalar, which rounds differently from the kernel's division
-    corr_f = torch.tensor(ksize, dtype=torch.float32) / n_pres
-    sig_mean = sig_mean0 * corr_f
-    sig2_mean = sig2_mean0 * corr_f
-    denom = torch.sqrt(
-        (sig2_mean - sig_mean * sig_mean) * (k2mean_eff - kmean_eff * kmean_eff)
+            taps = coef64[:, :, u, v, None, None]
+            s_k += taps[:, 0] * x
+            s_mk += taps[:, 1] * m
+            s_mk2 += taps[:, 2] * m
+    out, n_pres = pearson_from_sums(
+        s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, mk * nk, missing_tol, threshold
     )
-    denom = torch.where(n_pres < float(int((1 - missing_tol) * mk * nk)), 0.0, denom)
-    num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
-    inv_denom = torch.where(denom.abs() < 1e-10, 0.0, 1.0 / denom)
-    out = num * inv_denom
-    out = torch.where(torch.isfinite(out), out, 0.0).clamp(-1.0, 1.0)
     logp = log10_two_sided((torch.atanh(out) * torch.sqrt(n_pres - 3.0)).abs())
     oi = torch.arange(n_pad)[:, None]
     od = torch.arange(w_out)[None, :]
     keep = (od <= max_dist) & (oi < n) & (oi + od < n)
     corr = torch.where(keep, out, 0.0)
-    return corr, logp, (corr >= pearson_min) & (corr != 0)
+    res = (corr, logp, (corr >= pearson_min) & (corr != 0))
+    return res if multi else tuple(t[0] for t in res)

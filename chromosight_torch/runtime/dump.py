@@ -1,0 +1,39 @@
+"""Stage snapshots of ``detect --dump DIR``.
+
+Counterpart of ``chromosight_tpu/runtime/dump.py`` and of the snapshots of
+``chromosight_tpu/detection.py:1058-1150``: each stage of a chromosome is
+saved as ``DIR/<map name>_<stage>.npz``, a float64 scipy-sparse (n, n)
+CSR matrix in matrix coordinates.  scipy is imported only when a snapshot
+is written.
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+
+
+def save_snapshot(dump_dir, name, stage, rows, cols, vals, n):
+    """Save the (n, n) matrix of the triplets (rows, cols, vals) as
+    ``dump_dir/<name>_<stage>.npz``."""
+    import scipy.sparse as sp
+
+    mat = sp.coo_matrix(
+        (np.asarray(vals, dtype=np.float64), (rows, cols)), shape=(n, n)
+    ).tocsr()
+    sp.save_npz(pathlib.Path(dump_dir) / f"{name}_{stage}", mat)
+
+
+def save_band_snapshot(dump_dir, name, stage, band, n, after):
+    """Snapshot of a (rows, W) band ``B[i, d] = M[i, i + d]``: its
+    nonzero pixels (NaN included) with i < n and i + d < n, as the upper
+    triangle of the (n, n) matrix.  Says so on stdout, as the JAX
+    package's ``DumpMatrix`` does after the method ``after``."""
+    band = band[:n].double().cpu().numpy()
+    i, d = np.nonzero(band)
+    ok = i + d < n
+    i, d = i[ok], d[ok]
+    path = pathlib.Path(dump_dir) / f"{name}_{stage}"
+    print(f"Dumping matrix to {path} after executing {after}")
+    save_snapshot(dump_dir, name, stage, i, i + d, band[i, d], n)

@@ -31,7 +31,8 @@ def contact_map_from_jax(cm, device):
     """A port ``ContactMap`` on ``device`` holding the preprocessed band of
     a ``chromosight_tpu`` ``ContactMap`` after ``create_mat``, cut from
     its shape bucket to the port's own layout: (rows, keep_distance + 1).
-    What the cut drops is zero (bucket padding)."""
+    What the cut drops is zero (bucket padding).  The raw-count and
+    isotonic-law switches come along; the dump directory does not."""
     port = ContactMap(
         None,
         [tuple(e) for e in cm.extent],
@@ -40,6 +41,8 @@ def contact_map_from_jax(cm, device):
         detectable_bins=cm.detectable_bins,
         max_dist=cm.max_dist,
         largest_kernel=cm.largest_kernel,
+        use_norm=cm.use_norm,
+        smooth=cm.smooth,
     )
     band = np.asarray(cm.band_dev, dtype=np.float32)
     band = band[: port.shape[0], : port.keep_distance + 1].copy()

@@ -1,7 +1,9 @@
 """The port's detect slice end to end on CPU: the 89-loop golden from the
 cool file and its npz export, state carried over from the JAX package,
-the synthetic genome source, and the import boundary (no jax, h5py,
-pandas or jsonschema)."""
+the preprocessed bands of --smooth-trend, --dump and --norm raw against
+the JAX package's, the synthetic genome source, the refusals of what is
+not ported, and the import boundary (no jax, h5py, pandas or
+jsonschema)."""
 
 import contextlib
 import importlib.util
@@ -14,12 +16,14 @@ import sys
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 import chromosight_tpu.kernels as ck
 from chromosight_torch import NotPortedError
 from chromosight_torch.cli.main import main
 from chromosight_torch.detection import _band_correlate
 from chromosight_torch.io.source import ArraySource, planted_recall
+from chromosight_torch.runtime.genome import HicGenome
 from chromosight_torch.state import contact_map_from_jax, kernel_config_from_jax
 from chromosight_tpu.detection import _band_correlate as jax_band_correlate
 from chromosight_tpu.runtime.genome import HicGenome as JaxHicGenome
@@ -91,12 +95,8 @@ def test_detect_stderr_matches_golden_log(detect_runs):
 @pytest.mark.parametrize(
     "flags,what",
     [
-        (["--tsvd"], "--tsvd"),
-        (["--dump", "/nonexistent"], "--dump"),
-        (["--smooth-trend"], "--smooth-trend"),
         (["--inter"], "--inter"),
         (["--subsample", "0.5"], "--subsample"),
-        (["--norm", "raw"], "--norm raw"),
         (["--norm", "force"], "--norm force"),
     ],
 )
@@ -107,9 +107,19 @@ def test_unported_options_raise(tmp_path, flags, what):
     assert what in str(exc.value)
 
 
-def test_unported_subcommand_raises(tmp_path):
-    with pytest.raises(NotPortedError, match="quantify"):
-        main(["quantify", "a.bed2", str(EXAMPLE_NPZ), str(tmp_path / "q")])
+@pytest.mark.parametrize(
+    "argv,what",
+    [
+        (["generate-config", "p"], "generate-config"),
+        (["list-kernels"], "list-kernels"),
+        (["test"], "test"),
+        (["quantify", "--inter", "a.bed2", str(EXAMPLE_NPZ), "q"], "--inter"),
+    ],
+)
+def test_unported_subcommand_raises(tmp_path, argv, what):
+    with pytest.raises(NotPortedError, match=r"ROADMAP\.md, queue 1, item \d+") as exc:
+        main(argv, device="cpu")
+    assert what in str(exc.value)
 
 
 def test_state_carried_from_jax_gives_same_pearson(tmp_path):
@@ -143,6 +153,49 @@ def test_state_carried_from_jax_gives_same_pearson(tmp_path):
             ref, got, cm.shape[0], cm.max_dist, cfg["pearson"], corr_tol=5e-5
         )
         assert ref[2].sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["smooth", "raw", "dump"])
+def test_preprocessed_band_matches_jax(tmp_path, mode):
+    """Each example chromosome preprocessed by a JAX ContactMap and by the
+    port from the npz export give the same band: the staged preprocess
+    (isotonic distance law of --smooth-trend; the detrend / remove_diags
+    stages of --dump) and the raw-count path of --norm raw.  Values
+    within rtol 1e-6 / atol 1e-7 (float32 distance laws summed in
+    different orders), the same zeros."""
+    path = str(tmp_path / "example.cool")
+    shutil.copy(ROOT / "data_test" / "example.cool", path)
+    cfg = dict(ck.loops)
+    dump = str(tmp_path / "dump") if mode == "dump" else None
+    hg = JaxHicGenome(path, kernel_config=cfg, smooth=mode == "smooth", dump=dump)
+    hg.normalize("raw" if mode == "raw" else "auto")
+    hg.compute_max_dist()
+    hg.make_sub_matrices()
+    port_dump = str(tmp_path / "port_dump") if mode == "dump" else None
+    genome = HicGenome(
+        ArraySource.from_npz(EXAMPLE_NPZ), kernel_config_from_jax(cfg), torch.device("cpu"),
+        dump=port_dump, smooth=mode == "smooth",
+    )
+    with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(
+        io.StringIO()
+    ):
+        genome.normalize("raw" if mode == "raw" else "auto")
+        genome.make_sub_matrices()
+        for (_, sub), port_sub in zip(hg.sub_mats.iterrows(), genome.sub_mats):
+            cm, port_cm = sub.contact_map, port_sub.contact_map
+            cm.create_mat()
+            port_cm.create_mat()
+            carried = contact_map_from_jax(cm, "cpu")
+            assert (carried.use_norm, carried.smooth) == (mode != "raw", mode == "smooth")
+            ref, got = carried.band.numpy(), port_cm.band.numpy()
+            assert ref.shape == got.shape
+            assert np.array_equal(ref == 0, got == 0)
+            assert np.allclose(got, ref, rtol=1e-6, atol=1e-7)
+            cm.destroy_mat()
+    if mode == "dump":
+        names = sorted(p.name for p in (tmp_path / "dump").iterdir())
+        assert names == sorted(p.name for p in (tmp_path / "port_dump").iterdir())
+        assert len(names) == 6
 
 
 def _make_synthetic_tool():

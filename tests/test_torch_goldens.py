@@ -1,6 +1,9 @@
 """The port's CLI detect against the reference-generated goldens of the
-single-option configs (tests/test_golden_outputs.py:70-121), from the
-npz export of data_test/example.cool, on CPU."""
+single-option configs (tests/test_golden_outputs.py:70-121), and its
+--dump snapshots against tests/data/golden_dump
+(tests/test_golden_outputs.py:268-330), from the npz export of
+data_test/example.cool, on CPU.  Borders (three 17x17 kernels) runs
+through the fused K-kernel launch."""
 
 import contextlib
 import io
@@ -26,6 +29,9 @@ DATA = pathlib.Path(__file__).parent / "data"
         ("golden_detect_stripes_left", ["--pattern", "stripes_left"]),
         ("golden_detect_stripes_right", ["--pattern", "stripes_right"]),
         ("golden_detect_borders", ["--pattern", "borders"]),
+        ("golden_detect_loops_smooth", ["--smooth-trend"]),
+        ("golden_detect_loops_tsvd", ["--tsvd"]),
+        ("golden_detect_loops_raw", ["--norm", "raw"]),
         ("golden_detect_loops_maxdist", ["--max-dist", "100000"]),
         ("golden_detect_loops_mindist", ["--min-dist", "40000"]),
         ("golden_detect_loops_perczero", ["--perc-zero", "5"]),
@@ -52,3 +58,51 @@ def test_detect_flag_configs_match_reference(tmp_path, golden, flags):
     assert np.abs(m.pvalue_ref - m.pvalue_port).max() < 1e-5
     if golden == "golden_detect_loops_iter2":
         assert (o.iteration == 1).sum() > 0
+
+
+def test_detect_dump_snapshots_match_reference(tmp_path):
+    """Every stage snapshot of --dump against the reference's own npz
+    dumps, compared as tests/test_golden_outputs.py:268-330 does: the
+    foci labels exactly, the detrended and trimmed maps (upper triangle,
+    NaN at the missing bins) within rtol 1e-5 / atol 1e-6, the 03
+    snapshot equal to the 04 one, and 04 within 2e-4 of the reference."""
+    import scipy.sparse as sp
+
+    golden_dir = DATA / "golden_dump"
+    dumpdir = tmp_path / "dumps"
+    prefix = str(tmp_path / "out")
+    with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(
+        io.StringIO()
+    ):
+        rc = main(
+            [
+                "detect", "--no-plotting", "--iterations", "1", "--dump",
+                str(dumpdir), str(DATA / "example_cool.npz"), prefix,
+            ],
+            device="cpu",
+        )
+    assert rc == 0
+    names = sorted(p.name for p in golden_dir.glob("*.npz"))
+    assert len(names) == 15
+    assert sorted(p.name for p in dumpdir.glob("*.npz")) == names
+    for name in names:
+        ref = sp.load_npz(golden_dir / name).toarray()
+        ours = sp.load_npz(dumpdir / name).toarray()
+        assert ours.shape == ref.shape, name
+        if "_05_foci" in name:
+            assert np.array_equal(ours, ref), name
+        elif "_01_detrended" in name or "_02_remove_diags" in name:
+            o_t, r_t = np.triu(ours), np.triu(ref)
+            assert np.array_equal(np.isnan(o_t), np.isnan(r_t)), name
+            o_t, r_t = np.nan_to_num(o_t), np.nan_to_num(r_t)
+            assert np.allclose(o_t, r_t, rtol=1e-5, atol=1e-6), name
+            if "_02_" in name:
+                assert not np.nan_to_num(np.tril(ref, -1)).any(), name
+        elif "_03_normxcorr2" in name:
+            ours04 = sp.load_npz(
+                dumpdir / name.replace("_03_normxcorr2", "_04_diag_trim")
+            ).toarray()
+            assert np.array_equal(ours, ours04), name
+        else:
+            assert np.array_equal(np.isnan(ours), np.isnan(ref)), name
+            assert np.max(np.abs(np.nan_to_num(ours) - np.nan_to_num(ref))) < 2e-4, name
