@@ -10,15 +10,20 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. env      torch and CUDA versions, nvidia-smi's driver_version, the card,
             optional packages;
-2. build    nvcc build of chromosight_torch/csrc/*.cu for sm_90a;
+2. build    nvcc build of chromosight_torch/csrc/*.cu for sm_90a: registers
+            and spills of every instance (ptxas), and the dynamic shared
+            memory of the chr1 and centromeres launches;
 3. kernels  the CUDA band Pearson against its plain PyTorch twin on the
             card, in single-kernel mode (random bands of tests/test_pallas.py
             shapes, the 81x81 centromeres kernel, the --tsvd taps of the
             loops kernel) and in K-kernel mode (the three borders kernels,
             nine 5x9 kernels split over two launches), each K-kernel launch
-            bit-identical to K single launches; then chr1 of the synthetic
-            genome, loops and borders, with device times of one fused launch,
-            K single launches and the plain twins;
+            bit-identical to K single launches, and launches on two streams
+            at once equal to launches on one; then chr1 of the synthetic
+            genome, loops and borders, with device times (CUDA events) of
+            one fused launch, K single launches and the plain twins, and the
+            kernel-only time (torch.profiler) beside the float64 bound of
+            these inputs and its share;
 4. golden   ``detect`` on tests/data/example_cool.npz reproduces
             tests/data/golden_detect_loops{,_raw,_smooth,_tsvd}.tsv and
             golden_detect_borders.tsv (fused), the ``--dump`` snapshots of
@@ -38,6 +43,7 @@ result.
 
 import argparse
 import csv
+import ctypes
 import json
 import re
 import statistics
@@ -73,6 +79,7 @@ from chromosight_torch.runtime.genome import HicGenome  # noqa: E402
 GENOME_CHROMS, GENOME_BINS, BINSIZE = 13, 48_000, 5000
 MISSING_TOL, PEARSON = 0.5, 0.3
 TSVD = 0.999
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 DEVICE = torch.device("cuda")
 ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
 
@@ -117,13 +124,26 @@ def phase_build():
     _build.load()
     info = _build.BUILD_INFO
     print(f"[build] {info['path']} in {info['seconds']:.2f} s")
-    kernels_per_launch = None
+    kernels_per_launch, entry, own = None, None, False
     for line in info["log"].splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"ILi(\d+)E", line)
-            kernels_per_launch = found.group(1) if found else "?"
-        elif "registers" in line or "spill" in line:
-            print(f"[build] K={kernels_per_launch}: {line.split(':', 1)[-1].strip()}")
+            entry, own = line.split("'")[1], True
+            inst = re.search(r"band_pearson_tiledILi(\d+)ELi(\d+)E", line)
+            side = inst and ("any shape" if inst.group(1) == "0"
+                             else f"{inst.group(1)}x{inst.group(1)}")
+            kernels_per_launch = (
+                f"{side}, {inst.group(2)} diagonals per thread" if inst else "?")
+        elif "Function properties for" in line:
+            # the outlined epilogue functions report their own frames
+            own = entry is not None and line.rstrip().endswith(entry)
+        elif "registers" in line or ("spill" in line and own):
+            print(f"[build] {kernels_per_launch}: {line.split(':', 1)[-1].strip()}")
+    lib = _build.load()
+    lib.band_pearson_smem_bytes.restype = ctypes.c_longlong
+    for side, k, w_out in ((17, 1, 418), (17, 3, 418), (17, 3, 19), (81, 1, 122)):
+        smem = lib.band_pearson_smem_bytes(side, side, k, w_out)
+        print(f"[build] dynamic shared memory, {side}x{side} K={k} at {w_out} "
+              f"diagonals: {smem} bytes per block")
 
 
 def compare(name, ref, got, n, max_dist, pearson=PEARSON):
@@ -230,7 +250,7 @@ def kernel_ms(fn, reps=5):
             fn()
         torch.cuda.synchronize()
     us = sum(e.device_time_total for e in prof.key_averages()
-             if "band_pearson_kernel" in e.key)
+             if "band_pearson_tiled" in e.key)
     return us / reps / 1e3 if us else None
 
 
@@ -238,8 +258,48 @@ def fmt_ms(value):
     return "not measured" if value is None else f"{value:.3f}"
 
 
+def fp64_rate():
+    """Peak float64 FMAs per second, on the tensor cores (DMMA): SMs x 128
+    per clock x the maximum SM clock (the data sheet's 67 TFLOP/s on an
+    H100 SXM; the CUDA cores, which this kernel uses, issue half that)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    rate = sms * 128 * mhz * 1e6
+    print(f"[kernels] float64 peak (tensor cores): {sms} SMs x 128 FMA per clock x "
+          f"{mhz:.0f} MHz (clocks.max.sm) = {rate:.4g} per second")
+    return rate
+
+
+def bound_ms(sig_p, mask_p, kernels, rate):
+    """(least time in ms, "operations" or "bytes", FMAs needed, FMAs of
+    the dense 3K mk nk count) of one launch on these framed inputs.  The operations these inputs need: per output
+    pixel, K FMAs for each window tap over a non-zero x and 2K for each
+    tap over a set mask bit (a zero operand changes no sum), and
+    3(mk + nk) adds for the separable window sums, at ``rate``; the bytes:
+    each input read once and each output written once, at the card's
+    memory rate."""
+    kernels = np.asarray(kernels)
+    if kernels.ndim == 2:
+        kernels = kernels[None]
+    n_k, mk, nk = kernels.shape
+    _, _, n_pad, w_out = bp._geometry(sig_p, mask_p, kernels)
+    pixels = n_pad * w_out
+    x_taps, _, m_taps = (float(s.sum()) for s in bp.separable_window_sums(
+        (sig_p != 0).double(), (mask_p != 0).double(), mk, nk, n_pad, w_out))
+    fmas = n_k * (x_taps + 2 * m_taps)
+    dense = 3 * n_k * mk * nk * pixels
+    ops = fmas + 3 * (mk + nk) * pixels
+    nbytes = 2 * 4 * sig_p.numel() + pixels * n_k * 9 + n_k * (3 * mk * nk * 8 + 8)
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): window taps over "
+          f"a non-zero x {x_taps / (pixels * mk * nk):.4f}, over a set mask bit "
+          f"{m_taps / (pixels * mk * nk):.4f}; {fmas:.6g} FMAs needed of {dense:.6g} dense")
+    return (t_ops, "operations", fmas, dense) if t_ops >= t_bytes else (
+        t_bytes, "bytes", fmas, dense)
+
+
 def phase_kernels_small():
-    for preset in ("loops_small", "loops"):
+    for preset in ("loops_small", "hairpins", "loops", "stripes_left"):
         kernel = np.asarray(load_kernel_config(preset)["kernels"][0], np.float32)
         case = random_case(kernel.shape, 300, 512, np.random.RandomState(0))
         run_both(f"{preset} n_pad=512", *case[:2], kernel, 300, case[2])
@@ -262,6 +322,36 @@ def phase_kernels_small():
     nine = rng.rand(9, 5, 9) + 0.1
     case = random_case((5, 9), 300, 512, rng)
     run_multi("nine 5x9 n_pad=512", *case[:2], nine, 300, case[2])
+    stripes = np.stack([load_kernel_config(name)["kernels"][0]
+                        for name in ("stripes_left", "stripes_right", "stripes_left")])
+    case = random_case(stripes.shape[1:], 300, 512, np.random.RandomState(4))
+    run_multi("three 31x31 (2 + 1 launches) n_pad=512", *case[:2], stripes, 300, case[2])
+    two_streams()
+
+
+def two_streams(reps=8):
+    """Launches of two tap tables on two streams at once (the tables share
+    the constant bank) equal the same launches on one stream, bit for bit."""
+    sig_p, mask_p, max_dist = random_case((17, 17), 300, 512, np.random.RandomState(5))
+    stacks = (load_kernel_config("loops")["kernels"][0],
+              np.stack(load_kernel_config("borders")["kernels"]))
+    args = (300, max_dist, MISSING_TOL, PEARSON)
+    want = [bp.band_pearson(sig_p, mask_p, s, *args) for s in stacks]
+    streams = [torch.cuda.Stream() for _ in stacks]
+    torch.cuda.synchronize()
+    got = [[] for _ in stacks]
+    for _ in range(reps):
+        for stack, stream, out in zip(stacks, streams, got):
+            with torch.cuda.stream(stream):
+                out.append(bp.band_pearson(sig_p, mask_p, stack, *args))
+    torch.cuda.synchronize()
+    for ref, outs in zip(want, got):
+        for out in outs:
+            for a, b in zip(ref, out):
+                check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                      "launches on two streams differ from launches on one")
+    print(f"[kernels] two streams: {reps} x 2 launches of two tap tables equal "
+          "single-stream launches")
 
 
 def chromosome_case(source, preset):
@@ -283,7 +373,8 @@ def phase_kernels_chromosome(source):
     (single-kernel mode, and its --tsvd taps) and borders (K = 3) on the
     framed inputs their main paths give the kernel, then the borders
     kernels at the loops band's width, where the sweep does real work."""
-    times = {}
+    times, bounds = {}, {}
+    rate = fp64_rate()
     cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "loops")
     n, max_dist = cm.shape[0], cm.max_dist
     shape = tuple(cm.band.shape)
@@ -302,6 +393,8 @@ def phase_kernels_chromosome(source):
     borders = np.stack(load_kernel_config("borders")["kernels"])
     run_multi(f"borders at the loops band {shape}", sig_p, mask_p, borders, n, max_dist)
     times["borders_wide"] = fused_times(sig_p, mask_p, borders, args)
+    bounds["loops"] = bounds["tsvd"] = bound_ms(sig_p, mask_p, kernels[0], rate)
+    bounds["borders_wide"] = bound_ms(sig_p, mask_p, borders, rate)
     cm.destroy_mat()
     del sig_p, mask_p
     cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "borders")
@@ -310,6 +403,7 @@ def phase_kernels_chromosome(source):
     run_multi(f"borders {cm.name} {bshape}", sig_p, mask_p, kernels, *bargs[:2],
               bargs[3])
     times["borders"] = fused_times(sig_p, mask_p, kernels, bargs)
+    bounds["borders"] = bound_ms(sig_p, mask_p, kernels, rate)
     cm.destroy_mat()
     print("[kernels] ms per call, median of 5 by CUDA events (tap table cached on "
           "the card; kernel-only time from torch.profiler in brackets)")
@@ -322,7 +416,22 @@ def phase_kernels_chromosome(source):
         print(f"[kernels] borders K=3 17x17 at {where}: fused launch {t['fused'][0]:.3f} "
               f"[{fmt_ms(t['fused'][1])}], 3 single launches {t['three'][0]:.3f} "
               f"[{fmt_ms(t['three'][1])}], plain twin {t['plain']:.3f}")
-    return times
+    timed = {"loops": times["loops"][:2], "tsvd": times["tsvd"][:2],
+             "borders_wide": times["borders_wide"]["fused"],
+             "borders": times["borders"]["fused"]}
+    for key, name in (("loops", f"loops 17x17 at {shape}"),
+                      ("tsvd", f"loops 17x17 --tsvd at {shape}"),
+                      ("borders_wide", f"borders K=3 at {shape}"),
+                      ("borders", f"borders K=3 at {bshape}")):
+        b, by, fmas, dense = bounds[key]
+        ev, ms = timed[key]
+        share = "not measured" if ms is None else f"{100 * b / ms:.1f}%"
+        rates = "not measured" if ms is None else (
+            f"{fmas / ms / 1e9:.4g} needed, {dense / ms / 1e9:.4g} dense")
+        print(f"[kernels] {name}: kernel-only {fmt_ms(ms)} ms (events {ev:.3f}), "
+              f"bound {b:.4f} ms ({by}), share of the bound {share} "
+              f"(events {100 * b / ev:.1f}%); float64 FMAs per second (T): {rates}")
+    return times, bounds
 
 
 def fused_times(sig_p, mask_p, kernels, args):
@@ -576,23 +685,32 @@ def run(quick):
     print(f"[genome] synthetic genome {GENOME_CHROMS} x {GENOME_BINS} bins, "
           f"{source.nnz} pixels, generated and balanced in "
           f"{time.perf_counter() - t0:.1f} s")
-    times = phase_kernels_chromosome(source)
+    times, bounds = phase_kernels_chromosome(source)
     with tempfile.TemporaryDirectory() as workdir:
         phase_golden(workdir)
         runs = phase_genome(source, workdir)
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m.split(".")[0] == "chromosight_tpu" for m in sys.modules),
+          "chromosight_tpu was imported")
     entry = {
         "route": "cuda",
         "source": "chromosight_torch/csrc/band_pearson.cu",
         "replaces": "chromosight_tpu/ops/pallas_band.py:31",
     }
+    # ms: CUDA-event time of a call; kernel_ms: the kernel's own device
+    # time (torch.profiler), null where the trace held none; no single
+    # PyTorch call computes this function
     print(json.dumps({"kernels": [
         {"name": "band_pearson", **entry, "launches": runs["loops"]["single"],
          "max_abs_err": max(ERRS["single"]), "ms": times["loops"][0],
-         "plain_ms": times["loops"][2]},
+         "kernel_ms": times["loops"][1], "plain_ms": times["loops"][2],
+         "bound_ms": bounds["loops"][0], "bound_by": bounds["loops"][1],
+         "library_ms": None},
         {"name": "band_pearson_multi", **entry, "launches": runs["borders"]["multi"],
          "max_abs_err": max(ERRS["multi"]), "ms": times["borders"]["fused"][0],
-         "plain_ms": times["borders"]["plain"]},
+         "kernel_ms": times["borders"]["fused"][1],
+         "plain_ms": times["borders"]["plain"], "bound_ms": bounds["borders"][0],
+         "bound_by": bounds["borders"][1], "library_ms": None},
     ]}))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

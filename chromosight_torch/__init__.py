@@ -2,9 +2,10 @@
 
 A second package beside ``chromosight_tpu`` with the same layout
 (``io/``, ``ops/``, ``runtime/``, ``cli/``, ``detection.py``).  It imports
-``torch`` and never ``jax``; host helpers that load without jax
-(``chromosight_tpu.native``, ``.preprocessing``, ``.stats``,
-``.ops.balance``, ``.cli.args``, ``.observability``) are reused by import.
+``torch``, never ``jax``, and nothing of ``chromosight_tpu``: the host
+helpers it shares with the JAX package are its own copies (``native``,
+``preprocessing``, ``stats``, ``observability``, ``plotting``,
+``ops.balance``, ``cli.args`` and the ``kernels/data`` presets).
 
 The hot spot of the band-engine ``detect`` path, the fused band Pearson
 (``chromosight_tpu/ops/pallas_band.py::_fused_kernel`` on the TPU), is a
@@ -27,5 +28,5 @@ class NotPortedError(NotImplementedError):
         super().__init__(
             f"{what} is not yet ported to chromosight_torch "
             f"(ROADMAP.md, queue 1, item {roadmap_item}); use "
-            "chromosight_tpu for it"
+            "chromosight-tpu for it"
         )

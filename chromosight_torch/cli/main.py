@@ -94,6 +94,7 @@ import numpy as np
 
 import chromosight_torch.detection as cid
 from chromosight_torch import NotPortedError, __version__
+from chromosight_torch.cli.args import CliError, parse_args
 from chromosight_torch.device import resolve_device, stage
 from chromosight_torch.io.bed2d import load_bed2d
 from chromosight_torch.io.config import load_kernel_config
@@ -104,10 +105,9 @@ from chromosight_torch.io.writers import (
     save_windows,
     write_patterns,
 )
+from chromosight_torch.preprocessing import resize_kernel
 from chromosight_torch.runtime.genome import HicGenome
-from chromosight_tpu.cli.args import CliError, parse_args
-from chromosight_tpu.preprocessing import resize_kernel
-from chromosight_tpu.stats import fdr_correction
+from chromosight_torch.stats import fdr_correction
 
 DETECT_COLUMNS = [
     "chrom1", "start1", "end1", "chrom2", "start2", "end2",
@@ -334,7 +334,7 @@ def _finalize(genome, cfg, table, windows):
 
 
 def _plot_pileup(windows, cfg, prefix, title):
-    from chromosight_tpu.plotting import pileup_plot
+    from chromosight_torch.plotting import pileup_plot
 
     pileup = cid.pileup_patterns(windows)
     if not cfg["max_dist"]:
@@ -347,7 +347,7 @@ def _plot_pileup(windows, cfg, prefix, title):
 
 def detect(source, args, device=None):
     """``detect`` on an open contact source with the parsed detect
-    options ``args`` (``chromosight_tpu.cli.args.parse_args`` of a detect
+    options ``args`` (``chromosight_torch.cli.args.parse_args`` of a detect
     command line; ``<contact_map>`` is not read).  Writes
     ``<prefix>.tsv`` and the windows, and returns (table, windows), or
     (None, None) when no pattern is found."""

@@ -23,9 +23,9 @@ from chromosight_torch.ops.band import (
     gather_tail,
 )
 from chromosight_torch.ops.band_pearson import band_pearson
+from chromosight_torch import native
+from chromosight_torch.preprocessing import missing_flags
 from chromosight_torch.runtime.dump import save_snapshot
-from chromosight_tpu import native
-from chromosight_tpu.preprocessing import missing_flags
 
 
 def _connected_labels(rows, cols, n_cols):

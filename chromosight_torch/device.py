@@ -12,7 +12,7 @@ from contextlib import contextmanager
 
 import torch
 
-from chromosight_tpu import observability
+from chromosight_torch import observability
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -41,7 +41,7 @@ def resolve_device(device=None):
 
 @contextmanager
 def stage(name, device):
-    """Time a pipeline stage under ``chromosight_tpu.observability``.
+    """Time a pipeline stage under ``chromosight_torch.observability``.
 
     On a CUDA device the stage ends with a synchronize, so its time holds
     the device work it queued and not only the enqueue."""

@@ -1,7 +1,7 @@
 """Kernel-configuration loading with json and numpy.
 
-Counterpart of ``chromosight_tpu/io/config.py``.  Presets are read by path
-from ``chromosight_tpu/kernels/data/*.json``, the JAX package's own files.
+Counterpart of ``chromosight_tpu/io/config.py``.  Presets are the port's
+own copies of the JAX package's files, in ``chromosight_torch/kernels/data``.
 Configs are validated against the same schema when ``jsonschema`` imports;
 the card's machine may not have it, and the port runs without it.
 """
@@ -20,7 +20,7 @@ try:
 except ImportError:
     validate = None
 
-PRESET_DIR = pathlib.Path(__file__).parents[2] / "chromosight_tpu" / "kernels" / "data"
+PRESET_DIR = pathlib.Path(__file__).parents[1] / "kernels" / "data"
 
 # Same content as chromosight_tpu.io.config.KERNEL_SCHEMA (that module
 # cannot be imported here: its package loads h5py and pandas).

@@ -5,7 +5,7 @@ chromosome table, a bin table and an upper-triangle pixel table sorted by
 (bin1, bin2) and indexed by ``bin1_offset`` (the cool layout).  It offers
 what the band path and ICE balancing read: ``chromnames``, ``extent``,
 ``binsize``, ``weights``, ``bins()``, ``band_upper`` and, for
-``chromosight_tpu.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
+``chromosight_torch.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
 ``_chrom_offset``, ``pixel_chunks`` and ``row_slice_raw``.
 
 * ``CoolSource`` reads a ``.cool`` file with h5py, imported when one is
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from chromosight_tpu import native
+from chromosight_torch import native
 
 
 def native_scatter_available():
@@ -86,7 +86,7 @@ class _PixelSource:
 
         The pixel slice of rows [s, e) is filtered to the band, balanced
         and scattered in one native pass
-        (``chromosight_tpu.native.band_scatter_fused``), with the numpy
+        (``chromosight_torch.native.band_scatter_fused``), with the numpy
         fallback of ``chromosight_tpu/io/cool.py:242-253``."""
         s, e = extent
         if n_rows is None:
@@ -287,7 +287,7 @@ class ArraySource(_PixelSource):
         draws them (same ``RandomState`` call sequence), then ICE-balanced
         with ``ice_balance(cis_only=True)``.  Planted loop anchors are in
         ``planted`` as (chrom, bin_i, bin_j), local bins."""
-        from chromosight_tpu.ops.balance import ice_balance
+        from chromosight_torch.ops.balance import ice_balance
 
         rng = np.random.RandomState(seed)
         names = [f"chr{c + 1}" for c in range(chroms)]

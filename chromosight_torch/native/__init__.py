@@ -1,0 +1,589 @@
+"""Native (C++) host kernels, bound via ctypes with transparent fallback.
+
+The port's copy of the entries of ``chromosight_tpu/native`` that it
+calls: ``cc_label``, ``remove_neighbours``, ``band_scatter_fused`` and the
+ICE loops (``marginal_sums``, ``ice_iterate``, ``ice_iterate_csr``,
+``ice_prep_csr``, ``ice_iterate_csr_prebuilt``), with the same bodies.
+
+``kernels.cpp`` is built with g++ (OpenMP when the toolchain has it) at
+first use into ``build/chromosight_torch/native/<hash>/`` at the
+repository root; the hash covers the source and the command line, so an
+edited source rebuilds, and nothing is written beside the source.  Every
+entry returns None when the library cannot be built or loaded, and its
+callers then take their numpy versions.  Set CHROMOSIGHT_TPU_NO_NATIVE=1
+to disable it, as for the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import sys
+import threading
+
+import numpy as np
+
+_SRC = pathlib.Path(__file__).parent / "kernels.cpp"
+BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
+_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_LIB = None
+_TRIED = False
+_LOCK = threading.Lock()
+
+
+def _build(openmp=True):
+    """Compile ``kernels.cpp`` unless this source and command line were
+    built before; returns the library's path."""
+    flags = [*_FLAGS, "-fopenmp"] if openmp else list(_FLAGS)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    digest.update(_SRC.read_bytes())
+    out = BUILD_DIR / digest.hexdigest()[:16] / "libchromosight_native.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f"tmp{os.getpid()}.so"
+    subprocess.run(
+        ["g++", *flags, str(_SRC), "-o", str(tmp)], check=True, capture_output=True
+    )
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    """Build then dlopen, without OpenMP when the toolchain or the
+    runtime loader has no libgomp (a successful compile does not imply
+    the .so is loadable on this host)."""
+    try:
+        return ctypes.CDLL(str(_build()))
+    except (OSError, subprocess.CalledProcessError):
+        return ctypes.CDLL(str(_build(openmp=False)))
+
+
+def get_lib():
+    """Load (building if needed) the native library, or None.
+
+    Thread-safe: concurrent first callers block on the build and load
+    instead of observing a half-initialized state."""
+    global _LIB, _TRIED
+    if _TRIED:
+        return _LIB
+    with _LOCK:
+        return _load_locked()
+
+
+def _load_locked():
+    global _LIB, _TRIED
+    if _TRIED:
+        return _LIB
+    if os.environ.get("CHROMOSIGHT_TPU_NO_NATIVE"):
+        _TRIED = True
+        return None
+    try:
+        lib = _load()
+        lib.cc_label.restype = ctypes.c_int64
+        lib.cc_label.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        for suffix, ctype in (
+            ("f64", ctypes.c_double),
+            ("i32", ctypes.c_int32),
+            ("i64", ctypes.c_int64),
+        ):
+            fn = getattr(lib, f"band_scatter_fused_{suffix}")
+            fn.restype = None
+            fn.argtypes = [
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctype),
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_float),
+            ]
+        lib.remove_neighbours.restype = None
+        lib.remove_neighbours.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8),
+        ]
+        lib.marginal_sums.restype = None
+        lib.marginal_sums.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.marginal_sums_i32.restype = None
+        lib.marginal_sums_i32.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.ice_iterate.restype = ctypes.c_int64
+        lib.ice_iterate.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        for b2suf, b2ctype in (
+            ("", ctypes.c_int64),
+            ("_b2i32", ctypes.c_int32),
+        ):
+            for csuf, cctype in (
+                ("i32", ctypes.c_int32),
+                ("i64", ctypes.c_int64),
+                ("f64", ctypes.c_double),
+            ):
+                fnp = getattr(lib, f"ice_prep_csr_{csuf}{b2suf}")
+                fnp.restype = ctypes.c_int64
+                fnp.argtypes = [
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(b2ctype),
+                    ctypes.POINTER(cctype),
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(ctypes.c_uint16),
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.POINTER(ctypes.c_int32),
+                    ctypes.POINTER(ctypes.c_int32),
+                    ctypes.POINTER(ctypes.c_float),
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(ctypes.c_double),
+                    ctypes.POINTER(ctypes.c_int64),
+                ]
+        lib.ice_iterate_csr.restype = ctypes.c_int64
+        lib.ice_iterate_csr.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_uint16),
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        _LIB = lib
+    except Exception as exc:  # toolchain missing, build failure, ...
+        sys.stderr.write(f"chromosight-torch: native build unavailable ({exc})\n")
+        _LIB = None
+    # Publish the flag only after _LIB is final: the unlocked fast path
+    # in get_lib() reads (_TRIED, _LIB) without the lock.
+    _TRIED = True
+    return _LIB
+
+
+def _i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _b2_native(b2):
+    """(contiguous b2, export-name suffix): int32-stored bin2 ids run
+    through the ``_b2i32`` kernels in their stored dtype — casting a
+    genome's pixel table to int64 is a multi-second sweep on slow hosts."""
+    b2 = np.ascontiguousarray(b2)
+    if b2.dtype == np.int32:
+        return b2, "_b2i32"
+    return np.ascontiguousarray(b2, dtype=np.int64), ""
+
+
+def _b2p(b2):
+    ct = ctypes.c_int32 if b2.dtype == np.int32 else ctypes.c_int64
+    return b2.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def _f64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def cc_label(rows, cols, ncols):
+    """Union-find CC labels (min pixel index per component) or None if the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    labels = np.empty(len(rows), dtype=np.int64)
+    lib.cc_label(
+        _i64p(rows), _i64p(cols), len(rows), int(ncols), _i64p(labels)
+    )
+    return labels
+
+
+def band_scatter_fused(b1, b2, counts, weights, s, e, width, n_rows=None):
+    """Filter + balance + scatter raw pixel-slice arrays into an upper
+    band tensor in one native pass, or None if unavailable.
+
+    ``b1``/``b2`` are *global* bin ids (any integer dtype), ``counts`` the
+    raw values, ``weights`` the full per-bin weight vector or None for raw
+    mode.  Returns a float32 (n_rows, width) band (``n_rows`` defaults to
+    e-s; larger values add zero padding rows).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    if n_rows is None:
+        n_rows = int(e) - int(s)
+    b1 = np.ascontiguousarray(b1, dtype=np.int64)
+    b2 = np.ascontiguousarray(b2, dtype=np.int64)
+    counts = np.ascontiguousarray(counts)
+    if counts.dtype == np.float64:
+        fn, cptr = lib.band_scatter_fused_f64, ctypes.c_double
+    elif counts.dtype == np.int32:
+        fn, cptr = lib.band_scatter_fused_i32, ctypes.c_int32
+    elif counts.dtype == np.int64:
+        fn, cptr = lib.band_scatter_fused_i64, ctypes.c_int64
+    else:
+        counts = np.ascontiguousarray(counts, dtype=np.float64)
+        fn, cptr = lib.band_scatter_fused_f64, ctypes.c_double
+    if weights is not None:
+        weights = np.ascontiguousarray(weights, dtype=np.float64)
+        wp = _f64p(weights)
+    else:
+        wp = ctypes.POINTER(ctypes.c_double)()
+    band = np.empty((int(n_rows), int(width)), dtype=np.float32)
+    fn(
+        _i64p(b1),
+        _i64p(b2),
+        counts.ctypes.data_as(ctypes.POINTER(cptr)),
+        len(b1),
+        wp,
+        int(s),
+        int(e),
+        int(width),
+        int(n_rows),
+        band.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return band
+
+
+def remove_neighbours(bin1, bin2, score, win_size):
+    """Grid-hashed greedy neighbour suppression; bool keep mask in the
+    original row order, or None if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bin1 = np.ascontiguousarray(bin1, dtype=np.int64)
+    bin2 = np.ascontiguousarray(bin2, dtype=np.int64)
+    score = np.ascontiguousarray(score, dtype=np.float64)
+    keep = np.empty(len(bin1), dtype=np.uint8)
+    lib.remove_neighbours(
+        _i64p(bin1),
+        _i64p(bin2),
+        _f64p(score),
+        len(bin1),
+        int(win_size),
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return keep.astype(bool)
+
+
+def ice_iterate(b1, b2, counts, bias, max_iters, tol):
+    """Run the whole ICE iteration loop natively with cache-blocked
+    marginals (one stable counting sort by column block, then every
+    iteration's two random streams stay in ~L2).  Requires compact
+    triplets (int32 ids, float32 counts).  Updates ``bias`` IN PLACE
+    (0 = excluded) and returns ``(scale, var, n_iters)``, or None when
+    the native library is unavailable or the triplets are not compact —
+    callers then run the per-iteration loop via ``marginal_sums``."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if not (
+        b1.dtype == np.int32
+        and b2.dtype == np.int32
+        and counts.dtype == np.float32
+    ):
+        return None
+    b1 = np.ascontiguousarray(b1)
+    b2 = np.ascontiguousarray(b2)
+    counts = np.ascontiguousarray(counts)
+    assert bias.dtype == np.float64 and bias.flags.c_contiguous
+    scale = ctypes.c_double(float("nan"))
+    var = ctypes.c_double(float("inf"))
+    n_iters = lib.ice_iterate(
+        b1.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        b2.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(b1),
+        len(bias),
+        _f64p(bias),
+        int(max_iters),
+        float(tol),
+        ctypes.byref(scale),
+        ctypes.byref(var),
+    )
+    return scale.value, var.value, int(n_iters)
+
+
+def ice_iterate_csr(b1, b2, counts, bias, max_iters, tol):
+    """ICE iteration loop over a compressed pixel stream: 3 B/pixel
+    (CSR indptr + uint16 diagonal offsets + uint8 counts with an
+    exception list) instead of 12 B/pixel triplets — the loop is
+    stream-bandwidth-bound, so the compression is the speedup.
+
+    Requires compact triplets sorted by (b1, b2) with every diagonal
+    offset < 65536 (cis blocks at scan resolutions).  Updates ``bias``
+    in place; returns (scale, var, n_iters) or None when ineligible.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    if not (
+        b1.dtype == np.int32
+        and b2.dtype == np.int32
+        and counts.dtype == np.float32
+    ):
+        return None
+    n_bins = len(bias)
+    if len(b1) == 0:
+        return None
+    d = b2 - b1  # int32; rows are local so this never overflows
+    if d.min() < 0 or d.max() >= 65536:
+        return None
+    if not np.all(np.diff(b1) >= 0):  # indptr requires row-sorted pixels
+        return None
+    # counts must be non-negative integers to pack exactly into u8
+    small = (counts < 256) & (counts >= 0) & (counts == np.floor(counts))
+    ct8 = np.where(small, counts, 0).astype(np.uint8)
+    exc = np.flatnonzero(~small)
+    exc_i = b1[exc].astype(np.int32, copy=False)
+    exc_j = b2[exc].astype(np.int32, copy=False)
+    exc_val = counts[exc].astype(np.float32, copy=False)
+    indptr = np.zeros(n_bins + 1, dtype=np.int64)
+    np.cumsum(np.bincount(b1, minlength=n_bins), out=indptr[1:])
+    d16 = d.astype(np.uint16)
+    assert bias.dtype == np.float64 and bias.flags.c_contiguous
+    scale = ctypes.c_double(float("nan"))
+    var = ctypes.c_double(float("inf"))
+    n_iters = lib.ice_iterate_csr(
+        _i64p(indptr),
+        d16.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        ct8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        np.ascontiguousarray(exc_i).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)
+        ),
+        np.ascontiguousarray(exc_j).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)
+        ),
+        np.ascontiguousarray(exc_val).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float)
+        ),
+        len(exc),
+        n_bins,
+        _f64p(bias),
+        int(max_iters),
+        float(tol),
+        ctypes.byref(scale),
+        ctypes.byref(var),
+    )
+    return scale.value, var.value, int(n_iters)
+
+
+def ice_prep_csr(indptr, b2, ct, s, e, ignore_diags):
+    """One native pass over a cis block's raw pixel-table slice: emits
+    the 3 B/pixel compressed stream ``ice_iterate_csr_prebuilt``
+    consumes (local-row indptr + uint16 diagonal offsets + uint8 counts
+    + (i, j, value) exceptions) plus the nnz / raw-marginal vectors the
+    min_nnz and MAD-max filters need.  ``b2``/``ct`` stay in their
+    STORED dtypes (int32 cool ids run cast-free) and bin1 is implied by
+    the file's CSR ``bin1_offset`` slice ``indptr``.
+
+    Returns ``(indptr_out, d16, ct8, exc_i, exc_j, exc_val, nnz, marg)``
+    or None when the native tier is unavailable, a count is negative /
+    not exactly f32-representable, or the block is taller than the u16
+    diagonal stream supports (callers fall back to the numpy path).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    ct = np.ascontiguousarray(ct)
+    b2, b2suf = _b2_native(b2)
+    if ct.dtype == np.int32:
+        csuf = "i32"
+    elif ct.dtype == np.int64:
+        csuf = "i64"
+    elif ct.dtype in (np.float64, np.float32):
+        ct = np.ascontiguousarray(ct, dtype=np.float64)
+        csuf = "f64"
+    else:
+        return None
+    fn = getattr(lib, f"ice_prep_csr_{csuf}{b2suf}")
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    n = len(indptr) - 1
+    if n >= 2**31:
+        return None  # exception ids upload as int32
+    cap = len(b2)
+    indptr_out = np.empty(n + 1, dtype=np.int64)
+    d16 = np.empty(cap, dtype=np.uint16)
+    ct8 = np.empty(cap, dtype=np.uint8)
+    nnz = np.empty(n, dtype=np.int64)
+    marg = np.empty(n, dtype=np.float64)
+    n_exc_out = ctypes.c_int64(0)
+    exc_cap = max(4096, cap // 16)
+    for _ in range(2):
+        exc_i = np.empty(int(exc_cap), dtype=np.int32)
+        exc_j = np.empty(int(exc_cap), dtype=np.int32)
+        exc_val = np.empty(int(exc_cap), dtype=np.float32)
+        m = fn(
+            _i64p(indptr),
+            _b2p(b2),
+            ct.ctypes.data_as(
+                ctypes.POINTER(
+                    {"i32": ctypes.c_int32, "i64": ctypes.c_int64,
+                     "f64": ctypes.c_double}[csuf]
+                )
+            ),
+            n,
+            int(s),
+            int(e),
+            int(ignore_diags),
+            _i64p(indptr_out),
+            d16.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+            ct8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            exc_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            exc_j.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            exc_val.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            int(exc_cap),
+            _i64p(nnz),
+            _f64p(marg),
+            ctypes.byref(n_exc_out),
+        )
+        if m == -3:  # exception list overflowed: exact retry, in-memory
+            exc_cap = int(n_exc_out.value)
+            continue
+        break
+    if m < 0:
+        return None
+    ne = int(n_exc_out.value)
+    return (
+        indptr_out,
+        d16[:m].copy(),
+        ct8[:m].copy(),
+        exc_i[:ne],
+        exc_j[:ne],
+        exc_val[:ne],
+        nnz,
+        marg,
+    )
+
+
+def ice_iterate_csr_prebuilt(
+    indptr, d16, ct8, exc_i, exc_j, exc_val, bias, max_iters, tol
+):
+    """Run the compressed-stream ICE loop on a prebuilt stream (from
+    :func:`ice_prep_csr`).  Updates ``bias`` in place; returns
+    ``(scale, var, n_iters)`` or None when the native tier is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    assert bias.dtype == np.float64 and bias.flags.c_contiguous
+    scale = ctypes.c_double(float("nan"))
+    var = ctypes.c_double(float("inf"))
+    n_iters = lib.ice_iterate_csr(
+        _i64p(np.ascontiguousarray(indptr, dtype=np.int64)),
+        np.ascontiguousarray(d16).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_uint16)
+        ),
+        np.ascontiguousarray(ct8).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_uint8)
+        ),
+        np.ascontiguousarray(exc_i).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)
+        ),
+        np.ascontiguousarray(exc_j).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)
+        ),
+        np.ascontiguousarray(exc_val).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float)
+        ),
+        len(exc_i),
+        len(bias),
+        _f64p(bias),
+        int(max_iters),
+        float(tol),
+        ctypes.byref(scale),
+        ctypes.byref(var),
+    )
+    return scale.value, var.value, int(n_iters)
+
+
+def marginal_sums(b1, b2, counts, bias, n_bins):
+    """Marginals of the symmetric matrix from upper-triangle triplets.
+
+    When the caller hands in compact triplets (int32 ids + float32
+    counts, the memory-bound ICE iteration's layout) the half-bandwidth
+    i32 kernel runs; products are computed in double either way, so both
+    entry points return bitwise-identical marginals."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bias = np.ascontiguousarray(bias, dtype=np.float64)
+    marg = np.empty(int(n_bins), dtype=np.float64)
+    if (
+        b1.dtype == np.int32
+        and b2.dtype == np.int32
+        and counts.dtype == np.float32
+    ):
+        b1 = np.ascontiguousarray(b1)
+        b2 = np.ascontiguousarray(b2)
+        counts = np.ascontiguousarray(counts)
+        lib.marginal_sums_i32(
+            b1.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            b2.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            _f64p(bias),
+            len(b1),
+            int(n_bins),
+            _f64p(marg),
+        )
+        return marg
+    b1 = np.ascontiguousarray(b1, dtype=np.int64)
+    b2 = np.ascontiguousarray(b2, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.float64)
+    lib.marginal_sums(
+        _i64p(b1),
+        _i64p(b2),
+        _f64p(counts),
+        _f64p(bias),
+        len(b1),
+        int(n_bins),
+        _f64p(marg),
+    )
+    return marg

@@ -33,6 +33,8 @@ NVCC_FLAGS = [
     # for op as its plain PyTorch twin does (explicit fma() stays fused)
     "-fmad=false",
     "-Xptxas=-v",
+    # optimise the template instances on all host cores at once
+    "-split-compile=0",
 ]
 
 _LOCK = threading.Lock()

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from chromosight_tpu.preprocessing import factorise_kernel
+from chromosight_torch.preprocessing import factorise_kernel
 
 # conv outputs below this magnitude snap to zero (the reference xcorr2
 # default, ``chromosight_tpu/ops/convolve.py:494-497``)

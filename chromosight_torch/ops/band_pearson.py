@@ -14,9 +14,9 @@ kernels in one pass over the band), with the kernels' own taps or, for
 ``--tsvd``, their rank-truncated reconstructions.
 
 ``band_pearson_emulated`` is a vectorised transcription of the CUDA
-kernel's own arithmetic (one loop over the mk*nk taps, the same
-coefficient table, the same output indexing and epilogue), so the CPU
-tests hold the kernel's addressing against the JAX package.
+kernel's own arithmetic (float64 taps in (u, v) order, separable window
+sums, the same output indexing and epilogue), so the CPU tests hold the
+kernel's arithmetic against the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +41,10 @@ from chromosight_torch.ops.band import (
 LAUNCHES = 0
 LAUNCHES_MULTI = 0
 
-# Kernels per launch; larger stacks split into several launches.
+# Kernels per launch; larger stacks split into several launches (fewer
+# for the large square kernels of the compile-time instances, whose tap
+# tables must fit the constant bank: ``band_pearson_max_kernels`` of the
+# library).
 MAX_K = 8
 
 _ARGTYPES = (
@@ -75,17 +78,29 @@ def _geometry(sig_p, mask_p, kernels):
     return mk, nk, n_pad, w_out
 
 
+@functools.lru_cache(maxsize=1)
+def _lib():
+    """The kernel library, its entries' argument types declared."""
+    lib = _build.load()
+    lib.band_pearson_f32.argtypes = _ARGTYPES
+    lib.band_pearson_f32.restype = ctypes.c_int
+    lib.band_pearson_max_kernels.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
+
+
 @functools.lru_cache(maxsize=32)
 def _cached_table(kernel_bytes, shape, tsvd, device):
     kernels = np.frombuffer(kernel_bytes, dtype=np.float64).reshape(shape)
-    return tuple(t.to(device) for t in kernel_table(kernels, tsvd))
+    coef, sums = kernel_table(kernels, tsvd)
+    return coef.double().to(device), sums.to(device)
 
 
 def device_table(kernels, tsvd, device):
-    """``kernel_table(kernels, tsvd)`` on ``device``, built and uploaded
-    once per kernel stack: later launches (every chromosome of a genome,
-    every timed repeat) reuse it.  The tensors are shared; never write
-    them."""
+    """The kernel's tap table on ``device``: ``kernel_table(kernels,
+    tsvd)`` with the float32 taps cast exactly to float64, and the float32
+    (ksum, k2sum) sums.  Built and uploaded once per kernel stack: later
+    launches (every chromosome of a genome, every timed repeat) reuse it.
+    The tensors are shared; never write them."""
     k64 = np.ascontiguousarray(kernels, dtype=np.float64)
     return _cached_table(k64.tobytes(), k64.shape, tsvd, device)
 
@@ -131,10 +146,9 @@ def band_pearson(
         return out if multi else tuple(t[0] for t in out)
     if sig_p.device.type != "cuda":
         raise ValueError(f"band_pearson runs on cpu or cuda, not {sig_p.device}")
-    lib = _build.load()
+    lib = _lib()
     fn = lib.band_pearson_f32
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    per_launch = lib.band_pearson_max_kernels(mk, nk)
     dev = sig_p.device
     coef, sums = device_table(kernels, tsvd, dev)
     n_k = len(kernels)
@@ -142,35 +156,38 @@ def band_pearson(
     logp = torch.empty_like(corr)
     cand = torch.empty((n_k, n_pad, w_out), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for k0 in range(0, n_k, MAX_K):
-        k1 = min(k0 + MAX_K, n_k)
-        rc = fn(
-            sig_p.data_ptr(),
-            mask_p.data_ptr(),
-            coef[k0:k1].data_ptr(),
-            sums[k0:k1].data_ptr(),
-            k1 - k0,
-            n_pad,
-            w_out,
-            sig_p.shape[1],
-            mk,
-            nk,
-            int(n),
-            int(max_dist),
-            float(int((1 - missing_tol) * mk * nk)),
-            float(threshold),
-            float(pearson_min),
-            corr[k0].data_ptr(),
-            logp[k0].data_ptr(),
-            cand[k0].data_ptr(),
-            stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"band_pearson kernel launch failed: cudaError {rc}")
-        if multi:
-            LAUNCHES_MULTI += 1
-        else:
-            LAUNCHES += 1
+    with torch.cuda.device(dev):
+        for k0 in range(0, n_k, per_launch):
+            k1 = min(k0 + per_launch, n_k)
+            rc = fn(
+                sig_p.data_ptr(),
+                mask_p.data_ptr(),
+                coef[k0:k1].data_ptr(),
+                sums[k0:k1].data_ptr(),
+                k1 - k0,
+                n_pad,
+                w_out,
+                sig_p.shape[1],
+                mk,
+                nk,
+                int(n),
+                int(max_dist),
+                float(int((1 - missing_tol) * mk * nk)),
+                float(threshold),
+                float(pearson_min),
+                corr[k0].data_ptr(),
+                logp[k0].data_ptr(),
+                cand[k0].data_ptr(),
+                stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"band_pearson kernel launch failed: cudaError {rc}"
+                )
+            if multi:
+                LAUNCHES_MULTI += 1
+            else:
+                LAUNCHES += 1
     out = (corr, logp, cand.view(torch.bool))
     return out if multi else tuple(t[0] for t in out)
 
@@ -185,6 +202,25 @@ def log10_two_sided(a):
     return (tail + torch.log(two)) / torch.log(ten)
 
 
+def separable_window_sums(sig64, mask64, mk, nk, n_pad, w_out):
+    """The kernel's three window sums (x, x^2, m) of every output pixel,
+    in float64 and in its order: anti-diagonal sums
+    ``A[i][c] = sum_u x[i + kh + u][c + mk-1-u]`` over u, then
+    ``sum_v A[i][d + v]`` over v."""
+    kh = (mk - 1) // 2
+    cols = w_out + nk - 1
+    out = []
+    for plane in (sig64, sig64 * sig64, mask64):
+        diag = plane[kh : kh + n_pad, mk - 1 : mk - 1 + cols]
+        for u in range(1, mk):
+            diag = diag + plane[kh + u : kh + u + n_pad, mk - 1 - u : mk - 1 - u + cols]
+        total = diag[:, 0:w_out]
+        for v in range(1, nk):
+            total = total + diag[:, v : v + w_out]
+        out.append(total)
+    return tuple(out)
+
+
 def band_pearson_emulated(
     sig_p,
     mask_p,
@@ -196,21 +232,20 @@ def band_pearson_emulated(
     threshold=DEFAULT_THRESHOLD,
     tsvd=None,
 ):
-    """``band_pearson``'s CUDA arithmetic on CPU tensors: the same single
-    (u, v) tap loop over ``sig[i + kh + u, d + mk-1-u + v]`` into float64
-    sums (three shared, three per kernel), the same tap table, snaps,
-    float32 Pearson algebra, erfcx p-value, trim and candidate rule,
-    vectorised over the (n_pad, W) output pixels.  Takes and returns what
-    ``band_pearson`` does, in single- or K-kernel mode."""
+    """``band_pearson``'s CUDA arithmetic on CPU tensors: per kernel the
+    three tap sums over ``sig[i + kh + u, d + mk-1-u + v]`` (and the
+    mask) in (u, v) order with float64 taps (each product of two float32
+    values is exact, so multiply-then-add equals the kernel's fma), the
+    separable window sums of ``separable_window_sums``, then the same
+    snaps, float32 Pearson algebra, erfcx p-value, trim and candidate
+    rule, vectorised over the (n_pad, W) output pixels.  Takes and
+    returns what ``band_pearson`` does, in single- or K-kernel mode."""
     kernels, multi = _stack(kernel)
     mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernels)
     coef, sums = kernel_table(kernels, tsvd)
     n_k = len(kernels)
     kh = (mk - 1) // 2
     sig64, mask64, coef64 = sig_p.double(), mask_p.double(), coef.double()
-    s_x, s_x2, s_m = (
-        torch.zeros((n_pad, w_out), dtype=torch.float64) for _ in range(3)
-    )
     s_k, s_mk, s_mk2 = (
         torch.zeros((n_k, n_pad, w_out), dtype=torch.float64) for _ in range(3)
     )
@@ -219,13 +254,11 @@ def band_pearson_emulated(
             col = mk - 1 - u + v
             x = sig64[kh + u : kh + u + n_pad, col : col + w_out]
             m = mask64[kh + u : kh + u + n_pad, col : col + w_out]
-            s_x += x
-            s_x2 += x * x
-            s_m += m
             taps = coef64[:, :, u, v, None, None]
             s_k += taps[:, 0] * x
             s_mk += taps[:, 1] * m
             s_mk2 += taps[:, 2] * m
+    s_x, s_x2, s_m = separable_window_sums(sig64, mask64, mk, nk, n_pad, w_out)
     out, n_pres = pearson_from_sums(
         s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, mk * nk, missing_tol, threshold
     )

@@ -26,8 +26,8 @@ from chromosight_torch.ops.band import (
     band_preprocess,
     band_zero_missing,
 )
+from chromosight_torch.preprocessing import missing_flags, pava_decreasing
 from chromosight_torch.runtime.dump import save_band_snapshot
-from chromosight_tpu.preprocessing import missing_flags, pava_decreasing
 
 
 class ContactMap:

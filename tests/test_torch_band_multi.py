@@ -144,13 +144,17 @@ def test_band_pearson_cpu_multi_is_plain_and_launches_nothing():
 
 @pytest.mark.parametrize("tsvd", [None, TSVD])
 def test_device_table_is_the_kernel_table_built_once(tsvd):
-    """The tap table a launch reads is ``kernel_table``'s, built once per
-    kernel stack, tsvd share and device, then reused."""
+    """The tap table a launch reads is ``kernel_table``'s (its float32
+    taps cast exactly to float64), built once per kernel stack, tsvd share
+    and device, then reused."""
     kernels = np.stack(preset_kernels("borders"))
     cpu = torch.device("cpu")
     first = bp.device_table(kernels, tsvd, cpu)
-    for got, want in zip(first, kernel_table(kernels, tsvd)):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    coef, sums = kernel_table(kernels, tsvd)
+    assert first[0].dtype == torch.float64
+    torch.testing.assert_close(first[0], coef.double(), rtol=0, atol=0)
+    torch.testing.assert_close(first[0].float(), coef, rtol=0, atol=0)
+    torch.testing.assert_close(first[1], sums, rtol=0, atol=0)
     again = bp.device_table(kernels.copy(), tsvd, cpu)
     assert all(a is b for a, b in zip(again, first))
     other = bp.device_table(kernels, 0.9 if tsvd is None else None, cpu)

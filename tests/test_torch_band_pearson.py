@@ -109,3 +109,30 @@ def test_log10p_erfcx_form_matches_log_ndtr():
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4, equal_nan=True)
     assert got[-2] == -math.inf and torch.isnan(got[-1])
     assert got[0] == 0
+
+
+@pytest.mark.parametrize("kernel_name,layout", [("loops", "sparse"), ("rect5x9", "dense"), ("rect3x17", "sparse")])
+def test_separable_window_sums_match_tap_loop_sums(kernel_name, layout):
+    """The kernel's separable window sums (row sums over v, then an
+    anti-diagonal sum over u) equal the sums over all mk*nk taps within
+    1e-12 relative, on x, x^2 and the mask."""
+    kernel = KERNELS[kernel_name]()
+    mk, nk = kernel.shape
+    _, _, n, max_dist, sig_p, mask_p = _framed(kernel, layout)
+    n_pad = sig_p.shape[0] - 2 * (mk - 1)
+    w_out = sig_p.shape[1] - (mk - 1) - (nk - 1)
+    sig64, mask64 = sig_p.double(), mask_p.double()
+    got = bp.separable_window_sums(sig64, mask64, mk, nk, n_pad, w_out)
+    kh = (mk - 1) // 2
+    ref = [torch.zeros((n_pad, w_out), dtype=torch.float64) for _ in range(3)]
+    for u in range(mk):
+        for v in range(nk):
+            col = mk - 1 - u + v
+            x = sig64[kh + u : kh + u + n_pad, col : col + w_out]
+            ref[0] += x
+            ref[1] += x * x
+            ref[2] += mask64[kh + u : kh + u + n_pad, col : col + w_out]
+    for a, b in zip(got, ref):
+        assert a.shape == (n_pad, w_out)
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+    assert float(got[2].max()) > 0

@@ -274,18 +274,27 @@ def test_synthetic_genome_detect_matches_jax(tmp_path):
 
 
 def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
-    """The package and its CLI load with jax, h5py, pandas and jsonschema
-    blocked, and detect runs from the npz (a short scan distance keeps
-    the CPU run quick)."""
+    """Every module of the package loads with jax, h5py, pandas,
+    jsonschema and chromosight_tpu blocked, and detect (a short scan
+    distance keeps the CPU run quick) and quantify run from the npz."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
-for name in ("jax", "jaxlib", "h5py", "pandas", "jsonschema"):
+for name in ("jax", "jaxlib", "h5py", "pandas", "jsonschema", "chromosight_tpu"):
     sys.modules[name] = None
+import importlib, pkgutil
 import chromosight_torch, chromosight_torch.cli.main as cli
-import chromosight_torch.state, chromosight_torch.ops.band_pearson
+names = [m.name for m in pkgutil.walk_packages(chromosight_torch.__path__, "chromosight_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "chromosight_torch.native" in names and "chromosight_torch.ops.balance" in names
 argv = ["detect", "--no-plotting", "--max-dist", "60000", {str(EXAMPLE_NPZ)!r}, {prefix!r}]
 assert cli.main(argv, device="cpu") == 0
+argv = ["quantify", "--no-plotting", {str(ROOT / "data_test" / "example.bed2")!r},
+        {str(EXAMPLE_NPZ)!r}, {prefix + "_q"!r}]
+assert cli.main(argv, device="cpu") == 0
+assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
+               for m in sys.modules if sys.modules[m] is not None)
 """
     res = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
@@ -293,3 +302,4 @@ assert cli.main(argv, device="cpu") == 0
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(pathlib.Path(prefix + ".tsv").read_text().splitlines()) > 1
+    assert len(pathlib.Path(prefix + "_q.tsv").read_text().splitlines()) == 54
