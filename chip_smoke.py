@@ -33,7 +33,19 @@ Phases, one line or block each; any failure raises (non-zero exit):
             shape): ``detect`` with loops (recall of the planted loops) and
             with borders (13 fused launches), and ``quantify`` of the planted
             loops written as a bed2d file, scores held against the sweep
-            kernel's; walls, stages, launches and peak device memory.
+            kernel's; walls, stages, launches and peak device memory;
+6. golden-inter  ``detect --inter`` on tests/data/example_cool.npz
+            reproduces tests/data/golden_detect_loops_inter.tsv on the dense
+            engine and, with ``DENSE_LIMIT`` lowered to 50, on the tiled
+            engine (tiles of 128); ``quantify --inter`` of the four pairs of
+            tests/test_golden_outputs.py gives the same rows on both;
+7. genome-inter  a synthetic 3 x 50,000-bin genome at 5 kb with trans
+            contacts at 1e-3 of the cells: ``detect --inter`` with loops
+            (recall, trans calls, tiles scanned and skipped, walls, stages,
+            launches, peak device memory held below one dense trans map);
+            then an 8,192 x 8,192 cut of a trans map through the dense and
+            the tiled engines: the same corr, foci and calls (the 10%
+            zero rule lifted for the calls).
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line.  Without a
@@ -59,8 +71,15 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
 import chromosight_torch.ops.band_pearson as bp  # noqa: E402
+import chromosight_torch.ops.tiled as tiled  # noqa: E402
+import chromosight_torch.runtime.contact_map as contact_map  # noqa: E402
 from chromosight_torch.cli.main import detect, main, parse_args, quantify  # noqa: E402
-from chromosight_torch.detection import frame_contact_map, quantify_banded  # noqa: E402
+from chromosight_torch.detection import (  # noqa: E402
+    frame_contact_map,
+    pattern_detector,
+    pick_foci,
+    quantify_banded,
+)
 from chromosight_torch.device import reset_stages, stage_seconds  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
 from chromosight_torch.io.source import (  # noqa: E402
@@ -74,6 +93,13 @@ from chromosight_torch.ops.band import (  # noqa: E402
     pearson_reference,
     pearson_reference_multi,
 )
+from chromosight_torch.ops.normxcorr import (  # noqa: E402
+    make_missing_mask_dense,
+    normxcorr2_dense,
+)
+from chromosight_torch.ops.tiled import normxcorr2_sparse_tiled  # noqa: E402
+from chromosight_torch.preprocessing import missing_flags  # noqa: E402
+from chromosight_torch.runtime.contact_map import ContactMap  # noqa: E402
 from chromosight_torch.runtime.genome import HicGenome  # noqa: E402
 
 GENOME_CHROMS, GENOME_BINS, BINSIZE = 13, 48_000, 5000
@@ -81,6 +107,17 @@ MISSING_TOL, PEARSON = 0.5, 0.3
 TSVD = 0.999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 DEVICE = torch.device("cuda")
+# genome-inter: the config-5c shape (three 50,000-bin chromosomes) with
+# trans contacts at 1e-3 of the cells, and the cut both engines scan
+INTER_CHROMS, INTER_BINS, TRANS_DENSITY = 3, 50_000, 1e-3
+INTER_CUT = 8192
+# the quantify --inter pairs of tests/test_golden_outputs.py:207-210
+INTER_PAIRS = (
+    "chr1\t63000\t64000\tchr1\t74000\t75000\n"
+    "chr1\t50000\t51000\tchr2\t80000\t81000\n"
+    "chr1\t100000\t101000\tchr2\t200000\t201000\n"
+    "chr2\t130000\t131000\tchr3\t139000\t140000\n"
+)
 ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
 
 
@@ -673,6 +710,164 @@ def phase_genome(source, workdir):
     return runs
 
 
+def inter_quantify(workdir, tag):
+    """``quantify --inter`` of the four pairs; the rows as dicts."""
+    bed = f"{workdir}/inter_pairs.bed2"
+    with open(bed, "w") as handle:
+        handle.write(INTER_PAIRS)
+    prefix = f"{workdir}/inter_quantify_{tag}"
+    check(main(["quantify", "--no-plotting", "--inter", bed,
+                "tests/data/example_cool.npz", prefix], device=DEVICE) == 0,
+          f"quantify --inter ({tag}) failed")
+    return read_tsv(prefix + ".tsv")
+
+
+def phase_golden_inter(workdir):
+    """``detect --inter`` against golden_detect_loops_inter.tsv on the dense
+    engine, then on the tiled engine (DENSE_LIMIT 50, tiles of 128), and
+    ``quantify --inter`` of the four pairs on both engines: the same rows,
+    NaN pattern and bins, scores within 5e-5."""
+    rows = {}
+    limit, tile = contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE
+    for tag in ("dense", "tiled"):
+        if tag == "tiled":
+            contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = 50, 128
+        try:
+            tiled.TILES.update(scanned=0, skipped=0, scattered=0)
+            golden_detect(workdir, "golden_detect_loops_inter", ["--inter"],
+                          {"single": 3, "multi": 0})
+            scanned = tiled.TILES["scanned"]
+            check((scanned > 0) == (tag == "tiled"), f"{tag}: {scanned} tiles scanned")
+            print(f"[golden-inter] {tag} engine: {scanned} tiles scanned")
+            rows[tag] = inter_quantify(workdir, tag)
+        finally:
+            contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = limit, tile
+    dense, sparse = rows["dense"], rows["tiled"]
+    check(len(dense) == len(sparse) == 4, "quantify --inter: row count")
+    for a, b in zip(dense, sparse):
+        check(all(a[c] == b[c] for c in ("chrom1", "start1", "chrom2", "start2",
+                                          "bin1", "bin2")), "quantify --inter: rows")
+        sa, sb = num(a["score"]), num(b["score"])
+        check(np.isnan(sa) == np.isnan(sb), "quantify --inter: NaN pattern")
+        check(np.isnan(sa) or abs(sa - sb) < 5e-5, f"quantify --inter: {sa} vs {sb}")
+    print("[golden-inter] quantify --inter: 4/4 rows alike on both engines, scores "
+          + json.dumps([r["score"] for r in dense]))
+
+
+def inter_cut(source, cfg):
+    """One trans map of the genome, preprocessed, cut to INTER_CUT bins a
+    side: (CSR matrix, missing rows, missing columns, detectable bins)."""
+    genome = HicGenome(source, cfg, DEVICE, inter=True)
+    genome.normalize("auto")
+    genome.make_sub_matrices()
+    cm = next(s.contact_map for s in genome.sub_mats if s.chr1 != s.chr2)
+    cm.create_mat()
+    cut = cm.sparse[:INTER_CUT, :INTER_CUT].tocsr()
+    det = [np.asarray(d)[np.asarray(d) < INTER_CUT] for d in cm.detectable_bins]
+    cm.destroy_mat()
+    missing = [missing_flags(d, INTER_CUT) for d in det]
+    return cut, missing, det
+
+
+def check_inter_cut(source):
+    """An INTER_CUT x INTER_CUT cut of the chr1-chr2 map through the dense
+    engine and the tiled engine on the card: corr within 2e-5 everywhere
+    (the nonzero patterns compared too), then ``pattern_detector`` on the
+    cut held dense and held sparse: the same calls, scores within 2e-5."""
+    cfg = load_kernel_config("loops")
+    kernel = np.asarray(cfg["kernels"][0])
+    tol = cfg["max_perc_undetected"] / 100
+    cut, (mr, mc), det = inter_cut(source, cfg)
+    dense = torch.from_numpy(cut.toarray()).to(DEVICE)
+    mask = make_missing_mask_dense(
+        dense.shape, torch.from_numpy(mr).to(DEVICE), torch.from_numpy(mc).to(DEVICE))
+
+    def by_dense():
+        return normxcorr2_dense(dense, kernel, full=True, missing_mask=mask,
+                                missing_tol=tol, pval=True)
+
+    def by_tiles():
+        return normxcorr2_sparse_tiled(cut, kernel, full=True, missing_vectors=(mr, mc),
+                                       missing_tol=tol, pval=True, device=DEVICE)
+
+    ref = by_dense()[0].cpu().numpy()
+    got = by_tiles()[0].toarray()
+    err = float(np.abs(ref - got).max())
+    flips = int(((ref != 0) != (got != 0)).sum())
+    t_dense, t_tiles = device_ms(by_dense, reps=3), device_ms(by_tiles, reps=3)
+    print(f"[genome-inter] cut {INTER_CUT}x{INTER_CUT} of chr1-chr2 ({cut.nnz} pixels): "
+          f"dense vs tiled corr max|d| {err:.3g}, nonzero pattern differs at {flips} "
+          f"pixels; normxcorr2 with p-values, events: dense {t_dense:.1f} ms, "
+          f"tiled {t_tiles:.1f} ms (COO, bucketing and CSR on the host included)")
+    check(err < 2e-5, f"inter cut: dense and tiled corr differ by {err}")
+    foci = pick_foci(ref, cfg["pearson"])[0]
+    check(foci is not None, "inter cut: no focus")
+    check(np.array_equal(foci, pick_foci(got, cfg["pearson"])[0]),
+          "inter cut: foci differ between the engines")
+    del dense, mask, ref, got
+    maps = {}
+    for form in ("dense", "sparse"):
+        cm = ContactMap(None, [(0, INTER_CUT), (0, INTER_CUT)], DEVICE, name="cut",
+                        detectable_bins=det, inter=True)
+        if form == "dense":
+            cm.dense = torch.from_numpy(cut.toarray().astype(np.float64)).to(DEVICE)
+        else:
+            cm.sparse = cut
+        maps[form] = cm
+    # windows of a sparse trans map are mostly zeros, so every call would
+    # fail the 10% zero rule: lifted here, the calls compare something
+    relaxed = dict(cfg, max_perc_zero=100.0)
+    calls = {f: pattern_detector(cm, relaxed, kernel)[0] for f, cm in maps.items()}
+    a, b = calls["dense"], calls["sparse"]
+    check(a is not None and b is not None, "inter cut: no call")
+    same = np.array_equal(a["bin1"], b["bin1"]) and np.array_equal(a["bin2"], b["bin2"])
+    check(same and len(a["bin1"]) > 0,
+          f"inter cut: calls differ ({len(a['bin1'])} vs {len(b['bin1'])})")
+    d = float(np.abs(a["score"] - b["score"]).max())
+    dp = float(np.abs(a["pvalue"] - b["pvalue"]).max())
+    print(f"[genome-inter] cut: {len(foci)} foci identical on both engines; with the zero "
+          f"rule lifted, {len(a['bin1'])} calls identical, score max|d| {d:.3g}, pvalue "
+          f"max|d| {dp:.3g}")
+    check(d < 2e-5, f"inter cut: scores differ by {d}")
+
+
+def phase_genome_inter(workdir):
+    """``detect --inter`` with loops on a synthetic 3 x 50,000-bin genome
+    with trans contacts; then the dense-vs-tiled check on a cut."""
+    t0 = time.perf_counter()
+    source = ArraySource.from_synthetic(INTER_CHROMS, INTER_BINS, seed=0,
+                                        binsize=BINSIZE, trans_density=TRANS_DENSITY)
+    print(f"[genome-inter] synthetic genome {INTER_CHROMS} x {INTER_BINS} bins, trans "
+          f"density {TRANS_DENSITY:g}: {source.nnz} pixels, generated and balanced in "
+          f"{time.perf_counter() - t0:.1f} s")
+    args = parse_args(["detect", "--no-plotting", "--inter", "synthetic",
+                       f"{workdir}/inter"], "")
+    tiled.TILES.update(scanned=0, skipped=0, scattered=0)
+    (table, _), seen = run_genome("detect --inter loops",
+                                  lambda: detect(source, args, DEVICE))
+    peak = torch.cuda.max_memory_allocated()
+    dense_map = 4 * INTER_BINS * INTER_BINS
+    trans = table["chrom1"] != table["chrom2"]
+    recall = planted_recall(source, table)
+    scan = stage_seconds().get("tile scan", 0.0)
+    pixels = tiled.TILES["scanned"] * tiled.DEFAULT_TILE ** 2
+    print(f"[genome-inter] {len(table['bin1'])} calls, {int(trans.sum())} trans; recall "
+          f"{recall:.4f} ({len(source.planted)} planted, +-2 bins); tiles "
+          f"{json.dumps(tiled.TILES)} of {tiled.DEFAULT_TILE}, batches of "
+          f"{tiled.TILE_BATCH}; tile scan {scan:.3f} s for {pixels:.4g} output pixels; "
+          f"peak device memory {peak / 2**30:.3f} GiB, {100 * peak / dense_map:.1f}% of one "
+          f"dense f32 trans map ({dense_map / 2**30:.2f} GiB)")
+    check(seen == {"single": INTER_CHROMS, "multi": 0}, f"--inter launches {seen}")
+    check(recall >= 0.95, f"--inter recall {recall} below 0.95")
+    check(tiled.TILES["scanned"] > 0, "no tile scanned")
+    check(tiled.TILES["scattered"] == tiled.TILES["scanned"],
+          "a sparse trans tile took the dense conv2d numerator")
+    check(peak < dense_map / 2, f"peak device memory {peak} near a dense trans map")
+    check(all(np.isfinite(table["score"])) and all(np.isfinite(table["pvalue"])),
+          "non-finite --inter scores")
+    check_inter_cut(source)
+
+
 def run(quick):
     phase_env()
     phase_build()
@@ -689,6 +884,9 @@ def run(quick):
     with tempfile.TemporaryDirectory() as workdir:
         phase_golden(workdir)
         runs = phase_genome(source, workdir)
+        del source
+        phase_golden_inter(workdir)
+        phase_genome_inter(workdir)
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "chromosight_tpu" for m in sys.modules),
           "chromosight_tpu was imported")

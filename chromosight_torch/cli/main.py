@@ -5,12 +5,12 @@ Usage:
     chromosight-torch detect [--kernel-config=FILE] [--pattern=loops]
                         [--pearson=auto] [--win-size=auto] [--iterations=auto]
                         [--win-fmt={json,npy}] [--norm={auto,raw}]
-                        [--tsvd] [--smooth-trend]
+                        [--inter] [--tsvd] [--smooth-trend]
                         [--min-dist=auto] [--max-dist=auto]
                         [--no-plotting] [--min-separation=auto] [--dump=DIR]
                         [--threads=1] [--perc-zero=auto]
                         [--perc-undetected=auto] <contact_map> <prefix>
-    chromosight-torch quantify [--pattern=loops] [--win-fmt=json]
+    chromosight-torch quantify [--inter] [--pattern=loops] [--win-fmt=json]
                         [--kernel-config=FILE] [--norm={auto,raw}]
                         [--threads=1] [--win-size=auto]
                         [--perc-undetected=auto] [--perc-zero=auto]
@@ -18,7 +18,8 @@ Usage:
 
     detect:
         performs pattern detection on a Hi-C contact map via template
-        matching, with the band engine on every intra-chromosomal map.
+        matching: the band engine on intra-chromosomal maps, the dense or
+        the tiled engine on inter-chromosomal ones.
     quantify:
         gives a pattern matching score for a list of 2D coordinates on a
         Hi-C contact map.
@@ -46,6 +47,9 @@ Arguments for detect:
                                 map; "raw" scans the raw counts (the
                                 weights still tell the missing bins).
                                 [default: auto]
+    -I, --inter                 Also scan the inter-chromosomal (trans)
+                                maps: dense up to 8192 bins a side, by
+                                halo tiles on the card above that.
     -V, --tsvd                  Convolve the kernels truncated by SVD to
                                 99.9% of their energy.
     -T, --smooth-trend          Fit the distance law by isotonic
@@ -62,7 +66,7 @@ Arguments for detect:
     -z FLOAT, --perc-zero=FLOAT Reject windows with more than this
                                 percentage of zero pixels. [default: auto]
     -d DIR, --dump=DIR          Save the matrix after each stage of each
-                                chromosome as DIR/<chrom>-<chrom>_<stage>.npz
+                                map as DIR/<chrom1>-<chrom2>_<stage>.npz
                                 (scipy sparse; needs scipy).
     -t INT, --threads=INT       Accepted for compatibility; chromosomes
                                 run one after another. [default: 1]
@@ -80,10 +84,11 @@ Arguments for quantify:
     the furthest input pair and min-dist is 0.  Each pair gets the best
     score over the config's kernels; a pair whose window fails
     validation keeps NaN, and every q-value is NaN when any p-value is.
+    Inter-chromosomal pairs are scored only with --inter.
 
 Other chromosight-tpu subcommands and options (generate-config,
-list-kernels, test, --subsample, --inter, --norm force) are not ported
-yet: see ROADMAP.md, queue 1.
+list-kernels, test, --subsample, --norm force) are not ported yet: see
+ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -124,7 +129,6 @@ NOT_PORTED = {
     "list-kernels": ("list-kernels", 10),
     "test": ("test", 10),
     "--subsample": ("--subsample", 10),
-    "--inter": ("--inter", 9),
 }
 
 TSVD_ENERGY = 0.999
@@ -273,9 +277,7 @@ def _iterative_scan(genome, cfg):
                     run_id, total_runs, f"Kernel: {kernel_id}, Iteration: {iteration}\n"
                 )
             stack = [current[k] for k in ids]
-            multi = _scan(
-                genome, lambda cm: cid.detect_banded_multi(cm, cfg, stack, tsvd=tsvd)
-            )
+            multi = _scan(genome, lambda cm: cid.detect_multi(cm, cfg, stack, tsvd=tsvd))
             for k_idx, kid in enumerate(ids):
                 refined = collect(kid, iteration, [r[k_idx] for r in multi])
                 if refined is None:
@@ -348,7 +350,8 @@ def _plot_pileup(windows, cfg, prefix, title):
 def detect(source, args, device=None):
     """``detect`` on an open contact source with the parsed detect
     options ``args`` (``chromosight_torch.cli.args.parse_args`` of a detect
-    command line; ``<contact_map>`` is not read).  Writes
+    command line; ``<contact_map>`` is not read), on ``device``: the first
+    CUDA card by default, the CPU only when asked (``"cpu"``).  Writes
     ``<prefix>.tsv`` and the windows, and returns (table, windows), or
     (None, None) when no pattern is found."""
     _refuse_not_ported(args)
@@ -357,8 +360,13 @@ def detect(source, args, device=None):
     _check_outputs(args)
     device = resolve_device(device)
     cfg = scan_config(args)
+    if args["--inter"]:
+        sys.stderr.write(
+            "WARNING: Detection on interchromosomal matrices is expensive in RAM\n"
+        )
     genome = HicGenome(
-        source, cfg, device, dump=args["--dump"], smooth=bool(args["--smooth-trend"])
+        source, cfg, device, dump=args["--dump"], smooth=bool(args["--smooth-trend"]),
+        inter=bool(args["--inter"]),
     )
     genome.normalize(args["--norm"])
     genome.make_sub_matrices()
@@ -431,15 +439,17 @@ def _best_of_kernels(bed2d, scores, pvalues, windows):
 
 def quantify(source, args, device=None):
     """``quantify`` of the pairs of ``<bed2d>`` on an open contact source
-    (``chromosight_tpu/cli/main.py:904-1090``): each pair scored with
+    (``chromosight_tpu/cli/main.py:904-1090``) on ``device`` (the first
+    CUDA card by default, the CPU only when asked): each pair scored with
     every kernel of the config at its anchor midpoints, the best score
-    kept.  Writes ``<prefix>.tsv`` (rows sorted by bin, NaN where the
-    window fails validation) and the windows; returns (table, windows)."""
+    kept; trans pairs only with ``--inter``.  Writes ``<prefix>.tsv``
+    (rows sorted by bin, NaN where the window fails validation) and the
+    windows; returns (table, windows)."""
     _refuse_not_ported(args)
     prefix = args["<prefix>"]
     _check_outputs(args)
     bed2d = load_bed2d(args["<bed2d>"])
-    if np.any(bed2d["chrom1"] != bed2d["chrom2"]):
+    if not args["--inter"] and np.any(bed2d["chrom1"] != bed2d["chrom2"]):
         sys.stderr.write(
             "Warning: The bed2d file contains interchromosomal patterns. "
             "These patterns will not be scanned unless --inter is used.\n"
@@ -452,7 +462,7 @@ def quantify(source, args, device=None):
             "max_perc_undetected": (args["--perc-undetected"], float),
         },
     )
-    genome = HicGenome(source, cfg, device)
+    genome = HicGenome(source, cfg, device, inter=bool(args["--inter"]))
     # scan exactly as far as the furthest requested pair
     furthest = int(np.max(bed2d["start2"] - bed2d["start1"]))
     cfg["max_dist"] = min(furthest, genome.clr.n_bins * genome.clr.binsize)
@@ -488,9 +498,7 @@ def quantify(source, args, device=None):
             cm = sub.contact_map
             cm.create_mat()
             try:
-                res = cid.detect_banded_multi(
-                    cm, cfg, stack, coords=coords, tsvd=cfg["tsvd"]
-                )
+                res = cid.detect_multi(cm, cfg, stack, coords=coords, tsvd=cfg["tsvd"])
             finally:
                 cm.destroy_mat()
             for (score, pvalue, wins), (table, w) in zip(per_kernel, res):
@@ -505,9 +513,9 @@ def quantify(source, args, device=None):
 
     table, windows = _best_of_kernels(bed2d, scores, pvalues, windows)
     for axis in (1, 2):
-        table[f"bin{axis}"] = genome.coords_to_bins(
-            table[f"chrom{axis}"], table[f"start{axis}"]
-        )
+        bins = genome.coords_to_bins(table[f"chrom{axis}"], table[f"start{axis}"])
+        # integers unless a coordinate fell outside the map (pandas' dtype)
+        table[f"bin{axis}"] = bins if np.isnan(bins).any() else bins.astype(np.int64)
     table["qvalue"] = fdr_correction(table["pvalue"])
     table = {k: table[k] for k in QUANTIFY_COLUMNS}
     # coordinates whose windows failed validation keep NaN everywhere
@@ -527,7 +535,8 @@ def quantify(source, args, device=None):
 
 def main(argv=None, device=None):
     """Command-line entry point; ``device`` (a ``torch.device`` or name)
-    defaults to the first CUDA card when present, else the CPU."""
+    defaults to the first CUDA card, and raises without one: the CPU is
+    used only when the caller asks for it (``device="cpu"``)."""
     if argv is None:
         argv = sys.argv[1:]
     try:

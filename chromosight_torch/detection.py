@@ -1,11 +1,21 @@
-"""Band-engine detection: Pearson on the device, foci and validation on host.
+"""Detection: Pearson on the device, foci and validation on the host.
 
-Counterpart of ``chromosight_tpu/detection.py``, band path only: detect
-with one kernel or with K same-shape kernels in one fused launch, and
-quantify at given coordinates.  The correlation maps stay on the device;
-only the candidate pixels and the gathered scores and windows come back
-to the host.  Pattern tables are dicts of numpy columns (bin1, bin2,
-score, pvalue).
+Counterpart of ``chromosight_tpu/detection.py``.  ``pattern_detector``
+dispatches on the map's form (``runtime.contact_map``):
+
+* band (intra maps with a scan distance): one kernel or K same-shape
+  kernels in one fused launch of the CUDA band Pearson, and quantify at
+  given coordinates; the correlation maps stay on the device and only the
+  candidates and the gathered scores and windows come back;
+* dense (small inter maps, intra maps without a scan distance): the dense
+  engine (``ops.normxcorr``), then the full-matrix foci and validation;
+* sparse (trans maps above ``DENSE_LIMIT``): the tiled engine
+  (``ops.tiled``), in detect mode keeping only the candidates, then the
+  sparse validation, which never densifies the map.
+
+The public ``xcorr2`` and ``normxcorr2`` take numpy arrays, tensors or
+scipy sparse matrices, as the reference's do.  Pattern tables are dicts of
+numpy columns (bin1, bin2, score, pvalue).
 """
 
 from __future__ import annotations
@@ -15,7 +25,7 @@ import warnings
 import numpy as np
 import torch
 
-from chromosight_torch.device import stage
+from chromosight_torch.device import resolve_device, stage
 from chromosight_torch.ops.band import (
     band_frame,
     band_normxcorr_at_packed,
@@ -24,8 +34,136 @@ from chromosight_torch.ops.band import (
 )
 from chromosight_torch.ops.band_pearson import band_pearson
 from chromosight_torch import native
-from chromosight_torch.preprocessing import missing_flags
-from chromosight_torch.runtime.dump import save_snapshot
+from chromosight_torch.ops.convolve import xcorr2 as _xcorr2_dense
+from chromosight_torch.ops.normxcorr import make_missing_mask_dense, normxcorr2_dense
+from chromosight_torch.ops.preprocess import diag_trim_dense
+from chromosight_torch.ops.tiled import normxcorr2_sparse_tiled, xcorr2_sparse_tiled
+from chromosight_torch.preprocessing import (
+    check_missing_mask,
+    diag_trim,
+    factorise_kernel,
+    make_missing_mask,
+    missing_flags,
+)
+from chromosight_torch.runtime import contact_map as _contact_map
+from chromosight_torch.runtime.dump import save_matrix_snapshot, save_snapshot
+
+# Above this many stored pixels the bulk point query of a CSR matrix
+# groups queries by row instead of searching one flat key array.
+POINT_QUERY_FLAT_NNZ = 1 << 22
+
+
+def _sparse():
+    import scipy.sparse as sp
+
+    return sp
+
+
+def _on_device(signal, device):
+    """``signal`` (numpy array, tensor or scipy sparse matrix) as a
+    float32 tensor on ``device`` (None: the tensor's own device, or the
+    first CUDA card)."""
+    if isinstance(signal, torch.Tensor):
+        device = signal.device if device is None else device
+    else:
+        if _sparse().issparse(signal):
+            signal = signal.toarray()
+        signal = torch.from_numpy(np.asarray(signal, dtype=np.float32))
+    return signal.to(device=resolve_device(device), dtype=torch.float32)
+
+
+def _like_input(signal, out):
+    """``out`` (a tensor) in the container type of ``signal``: a tensor,
+    a numpy array, or a CSR matrix."""
+    if isinstance(signal, torch.Tensor):
+        return out
+    out = out.cpu().numpy()
+    return _sparse().csr_matrix(out) if _sparse().issparse(signal) else out
+
+
+def xcorr2(signal, kernel, threshold=1e-4, tsvd=None, device=None):
+    """Cross-correlation of a dense or sparse 2-D signal with a dense
+    kernel, snapped below ``threshold`` and zero at the margins
+    (``chromosight_tpu/detection.py:47-66``).  A sparse signal larger than
+    ``DENSE_LIMIT`` on a side is scanned by the tiled engine and never
+    densified.  Returns the input's container type."""
+    if tsvd is not None:
+        kernel = factorise_kernel(kernel, prop_info=tsvd)
+    if _sparse().issparse(signal) and max(signal.shape) > _contact_map.DENSE_LIMIT:
+        return xcorr2_sparse_tiled(
+            signal, kernel, threshold=threshold, device=resolve_device(device)
+        )
+    return _like_input(signal, _xcorr2_dense(_on_device(signal, device), kernel, threshold))
+
+
+def normxcorr2(
+    signal,
+    kernel,
+    max_dist=None,
+    sym_upper=False,
+    full=False,
+    missing_mask=None,
+    missing_tol=0.75,
+    tsvd=None,
+    pval=False,
+    device=None,
+):
+    """Sliding-window Pearson of a dense or sparse signal with a kernel
+    (``chromosight_tpu/detection.py:69-152``): the dense engine, or for a
+    sparse signal larger than ``DENSE_LIMIT`` on a side the tiled engine.
+    Returns (corr, log10 p-values or None) in the input's container type;
+    a sparse result holds p-values only where corr is non-zero."""
+    sp = _sparse()
+    is_sparse = sp.issparse(signal)
+    if sp.issparse(kernel):
+        raise ValueError("cannot handle kernel in sparse format")
+    kernel = np.asarray(kernel)
+    if not (kernel.std() > 0):
+        raise ValueError("Cannot have flat kernel.")
+    if missing_mask is not None:
+        if is_sparse and not sp.issparse(missing_mask):
+            raise ValueError("Missing mask must be a sparse matrix.")
+        if tuple(signal.shape) != tuple(missing_mask.shape):
+            raise ValueError("Signal and missing mask do not have the same shape")
+        if missing_mask.dtype not in (bool, np.bool_, torch.bool):
+            raise ValueError(f"Missing mask dtype is {missing_mask.dtype}. Should be bool.")
+        if min(kernel.shape) >= max(signal.shape):
+            raise ValueError("cannot have kernel bigger than signal")
+        if not isinstance(missing_mask, torch.Tensor):
+            check_missing_mask(signal, missing_mask)
+    if is_sparse and max(signal.shape) > _contact_map.DENSE_LIMIT:
+        return normxcorr2_sparse_tiled(
+            signal,
+            kernel,
+            max_dist=max_dist,
+            sym_upper=sym_upper,
+            full=full,
+            missing_mask=missing_mask,
+            missing_tol=missing_tol,
+            tsvd=tsvd,
+            pval=pval,
+            device=resolve_device(device),
+        )
+    dense = _on_device(signal, device)
+    mask = None
+    if missing_mask is not None:
+        if sp.issparse(missing_mask):
+            missing_mask = missing_mask.toarray()
+        mask = torch.as_tensor(missing_mask).to(device=dense.device, dtype=torch.bool)
+    corr, logp = normxcorr2_dense(
+        dense,
+        kernel,
+        max_dist=max_dist,
+        sym_upper=sym_upper,
+        full=full,
+        missing_mask=mask,
+        missing_tol=missing_tol,
+        tsvd=tsvd,
+        pval=pval,
+    )
+    if is_sparse and logp is not None:
+        logp = torch.where(corr != 0, logp, 0.0)
+    return _like_input(signal, corr), (None if logp is None else _like_input(signal, logp))
 
 
 def _connected_labels(rows, cols, n_cols):
@@ -403,9 +541,456 @@ def detect_banded_multi(
 
 
 def pattern_detector(contact_map, kernel_config, kernel_matrix, coords=None, tsvd=None):
-    """``detect_banded_multi`` for one kernel
-    (``chromosight_tpu/detection.py:1424-1451``, band branch): its
-    (table, windows) pair."""
-    return detect_banded_multi(
-        contact_map, kernel_config, [kernel_matrix], coords, tsvd
-    )[0]
+    """Detect patterns of one kernel on a created contact map, or with
+    ``coords`` score those pixels, in full mode
+    (``chromosight_tpu/detection.py:1424-1459``): the band engine, the
+    dense engine or the tiled engine by the map's form.  Returns (table
+    with bin1/bin2/score/pvalue, window stack), or (None, None) where the
+    map is too small or nothing passes."""
+    if contact_map.band is not None:
+        return detect_banded_multi(
+            contact_map, kernel_config, [kernel_matrix], coords, tsvd
+        )[0]
+    if contact_map.sparse is not None:
+        return _pattern_detector_sparse(
+            contact_map, kernel_config, np.asarray(kernel_matrix), coords, tsvd
+        )
+    return _pattern_detector_dense(
+        contact_map, kernel_config, np.asarray(kernel_matrix), coords, tsvd
+    )
+
+
+def detect_multi(contact_map, kernel_config, kernels, coords=None, tsvd=None):
+    """Every kernel of a config on one map: one fused band launch for a
+    band map (``detect_banded_multi``), one ``pattern_detector`` call per
+    kernel otherwise (``chromosight_tpu/cli/main.py:455-466, 522-537``).
+    One (table, windows) pair per kernel."""
+    if contact_map.band is not None:
+        return detect_banded_multi(contact_map, kernel_config, kernels, coords, tsvd)
+    return [
+        pattern_detector(contact_map, kernel_config, k, coords, tsvd) for k in kernels
+    ]
+
+
+# ------------------------------------------------------------------ #
+# Full-matrix foci and validation (dense and sparse maps)
+# ------------------------------------------------------------------ #
+def label_foci(matrix):
+    """1-based labels of the 4-way connected foci of the non-zero pixels
+    of a matrix, ordered by each focus' first row-major pixel
+    (``chromosight_tpu/detection.py:207-223``): (number of foci, COO
+    matrix of labels)."""
+    sp = _sparse()
+    coo = sp.coo_matrix(sp.csr_matrix(matrix))
+    order = np.lexsort((coo.col, coo.row))
+    rows, cols = coo.row[order], coo.col[order]
+    lab = _connected_labels(rows, cols, matrix.shape[1])
+    uniq, inv = np.unique(lab, return_inverse=True)
+    return len(uniq), sp.coo_matrix((inv + 1, (rows, cols)), shape=matrix.shape)
+
+
+def filter_foci(foci_mat, min_size=2):
+    """Foci of fewer than ``min_size`` pixels dropped, labels kept
+    (``chromosight_tpu/detection.py:226-243``): (number kept, COO)."""
+    data = foci_mat.data.copy()
+    ids, sizes = np.unique(data, return_counts=True)
+    small = ids[sizes < min_size]
+    if len(small):
+        data[np.isin(data, small)] = 0
+    filtered = _sparse().coo_matrix(
+        (data, (foci_mat.row, foci_mat.col)), shape=foci_mat.shape
+    )
+    filtered.eliminate_zeros()
+    return int(np.sum(sizes >= min_size)), filtered
+
+
+def pick_foci(mat_conv, pearson, min_size=2):
+    """The best pixel of each focus of at least ``min_size`` 4-connected
+    pixels >= ``pearson`` (and non-zero), ties to the first row-major
+    pixel, and the COO matrix of the kept foci's labels
+    (``chromosight_tpu/detection.py:246-291``): ``mat_conv`` a scipy
+    sparse matrix or a dense array.  (None, None) when there is none."""
+    sp = _sparse()
+    if sp.issparse(mat_conv):
+        coo = mat_conv.tocoo()
+        cand = (coo.data >= pearson) & (coo.data != 0)
+        rows, cols, scores = coo.row[cand], coo.col[cand], coo.data[cand]
+        order = np.lexsort((cols, rows))
+        rows, cols, scores = rows[order], cols[order], scores[order]
+    else:
+        dense = np.asarray(mat_conv)
+        rows, cols = np.nonzero((dense >= pearson) & (dense != 0))
+        scores = dense[rows, cols]
+    n_cols = mat_conv.shape[1]
+    if len(rows) == 0:
+        return None, None
+    lab = _connected_labels(rows, cols, n_cols)
+    uniq, inv, counts = np.unique(lab, return_inverse=True, return_counts=True)
+    keep_focus = counts >= min_size
+    if not np.any(keep_focus):
+        return None, None
+    keep_px = keep_focus[inv]
+    labelled = sp.coo_matrix(
+        (inv[keep_px] + 1, (rows[keep_px], cols[keep_px])), shape=mat_conv.shape
+    )
+    flat = rows.astype(np.int64) * np.int64(n_cols) + cols
+    order = np.lexsort((flat, -scores, inv))
+    first = np.searchsorted(inv[order], np.arange(len(uniq)))
+    best = order[first][keep_focus]
+    return np.stack([rows[best], cols[best]], axis=1).astype(np.int64), labelled
+
+
+def _window_table(coords, valid, scores, windows, drop):
+    """(table, windows): the valid patterns only with ``drop``, else every
+    pattern with NaN score and windows where invalid."""
+    table = {
+        "bin1": coords[:, 0].copy(),
+        "bin2": coords[:, 1].copy(),
+        "score": np.where(valid, scores, np.nan),
+    }
+    windows = np.where(valid[:, None, None], windows, np.nan)
+    if drop:
+        return {k: v[valid] for k, v in table.items()}, windows[valid]
+    return table, windows
+
+
+def _window_validity(wins, tot, zero_tol, missing_tol):
+    n_missing = np.sum(~np.isfinite(wins), axis=(1, 2))
+    n_zero = np.sum(wins == 0, axis=(1, 2))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        prop_undetected = n_missing / tot
+        prop_zero = n_zero / (tot - n_missing)
+    return (prop_undetected < missing_tol) & (prop_zero < zero_tol)
+
+
+def validate_patterns(
+    coords, matrix, conv_mat, detectable_bins, kernel_matrix, drop=True,
+    zero_tol=0.3, missing_tol=0.75,
+):
+    """Window validation on dense host arrays
+    (``chromosight_tpu/detection.py:297-390``): every candidate's window,
+    NaN on missing rows and columns, rejected when out of bounds (the
+    reference's strict last-row bound kept) or with too many missing or
+    zero pixels.  Returns (table with bin1/bin2/score, windows)."""
+    mat = np.asarray(matrix, dtype=np.float64)
+    conv = np.asarray(conv_mat, dtype=np.float64)
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    n_pat = coords.shape[0]
+    win_h, win_w = kernel_matrix.shape
+    half_h, half_w = win_h // 2 + 1, win_w // 2 + 1
+    miss_rows = missing_flags(detectable_bins[0], mat.shape[0])
+    miss_cols = missing_flags(detectable_bins[1], mat.shape[1])
+    p1, p2 = coords[:, 0], coords[:, 1]
+    high, left = p1 - half_h + 1, p2 - half_w + 1
+    inbound = (
+        (high >= 0) & (p1 + half_h < mat.shape[0])
+        & (left >= 0) & (p2 + half_w < mat.shape[1])
+    )
+    ridx = np.clip(high[:, None] + np.arange(win_h)[None, :], 0, mat.shape[0] - 1)
+    cidx = np.clip(left[:, None] + np.arange(win_w)[None, :], 0, mat.shape[1] - 1)
+    wins = mat[ridx[:, :, None], cidx[:, None, :]]
+    wins = np.where(miss_rows[ridx][:, :, None], np.nan, wins)
+    wins = np.where(miss_cols[cidx][:, None, :], np.nan, wins)
+    valid = inbound & _window_validity(wins, win_h * win_w, zero_tol, missing_tol)
+    scores = conv[np.clip(p1, 0, conv.shape[0] - 1), np.clip(p2, 0, conv.shape[1] - 1)]
+    return _window_table(coords, valid, scores, wins, drop)
+
+
+def _csr_point_values(csr, qr, qc):
+    """Bulk point query csr[qr[k], qc[k]] (0 where absent or out of
+    range): one search over the row-major flat keys, or for large
+    matrices one search per queried row's segment, so the transient
+    memory stays O(queries) (``chromosight_tpu/detection.py:1579-1631``)."""
+    if csr.nnz == 0 or len(qr) == 0:
+        return np.zeros(len(qr), dtype=np.float64)
+    csr = csr.tocsr()
+    csr.sum_duplicates()
+    qr = np.asarray(qr, dtype=np.int64)
+    qc = np.asarray(qc, dtype=np.int64)
+    valid = (qr >= 0) & (qr < csr.shape[0]) & (qc >= 0) & (qc < csr.shape[1])
+    if not valid.all():
+        out = np.zeros(len(qr), dtype=np.float64)
+        out[valid] = _csr_point_values(csr, qr[valid], qc[valid])
+        return out
+    if csr.nnz <= POINT_QUERY_FLAT_NNZ:
+        ncols = np.int64(csr.shape[1])
+        rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64), np.diff(csr.indptr))
+        flat = rows * ncols + csr.indices
+        q = qr * ncols + qc
+        pos = np.minimum(np.searchsorted(flat, q), len(flat) - 1)
+        return np.where(flat[pos] == q, csr.data[pos], 0.0).astype(np.float64)
+    out = np.zeros(len(qr), dtype=np.float64)
+    order = np.lexsort((qc, qr))
+    qr_s, qc_s = qr[order], qc[order]
+    starts = np.flatnonzero(np.r_[True, qr_s[1:] != qr_s[:-1]])
+    bounds = np.r_[starts, len(qr_s)]
+    for k in range(len(starts)):
+        s, e = bounds[k], bounds[k + 1]
+        lo, hi = csr.indptr[qr_s[s]], csr.indptr[qr_s[s] + 1]
+        if lo == hi:
+            continue
+        seg = csr.indices[lo:hi]
+        pos = np.minimum(np.searchsorted(seg, qc_s[s:e]), hi - lo - 1)
+        out[order[s:e]] = np.where(seg[pos] == qc_s[s:e], csr.data[lo + pos], 0.0)
+    return out
+
+
+def _validate_patterns_sparse(
+    coords, matrix, conv_mat, detectable_bins, kernel_matrix, drop=True,
+    zero_tol=0.3, missing_tol=0.75, nan_band=0, pad=None,
+):
+    """``validate_patterns`` with sparse window reads: the matrix is never
+    densified (``chromosight_tpu/detection.py:1634-1811``).  ``nan_band``
+    NaNs the window pixels on diagonals 1..nan_band below the main one;
+    ``pad=(kh, kw)`` gives full-mode semantics without padded copies:
+    ``coords`` and ``detectable_bins`` are in padded coordinates, reads
+    subtract the offset, and pixels in the margins read 0.
+
+    Phase 1 (more than 64 patterns, no ``nan_band``) drops candidates
+    without reading values: the missing count of an in-bound window is
+    exactly (wh * ww) - (wh - missing rows)(ww - missing cols), and its
+    stored non-zero count bounds its non-zero pixels from above.  Phase 2
+    reads the survivors' windows and validates them exactly."""
+    matrix = matrix.tocsr()
+    conv = conv_mat.tocsr()
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    n_pat = coords.shape[0]
+    win_h, win_w = kernel_matrix.shape
+    half_h, half_w = win_h // 2 + 1, win_w // 2 + 1
+    kh, kw = pad if pad is not None else (0, 0)
+    shape = (matrix.shape[0] + 2 * kh, matrix.shape[1] + 2 * kw)
+    miss_rows = missing_flags(detectable_bins[0], shape[0])
+    miss_cols = missing_flags(detectable_bins[1], shape[1])
+    windows = np.full((n_pat, win_h, win_w), np.nan)
+    scores = np.full(n_pat, np.nan)
+    valid = np.zeros(n_pat, dtype=bool)
+    if n_pat:
+        p1, p2 = coords[:, 0], coords[:, 1]
+        high, left = p1 - half_h + 1, p2 - half_w + 1
+        inbound = (
+            (high >= 0) & (p1 + half_h < shape[0]) & (left >= 0) & (p2 + half_w < shape[1])
+        )
+        tot = win_h * win_w
+        cand = inbound.copy()
+        if nan_band == 0 and n_pat > 64:
+            rpre = np.zeros(shape[0] + 1)
+            rpre[1:] = np.cumsum(miss_rows)
+            cpre = np.zeros(shape[1] + 1)
+            cpre[1:] = np.cumsum(miss_cols)
+            hi_c = np.clip(high, 0, shape[0] - win_h)
+            lf_c = np.clip(left, 0, shape[1] - win_w)
+            mr = rpre[hi_c + win_h] - rpre[hi_c]
+            mc = cpre[lf_c + win_w] - cpre[lf_c]
+            n_miss_a = tot - (win_h - mr) * (win_w - mc)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                cand &= (n_miss_a / tot) < missing_tol
+            nzrows = np.repeat(
+                np.arange(matrix.shape[0], dtype=np.int64), np.diff(matrix.indptr)
+            )
+            nzsel = matrix.data != 0
+            ncols = np.int64(matrix.shape[1])
+            nzflat = nzrows[nzsel] * ncols + matrix.indices[nzsel]
+            ci = np.flatnonzero(cand)
+            if len(ci):
+                ru0 = (hi_c[ci, None] + np.arange(win_h, dtype=np.int64)[None, :]) - kh
+                ok_r = (ru0 >= 0) & (ru0 < matrix.shape[0])
+                c_lo = np.clip(lf_c[ci] - kw, 0, matrix.shape[1])
+                c_hi = np.clip(lf_c[ci] - kw + win_w, 0, matrix.shape[1])
+                cnt = np.searchsorted(nzflat, ru0 * ncols + c_hi[:, None]) - np.searchsorted(
+                    nzflat, ru0 * ncols + c_lo[:, None]
+                )
+                cnt = np.where(ok_r, cnt, 0).sum(axis=1)
+                cand[ci] &= cnt > (1 - zero_tol) * (tot - n_miss_a[ci]) - 1e-9
+        survivors = np.flatnonzero(cand)
+        n_s = len(survivors)
+        ridx = np.clip(high[survivors, None] + np.arange(win_h)[None, :], 0, shape[0] - 1)
+        cidx = np.clip(left[survivors, None] + np.arange(win_w)[None, :], 0, shape[1] - 1)
+        rr = np.broadcast_to(ridx[:, :, None], (n_s, win_h, win_w))
+        cc = np.broadcast_to(cidx[:, None, :], (n_s, win_h, win_w))
+        ru, cu = rr.ravel() - kh, cc.ravel() - kw
+        ok = (ru >= 0) & (ru < matrix.shape[0]) & (cu >= 0) & (cu < matrix.shape[1])
+        wins = np.zeros(n_s * win_h * win_w)
+        if ok.any():
+            wins[ok] = _csr_point_values(matrix, ru[ok], cu[ok])
+        wins = wins.reshape(n_s, win_h, win_w)
+        wins = np.where(miss_rows[ridx][:, :, None], np.nan, wins)
+        wins = np.where(miss_cols[cidx][:, None, :], np.nan, wins)
+        if nan_band:
+            d = rr - cc
+            wins = np.where((d >= 1) & (d <= nan_band), np.nan, wins)
+        valid_s = inbound[survivors] & _window_validity(wins, tot, zero_tol, missing_tol)
+        valid[survivors] = valid_s
+        if valid_s.any():
+            sv = survivors[valid_s]
+            scores[sv] = _csr_point_values(
+                conv,
+                np.clip(p1[sv] - kh, 0, conv.shape[0] - 1),
+                np.clip(p2[sv] - kw, 0, conv.shape[1] - 1),
+            )
+            windows[sv] = wins[valid_s]
+    return _window_table(coords, valid, scores, windows, drop)
+
+
+def _pvalues(logp_at, b1, b2, shape):
+    """10^log10p at the table's bins, NaN out of the map."""
+    inb = (b1 >= 0) & (b1 < shape[0]) & (b2 >= 0) & (b2 < shape[1])
+    lp = np.full(len(b1), np.nan)
+    if inb.any():
+        lp[inb] = logp_at(b1[inb], b2[inb])
+    return 10**lp
+
+
+def _pattern_detector_dense(contact_map, kernel_config, kernel_matrix, coords, tsvd):
+    """Full-mode detection on a dense map on the device
+    (``chromosight_tpu/detection.py:1461-1568``): the dense engine with
+    the crossing (inter) or upper-symmetric (intra) missing mask, the
+    diagonal trim of intra maps, then foci and validation on the host with
+    the windows' kernel-sized zero padding; ``--dump`` snapshots 03-05."""
+    mat_dev = contact_map.dense
+    n1, n2 = mat_dev.shape
+    if min(n1, n2) <= max(kernel_matrix.shape):
+        return None, None
+    km, kn = kernel_matrix.shape
+    kh, kw = (km - 1) // 2, (kn - 1) // 2
+    inter = contact_map.inter
+    dump = contact_map.dump
+    dev = mat_dev.device
+    det = contact_map.detectable_bins
+    with stage("correlate", dev):
+        miss_r = torch.from_numpy(missing_flags(det[0], n1)).to(dev)
+        miss_c = torch.from_numpy(missing_flags(det[1], n2)).to(dev)
+        mask = make_missing_mask_dense(
+            (n1, n2), miss_r, miss_c, max_dist=contact_map.max_dist, sym_upper=not inter
+        )
+        corr, logp = normxcorr2_dense(
+            mat_dev,
+            kernel_matrix,
+            max_dist=contact_map.max_dist,
+            sym_upper=not inter,
+            full=True,
+            missing_mask=mask,
+            tsvd=tsvd,
+            pval=True,
+            missing_tol=kernel_config["max_perc_undetected"] / 100,
+        )
+        del mask
+        if dump is not None:
+            save_matrix_snapshot(dump, contact_map.name, "03_normxcorr2", corr.cpu().numpy())
+        if not inter:
+            corr = diag_trim_dense(corr, contact_map.max_dist)
+            if dump is not None:
+                save_matrix_snapshot(dump, contact_map.name, "04_diag_trim", corr.cpu().numpy())
+        mat_conv = corr.double().cpu().numpy()
+        mat_conv[np.isnan(mat_conv)] = 0
+        logp = logp.double().cpu().numpy()
+    if coords is None:
+        with stage("host: foci", dev):
+            coords, foci_mat = pick_foci(mat_conv, kernel_config["pearson"])
+        if coords is None:
+            return None, None
+        if dump is not None:
+            save_matrix_snapshot(dump, contact_map.name, "05_foci", foci_mat.toarray())
+        drop = True
+    else:
+        drop = False
+    coords = np.array(coords, dtype=np.int64, copy=True).reshape(-1, 2)
+    with stage("host: validate", dev):
+        mat = np.pad(mat_dev.double().cpu().numpy(), ((kh, kh), (kw, kw)))
+        mat_conv = np.pad(mat_conv, ((kh, kh), (kw, kw)))
+        det = [np.asarray(det[0]) + kh, np.asarray(det[1]) + kw]
+        coords += (kh, kw)
+        if not inter:
+            i, j = np.indices(mat.shape, sparse=True)
+            mat = np.where((i - j >= 1) & (i - j <= max(km, kn)), np.nan, mat)
+            if kernel_config["max_dist"] == 0:
+                coords[:, 0] = coords[:, 1]
+        table, windows = validate_patterns(
+            coords, mat, mat_conv, det, kernel_matrix, drop=drop,
+            zero_tol=kernel_config["max_perc_zero"] / 100,
+            missing_tol=kernel_config["max_perc_undetected"] / 100,
+        )
+    table["bin1"] -= kh
+    table["bin2"] -= kw
+    table["pvalue"] = _pvalues(
+        lambda r, c: logp[r, c], table["bin1"], table["bin2"], logp.shape
+    )
+    return table, windows
+
+
+def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, tsvd):
+    """Full-mode detection on a sparse map (``chromosight_tpu/detection.py:
+    1814-1953``): the tiled engine on the device with the missing bins as
+    two vectors for inter maps (in detect mode keeping only coefficients
+    >= pearson, unless ``--dump`` wants the whole map), then foci and the
+    two-phase sparse validation with virtual padding on the host."""
+    smat = contact_map.sparse.tocsr()
+    km, kn = kernel_matrix.shape
+    kh, kw = (km - 1) // 2, (kn - 1) // 2
+    if min(smat.shape) <= max(kernel_matrix.shape):
+        return None, None
+    inter = contact_map.inter
+    dump = contact_map.dump
+    dev = contact_map.device
+    det = contact_map.detectable_bins
+    missing_tol = kernel_config["max_perc_undetected"] / 100
+    if inter:
+        keep_min = None
+        if coords is None and dump is None and float(kernel_config["pearson"]) > 0:
+            keep_min = float(kernel_config["pearson"])
+        corr, logp = normxcorr2_sparse_tiled(
+            smat,
+            kernel_matrix,
+            full=True,
+            missing_vectors=(
+                missing_flags(det[0], smat.shape[0]),
+                missing_flags(det[1], smat.shape[1]),
+            ),
+            missing_tol=missing_tol,
+            tsvd=tsvd,
+            pval=True,
+            keep_min=keep_min,
+            device=dev,
+        )
+    else:
+        mask = make_missing_mask(
+            smat.shape, det[0], det[1], max_dist=contact_map.max_dist, sym_upper=True
+        )
+        corr, logp = normxcorr2(
+            smat, kernel_matrix, max_dist=contact_map.max_dist, sym_upper=True,
+            full=True, missing_mask=mask, missing_tol=missing_tol, tsvd=tsvd,
+            pval=True, device=dev,
+        )
+    corr = corr.tocsr()
+    if dump is not None:
+        save_matrix_snapshot(dump, contact_map.name, "03_normxcorr2", corr)
+    if not inter:
+        corr = diag_trim(corr, contact_map.max_dist)
+        if dump is not None:
+            save_matrix_snapshot(dump, contact_map.name, "04_diag_trim", corr)
+    drop = coords is None
+    if drop:
+        with stage("host: foci", dev):
+            coords, foci_mat = pick_foci(corr, kernel_config["pearson"])
+        if coords is None:
+            return None, None
+        if dump is not None:
+            save_matrix_snapshot(dump, contact_map.name, "05_foci", foci_mat)
+    coords = np.array(coords, dtype=np.int64, copy=True).reshape(-1, 2) + (kh, kw)
+    with stage("host: validate", dev):
+        det = [np.asarray(det[0]) + kh, np.asarray(det[1]) + kw]
+        if not inter and kernel_config["max_dist"] == 0:
+            coords[:, 0] = coords[:, 1]
+        table, windows = _validate_patterns_sparse(
+            coords, smat, corr, det, kernel_matrix, drop=drop,
+            zero_tol=kernel_config["max_perc_zero"] / 100,
+            missing_tol=missing_tol,
+            nan_band=0 if inter else max(km, kn),
+            pad=(kh, kw),
+        )
+    table["bin1"] -= kh
+    table["bin2"] -= kw
+    logp = logp.tocsr()
+    table["pvalue"] = _pvalues(
+        lambda r, c: _csr_point_values(logp, r, c), table["bin1"], table["bin2"], logp.shape
+    )
+    return table, windows

@@ -21,18 +21,16 @@ torch.backends.cudnn.allow_tf32 = False
 def resolve_device(device=None):
     """The ``torch.device`` the caller asks for.
 
-    ``None`` picks the first CUDA card when one is present and the CPU
-    otherwise.  Asking for CUDA without a card raises; it never falls
-    back to the CPU.
+    ``None`` means the first CUDA card.  The CPU is used only when the
+    caller asks for it (``"cpu"``).  Asking for CUDA, or for nothing,
+    without a card raises; it never falls back to the CPU.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device} requested but torch.cuda.is_available() "
-                "is False"
+                "is False; pass device='cpu' to run on the CPU"
             )
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}: use cpu or cuda")

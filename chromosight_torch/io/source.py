@@ -3,8 +3,9 @@
 Counterpart of ``chromosight_tpu/io/cool.py:36-253``.  A source holds a
 chromosome table, a bin table and an upper-triangle pixel table sorted by
 (bin1, bin2) and indexed by ``bin1_offset`` (the cool layout).  It offers
-what the band path and ICE balancing read: ``chromnames``, ``extent``,
-``binsize``, ``weights``, ``bins()``, ``band_upper`` and, for
+what the detect paths and ICE balancing read: ``chromnames``, ``extent``,
+``binsize``, ``weights``, ``bins()``, ``band_upper`` (intra band),
+``pixels_coo`` (trans maps and dense intra maps) and, for
 ``chromosight_torch.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
 ``_chrom_offset``, ``pixel_chunks`` and ``row_slice_raw``.
 
@@ -117,6 +118,50 @@ class _PixelSource:
         band = np.zeros((n_rows, width), dtype=np.float32)
         band[b1 - s, d] = vals
         return band
+
+    def _bbox(self, s1, e1, s2, e2):
+        """Stored (upper-triangle) pixels with bin1 in [s1, e1) and bin2
+        in [s2, e2): (bin1, bin2, count) in their stored dtypes."""
+        lo, hi = int(self._bin1_offset[s1]), int(self._bin1_offset[e1])
+        b1, b2, ct = self._pixels(lo, hi)
+        keep = (b2 >= s2) & (b2 < e2)
+        return b1[keep], b2[keep], ct[keep]
+
+    def pixels_coo(self, extent1, extent2, balance=False):
+        """COO triplets (rows, cols, values) of the rectangle
+        [s1, e1) x [s2, e2) of the symmetric map, in local coordinates,
+        balanced with the stored weights when ``balance`` (NaN weights give
+        NaN values).
+
+        A trans rectangle (e1 <= s2) lies wholly in the stored upper
+        triangle: one row slice, float32 values computed as
+        ``count * w[bin1] * w[bin2]`` in float64, as the JAX package's
+        native ``trans_coo_raw`` does.  An overlapping rectangle also takes
+        the mirrored pixels, in float64 (``chromosight_tpu/io/cool.py:
+        128-163``)."""
+        s1, e1 = extent1
+        s2, e2 = extent2
+        if balance and self._weight is None:
+            raise ValueError(
+                "No 'weight' column in the contact map; balance it first "
+                "or use raw values."
+            )
+        b1, b2, ct = self._bbox(s1, e1, s2, e2)
+        rows, cols = b1.astype(np.int64), b2.astype(np.int64)
+        if e1 <= s2:
+            vals = ct.astype(np.float32)
+            if balance:
+                w = self._weight
+                vals = (ct.astype(np.float64) * w[rows] * w[cols]).astype(np.float32)
+            return rows - s1, cols - s2, vals
+        r2, c2, v2 = self._bbox(s2, e2, s1, e1)
+        off_diag = r2 != c2
+        rows = np.concatenate([rows, c2[off_diag].astype(np.int64)])
+        cols = np.concatenate([cols, r2[off_diag].astype(np.int64)])
+        vals = np.concatenate([ct, v2[off_diag]]).astype(np.float64)
+        if balance:
+            vals = vals * self._weight[rows] * self._weight[cols]
+        return rows - s1, cols - s2, vals
 
     def row_slice_raw(self, s, e):
         """``(indptr, bin2, count)`` of rows [s, e) in the stored dtypes;
@@ -281,12 +326,14 @@ class ArraySource(_PixelSource):
             )
 
     @classmethod
-    def from_synthetic(cls, chroms, bins, seed=0, binsize=5000):
+    def from_synthetic(cls, chroms, bins, seed=0, binsize=5000, trans_density=0.0):
         """``chroms`` chromosomes of ``bins`` bins each, drawn exactly as
-        ``tools/make_synthetic_cool.py --chroms C --bins B --seed S``
-        draws them (same ``RandomState`` call sequence), then ICE-balanced
-        with ``ice_balance(cis_only=True)``.  Planted loop anchors are in
-        ``planted`` as (chrom, bin_i, bin_j), local bins."""
+        ``tools/make_synthetic_cool.py --chroms C --bins B --seed S
+        --trans-density D`` draws them (same ``RandomState`` call sequence:
+        the chromosomes, then the uniform trans contacts of every pair),
+        then ICE-balanced with ``ice_balance(cis_only=True)``.  Planted
+        loop anchors are in ``planted`` as (chrom, bin_i, bin_j), local
+        bins."""
         from chromosight_torch.ops.balance import ice_balance
 
         rng = np.random.RandomState(seed)
@@ -300,15 +347,34 @@ class ArraySource(_PixelSource):
             ct_parts.append(vals)
             planted += [(name, i, j) for i, j in loops]
             del rows, cols, vals
+        if trans_density > 0:
+            for c1 in range(chroms):
+                for c2 in range(c1 + 1, chroms):
+                    rows, cols, vals = synth_trans(bins, rng, trans_density)
+                    b1_parts.append((rows + c1 * bins).astype(np.int32))
+                    b2_parts.append((cols + c2 * bins).astype(np.int32))
+                    ct_parts.append(vals)
         start = np.tile(np.arange(bins, dtype=np.int64) * binsize, chroms)
+        # the parts stay alive until the source is balanced and returned:
+        # freeing them here made every later band fetch of the source ~50%
+        # slower on an H100 host (measured with compare_walls.py)
+        bin1 = np.concatenate(b1_parts)
+        bin2 = np.concatenate(b2_parts)
+        count = np.concatenate(ct_parts)
+        if trans_density > 0:
+            # every part is sorted by (bin1, bin2), and within a row the
+            # cis pixels come before the trans pixels of chromosome c2, in
+            # increasing c2: a stable sort by bin1 merges them
+            order = np.argsort(bin1, kind="stable")
+            bin1, bin2, count = bin1[order], bin2[order], count[order]
         src = cls(
             names,
             np.arange(chroms + 1, dtype=np.int64) * bins,
             start,
             start + binsize,
-            np.concatenate(b1_parts),
-            np.concatenate(b2_parts),
-            np.concatenate(ct_parts),
+            bin1,
+            bin2,
+            count,
             binsize=binsize,
         )
         src.planted = planted
@@ -367,6 +433,22 @@ def synth_chrom(n, rng, max_d=600, loop_density=0.001):
         np.round(agg).astype(np.int32),
         loops,
     )
+
+
+def synth_trans(n, rng, density):
+    """Local (rows, cols, int32 counts) of one trans pair's uniform
+    contacts, ``int(density * n * n)`` draws with colliding cells summed,
+    sorted by (row, col): ``tools/make_synthetic_cool.py:133-156`` without
+    pandas, drawing from ``rng`` in the same order."""
+    m = int(density * n * n)
+    rows = rng.randint(0, n, m).astype(np.int64)
+    cols = rng.randint(0, n, m).astype(np.int64)
+    counts = rng.poisson(2.0, m) + 1
+    flat = rows * n + cols
+    order = np.argsort(flat, kind="stable")
+    uniq, start = np.unique(flat[order], return_index=True)
+    summed = np.add.reduceat(counts[order].astype(np.int64), start)
+    return uniq // n, uniq % n, summed.astype(np.int32)
 
 
 def planted_recall(source, table, tol_bins=2):

@@ -276,7 +276,24 @@ def pearson_from_sums(
     conv_sk, n_miss, conv_mk, conv_mk2 = map(snap, (s_k, s_m, s_mk, s_mk2))
     sig_mean0 = snap(s_x.float() * inv_ksize)
     sig2_mean0 = snap(s_x2.float() * inv_ksize)
-    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=dev)
+    return pearson_algebra(
+        conv_sk, sig_mean0, sig2_mean0, n_miss, conv_mk, conv_mk2, ksum, k2sum,
+        ksize, missing_tol,
+    )
+
+
+def pearson_algebra(
+    conv_sk, sig_mean0, sig2_mean0, n_miss, conv_mk, conv_mk2, ksum, k2sum, ksize,
+    missing_tol,
+):
+    """The missing-corrected Pearson in float32 from the snapped window
+    sums: ``conv_sk`` (K/ksize x), ``sig_mean0`` and ``sig2_mean0`` (the
+    means of x and x^2 over the whole window), ``n_miss`` (missing
+    pixels), ``conv_mk`` and ``conv_mk2`` (K m, K^2 m), and the kernel's
+    float32 ``ksum`` and ``k2sum``, all broadcastable.  The ``min_pres``
+    cutoff, the 1e-10 guard, non-finite values to 0 and the clamp of
+    ``chromosight_tpu/ops/normxcorr.py:205-244``.  Returns (corr, n_pres)."""
+    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=n_miss.device)
     n_pres = ksize_f - n_miss
     kmean_eff = (ksum - conv_mk) / n_pres
     k2mean_eff = (k2sum - conv_mk2) / n_pres

@@ -1,9 +1,11 @@
-"""Host helpers for bins, the distance law and kernels.
+"""Host helpers for bins, the distance law, kernels and sparse masks.
 
-The port's copies of the four functions of
-``chromosight_tpu/preprocessing.py`` that it calls: ``missing_flags``,
-``pava_decreasing``, ``resize_kernel`` and ``factorise_kernel``, with the
-same arithmetic.  scipy is imported by ``resize_kernel`` when it runs.
+The port's copies of the functions of ``chromosight_tpu/preprocessing.py``
+that it calls, with the same arithmetic: ``valid_to_missing``,
+``missing_flags``, ``diag_trim``, ``pava_decreasing``,
+``make_missing_mask``, ``frame_missing_mask``, ``check_missing_mask``,
+``zero_pad_sparse``, ``resize_kernel`` and ``factorise_kernel``.  scipy is
+imported by the functions that need it, when they run.
 """
 
 from __future__ import annotations
@@ -13,6 +15,15 @@ import sys
 import numpy as np
 
 
+def valid_to_missing(valid, size):
+    """Complement of an array of valid indices within [0, size)."""
+    flags = np.ones(size, dtype=bool)
+    valid = np.asarray(valid)
+    inb = valid[(valid >= 0) & (valid < size)] if valid.size else valid
+    flags[inb.astype(np.int64)] = False
+    return np.flatnonzero(flags)
+
+
 def missing_flags(valid, size):
     """Boolean missing-bin vector (True = missing) from valid indices."""
     flags = np.ones(size, dtype=bool)
@@ -20,6 +31,27 @@ def missing_flags(valid, size):
     if valid.size:
         flags[valid[(valid >= 0) & (valid < size)]] = False
     return flags
+
+
+def diag_trim(mat, n):
+    """Keep only the first ``n`` upper diagonals: a CSR matrix becomes
+    its upper triangle with diagonals 0..n; a dense array gets its upper
+    diagonals >= n zeroed, its lower triangle untouched."""
+    import scipy.sparse as sp
+
+    if sp.issparse(mat):
+        if mat.format != "csr":
+            raise ValueError("input type must be scipy.sparse.csr_matrix")
+        coo = mat.tocoo()
+        d = coo.col - coo.row
+        keep = (d >= 0) & (d <= n)
+        return sp.coo_matrix(
+            (coo.data[keep], (coo.row[keep], coo.col[keep])), shape=mat.shape
+        ).tocsr()
+    out = np.array(mat, copy=True)
+    i, j = np.indices(out.shape, sparse=True)
+    out[(j - i) >= n] = 0
+    return out
 
 
 def pava_decreasing(y):
@@ -44,6 +76,134 @@ def pava_decreasing(y):
             counts[-2:] = [total]
     fit = np.repeat(means, counts)
     return fit[::-1][:n]
+
+
+def make_missing_mask(
+    shape, valid_rows, valid_cols, max_dist=None, sym_upper=False
+):
+    """Sparse boolean CSR mask of missing pixels (True = missing): full
+    crosses of the missing rows and columns, or for upper-symmetric maps
+    each missing bin's row segment rightwards and column segment upwards
+    over ``max_dist`` + 1 pixels."""
+    import scipy.sparse as sp
+
+    sm, sn = shape
+    if sym_upper and (sm != sn or len(valid_rows) != len(valid_cols)):
+        raise ValueError("Rectangular matrices cannot be upper symmetric")
+    miss_r = missing_flags(valid_rows, sm)
+    miss_c = miss_r if sym_upper else missing_flags(valid_cols, sn)
+    if sym_upper:
+        md = min(shape) if max_dist is None else max_dist
+        mrows = np.flatnonzero(miss_r)
+        shifts = np.arange(md + 1)
+        up_r = (mrows[:, None] - shifts[None, :]).ravel()
+        up_c = np.repeat(mrows, md + 1)
+        rt_r = np.repeat(mrows, md + 1)
+        rt_c = (mrows[:, None] + shifts[None, :]).ravel()
+        rows = np.concatenate([up_r, rt_r])
+        cols = np.concatenate([up_c, rt_c])
+        ok = (rows >= 0) & (rows < sm) & (cols >= 0) & (cols < sm)
+        mask = sp.coo_matrix(
+            (np.ones(ok.sum(), dtype=bool), (rows[ok], cols[ok])),
+            shape=shape,
+            dtype=bool,
+        ).tocsr()
+        mask.data = mask.data > 0
+        return mask
+    mask = sp.lil_matrix(shape, dtype=bool)
+    mask[np.flatnonzero(miss_r), :] = True
+    mask[:, np.flatnonzero(miss_c)] = True
+    return mask.tocsr()
+
+
+def frame_missing_mask(mask, kernel_shape, sym_upper=False, max_dist=None):
+    """Add kernel-sized margins around a sparse missing mask, by the
+    region rules of ``ops.normxcorr.frame_missing_mask_dense`` enumerated
+    in COO coordinates (O(n * kernel) entries, never densified)."""
+    import scipy.sparse as sp
+
+    if mask.dtype != bool:
+        raise ValueError("Mask must contain boolean values")
+    if not sp.issparse(mask):
+        raise ValueError("Mask must be a sparse matrix")
+    ms, ns = mask.shape
+    mk, nk = kernel_shape
+    big_k = max(mk, nk)
+    banded = sym_upper and (max_dist is not None)
+    fm, fn = ms + 2 * (mk - 1), ns + 2 * (nk - 1)
+    coo = mask.tocoo()
+    r_in = coo.row.astype(np.int64) + (mk - 1)
+    c_in = coo.col.astype(np.int64) + (nk - 1)
+    if banded:
+        d = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+        keep = (d >= 0) & (d <= max_dist + big_k)
+        r_in, c_in = r_in[keep], c_in[keep]
+    regions = [(r_in, c_in)]
+
+    def rect(r0, r1, c0, c1):
+        r0, c0 = max(r0, 0), max(c0, 0)
+        r1, c1 = min(r1, fm), min(c1, fn)
+        if r1 <= r0 or c1 <= c0:
+            return
+        rr = np.arange(r0, r1, dtype=np.int64)
+        cc = np.arange(c0, c1, dtype=np.int64)
+        regions.append((np.repeat(rr, len(cc)), np.tile(cc, len(rr))))
+
+    if banded:
+        max_m, max_n = max_dist + mk, max_dist + nk
+        rect(0, mk - 1, nk - 1, nk - 1 + min(ns, max_n))
+        rect(0, mk - 1, 0, nk - 1)
+        rect(fm - (max_m + 1), fm, nk - 1 + ns, fn)
+    else:
+        rect(0, mk - 1, 0, fn)
+        rect(mk - 1 + ms, fm, 0, fn)
+        rect(mk - 1, mk - 1 + ms, 0, nk - 1)
+        rect(mk - 1, mk - 1 + ms, nk - 1 + ns, fn)
+    if sym_upper:
+        for off in range(1, big_k + 1):
+            rr = np.arange(off, min(fm, fn + off), dtype=np.int64)
+            regions.append((rr, rr - off))
+    rows = np.concatenate([r for r, _ in regions])
+    cols = np.concatenate([c for _, c in regions])
+    framed = sp.coo_matrix(
+        (np.ones(len(rows), dtype=np.int8), (rows, cols)), shape=(fm, fn)
+    ).tocsr()
+    framed.data = framed.data > 0
+    return framed.astype(bool)
+
+
+def check_missing_mask(signal, mask):
+    """Raise when a pixel marked missing holds a non-zero signal."""
+    import scipy.sparse as sp
+
+    if sp.issparse(mask):
+        mr, mc = mask.nonzero()
+        bad = np.count_nonzero(np.abs(np.asarray(signal[mr, mc])).ravel() > 0)
+        if bad > 0:
+            raise ValueError(
+                f"There are {bad} non-zero elements reported as missing."
+            )
+    else:
+        total = np.sum(np.abs(np.asarray(signal)[np.asarray(mask) > 0]))
+        if total > 1e-10:
+            raise ValueError(
+                f"There are {total} non-zero elements reported as missing."
+            )
+
+
+def zero_pad_sparse(mat, margin_h, margin_v, fmt="coo"):
+    """Surround a sparse matrix with margins of zeros (``margin_v`` rows
+    above and below, ``margin_h`` columns left and right)."""
+    import scipy.sparse as sp
+
+    sm, sn = mat.shape
+    coo = mat.tocoo()
+    out = sp.coo_matrix(
+        (coo.data, (coo.row + margin_v, coo.col + margin_h)),
+        shape=(sm + 2 * margin_v, sn + 2 * margin_h),
+        dtype=mat.dtype,
+    )
+    return out.asformat(fmt)
 
 
 def resize_kernel(

@@ -1,15 +1,25 @@
-"""One chromosome's contact map, held as its upper band on the device.
+"""One chromosome pair's contact map, preprocessed on the device.
 
-Counterpart of ``chromosight_tpu/runtime/contact_map.py``, band branch
-only: every intra map with a bounded scan distance goes to the band
-engine there (``BAND_THRESHOLD = 0``).  ``create_mat`` scatters the
-balanced (or, with ``--norm raw``, the raw) f32 band on the host, uploads
-it and preprocesses it on the device: distance law, detrend, trim, then
-NaN zeroing (balanced) or zeroing of the missing bins (raw).  The fused
-``band_preprocess`` is the default; ``--smooth-trend`` (isotonic distance
-law) and ``--dump`` take the staged ``detrend`` then ``remove_diags``,
-as the JAX package does.  Rows are not padded to shape buckets: the
-kernels take any row count.
+Counterpart of ``chromosight_tpu/runtime/contact_map.py``.  A map takes
+one of three forms:
+
+* ``band``: an intra map with a bounded scan distance, its upper band
+  (rows, keep_distance + 1) in float32 on the device (the band engine;
+  every such map goes there, ``BAND_THRESHOLD = 0`` in the JAX package).
+  ``create_mat`` scatters the balanced (or, with ``--norm raw``, the raw)
+  band on the host, uploads it and preprocesses it on the device: distance
+  law, detrend, trim, then NaN zeroing (balanced) or zeroing of the
+  missing bins (raw).  The fused ``band_preprocess`` is the default;
+  ``--smooth-trend`` (isotonic distance law) and ``--dump`` take the
+  staged ``detrend`` then ``remove_diags``, as the JAX package does.
+* ``dense``: an inter map, or an intra map without a bounded scan
+  distance, of at most ``DENSE_LIMIT`` bins per side: the whole
+  rectangle in float64 on the device (the dense engine).
+* ``sparse``: an inter map larger than that, kept as a float32 scipy CSR
+  matrix on the host; the tiled engine scans it on the device
+  (``ops.tiled``) and never densifies it.
+
+Inter maps are divided by the median of their stored pixels.
 """
 
 from __future__ import annotations
@@ -17,7 +27,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chromosight_torch import NotPortedError
 from chromosight_torch.device import stage
 from chromosight_torch.ops.band import (
     band_detrend_trim,
@@ -26,20 +35,33 @@ from chromosight_torch.ops.band import (
     band_preprocess,
     band_zero_missing,
 )
-from chromosight_torch.preprocessing import missing_flags, pava_decreasing
-from chromosight_torch.runtime.dump import save_band_snapshot
+from chromosight_torch.ops.preprocess import (
+    diag_trim_dense,
+    detrend_dense,
+    distance_law_dense,
+    inter_median_scale,
+)
+from chromosight_torch.preprocessing import missing_flags, pava_decreasing, valid_to_missing
+from chromosight_torch.runtime.dump import save_band_snapshot, save_matrix_snapshot
+
+# Maps larger than this many bins on a side are not densified: inter maps
+# stay sparse and go to the tiled engine.  Tests lower it to force that
+# path on small maps.
+DENSE_LIMIT = 8192
 
 
 class ContactMap:
-    """An intra-chromosomal map on ``device``.
+    """A contact map on ``device``.
 
-    ``extent`` is [(s, e), (s, e)] in genome bins; ``detectable_bins`` the
-    (rows, cols) local indices of bins with finite weights; ``max_dist``
-    the scan distance in bins; ``largest_kernel`` the widest kernel side;
+    ``extent`` is [(s1, e1), (s2, e2)] in genome bins; ``detectable_bins``
+    the (rows, cols) local indices of bins with finite weights; ``inter``
+    True for a trans pair; ``max_dist`` the scan distance in bins (None:
+    the whole map); ``largest_kernel`` the widest kernel side;
     ``use_norm`` False for ``--norm raw``; ``smooth`` for
-    ``--smooth-trend``; ``dump`` the ``--dump`` directory or None.
-    ``band`` is the preprocessed (rows, keep_distance + 1) f32 band, or
-    None before ``create_mat`` and after ``destroy_mat``."""
+    ``--smooth-trend``; ``dump`` the ``--dump`` directory or None.  After
+    ``create_mat`` one of ``band``, ``dense`` or ``sparse`` holds the
+    preprocessed map (module docstring); all are None before it and after
+    ``destroy_mat``."""
 
     def __init__(
         self,
@@ -53,6 +75,7 @@ class ContactMap:
         use_norm=True,
         smooth=False,
         dump=None,
+        inter=False,
     ):
         self.clr = clr
         self.extent = extent
@@ -64,11 +87,15 @@ class ContactMap:
         self.use_norm = use_norm
         self.smooth = smooth
         self.dump = dump
+        self.inter = inter
         self.band = None
+        self.dense = None
+        self.sparse = None
+        self._structure = None
 
     @property
     def is_banded(self):
-        return self.max_dist is not None
+        return not self.inter and self.max_dist is not None
 
     @property
     def shape(self):
@@ -88,11 +115,10 @@ class ContactMap:
         return 10 if self.use_norm else None
 
     def create_mat(self):
-        """Fetch the band, upload it and preprocess it."""
+        """Fetch the map, upload it and preprocess it."""
         if not self.is_banded:
-            raise NotPortedError(
-                "maps without a bounded max_dist (dense engine)", 8
-            )
+            self._create_unbanded()
+            return
         (s1, e1), _ = self.extent
         n = e1 - s1
         width = self.keep_distance + 1
@@ -153,8 +179,13 @@ class ContactMap:
             save_band_snapshot(self.dump, self.name, "01_detrended", self.band, n, "detrend")
 
     def remove_diags(self):
-        """Zero the diagonals beyond ``keep_distance``.  Snapshot
-        ``02_remove_diags`` with ``--dump``."""
+        """Zero the diagonals beyond ``keep_distance`` (and, on a dense
+        map, below the main one).  Snapshot ``02_remove_diags`` with
+        ``--dump``."""
+        if self.dense is not None:
+            self.dense = diag_trim_dense(self.dense.float(), self.keep_distance).double()
+            self._dump("02_remove_diags", "remove_diags")
+            return
         d = torch.arange(self.band.shape[1], device=self.band.device)
         self.band = torch.where((d <= self.keep_distance)[None, :], self.band, 0.0)
         if self.dump is not None:
@@ -163,6 +194,105 @@ class ContactMap:
                 "remove_diags",
             )
 
+    def _create_unbanded(self):
+        """Dense or sparse map: fetch the rectangle's pixels, keep them
+        (``_materialize``), preprocess them (median scale, or detrend and
+        trim for intra maps), then zero NaN pixels (balanced) or missing
+        bins (raw) (``chromosight_tpu/runtime/contact_map.py:355-412``)."""
+        (s1, e1), (s2, e2) = self.extent
+        n1, n2 = e1 - s1, e2 - s2
+        with stage("io: trans fetch" if self.inter else "io: fetch", self.device):
+            rows, cols, vals = self.clr.pixels_coo(
+                (s1, e1), (s2, e2), balance=self.use_norm
+            )
+            self._materialize(rows, cols, vals)
+        with stage("preprocess", self.device):
+            if self.inter:
+                self.preprocess_inter_matrix()
+            else:
+                self.detrend_dense()
+                self.remove_diags()
+            if self.sparse is not None:
+                coo = self.sparse.tocoo()
+                if self.use_norm:
+                    coo.data[np.isnan(coo.data)] = 0
+                else:
+                    mr = missing_flags(self.detectable_bins[0], n1)
+                    mc = missing_flags(self.detectable_bins[1], n2)
+                    coo.data[mr[coo.row] | mc[coo.col]] = 0
+                coo.eliminate_zeros()
+                self.sparse = coo.tocsr()
+            elif self.use_norm:
+                self.dense = torch.where(torch.isnan(self.dense), 0.0, self.dense)
+            else:
+                for axis in (0, 1):
+                    missing = valid_to_missing(self.detectable_bins[axis], self.shape[axis])
+                    self.dense.index_fill_(axis, torch.from_numpy(missing).to(self.device), 0.0)
+
+    def _materialize(self, rows, cols, vals):
+        """Fetched COO triplets as a float64 dense map on the device (with
+        the mask of stored pixels), or above ``DENSE_LIMIT`` bins a side as
+        a sparse CSR matrix on the host (inter maps only; the JAX package
+        has no engine for such intra maps either)."""
+        n1, n2 = self.shape
+        if max(n1, n2) > DENSE_LIMIT:
+            if not self.inter:
+                raise ValueError(
+                    f"{self.name}: intra maps above DENSE_LIMIT={DENSE_LIMIT} bins "
+                    "need a bounded max_dist (the band engine)"
+                )
+            import scipy.sparse as sp
+
+            self.sparse = sp.coo_matrix((vals, (rows, cols)), shape=(n1, n2)).tocsr()
+            return
+        at = tuple(torch.from_numpy(np.asarray(a, np.int64)).to(self.device) for a in (rows, cols))
+        values = torch.from_numpy(np.asarray(vals, np.float64)).to(self.device)
+        self.dense = torch.zeros((n1, n2), dtype=torch.float64, device=self.device)
+        self.dense.index_put_(at, values)
+        self._structure = torch.zeros((n1, n2), dtype=torch.bool, device=self.device)
+        self._structure.index_put_(at, torch.ones_like(values, dtype=torch.bool))
+
+    def _dump(self, stage_name, after):
+        """The ``--dump`` snapshot of the dense or sparse map."""
+        if self.dump is None:
+            return
+        mat = self.sparse if self.sparse is not None else self.dense.cpu().numpy()
+        save_matrix_snapshot(self.dump, self.name, stage_name, mat, after)
+
+    def preprocess_inter_matrix(self):
+        """Divide an inter map by the median of its stored pixels, NaN
+        pixels zeroed first (``chromosight_tpu/runtime/contact_map.py:
+        506-525``); snapshot ``01_process_inter`` with ``--dump``."""
+        if self.sparse is not None:
+            data = self.sparse.data
+            data[np.isnan(data)] = 0.0
+            # in the stored float32, as the JAX package divides
+            data /= data.dtype.type(np.nanmedian(data))
+        else:
+            self.dense = inter_median_scale(self.dense, self._structure)
+        self._structure = None
+        self._dump("01_process_inter", "preprocess_inter_matrix")
+
+    def detrend_dense(self):
+        """Detrend a dense intra map by its distance law in float32, as
+        the JAX package does on its device (``chromosight_tpu/runtime/
+        contact_map.py:602-618``); snapshot ``01_detrended``."""
+        n = self.shape[0]
+        detect = np.zeros(n, dtype=bool)
+        detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
+        detect = torch.from_numpy(detect).to(self.device)
+        mat = self.dense.float()
+        law = distance_law_dense(
+            mat, detect, n_diags=min(self.keep_distance + 1, n), smooth=self.smooth
+        )
+        law[np.isnan(law)] = 0.0
+        self.dense = detrend_dense(mat, torch.from_numpy(law.astype(np.float32)), self._max_val).double()
+        self._structure = None
+        self._dump("01_detrended", "detrend")
+
     def destroy_mat(self):
-        """Free the band."""
+        """Free the map."""
         self.band = None
+        self.dense = None
+        self.sparse = None
+        self._structure = None

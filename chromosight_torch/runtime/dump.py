@@ -1,10 +1,10 @@
 """Stage snapshots of ``detect --dump DIR``.
 
 Counterpart of ``chromosight_tpu/runtime/dump.py`` and of the snapshots of
-``chromosight_tpu/detection.py:1058-1150``: each stage of a chromosome is
-saved as ``DIR/<map name>_<stage>.npz``, a float64 scipy-sparse (n, n)
-CSR matrix in matrix coordinates.  scipy is imported only when a snapshot
-is written.
+``chromosight_tpu/detection.py:1058-1150, 1504-1519, 1895-1908``: each
+stage of a map is saved as ``DIR/<map name>_<stage>.npz``, a scipy-sparse
+CSR matrix in matrix coordinates (float64 for the band engine's maps).
+scipy is imported only when a snapshot is written.
 """
 
 from __future__ import annotations
@@ -37,3 +37,15 @@ def save_band_snapshot(dump_dir, name, stage, band, n, after):
     path = pathlib.Path(dump_dir) / f"{name}_{stage}"
     print(f"Dumping matrix to {path} after executing {after}")
     save_snapshot(dump_dir, name, stage, i, i + d, band[i, d], n)
+
+
+def save_matrix_snapshot(dump_dir, name, stage, mat, after=None):
+    """Snapshot of a whole map (a dense numpy array or a scipy sparse
+    matrix) as a CSR matrix of its dtype; says so on stdout after the
+    method ``after``, when given."""
+    import scipy.sparse as sp
+
+    path = pathlib.Path(dump_dir) / f"{name}_{stage}"
+    if after is not None:
+        print(f"Dumping matrix to {path} after executing {after}")
+    sp.save_npz(path, mat.tocsr() if sp.issparse(mat) else sp.csr_matrix(np.asarray(mat)))

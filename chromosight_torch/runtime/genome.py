@@ -1,7 +1,8 @@
 """Whole-genome runtime on numpy tables: weights, sub-matrices, coordinates.
 
-Counterpart of ``chromosight_tpu/runtime/genome.py:25-262`` for the
-intra-chromosomal band path; pandas tables become dicts of numpy columns.
+Counterpart of ``chromosight_tpu/runtime/genome.py:25-262``: one map per
+chromosome and, with ``inter``, one per trans pair; pandas tables become
+dicts of numpy columns.
 """
 
 from __future__ import annotations
@@ -27,10 +28,13 @@ class SubMatrix:
 
 class HicGenome:
     """A contact source, its bin table, and one ``ContactMap`` per
-    chromosome on ``device``; ``dump`` is the ``--dump`` directory
-    (created here) and ``smooth`` the ``--smooth-trend`` switch."""
+    chromosome (and, with ``inter``, per trans pair) on ``device``;
+    ``dump`` is the ``--dump`` directory (created here) and ``smooth`` the
+    ``--smooth-trend`` switch."""
 
-    def __init__(self, clr, kernel_config, device, dump=None, smooth=False):
+    def __init__(
+        self, clr, kernel_config, device, dump=None, smooth=False, inter=False
+    ):
         self.dump = None if dump is None else Path(dump)
         if self.dump is not None:
             os.makedirs(self.dump, exist_ok=True)
@@ -39,6 +43,7 @@ class HicGenome:
         self.kernel_config = kernel_config
         self.device = device
         self.smooth = smooth
+        self.inter = inter
         self.use_norm = True
         self.sub_mats = None
         self.detectable_bins = np.arange(clr.n_bins)
@@ -78,29 +83,43 @@ class HicGenome:
         )
 
     def make_sub_matrices(self):
-        """One intra-chromosomal ``ContactMap`` per chromosome."""
+        """One ``ContactMap`` per chromosome and, with ``inter``, per pair
+        chr1 < chr2 in the chromosome order, row-major
+        (``chromosight_tpu/runtime/genome.py:126-191``).  Trans maps scan
+        the whole rectangle (no ``max_dist``)."""
         names = self.clr.chromnames
         d = self.detectable_bins
+        pairs = [
+            (i1, i2)
+            for i1 in range(len(names))
+            for i2 in range(len(names))
+            if i1 == i2 or (i1 < i2 and self.inter)
+        ]
         sys.stderr.write("Preprocessing sub-matrices...\n")
         self.sub_mats = []
-        for idx, chrom in enumerate(names):
-            s, e = self.clr.extent(chrom)
-            progress(idx, len(names), f"{chrom}-{chrom}")
-            local = d[(d >= s) & (d < e)] - s
+        for idx, (i1, i2) in enumerate(pairs):
+            chr1, chr2 = names[i1], names[i2]
+            (s1, e1), (s2, e2) = self.clr.extent(chr1), self.clr.extent(chr2)
+            progress(idx, len(pairs), f"{chr1}-{chr2}")
+            detectable = (d[(d >= s1) & (d < e1)] - s1, d[(d >= s2) & (d < e2)] - s2)
+            scan = {} if i1 != i2 else dict(
+                max_dist=self.max_dist, largest_kernel=self.largest_kernel
+            )
             cm = ContactMap(
                 self.clr,
-                [(s, e), (s, e)],
+                [(s1, e1), (s2, e2)],
                 self.device,
-                name=f"{chrom}-{chrom}",
-                detectable_bins=(local, local),
-                max_dist=self.max_dist,
-                largest_kernel=self.largest_kernel,
+                name=f"{chr1}-{chr2}",
+                detectable_bins=detectable,
                 use_norm=self.use_norm,
                 smooth=self.smooth,
                 dump=self.dump,
+                inter=i1 != i2,
+                **scan,
             )
-            self.sub_mats.append(SubMatrix(chrom, chrom, cm))
-        progress(len(names), len(names), f"{names[-1]}-{names[-1]}\n")
+            self.sub_mats.append(SubMatrix(chr1, chr2, cm))
+        last = self.sub_mats[-1]
+        progress(len(pairs), len(pairs), f"{last.chr1}-{last.chr2}\n")
         print("Sub matrices extracted")
 
     def get_full_mat_pattern(self, chr1, chr2, patterns):

@@ -2,7 +2,8 @@
 
 Both take duck-typed ``chromosight_tpu`` objects and import no jax, so a
 test can run the two packages on the same state: a JAX ``ContactMap``
-after ``create_mat`` becomes a port ``ContactMap`` ready to detect.
+after ``create_mat`` (band, dense or CSR) becomes a port ``ContactMap``
+ready to detect.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ def kernel_config_from_jax(cfg):
 
 
 def contact_map_from_jax(cm, device):
-    """A port ``ContactMap`` on ``device`` holding the preprocessed band of
-    a ``chromosight_tpu`` ``ContactMap`` after ``create_mat``, cut from
-    its shape bucket to the port's own layout: (rows, keep_distance + 1).
-    What the cut drops is zero (bucket padding).  The raw-count and
-    isotonic-law switches come along; the dump directory does not."""
+    """A port ``ContactMap`` on ``device`` holding the preprocessed map of
+    a ``chromosight_tpu`` ``ContactMap`` after ``create_mat``, in the
+    port's layout: a band cut from its shape bucket to (rows,
+    keep_distance + 1) (what the cut drops is zero bucket padding); a
+    dense map as a float64 tensor; a CSR map as a copy on the host.  The
+    trans, raw-count and isotonic-law switches come along; the dump
+    directory does not."""
     port = ContactMap(
         None,
         [tuple(e) for e in cm.extent],
@@ -43,8 +46,14 @@ def contact_map_from_jax(cm, device):
         largest_kernel=cm.largest_kernel,
         use_norm=cm.use_norm,
         smooth=cm.smooth,
+        inter=bool(cm.inter),
     )
-    band = np.asarray(cm.band_dev, dtype=np.float32)
-    band = band[: port.shape[0], : port.keep_distance + 1].copy()
-    port.band = torch.from_numpy(band).to(port.device)
+    if cm.band_dev is not None:
+        band = np.asarray(cm.band_dev, dtype=np.float32)
+        band = band[: port.shape[0], : port.keep_distance + 1].copy()
+        port.band = torch.from_numpy(band).to(port.device)
+    elif cm.sparse is not None:
+        port.sparse = cm.sparse.copy()
+    else:
+        port.dense = torch.from_numpy(np.asarray(cm.dense, dtype=np.float64)).to(port.device)
     return port

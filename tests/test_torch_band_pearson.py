@@ -95,7 +95,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
-    assert resolve_device(None) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_log10p_erfcx_form_matches_log_ndtr():

@@ -95,7 +95,6 @@ def test_detect_stderr_matches_golden_log(detect_runs):
 @pytest.mark.parametrize(
     "flags,what",
     [
-        (["--inter"], "--inter"),
         (["--subsample", "0.5"], "--subsample"),
         (["--norm", "force"], "--norm force"),
     ],
@@ -113,7 +112,6 @@ def test_unported_options_raise(tmp_path, flags, what):
         (["generate-config", "p"], "generate-config"),
         (["list-kernels"], "list-kernels"),
         (["test"], "test"),
-        (["quantify", "--inter", "a.bed2", str(EXAMPLE_NPZ), "q"], "--inter"),
     ],
 )
 def test_unported_subcommand_raises(tmp_path, argv, what):
@@ -276,7 +274,8 @@ def test_synthetic_genome_detect_matches_jax(tmp_path):
 def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
     """Every module of the package loads with jax, h5py, pandas,
     jsonschema and chromosight_tpu blocked, and detect (a short scan
-    distance keeps the CPU run quick) and quantify run from the npz."""
+    distance keeps the CPU run quick), quantify, and detect --inter on
+    the dense and on the tiled engine run from the npz."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
@@ -293,6 +292,14 @@ assert cli.main(argv, device="cpu") == 0
 argv = ["quantify", "--no-plotting", {str(ROOT / "data_test" / "example.bed2")!r},
         {str(EXAMPLE_NPZ)!r}, {prefix + "_q"!r}]
 assert cli.main(argv, device="cpu") == 0
+import chromosight_torch.ops.tiled as tiled
+import chromosight_torch.runtime.contact_map as contact_map
+for limit, suffix in ((8192, "_inter"), (50, "_tiled")):
+    contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = limit, 128
+    argv = ["detect", "--no-plotting", "--inter", "--max-dist", "60000",
+            {str(EXAMPLE_NPZ)!r}, {prefix!r} + suffix]
+    assert cli.main(argv, device="cpu") == 0
+assert tiled.TILES["scanned"] > 0
 assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -303,3 +310,8 @@ assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(pathlib.Path(prefix + ".tsv").read_text().splitlines()) > 1
     assert len(pathlib.Path(prefix + "_q.tsv").read_text().splitlines()) == 54
+    inter = pd.read_csv(prefix + "_inter.tsv", sep="\t")
+    tiled = pd.read_csv(prefix + "_tiled.tsv", sep="\t")
+    key = ["chrom1", "start1", "chrom2", "start2", "bin1", "bin2", "kernel_id", "iteration"]
+    assert inter[key].equals(tiled[key]) and (inter.chrom1 != inter.chrom2).any()
+    assert np.abs(inter.score - tiled.score).max() < 5e-5

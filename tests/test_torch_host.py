@@ -228,3 +228,94 @@ def test_presets_are_byte_identical_copies(name):
     ref = ROOT / "chromosight_tpu" / "kernels" / "data" / f"{name}.json"
     assert ours.read_bytes() == ref.read_bytes()
     assert load_kernel_config(name)["kernels"][0].ndim == 2
+
+
+def _sparse_case(seed, shape=(70, 90), density=0.2):
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    mat = rng.rand(*shape) * (rng.rand(*shape) < density)
+    return sp.csr_matrix(mat), rng
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_valid_to_missing(seed):
+    rng = np.random.RandomState(seed)
+    valid = rng.randint(-10, 210, size=rng.randint(0, 150))
+    out = t_pre.valid_to_missing(valid, 200)
+    assert np.array_equal(out, j_pre.valid_to_missing(valid, 200))
+    assert np.array_equal(t_pre.valid_to_missing([], 7), j_pre.valid_to_missing([], 7))
+
+
+@pytest.mark.parametrize("n", [0, 3, 25])
+def test_diag_trim(n):
+    mat, _ = _sparse_case(3, (60, 60))
+    out, ref = t_pre.diag_trim(mat, n), j_pre.diag_trim(mat, n)
+    assert out.format == "csr" and np.array_equal(out.toarray(), ref.toarray())
+    dense = mat.toarray()
+    assert np.array_equal(t_pre.diag_trim(dense, n), j_pre.diag_trim(dense, n))
+    with pytest.raises(ValueError, match="csr"):
+        t_pre.diag_trim(mat.tocoo(), n)
+
+
+@pytest.mark.parametrize("sym_upper", [False, True])
+@pytest.mark.parametrize("max_dist", [None, 0, 9])
+def test_make_missing_mask(sym_upper, max_dist):
+    rng = np.random.RandomState(4)
+    n = 80
+    shape = (n, n) if sym_upper else (n, n + 15)
+    valid_r = np.flatnonzero(rng.rand(shape[0]) > 0.1)
+    valid_c = valid_r if sym_upper else np.flatnonzero(rng.rand(shape[1]) > 0.1)
+    out = t_pre.make_missing_mask(shape, valid_r, valid_c, max_dist, sym_upper)
+    ref = j_pre.make_missing_mask(shape, valid_r, valid_c, max_dist, sym_upper)
+    assert out.dtype == ref.dtype == bool and out.format == "csr"
+    assert np.array_equal(out.toarray(), ref.toarray())
+    with pytest.raises(ValueError, match="upper symmetric"):
+        t_pre.make_missing_mask((5, 6), np.arange(5), np.arange(6), None, True)
+
+
+@pytest.mark.parametrize("kshape", [(7, 7), (5, 9), (17, 17)])
+@pytest.mark.parametrize("sym_upper,max_dist", [(False, None), (True, None), (True, 12)])
+def test_frame_missing_mask(kshape, sym_upper, max_dist):
+    rng = np.random.RandomState(6)
+    n = 70
+    shape = (n, n) if sym_upper else (n, n + 11)
+    valid_r = np.flatnonzero(rng.rand(shape[0]) > 0.1)
+    valid_c = valid_r if sym_upper else np.flatnonzero(rng.rand(shape[1]) > 0.1)
+    mask = j_pre.make_missing_mask(shape, valid_r, valid_c, max_dist, sym_upper)
+    out = t_pre.frame_missing_mask(mask, kshape, sym_upper, max_dist)
+    ref = j_pre.frame_missing_mask(mask, kshape, sym_upper, max_dist)
+    assert out.dtype == bool and out.shape == ref.shape
+    assert np.array_equal(out.toarray(), ref.toarray())
+    with pytest.raises(ValueError, match="boolean"):
+        t_pre.frame_missing_mask(mask.astype(np.float32), kshape)
+    with pytest.raises(ValueError, match="sparse"):
+        t_pre.frame_missing_mask(mask.toarray(), kshape)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_check_missing_mask(sparse):
+    mat, rng = _sparse_case(5)
+    mask = j_pre.make_missing_mask(mat.shape, np.arange(60), np.arange(80))
+    signal = mat if sparse else mat.toarray()
+    mask_in = mask if sparse else mask.toarray()
+    for fn in (t_pre.check_missing_mask, j_pre.check_missing_mask):
+        with pytest.raises(ValueError, match="reported as missing") as exc:
+            fn(signal, mask_in)
+        if fn is t_pre.check_missing_mask:
+            msg = str(exc.value)
+        else:
+            assert str(exc.value) == msg
+    clean = mat.toarray()
+    clean[mask.toarray()] = 0
+    clean = type(mat)(clean) if sparse else clean
+    assert t_pre.check_missing_mask(clean, mask_in) is None
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr"])
+def test_zero_pad_sparse(fmt):
+    mat, _ = _sparse_case(7)
+    out = t_pre.zero_pad_sparse(mat.astype(np.float32), 4, 3, fmt=fmt)
+    ref = j_pre.zero_pad_sparse(mat.astype(np.float32), 4, 3, fmt=fmt)
+    assert out.format == ref.format == fmt and out.dtype == ref.dtype == np.float32
+    assert np.array_equal(out.toarray(), ref.toarray())
