@@ -45,7 +45,23 @@ Phases, one line or block each; any failure raises (non-zero exit):
             launches, peak device memory held below one dense trans map);
             then an 8,192 x 8,192 cut of a trans map through the dense and
             the tiled engines: the same corr, foci and calls (the 10%
-            zero rule lifted for the calls).
+            zero rule lifted for the calls);
+8. surface  the rest of the command line: ``test`` (offline: the download
+            is replaced by a failure, so it reads the npz fallback; 89
+            patterns and the golden log lines), ``list-kernels --long
+            --mat`` (seven presets), ``generate-config --preset borders``
+            then ``detect --kernel-config`` of the file (the borders
+            golden), ``--norm force`` on the npz (calls as the port's own
+            CPU run's); on the 13 x 48,000 genome with its weights dropped,
+            ``detect`` at ``--norm auto`` (ICE on the host, the table byte
+            for byte phase 5's), ``--threads`` 1, 2 and 4 and two workers
+            on the one card (tables byte for byte the serial one's; walls,
+            stages, launches, peak memory); ``--subsample 0.5`` on its
+            first three chromosomes (the 10% zero rule lifted: half the
+            contacts leave most windows of this map over 10% zeros),
+            ``--threads 4`` against ``--threads 1`` with one seed; and the
+            native band scatter of the genome on the main thread and on a
+            thread of its own.  It runs after phase 5, on the same genome.
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line.  Without a
@@ -54,14 +70,20 @@ result.
 """
 
 import argparse
+import contextlib
+import copy
 import csv
 import ctypes
+import io
 import json
+import os
+import pathlib
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -70,6 +92,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
+import chromosight_torch.cli.main as cli  # noqa: E402
 import chromosight_torch.ops.band_pearson as bp  # noqa: E402
 import chromosight_torch.ops.tiled as tiled  # noqa: E402
 import chromosight_torch.runtime.contact_map as contact_map  # noqa: E402
@@ -103,6 +126,9 @@ from chromosight_torch.runtime.contact_map import ContactMap  # noqa: E402
 from chromosight_torch.runtime.genome import HicGenome  # noqa: E402
 
 GENOME_CHROMS, GENOME_BINS, BINSIZE = 13, 48_000, 5000
+# --subsample permutes ~1.5e8 contacts per chromosome on the host: three
+# of the genome's chromosomes (a cut of depth, not of width)
+SUBSAMPLE_CHROMS = 3
 MISSING_TOL, PEARSON = 0.5, 0.3
 TSVD = 0.999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -710,6 +736,168 @@ def phase_genome(source, workdir):
     return runs
 
 
+def phase_surface_example(workdir):
+    """``test``, ``list-kernels``, ``generate-config`` and ``--norm force``
+    on the example map."""
+    def offline(url, path):
+        raise OSError("chip_smoke runs the self-test without a network")
+
+    download, cli.download_file = cli.download_file, offline
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    err = io.StringIO()
+    try:
+        reset_launches()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            check(main(["test"], device=DEVICE) == 0, "test failed")
+        seen = launches()
+    finally:
+        os.chdir(cwd)
+        cli.download_file = download
+    log = err.getvalue()
+    lines = {u.strip("\x1b[K") for u in set(log.split("\n")) if "\r" not in u}
+    n_calls = len(read_tsv(f"{workdir}/chromosight_test.tsv"))
+    print(f"[surface] test: {n_calls} patterns from {cli.example_dataset()}, log lines "
+          f"{'equal' if lines == set(cli.TEST_LOG.split(chr(10))) else 'differ from'} "
+          f"TEST_LOG; launches {seen}")
+    check(n_calls == 89 and lines == set(cli.TEST_LOG.split("\n")), "test log differs")
+    check("test log differed" not in log, "test warned that its log differed")
+    check(seen == {"single": 3, "multi": 0}, f"test launches {seen}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(main(["list-kernels", "--long", "--mat"]) == 0, "list-kernels failed")
+    names = [ln for ln in out.getvalue().splitlines() if ln and ln[0].isalpha()]
+    print(f"[surface] list-kernels --long --mat: {len(names)} presets {names}, "
+          f"{len(out.getvalue().splitlines())} lines")
+    check(names == cli.kernel_names() and len(names) == 7, "list-kernels presets")
+
+    cfg = f"{workdir}/borders_cfg"
+    check(main(["generate-config", "--preset", "borders", cfg]) == 0, "generate-config")
+    golden_detect(workdir, "golden_detect_borders", ["--kernel-config", cfg + ".json"],
+                  {"single": 0, "multi": 3})
+    print("[surface] generate-config --preset borders: detect --kernel-config of the "
+          "file reproduces golden_detect_borders.tsv")
+
+    tables = {}
+    for tag, device in (("card", DEVICE), ("cpu", "cpu")):
+        prefix = f"{workdir}/force_{tag}"
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            check(main(["detect", "--no-plotting", "--norm", "force",
+                        "tests/data/example_cool.npz", prefix], device=device) == 0,
+                  f"--norm force on the {tag} failed")
+        tables[tag] = (read_tsv(prefix + ".tsv"), launches())
+    (card, seen), (plain, _) = tables["card"], tables["cpu"]
+    key = ("bin1", "bin2", "kernel_id", "iteration")
+    same = [tuple(r[k] for k in key) for r in card] == [tuple(r[k] for k in key) for r in plain]
+    err = max(abs(num(a["score"]) - num(b["score"])) for a, b in zip(card, plain))
+    print(f"[surface] --norm force: {len(card)} calls on the card, {len(plain)} on the "
+          f"CPU, identical {same}, score max|d| {err:.3g}; launches {seen}")
+    check(same and len(card) == 89 and err < 5e-5, "--norm force calls differ")
+    check(seen == {"single": 3, "multi": 0}, f"--norm force launches {seen}")
+
+
+def genome_run(source, workdir, tag, flags=(), device=DEVICE, rng=None):
+    """``detect`` with ``flags`` on a genome source (counts from 0, wall,
+    stages, peak memory): (table, launches, tsv and windows bytes)."""
+    prefix = f"{workdir}/{tag}"
+    args = parse_args(["detect", "--no-plotting", *flags, "synthetic", prefix], "")
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return detect(source, args, device, rng)
+
+    (table, _), seen = run_genome(f"detect {tag}", run)
+    out = pathlib.Path(prefix + ".tsv").read_bytes() + pathlib.Path(prefix + ".json").read_bytes()
+    return table, seen, out
+
+
+def scatter_seconds(source, width=418):
+    """Seconds of the native band scatter of every chromosome of the
+    genome, on the calling thread."""
+    t0 = time.perf_counter()
+    for chrom in source.chromnames:
+        source.band_upper(source.extent(chrom), width, balance=True)
+    return time.perf_counter() - t0
+
+
+def on_new_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own; its result."""
+    out = []
+    thread = threading.Thread(target=lambda: out.append(fn(*args)))
+    thread.start()
+    thread.join()
+    return out[0]
+
+
+def phase_surface_genome(source, workdir):
+    """On the 13 x 48,000 genome: ICE of the weightless source at --norm
+    auto, --threads 1, 2 and 4 and two workers on the card, against
+    phase 5's stored-weights run; then --subsample on three
+    chromosomes."""
+    stored = (pathlib.Path(f"{workdir}/genome.tsv").read_bytes()
+              + pathlib.Path(f"{workdir}/genome.json").read_bytes())
+    n_chroms = len(source.chromnames)
+    bare = copy.copy(source)
+    bare._weight = None
+    table, seen, out = genome_run(bare, workdir, "ice")
+    ice = stage_seconds().get("balance: ICE")
+    recall = planted_recall(source, table)
+    print(f"[surface] weights dropped, --norm auto: balance: ICE {ice:.3f} s (host); "
+          f"table byte-identical to the stored-weights run: {out == stored}; recall "
+          f"{recall:.4f}; launches {seen}")
+    check(ice is not None and out == stored, "ICE run differs from the stored weights")
+    check(recall >= 0.95 and seen == {"single": n_chroms, "multi": 0}, "ICE run recall")
+    check(np.array_equal(bare.weights, source.weights, equal_nan=True), "ICE weights differ")
+    walls = {}
+    # the serial run last again: the spread of one configuration
+    for tag, flags, device in (("threads1", ["--threads", "1"], DEVICE),
+                               ("threads2", ["--threads", "2"], DEVICE),
+                               ("threads4", ["--threads", "4"], DEVICE),
+                               ("two_workers", [], [DEVICE, DEVICE]),
+                               ("threads1_again", ["--threads", "1"], DEVICE)):
+        t0 = time.perf_counter()
+        _, seen, out = genome_run(source, workdir, tag, flags, device)
+        walls[tag] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[surface] {tag}: wall {walls[tag]:.2f} s, peak device memory {peak:.3f} GiB, "
+              f"byte-identical to the serial table: {out == stored}; launches {seen}")
+        check(out == stored, f"{tag}: table differs from the serial run")
+        check(seen == {"single": n_chroms, "multi": 0}, f"{tag}: launches {seen}")
+    print("[surface] walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    # why the scheduler's producer is the caller's thread
+    times = [(scatter_seconds(source), on_new_thread(scatter_seconds, source))
+             for _ in range(2)]
+    print("[surface] native band scatter of the genome's chromosomes (s), on the main "
+          "thread / on a thread of its own: "
+          + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in times))
+
+    first = SUBSAMPLE_CHROMS
+    end = int(source._chrom_offset[first])
+    cut = ArraySource(
+        source.chromnames[:first], source._chrom_offset[: first + 1],
+        source._bin_start[:end], source._bin_end[:end],
+        *(a[: source._bin1_offset[end]] for a in (source.bin1, source.bin2, source.count)),
+        weight=source.weights[:end], binsize=source.binsize,
+    )
+    cut.planted = [p for p in source.planted if p[0] in cut.chromnames]
+    outs = {}
+    for threads in ("1", "4"):
+        t0 = time.perf_counter()
+        table, seen, outs[threads] = genome_run(
+            cut, workdir, f"subsample{threads}",
+            ["--subsample", "0.5", "--perc-zero", "100", "--threads", threads],
+            rng=np.random.RandomState(0))
+        print(f"[surface] --subsample 0.5 --threads {threads} on {first} x {GENOME_BINS}: "
+              f"{len(table['bin1'])} calls, recall {planted_recall(cut, table):.4f}, wall "
+              f"{time.perf_counter() - t0:.2f} s, launches {seen}")
+        check(seen == {"single": first, "multi": 0}, f"--subsample launches {seen}")
+        check(len(table["bin1"]) > 0, "--subsample: no call")
+    check(outs["1"] == outs["4"], "--subsample: --threads 4 differs from --threads 1")
+    print("[surface] --subsample: --threads 4 byte-identical to --threads 1 (one seed)")
+
+
 def inter_quantify(workdir, tag):
     """``quantify --inter`` of the four pairs; the rows as dicts."""
     bed = f"{workdir}/inter_pairs.bed2"
@@ -884,6 +1072,8 @@ def run(quick):
     with tempfile.TemporaryDirectory() as workdir:
         phase_golden(workdir)
         runs = phase_genome(source, workdir)
+        phase_surface_example(workdir)
+        phase_surface_genome(source, workdir)
         del source
         phase_golden_inter(workdir)
         phase_genome_inter(workdir)

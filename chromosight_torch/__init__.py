@@ -1,11 +1,14 @@
 """chromosight-torch: the PyTorch / CUDA port of chromosight-tpu.
 
 A second package beside ``chromosight_tpu`` with the same layout
-(``io/``, ``ops/``, ``runtime/``, ``cli/``, ``detection.py``).  It imports
+(``io/``, ``ops/``, ``runtime/``, ``parallel/``, ``cli/``,
+``detection.py``) and the same command line: ``detect``, ``quantify``,
+``generate-config``, ``list-kernels`` and ``test``.  It imports
 ``torch``, never ``jax``, and nothing of ``chromosight_tpu``: the host
 helpers it shares with the JAX package are its own copies (``native``,
 ``preprocessing``, ``stats``, ``observability``, ``plotting``,
-``ops.balance``, ``cli.args`` and the ``kernels/data`` presets).
+``ops.balance``, ``cli.args``, ``cli/logo.txt`` and the ``kernels/data``
+presets).
 
 The hot spot of the band-engine ``detect`` path, the fused band Pearson
 (``chromosight_tpu/ops/pallas_band.py::_fused_kernel`` on the TPU), is a
@@ -16,17 +19,4 @@ plain PyTorch version.
 
 __version__ = "0.1.0"
 
-__all__ = ["NotPortedError", "__version__"]
-
-
-class NotPortedError(NotImplementedError):
-    """A feature of chromosight_tpu that this port does not have yet.
-
-    The message names the ``ROADMAP.md`` queue-1 item that ports it."""
-
-    def __init__(self, what, roadmap_item):
-        super().__init__(
-            f"{what} is not yet ported to chromosight_torch "
-            f"(ROADMAP.md, queue 1, item {roadmap_item}); use "
-            "chromosight-tpu for it"
-        )
+__all__ = ["__version__"]

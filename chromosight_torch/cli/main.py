@@ -4,17 +4,24 @@
 Usage:
     chromosight-torch detect [--kernel-config=FILE] [--pattern=loops]
                         [--pearson=auto] [--win-size=auto] [--iterations=auto]
-                        [--win-fmt={json,npy}] [--norm={auto,raw}]
-                        [--inter] [--tsvd] [--smooth-trend]
-                        [--min-dist=auto] [--max-dist=auto]
+                        [--win-fmt={json,npy}] [--norm={auto,raw,force}]
+                        [--subsample=no] [--inter] [--tsvd] [--smooth-trend]
+                        [--n-mads=5] [--min-dist=auto] [--max-dist=auto]
                         [--no-plotting] [--min-separation=auto] [--dump=DIR]
                         [--threads=1] [--perc-zero=auto]
                         [--perc-undetected=auto] <contact_map> <prefix>
-    chromosight-torch quantify [--inter] [--pattern=loops] [--win-fmt=json]
-                        [--kernel-config=FILE] [--norm={auto,raw}]
-                        [--threads=1] [--win-size=auto]
-                        [--perc-undetected=auto] [--perc-zero=auto]
-                        [--no-plotting] [--tsvd] <bed2d> <contact_map> <prefix>
+    chromosight-torch generate-config [--preset loops] [--click contact_map]
+                        [--norm={auto,raw,force}] [--win-size=auto]
+                        [--n-mads=5] [--chroms=CHROMS] [--inter]
+                        [--threads=1] <prefix>
+    chromosight-torch quantify [--inter] [--pattern=loops] [--subsample=no]
+                        [--win-fmt=json] [--kernel-config=FILE]
+                        [--norm={auto,raw,force}] [--threads=1] [--n-mads=5]
+                        [--win-size=auto] [--perc-undetected=auto]
+                        [--perc-zero=auto] [--no-plotting] [--tsvd]
+                        <bed2d> <contact_map> <prefix>
+    chromosight-torch list-kernels [--long] [--mat] [--name=kernel_name]
+    chromosight-torch test
 
     detect:
         performs pattern detection on a Hi-C contact map via template
@@ -23,10 +30,20 @@ Usage:
     quantify:
         gives a pattern matching score for a list of 2D coordinates on a
         Hi-C contact map.
+    generate-config:
+        writes a preset (or an interactively captured) kernel config: a
+        JSON file of parameters and one text file per kernel matrix.
+    list-kernels:
+        prints the preset kernels.
+    test:
+        runs loop detection on the example map and compares its log with
+        the golden record.  It tries to download the map first, and falls
+        back to the copy in the repository (data_test/example.cool, or
+        its npz export where h5py does not import).
 
 Arguments for detect:
-    <contact_map>               The Hi-C contact map: a balanced .cool
-                                file, or an .npz export of one
+    <contact_map>               The Hi-C contact map: a .cool file, or an
+                                .npz export of one
                                 (chromosight_torch.io.source.ArraySource).
     <prefix>                    Common path prefix of the output files
                                 (prefix.tsv, prefix.json, ...).  May
@@ -44,9 +61,14 @@ Arguments for detect:
     -w FMT, --win-fmt=FMT       Windows output: "json" or "npy".
                                 [default: json]
     -n NORM, --norm=NORM        "auto" reuses the weights stored in the
-                                map; "raw" scans the raw counts (the
-                                weights still tell the missing bins).
-                                [default: auto]
+                                map and balances it (ICE, on the host)
+                                when it has none; "raw" scans the raw
+                                counts (the weights still tell the missing
+                                bins); "force" recomputes the ICE weights
+                                and overwrites the file's. [default: auto]
+    -s FLOAT, --subsample=FLOAT Use only this share of the contacts (or,
+                                above 1, this many), drawn anew for each
+                                map and pass. [default: no]
     -I, --inter                 Also scan the inter-chromosomal (trans)
                                 maps: dense up to 8192 bins a side, by
                                 halo tiles on the card above that.
@@ -55,6 +77,10 @@ Arguments for detect:
     -T, --smooth-trend          Fit the distance law by isotonic
                                 (non-increasing) regression before
                                 detrending; useful on sparse data.
+    -N FLOAT, --n-mads=FLOAT    When balancing, bins whose log contact sum
+                                is more than this many median absolute
+                                deviations below the median get no weight.
+                                [default: 5]
     -m INT, --min-dist=INT      Minimum distance (bp) of a reported
                                 pattern from the diagonal. [default: auto]
     -M INT, --max-dist=INT      Maximum distance (bp) scanned.
@@ -68,12 +94,19 @@ Arguments for detect:
     -d DIR, --dump=DIR          Save the matrix after each stage of each
                                 map as DIR/<chrom1>-<chrom2>_<stage>.npz
                                 (scipy sparse; needs scipy).
-    -t INT, --threads=INT       Accepted for compatibility; chromosomes
-                                run one after another. [default: 1]
+    -t INT, --threads=INT       Per-map workers in all: 1 runs the maps
+                                one after another; N > 1 fetches and
+                                preprocesses the maps on the calling
+                                thread, in map order, up to N - 1 maps
+                                ahead, while N worker threads scan them,
+                                each on a stream of its own. [default: 1]
     --no-plotting               Skip the pileup pdf output.
 
     Configs of several same-shape kernels (borders) run all their kernels
-    in one fused launch per chromosome and pass.
+    in one fused launch per chromosome and pass.  The maps go round-robin
+    over the devices the caller gives (``main(argv, device=[...])``; by
+    default every visible CUDA card), as do the tile batches of a trans
+    map; the outputs do not depend on the devices or on --threads.
 
 Arguments for quantify:
     <bed2d>                     Tab-separated file of coordinate pairs
@@ -86,30 +119,54 @@ Arguments for quantify:
     validation keeps NaN, and every q-value is NaN when any p-value is.
     Inter-chromosomal pairs are scored only with --inter.
 
-Other chromosight-tpu subcommands and options (generate-config,
-list-kernels, test, --subsample, --norm force) are not ported yet: see
-ROADMAP.md, queue 1.
+Arguments for generate-config:
+    <prefix>                    Path prefix of the generated config
+                                (prefix.json and prefix.N.txt kernels).
+    -e NAME, --preset=NAME      Preset config to start from.
+                                [default: loops]
+    -c FILE, --click=FILE       Build the kernel interactively instead:
+                                shows the contact map FILE and records
+                                double-clicked windows, whose gaussian-
+                                blurred pileup becomes the kernel.
+    -C LIST, --chroms=LIST      Comma-separated chromosomes to show in
+                                --click mode.
+
+Arguments for list-kernels:
+    --long                      Also print each preset's parameters.
+    --mat                       Draw each kernel matrix as ASCII art.
+    --name=NAME                 Only this kernel. [default: all]
 """
 
 from __future__ import annotations
 
+import http.client
+import io
+import itertools
+import json
+import os
+import pathlib
 import sys
+import tempfile
+from contextlib import contextmanager
 
 import numpy as np
 
 import chromosight_torch.detection as cid
-from chromosight_torch import NotPortedError, __version__
+from chromosight_torch import __version__
 from chromosight_torch.cli.args import CliError, parse_args
-from chromosight_torch.device import resolve_device, stage
+from chromosight_torch.device import resolve_devices, stage
 from chromosight_torch.io.bed2d import load_bed2d
 from chromosight_torch.io.config import load_kernel_config
 from chromosight_torch.io.source import ArraySource, CoolSource
 from chromosight_torch.io.writers import (
     check_prefix_dir,
+    download_file,
     progress,
     save_windows,
     write_patterns,
 )
+from chromosight_torch.kernels import kernel_names
+from chromosight_torch.parallel import MapScheduler, destroy_maps, retain_maps
 from chromosight_torch.preprocessing import resize_kernel
 from chromosight_torch.runtime.genome import HicGenome
 from chromosight_torch.stats import fdr_correction
@@ -123,22 +180,31 @@ QUANTIFY_COLUMNS = [
     "bin1", "bin2", "score", "pvalue", "qvalue",
 ]
 
-# subcommand or option -> (what, ROADMAP.md queue-1 item)
-NOT_PORTED = {
-    "generate-config": ("generate-config", 10),
-    "list-kernels": ("list-kernels", 10),
-    "test": ("test", 10),
-    "--subsample": ("--subsample", 10),
-}
+URL_EXAMPLE_DATASET = (
+    "https://raw.githubusercontent.com/koszullab/"
+    "chromosight/master/data_test/example.cool"
+)
+REPO_ROOT = pathlib.Path(__file__).parents[2]
+
+# Golden log of the self-test: the lines of chromosight_tpu/cli/main.py
+# TEST_LOG (the reference's, cli/chromosight.py:185-199).
+TEST_LOG = f"""Fetching test dataset at {URL_EXAMPLE_DATASET}...
+Running detection on test dataset...
+pearson set to 0.3 based on config file.
+max_dist set to 2000000 based on config file.
+min_dist set to 20000 based on config file.
+min_separation set to 5000 based on config file.
+max_perc_undetected set to 50.0 based on config file.
+max_perc_zero set to 10.0 based on config file.
+Matrix already balanced, reusing weights
+Preprocessing sub-matrices...
+Detecting patterns...
+89 patterns detected
+Saving patterns in chromosight_test.tsv
+Saving patterns in chromosight_test.json
+"""
 
 TSVD_ENERGY = 0.999
-
-
-def _refuse_not_ported(args):
-    for key, (what, item) in NOT_PORTED.items():
-        value = args.get(key)
-        if value not in (None, False, "no"):
-            raise NotPortedError(what, item)
 
 
 def _resolve_config_param(cfg, name, cli_value, cast):
@@ -220,31 +286,31 @@ def _concat_tables(tables):
     return {k: np.concatenate([t[k] for t in tables]) for k in tables[0]}
 
 
-def _scan(genome, task):
-    """``task(contact_map)`` on every chromosome, one after another, each
-    map created before and freed after; returns the results in order."""
+def _scan(genome, scheduler, task, keep):
+    """``task(contact_map)`` on every map of the genome through the
+    scheduler (maps kept created after their task when ``keep``); the
+    results in map order, progress drawn as each comes."""
     subs = genome.sub_mats
+    items = [(i, sub.contact_map) for i, sub in enumerate(subs)]
     results = []
-    for done, sub in enumerate(subs):
-        cm = sub.contact_map
-        cm.create_mat()
-        try:
-            results.append(task(cm))
-        finally:
-            cm.destroy_mat()
-        progress(done, len(subs), f"{sub.chr1}-{sub.chr2}")
+    for done, result in enumerate(scheduler.scan(items, task, keep=keep)):
+        results.append(result)
+        progress(done, len(subs), f"{subs[done].chr1}-{subs[done].chr2}")
     return results
 
 
-def _iterative_scan(genome, cfg):
+def _iterative_scan(genome, cfg, scheduler):
     """Every (kernel x iteration) pass over all chromosomes, each
     iteration refining its kernel from the pileup of the previous pass
     (reference cli:730-792).  Configs of several same-shape kernels run
     them in one fused launch per chromosome, iteration outermost
-    (``chromosight_tpu/cli/main.py:656-693``).  Returns (table, windows)
-    in kernel-major order, or (None, None) when nothing was found."""
+    (``chromosight_tpu/cli/main.py:656-693``).  With several passes the
+    maps stay created between them (``retain_maps``).  Returns (table,
+    windows) in kernel-major order, or (None, None) when nothing was
+    found."""
     total_runs = len(cfg["kernels"]) * cfg["max_iterations"]
     subs = genome.sub_mats
+    keep = retain_maps(genome, total_runs)
     per_pass = {}
 
     def collect(kernel_id, iteration, results):
@@ -277,7 +343,10 @@ def _iterative_scan(genome, cfg):
                     run_id, total_runs, f"Kernel: {kernel_id}, Iteration: {iteration}\n"
                 )
             stack = [current[k] for k in ids]
-            multi = _scan(genome, lambda cm: cid.detect_multi(cm, cfg, stack, tsvd=tsvd))
+            multi = _scan(
+                genome, scheduler, lambda cm: cid.detect_multi(cm, cfg, stack, tsvd=tsvd),
+                keep,
+            )
             for k_idx, kid in enumerate(ids):
                 refined = collect(kid, iteration, [r[k_idx] for r in multi])
                 if refined is None:
@@ -293,13 +362,17 @@ def _iterative_scan(genome, cfg):
                 )
                 results = _scan(
                     genome,
+                    scheduler,
                     lambda cm, k=kernel: cid.pattern_detector(cm, cfg, k, tsvd=tsvd),
+                    keep,
                 )
                 kernel = collect(kernel_id, iteration, results)
                 if kernel is None:
                     break  # nothing this pass: skip the remaining iterations
                 run_id += 1
     progress(run_id, total_runs, f"Kernel: {kernel_id}, Iteration: {iteration}\n")
+    if keep:
+        destroy_maps(genome)
     if not per_pass:
         return None, None
     ordered = [per_pass[key] for key in sorted(per_pass)]
@@ -347,31 +420,48 @@ def _plot_pileup(windows, cfg, prefix, title):
     pileup_plot(pileup, prefix, name=title)
 
 
-def detect(source, args, device=None):
+def _parse_subsample(value):
+    return None if value == "no" else value
+
+
+def _open_genome(source, args, cfg, devices, rng, **kw):
+    """The genome of a detect or quantify run on ``devices``, its maps'
+    ``--subsample`` draws from ``rng``, and the scheduler of
+    ``--threads`` over its devices."""
+    genome = HicGenome(
+        source, cfg, devices, inter=bool(args["--inter"]),
+        sample=_parse_subsample(args["--subsample"]), rng=rng, **kw,
+    )
+    return genome, MapScheduler(genome.devices, int(args["--threads"]))
+
+
+def detect(source, args, device=None, rng=None):
     """``detect`` on an open contact source with the parsed detect
     options ``args`` (``chromosight_torch.cli.args.parse_args`` of a detect
-    command line; ``<contact_map>`` is not read), on ``device``: the first
-    CUDA card by default, the CPU only when asked (``"cpu"``).  Writes
-    ``<prefix>.tsv`` and the windows, and returns (table, windows), or
-    (None, None) when no pattern is found."""
-    _refuse_not_ported(args)
+    command line; ``<contact_map>`` is not read), on ``device``: one
+    device or a sequence the maps go round-robin over; by default every
+    visible CUDA card, the CPU only when asked (``"cpu"``).  ``rng`` is the
+    ``numpy.random.RandomState`` of the ``--subsample`` draws (None: a
+    fresh one).  Writes ``<prefix>.tsv`` and the windows, and returns
+    (table, windows), or (None, None) when no pattern is found."""
     prefix = args["<prefix>"]
     win_fmt = args["--win-fmt"]
     _check_outputs(args)
-    device = resolve_device(device)
+    devices = resolve_devices(device)
     cfg = scan_config(args)
     if args["--inter"]:
         sys.stderr.write(
             "WARNING: Detection on interchromosomal matrices is expensive in RAM\n"
         )
-    genome = HicGenome(
-        source, cfg, device, dump=args["--dump"], smooth=bool(args["--smooth-trend"]),
-        inter=bool(args["--inter"]),
+    genome, scheduler = _open_genome(
+        source, args, cfg, devices, rng, dump=args["--dump"],
+        smooth=bool(args["--smooth-trend"]),
     )
-    genome.normalize(args["--norm"])
+    device = genome.device
+    genome.normalize(args["--norm"], float(args["--n-mads"]))
     genome.make_sub_matrices()
     sys.stderr.write("Detecting patterns...\n")
-    table, windows = _iterative_scan(genome, cfg)
+    table, windows = _iterative_scan(genome, cfg, scheduler)
     if table is None:
         sys.stderr.write("No pattern detected ! Exiting.\n")
         return None, None
@@ -437,15 +527,14 @@ def _best_of_kernels(bed2d, scores, pvalues, windows):
     return table, np.concatenate(windows, axis=0)[picked]
 
 
-def quantify(source, args, device=None):
+def quantify(source, args, device=None, rng=None):
     """``quantify`` of the pairs of ``<bed2d>`` on an open contact source
-    (``chromosight_tpu/cli/main.py:904-1090``) on ``device`` (the first
-    CUDA card by default, the CPU only when asked): each pair scored with
-    every kernel of the config at its anchor midpoints, the best score
-    kept; trans pairs only with ``--inter``.  Writes ``<prefix>.tsv``
-    (rows sorted by bin, NaN where the window fails validation) and the
-    windows; returns (table, windows)."""
-    _refuse_not_ported(args)
+    (``chromosight_tpu/cli/main.py:904-1090``) on ``device`` and with
+    ``rng``, as for ``detect``: each pair scored with every kernel of the
+    config at its anchor midpoints, the best score kept; trans pairs only
+    with ``--inter``.  Writes ``<prefix>.tsv`` (rows sorted by bin, NaN
+    where the window fails validation) and the windows; returns (table,
+    windows)."""
     prefix = args["<prefix>"]
     _check_outputs(args)
     bed2d = load_bed2d(args["<bed2d>"])
@@ -454,7 +543,7 @@ def quantify(source, args, device=None):
             "Warning: The bed2d file contains interchromosomal patterns. "
             "These patterns will not be scanned unless --inter is used.\n"
         )
-    device = resolve_device(device)
+    devices = resolve_devices(device)
     cfg = _load_scan_config(
         args,
         {
@@ -462,13 +551,13 @@ def quantify(source, args, device=None):
             "max_perc_undetected": (args["--perc-undetected"], float),
         },
     )
-    genome = HicGenome(source, cfg, device, inter=bool(args["--inter"]))
+    genome, scheduler = _open_genome(source, args, cfg, devices, rng)
     # scan exactly as far as the furthest requested pair
     furthest = int(np.max(bed2d["start2"] - bed2d["start1"]))
     cfg["max_dist"] = min(furthest, genome.clr.n_bins * genome.clr.binsize)
     cfg["min_dist"] = 0
     cfg["tsvd"] = TSVD_ENERGY if args["--tsvd"] else None
-    genome.normalize(args["--norm"])
+    genome.normalize(args["--norm"], float(args["--n-mads"]))
     km, kn = cfg["kernels"][0].shape
     if args["--win-size"] != "auto":
         km = kn = _resize_config_kernels(cfg, args["--win-size"])
@@ -483,6 +572,13 @@ def quantify(source, args, device=None):
     kernels = [np.asarray(k) for k in cfg["kernels"]]
     # same-shape kernels score every pair in one pass, others one by one
     passes = [kernels] if cid.fuse_kernels_eligible(kernels) else [[k] for k in kernels]
+    keep = retain_maps(genome, len(passes))
+    # the maps holding a pair, and each one's pairs
+    items = [
+        (i, sub.contact_map) for i, (sub, (rows, _)) in enumerate(zip(genome.sub_mats, pairs))
+        if len(rows)
+    ]
+    coords_of = {id(sub.contact_map): coords for sub, (_, coords) in zip(genome.sub_mats, pairs)}
     scores, pvalues, windows = [], [], []
     for stack in passes:
         for kernel_id in range(len(scores), len(scores) + len(stack)):
@@ -492,15 +588,15 @@ def quantify(source, args, device=None):
              np.full((n_rows, km, kn), np.nan))
             for _ in stack
         ]
-        for sub, (rows, coords) in zip(genome.sub_mats, pairs):
-            if not len(rows):
-                continue
-            cm = sub.contact_map
-            cm.create_mat()
-            try:
-                res = cid.detect_multi(cm, cfg, stack, coords=coords, tsvd=cfg["tsvd"])
-            finally:
-                cm.destroy_mat()
+        results = scheduler.scan(
+            items,
+            lambda cm, stack=stack: cid.detect_multi(
+                cm, cfg, stack, coords=coords_of[id(cm)], tsvd=cfg["tsvd"]
+            ),
+            keep=keep,
+        )
+        for (i, _), res in zip(items, results):
+            rows = pairs[i][0]
             for (score, pvalue, wins), (table, w) in zip(per_kernel, res):
                 if table is not None:
                     score[rows] = table["score"]
@@ -510,6 +606,8 @@ def quantify(source, args, device=None):
             scores.append(score)
             pvalues.append(pvalue)
             windows.append(wins)
+    if keep:
+        destroy_maps(genome)
 
     table, windows = _best_of_kernels(bed2d, scores, pvalues, windows)
     for axis in (1, 2):
@@ -523,7 +621,7 @@ def quantify(source, args, device=None):
     table["pvalue"][invalid] = np.nan
     table["qvalue"][invalid] = np.nan
     table = _select(table, np.lexsort((table["bin2"], table["bin1"])))
-    with stage("host: write", device):
+    with stage("host: write", genome.device):
         write_patterns(table, prefix)
         save_windows(windows, prefix, fmt=args["--win-fmt"])
     if not args["--no-plotting"]:
@@ -533,21 +631,215 @@ def quantify(source, args, device=None):
     return table, windows
 
 
-def main(argv=None, device=None):
-    """Command-line entry point; ``device`` (a ``torch.device`` or name)
-    defaults to the first CUDA card, and raises without one: the CPU is
-    used only when the caller asks for it (``device="cpu"``)."""
+def _capture_click_windows(args, cfg, win_size, device):
+    """Interactive kernel building (``chromosight_tpu/cli/main.py:
+    1096-1157``): show the preprocessed map (the whole genome, or the maps
+    of ``--chroms``), record the double-clicked windows and return their
+    gaussian-blurred pileup."""
+    import scipy.ndimage as ndi
+
+    from chromosight_torch.plotting import _plt, click_finder
+
+    genome = HicGenome(
+        open_source(args["--click"]), cfg, resolve_devices(device),
+        inter=bool(args["--inter"]),
+    )
+    genome.normalize(args["--norm"], float(args["--n-mads"]))
+    # scan the whole map: a distance beyond any chromosome
+    genome.max_dist = genome.clr.n_bins * genome.clr.binsize
+    genome.make_sub_matrices()
+    half_w = int((win_size - 1) / 2)
+    chroms = args["--chroms"]
+    if chroms is None:
+        for sub in genome.sub_mats:
+            sub.contact_map.create_mat()
+        windows = click_finder(genome.gather_sub_matrices().tocsr(), half_w=half_w)
+    else:
+        names = chroms.split(",")
+        pairs = (
+            itertools.combinations_with_replacement(names, 2)
+            if args["--inter"]
+            else [(ch, ch) for ch in names]
+        )
+        maps = {(sub.chr1, sub.chr2): sub.contact_map for sub in genome.sub_mats}
+        collected = []
+        for c1, c2 in pairs:
+            if (c1, c2) not in maps:
+                c1, c2 = c2, c1
+            cm = maps[(c1, c2)]
+            cm.create_mat()
+            collected.append(click_finder(cm.matrix.tocsr(), half_w=half_w, xlab=c2, ylab=c1))
+            cm.destroy_mat()
+        windows = np.concatenate(collected, axis=0)
+
+    pileup = ndi.gaussian_filter(cid.pileup_patterns(windows), 1)
+    plt = _plt()
+    hm = plt.imshow(np.log(pileup), vmax=np.percentile(pileup, 99), cmap="afmhot_r")
+    plt.colorbar(hm).set_label("Log10 Hi-C contacts")
+    plt.title("Manually generated kernel")
+    plt.show()
+    return pileup
+
+
+def _json_default(obj):
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (np.integer,)):
+        return int(obj)
+    if isinstance(obj, (np.floating,)):
+        return float(obj)
+    raise TypeError(f"not JSON serializable: {type(obj)}")
+
+
+def cmd_generate_config(args, device=None):
+    """Write a preset (or, with ``--click``, an interactively captured)
+    kernel config: ``<prefix>.json`` and one ``<prefix>.N.txt`` per kernel,
+    byte for byte what ``chromosight_tpu/cli/main.py:cmd_generate_config``
+    writes.  Only ``--click`` reads a map, on ``device``."""
+    prefix = args["<prefix>"]
+    cfg = load_kernel_config(args["--preset"], False)
+    check_prefix_dir(prefix)
+    if args["--win-size"] != "auto":
+        win_size = _resize_config_kernels(cfg, args["--win-size"])
+    else:
+        win_size = cfg["kernels"][0].shape[0]
+    if args["--click"]:
+        cfg["kernels"] = [_capture_click_windows(args, cfg, win_size, device).tolist()]
+    for mat_id, mat in enumerate(cfg["kernels"]):
+        mat_path = f"{prefix}.{mat_id + 1}.txt"
+        np.savetxt(mat_path, mat)
+        cfg["kernels"][mat_id] = mat_path
+    with open(f"{prefix}.json", "w") as config_handle:
+        json.dump(cfg, config_handle, indent=4, default=_json_default)
+
+
+def cmd_list_kernels(args):
+    """Print the presets (``chromosight_tpu/cli/main.py:cmd_list_kernels``):
+    names, with ``--long`` their parameters, with ``--mat`` their kernels
+    as ASCII art."""
+    from chromosight_torch.plotting import print_ascii_mat
+
+    available = kernel_names()
+    kernel_name = args["--name"]
+    for k in available if kernel_name == "all" else [kernel_name]:
+        if k not in available:
+            raise ValueError(f"Kernel {k} is not available")
+        kernel_infos = load_kernel_config(k, False)
+        print(k)
+        if args["--long"]:
+            for param, value in kernel_infos.items():
+                if param not in ("name", "resolution", "kernels"):
+                    print(f"  {param}: {value}")
+        if args["--mat"]:
+            for mat in kernel_infos["kernels"]:
+                print_ascii_mat(mat)
+
+
+def example_dataset():
+    """The example map in the repository, the self-test's fallback
+    (``chromosight_tpu/cli/main.py:179-182``): ``data_test/example.cool``
+    where h5py imports, else its npz export ``tests/data/
+    example_cool.npz``."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return str(REPO_ROOT / "tests" / "data" / "example_cool.npz")
+    return str(REPO_ROOT / "data_test" / "example.cool")
+
+
+def cmd_test(args, device=None):
+    """Self-test (``chromosight_tpu/cli/main.py:cmd_test``): loop
+    detection on the example map, downloaded or, when the download fails,
+    the repository's copy (``example_dataset``), on ``device``; writes
+    ``chromosight_test.tsv`` and ``.json`` in the working directory."""
+    sys.stderr.write(f"Fetching test dataset at {URL_EXAMPLE_DATASET}...\n")
+    tmp_cool = tempfile.NamedTemporaryFile(delete=False)
+    tmp_cool.close()
+    try:
+        try:
+            download_file(URL_EXAMPLE_DATASET, tmp_cool.name)
+            path = tmp_cool.name
+        except (OSError, http.client.HTTPException):
+            path = example_dataset()
+        sys.stderr.write("Running detection on test dataset...\n")
+        args["<contact_map>"] = path
+        args["<prefix>"] = "chromosight_test"
+        args["--no-plotting"] = True
+        detect(open_source(path), args, device)
+    finally:
+        os.unlink(tmp_cool.name)
+
+
+@contextmanager
+def capture_output(stderr_to=None):
+    """Capture stderr during the self-test run."""
+    try:
+        stderr = sys.stderr
+        sys.stderr = c2 = stderr_to or io.StringIO()
+        yield c2
+    finally:
+        sys.stderr = stderr
+        try:
+            c2.flush()
+            c2.seek(0)
+        except (ValueError, IOError):
+            pass
+
+
+def logo_version(ver):
+    """The ``--version`` text: the logo as ASCII art, then the version."""
+    from chromosight_torch.plotting import print_ascii_mat
+
+    logo = np.loadtxt(pathlib.Path(__file__).parent / "logo.txt")
+    small_logo = resize_kernel(logo, factor=0.33, quiet=True)
+    ascii_logo = print_ascii_mat(small_logo, colored=False, print_str=False)
+    return f"{ascii_logo} chromosight-torch version {ver}"
+
+
+def _run_self_test(args, device=None):
+    """Run ``test`` and compare the lines of its log with ``TEST_LOG``."""
+    with capture_output() as stderr:
+        cmd_test(args, device)
+    obs_log = stderr.read()
+    sys.stderr.write(obs_log)
+    obs_log_lines = {
+        u.strip("\x1b[K") for u in set(obs_log.split("\n")) if "\r" not in u
+    }
+    exp_log_lines = set(TEST_LOG.split("\n"))
+    if len(exp_log_lines ^ obs_log_lines):
+        sys.stderr.write(
+            "\nWarning, the test log differed from the "
+            "expected one. This means the program changed its output from"
+            "previous versions. You may ignore this if you are not a "
+            "developer.\n\n"
+            f"Here is the expected log:\n\n{TEST_LOG}\n"
+        )
+
+
+def main(argv=None, device=None, rng=None):
+    """Command-line entry point.  ``device``: one ``torch.device`` or name,
+    or a sequence of them; by default every visible CUDA card, and a
+    raise without one: the CPU is used only when the caller asks for it
+    (``device="cpu"``).  ``rng``: the ``numpy.random.RandomState`` of
+    ``--subsample`` (None: a fresh one).  ``list-kernels`` and
+    ``generate-config`` without ``--click`` use no device."""
     if argv is None:
         argv = sys.argv[1:]
+    version = logo_version(__version__) if "--version" in argv else None
     try:
-        args = parse_args(argv, __doc__, version=f"chromosight-torch {__version__}")
+        args = parse_args(argv, __doc__, version=version)
     except CliError as exc:
         return exc.code
-    _refuse_not_ported(args)
-    if args["quantify"]:
-        quantify(open_source(args["<contact_map>"]), args, device)
-    else:
-        detect(open_source(args["<contact_map>"]), args, device)
+    if args["test"]:
+        _run_self_test(args, device)
+    elif args["detect"]:
+        detect(open_source(args["<contact_map>"]), args, device, rng)
+    elif args["generate-config"]:
+        cmd_generate_config(args, device)
+    elif args["list-kernels"]:
+        cmd_list_kernels(args)
+    elif args["quantify"]:
+        quantify(open_source(args["<contact_map>"]), args, device, rng)
     return 0
 
 

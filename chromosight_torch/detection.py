@@ -919,10 +919,11 @@ def _pattern_detector_dense(contact_map, kernel_config, kernel_matrix, coords, t
 
 def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, tsvd):
     """Full-mode detection on a sparse map (``chromosight_tpu/detection.py:
-    1814-1953``): the tiled engine on the device with the missing bins as
-    two vectors for inter maps (in detect mode keeping only coefficients
-    >= pearson, unless ``--dump`` wants the whole map), then foci and the
-    two-phase sparse validation with virtual padding on the host."""
+    1814-1953``): the tiled engine with the missing bins as two vectors
+    for inter maps (in detect mode keeping only coefficients >= pearson,
+    unless ``--dump`` wants the whole map), its batches spread over the
+    run's devices, then foci and the two-phase sparse validation with
+    virtual padding on the host."""
     smat = contact_map.sparse.tocsr()
     km, kn = kernel_matrix.shape
     kh, kw = (km - 1) // 2, (kn - 1) // 2
@@ -949,7 +950,7 @@ def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, 
             tsvd=tsvd,
             pval=True,
             keep_min=keep_min,
-            device=dev,
+            device=contact_map.devices,
         )
     else:
         mask = make_missing_mask(

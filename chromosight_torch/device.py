@@ -8,7 +8,7 @@ kernel runs ``F.conv2d``, which cuDNN would otherwise run in TF32.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 import torch
 
@@ -37,16 +37,60 @@ def resolve_device(device=None):
     return device
 
 
+def resolve_devices(devices=None):
+    """The tuple of ``torch.device`` a run spreads its maps over.
+
+    ``None`` means every visible CUDA card (and raises without one); one
+    device or name means that device alone; a sequence means its devices
+    in order, repeats allowed (two workers on one card).  A CUDA device
+    without an index gets the current one, so equal cards compare equal.
+    """
+    if devices is None:
+        resolve_device(None)
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    out = []
+    for device in devices:
+        device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        out.append(device)
+    if not out:
+        raise ValueError("no device given")
+    return tuple(out)
+
+
+def new_stream(device):
+    """A CUDA stream of its own on ``device`` for a worker thread, or None
+    on the CPU."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+@contextmanager
+def on_stream(device, stream):
+    """Work of the calling thread on ``device``: on a card, that card and
+    ``stream`` are current inside (a thread's current stream is its
+    own); on the CPU nothing changes."""
+    with ExitStack() as ctx:
+        if device.type == "cuda":
+            ctx.enter_context(torch.cuda.device(device))
+            ctx.enter_context(torch.cuda.stream(stream))
+        yield
+
+
 @contextmanager
 def stage(name, device):
     """Time a pipeline stage under ``chromosight_torch.observability``.
 
-    On a CUDA device the stage ends with a synchronize, so its time holds
-    the device work it queued and not only the enqueue."""
+    On a CUDA device the stage ends by synchronising the calling thread's
+    current stream, so its time holds the device work it queued and not
+    only the enqueue, and other threads' streams run on.  Under the
+    scheduler's workers stages overlap: their sum can exceed the wall."""
     with observability.stage(name):
         yield
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
 
 
 def reset_stages():

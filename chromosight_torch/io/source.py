@@ -4,13 +4,16 @@ Counterpart of ``chromosight_tpu/io/cool.py:36-253``.  A source holds a
 chromosome table, a bin table and an upper-triangle pixel table sorted by
 (bin1, bin2) and indexed by ``bin1_offset`` (the cool layout).  It offers
 what the detect paths and ICE balancing read: ``chromnames``, ``extent``,
-``binsize``, ``weights``, ``bins()``, ``band_upper`` (intra band),
-``pixels_coo`` (trans maps and dense intra maps) and, for
+``binsize``, ``weights``, ``info`` (``info["sum"]``, the contact total
+``--subsample`` reads), ``bins()``, ``band_upper`` (intra band),
+``pixels_coo`` (trans maps, dense intra maps, ``--subsample``) and, for
 ``chromosight_torch.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
-``_chrom_offset``, ``pixel_chunks`` and ``row_slice_raw``.
+``_chrom_offset``, ``pixel_chunks``, ``row_slice_raw`` and
+``store_weights``.
 
 * ``CoolSource`` reads a ``.cool`` file with h5py, imported when one is
-  opened: the card's machine may not have h5py.
+  opened: the card's machine may not have h5py.  ICE weights are written
+  back into the file, as the JAX package does.
 * ``ArraySource`` holds the tables in memory: from an ``.npz`` export
   (``to_npz``/``from_npz``) or from the synthetic genome generator of
   ``tools/make_synthetic_cool.py`` (``from_synthetic``).
@@ -211,7 +214,24 @@ class CoolSource(_PixelSource):
                 if "weight" in g["bins"]
                 else None
             )
+            self.info = dict(g.attrs)
         self.binsize = int(binsize) if binsize is not None else None
+
+    def store_weights(self, weights, name="weight", stats=None):
+        """Write balancing weights to ``bins/<name>`` of the file, with the
+        ``stats`` as its attributes (``ice_balance(..., store=True)``;
+        ``chromosight_tpu/io/cool.py:415-428``)."""
+        weights = np.asarray(weights, dtype=np.float64)
+        if weights.shape[0] != self.n_bins:
+            raise ValueError("weights length must equal number of bins")
+        with self._h5py.File(self.path, "r+") as f:
+            g = f[self.group]
+            if name in g["bins"]:
+                del g["bins"][name]
+            d = g["bins"].create_dataset(name, data=weights)
+            for key, value in (stats or {}).items():
+                d.attrs[key] = value
+        self._weight = weights
 
     def _pixels(self, lo, hi):
         with self._h5py.File(self.path, "r") as f:
@@ -265,6 +285,11 @@ class ArraySource(_PixelSource):
         )
         self.binsize = None if binsize is None else int(binsize)
         self.planted = []  # (chrom, bin_i, bin_j) of synthetic loops
+
+    @property
+    def info(self):
+        """The attributes a cool file would hold: its contact total."""
+        return {"sum": float(self.count.sum())}
 
     def _pixels(self, lo, hi):
         return self.bin1[lo:hi], self.bin2[lo:hi], self.count[lo:hi]

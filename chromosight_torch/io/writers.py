@@ -10,10 +10,14 @@ decimals, NaN as an empty field, one ``\\n``-terminated line per row.
 from __future__ import annotations
 
 import json
+import shutil
 import sys
 from os.path import dirname, isdir
 
 import numpy as np
+
+# seconds a download may wait on the network before it fails
+DOWNLOAD_TIMEOUT = 10
 
 
 def _format_column(values, dec):
@@ -44,6 +48,16 @@ def save_windows(windows, output_prefix, fmt="json"):
             json.dump(json_wins, handle, indent=4)
     else:
         raise ValueError("window format must be either npy or json.")
+
+
+def download_file(url, file, length=16 * 1024):
+    """Copy ``url`` into the file ``file`` (``chromosight_tpu/io/
+    writers.py:36-39``), failing with an ``OSError`` after
+    ``DOWNLOAD_TIMEOUT`` seconds without an answer."""
+    from urllib.request import urlopen
+
+    with urlopen(url, timeout=DOWNLOAD_TIMEOUT) as req, open(file, "wb") as fp:
+        shutil.copyfileobj(req, fp, length)
 
 
 def check_prefix_dir(prefix):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -37,9 +38,12 @@ from chromosight_torch.ops.band import (
 )
 
 # Launches of the CUDA kernel in this process, in single-kernel mode (a
-# 2-D kernel) and in K-kernel mode (a (K, mk, nk) stack).
+# 2-D kernel) and in K-kernel mode (a (K, mk, nk) stack).  The
+# scheduler's workers launch from several threads: counts and the tap
+# table cache change under _LOCK.
 LAUNCHES = 0
 LAUNCHES_MULTI = 0
+_LOCK = threading.Lock()
 
 # Kernels per launch; larger stacks split into several launches (fewer
 # for the large square kernels of the compile-time instances, whose tap
@@ -99,10 +103,11 @@ def device_table(kernels, tsvd, device):
     """The kernel's tap table on ``device``: ``kernel_table(kernels,
     tsvd)`` with the float32 taps cast exactly to float64, and the float32
     (ksum, k2sum) sums.  Built and uploaded once per kernel stack: later
-    launches (every chromosome of a genome, every timed repeat) reuse it.
-    The tensors are shared; never write them."""
+    launches (every chromosome of a genome, every timed repeat) reuse it;
+    each device has its own.  The tensors are shared; never write them."""
     k64 = np.ascontiguousarray(kernels, dtype=np.float64)
-    return _cached_table(k64.tobytes(), k64.shape, tsvd, device)
+    with _LOCK:
+        return _cached_table(k64.tobytes(), k64.shape, tsvd, device)
 
 
 def _stack(kernel):
@@ -184,10 +189,11 @@ def band_pearson(
                 raise RuntimeError(
                     f"band_pearson kernel launch failed: cudaError {rc}"
                 )
-            if multi:
-                LAUNCHES_MULTI += 1
-            else:
-                LAUNCHES += 1
+            with _LOCK:
+                if multi:
+                    LAUNCHES_MULTI += 1
+                else:
+                    LAUNCHES += 1
     out = (corr, logp, cand.view(torch.bool))
     return out if multi else tuple(t[0] for t in out)
 

@@ -20,6 +20,13 @@ one of three forms:
   (``ops.tiled``) and never densifies it.
 
 Inter maps are divided by the median of their stored pixels.
+
+With ``sample`` (``--subsample``) ``create_mat`` first draws that share
+of the map's raw contacts (mirrored triangle included, as the JAX
+package's ``pixels_coo`` gives them) from the genome's ``RandomState``,
+then balances the draw with the stored weights
+(``chromosight_tpu/runtime/contact_map.py:479-504``); every call draws
+anew.
 """
 
 from __future__ import annotations
@@ -41,13 +48,34 @@ from chromosight_torch.ops.preprocess import (
     distance_law_dense,
     inter_median_scale,
 )
-from chromosight_torch.preprocessing import missing_flags, pava_decreasing, valid_to_missing
-from chromosight_torch.runtime.dump import save_band_snapshot, save_matrix_snapshot
+from chromosight_torch.preprocessing import (
+    missing_flags,
+    pava_decreasing,
+    subsample_contacts,
+    valid_to_missing,
+)
+from chromosight_torch.runtime.dump import (
+    announce,
+    save_band_snapshot,
+    save_matrix_snapshot,
+    save_snapshot,
+)
 
 # Maps larger than this many bins on a side are not densified: inter maps
 # stay sparse and go to the tiled engine.  Tests lower it to force that
 # path on small maps.
 DENSE_LIMIT = 8192
+
+
+def _jax_band_width(width):
+    """The width of the JAX package's band tensor for a ``width``-wide
+    band: rounded up to a power of two of at least 128 columns, then to
+    a multiple of 8192 (``chromosight_tpu/runtime/contact_map.py:35-42``).
+    Its ``01_subsampled`` snapshot holds that many diagonals."""
+    width = max(int(width), 128)
+    if width <= 8192:
+        return 1 << (width - 1).bit_length()
+    return -(-width // 8192) * 8192
 
 
 class ContactMap:
@@ -58,10 +86,13 @@ class ContactMap:
     True for a trans pair; ``max_dist`` the scan distance in bins (None:
     the whole map); ``largest_kernel`` the widest kernel side;
     ``use_norm`` False for ``--norm raw``; ``smooth`` for
-    ``--smooth-trend``; ``dump`` the ``--dump`` directory or None.  After
-    ``create_mat`` one of ``band``, ``dense`` or ``sparse`` holds the
-    preprocessed map (module docstring); all are None before it and after
-    ``destroy_mat``."""
+    ``--smooth-trend``; ``dump`` the ``--dump`` directory or None;
+    ``sample`` the ``--subsample`` share and ``rng`` the ``RandomState``
+    it draws from; ``devices`` the run's devices, over which the tiled
+    engine spreads a sparse map's batches (default: ``device`` alone).
+    After ``create_mat`` one of ``band``, ``dense`` or ``sparse`` holds
+    the preprocessed map (module docstring); all are None before it and
+    after ``destroy_mat``."""
 
     def __init__(
         self,
@@ -76,10 +107,16 @@ class ContactMap:
         smooth=False,
         dump=None,
         inter=False,
+        sample=None,
+        rng=None,
+        devices=None,
     ):
         self.clr = clr
         self.extent = extent
         self.device = device
+        self.devices = (device,) if devices is None else tuple(devices)
+        self.sample = sample
+        self.rng = rng
         self.name = name
         self.detectable_bins = detectable_bins
         self.max_dist = max_dist
@@ -114,8 +151,79 @@ class ContactMap:
         """Detrended values at or above this reset to 1 (balanced maps)."""
         return 10 if self.use_norm else None
 
+    @property
+    def matrix(self):
+        """The preprocessed map as a scipy CSR matrix on the host (a band
+        map as its upper triangle), or None before ``create_mat``: the JAX
+        package's ``matrix`` view."""
+        import scipy.sparse as sp
+
+        if self.sparse is not None:
+            return self.sparse
+        if self.dense is not None:
+            return sp.csr_matrix(self.dense.cpu().numpy())
+        if self.band is None:
+            return None
+        n = self.shape[0]
+        band = self.band[:n].double().cpu().numpy()
+        i, d = np.nonzero(band)
+        ok = i + d < n
+        i, d = i[ok], d[ok]
+        return sp.coo_matrix((band[i, d], (i, i + d)), shape=(n, n)).tocsr()
+
+    def subsample(self):
+        """COO triplets (rows, cols, values) of a draw of ``sample`` of the
+        map's raw contacts, balanced with the stored weights unless
+        ``--norm raw`` (``chromosight_tpu/runtime/contact_map.py:
+        479-504``)."""
+        import scipy.sparse as sp
+
+        (s1, e1), (s2, e2) = self.extent
+        rows, cols, vals = self.clr.pixels_coo((s1, e1), (s2, e2), balance=False)
+        # the contact total in float64 (trans pixels come as float32)
+        vals = np.asarray(vals, dtype=np.float64)
+        subsample = float(self.sample)
+        if subsample < 0:
+            raise ValueError("Subsample must be strictly positive.")
+        elif subsample <= 1:
+            subsample *= vals.sum()
+        else:
+            raise ValueError("Subsample cannot be above 1")
+        subsample = int(subsample)
+        if subsample < vals.sum():
+            coo = sp.coo_matrix((vals, (rows, cols)), shape=self.shape)
+            coo = subsample_contacts(coo, subsample, self.rng)
+            rows, cols, vals = coo.row, coo.col, coo.data
+        if self.use_norm:
+            w = self.clr.weights
+            vals = vals * w[rows + s1] * w[cols + s2]
+        return rows, cols, vals
+
+    def _subsampled_band(self, width):
+        """The upper band (n, width) float32 of a ``subsample`` draw, and
+        its ``01_subsampled`` snapshot: the draw's upper triangle on the
+        diagonals the JAX package's band holds (``_jax_band_width``)."""
+        n = self.shape[0]
+        rows, cols, vals = self.subsample()
+        rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+        d = cols - rows
+        keep = (d >= 0) & (d < width)
+        band = np.zeros((n, width), dtype=np.float32)
+        band[rows[keep], d[keep]] = vals[keep]
+        if self.dump is not None:
+            keep = (d >= 0) & (d < _jax_band_width(width))
+            v = vals[keep].astype(np.float32)
+            nz = v != 0
+            stage_name = "01_subsampled"
+            announce(f"Dumping matrix to {self.dump / f'{self.name}_{stage_name}'} "
+                     "after executing subsample")
+            save_snapshot(self.dump, self.name, stage_name, rows[keep][nz],
+                          cols[keep][nz], v[nz], n)
+        return band
+
     def create_mat(self):
-        """Fetch the map, upload it and preprocess it."""
+        """Fetch the map (a fresh ``subsample`` draw with ``sample``),
+        upload it and preprocess it."""
         if not self.is_banded:
             self._create_unbanded()
             return
@@ -123,7 +231,10 @@ class ContactMap:
         n = e1 - s1
         width = self.keep_distance + 1
         with stage("io: fetch+scatter", self.device):
-            band_host = self.clr.band_upper((s1, e1), width, balance=self.use_norm)
+            if self.sample is None:
+                band_host = self.clr.band_upper((s1, e1), width, balance=self.use_norm)
+            else:
+                band_host = self._subsampled_band(width)
         with stage("io: upload", self.device):
             band = band_finalize_upload(
                 torch.from_numpy(band_host).to(self.device), width
@@ -202,10 +313,15 @@ class ContactMap:
         (s1, e1), (s2, e2) = self.extent
         n1, n2 = e1 - s1, e2 - s2
         with stage("io: trans fetch" if self.inter else "io: fetch", self.device):
-            rows, cols, vals = self.clr.pixels_coo(
-                (s1, e1), (s2, e2), balance=self.use_norm
-            )
+            if self.sample is None:
+                rows, cols, vals = self.clr.pixels_coo(
+                    (s1, e1), (s2, e2), balance=self.use_norm
+                )
+            else:
+                rows, cols, vals = self.subsample()
             self._materialize(rows, cols, vals)
+            if self.sample is not None:
+                self._dump("01_subsampled", "subsample")
         with stage("preprocess", self.device):
             if self.inter:
                 self.preprocess_inter_matrix()

@@ -5,13 +5,42 @@ Counterpart of ``chromosight_tpu/runtime/dump.py`` and of the snapshots of
 stage of a map is saved as ``DIR/<map name>_<stage>.npz``, a scipy-sparse
 CSR matrix in matrix coordinates (float64 for the band engine's maps).
 scipy is imported only when a snapshot is written.
+
+Each snapshot says so on stdout through ``announce``; the scheduler
+collects a map's lines with ``collect`` while its thread works on it, and
+prints them in map order.
 """
 
 from __future__ import annotations
 
 import pathlib
+import threading
+from contextlib import contextmanager
 
 import numpy as np
+
+_SINK = threading.local()
+
+
+def announce(line):
+    """Print ``line``, or keep it in the list the calling thread collects
+    into (``collect``)."""
+    lines = getattr(_SINK, "lines", None)
+    if lines is None:
+        print(line)
+    else:
+        lines.append(line)
+
+
+@contextmanager
+def collect(lines):
+    """Keep what ``announce`` says in this thread in ``lines``."""
+    before = getattr(_SINK, "lines", None)
+    _SINK.lines = lines
+    try:
+        yield lines
+    finally:
+        _SINK.lines = before
 
 
 def save_snapshot(dump_dir, name, stage, rows, cols, vals, n):
@@ -35,7 +64,7 @@ def save_band_snapshot(dump_dir, name, stage, band, n, after):
     ok = i + d < n
     i, d = i[ok], d[ok]
     path = pathlib.Path(dump_dir) / f"{name}_{stage}"
-    print(f"Dumping matrix to {path} after executing {after}")
+    announce(f"Dumping matrix to {path} after executing {after}")
     save_snapshot(dump_dir, name, stage, i, i + d, band[i, d], n)
 
 
@@ -47,5 +76,5 @@ def save_matrix_snapshot(dump_dir, name, stage, mat, after=None):
 
     path = pathlib.Path(dump_dir) / f"{name}_{stage}"
     if after is not None:
-        print(f"Dumping matrix to {path} after executing {after}")
+        announce(f"Dumping matrix to {path} after executing {after}")
     sp.save_npz(path, mat.tocsr() if sp.issparse(mat) else sp.csr_matrix(np.asarray(mat)))

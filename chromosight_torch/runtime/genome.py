@@ -2,7 +2,9 @@
 
 Counterpart of ``chromosight_tpu/runtime/genome.py:25-262``: one map per
 chromosome and, with ``inter``, one per trans pair; pandas tables become
-dicts of numpy columns.
+dicts of numpy columns.  ICE balancing stays on the host
+(``ops.balance.ice_balance``).  The maps go round-robin over the run's
+devices in map order.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from chromosight_torch import NotPortedError
+from chromosight_torch import observability
 from chromosight_torch.io.writers import progress
+from chromosight_torch.ops.balance import ice_balance
 from chromosight_torch.runtime.contact_map import ContactMap
 
 
@@ -28,12 +32,17 @@ class SubMatrix:
 
 class HicGenome:
     """A contact source, its bin table, and one ``ContactMap`` per
-    chromosome (and, with ``inter``, per trans pair) on ``device``;
-    ``dump`` is the ``--dump`` directory (created here) and ``smooth`` the
-    ``--smooth-trend`` switch."""
+    chromosome (and, with ``inter``, per trans pair).  ``device`` is one
+    ``torch.device`` or a sequence of them: map i lives on device
+    ``i % len(devices)``.  ``dump`` is the ``--dump`` directory (created
+    here), ``smooth`` the ``--smooth-trend`` switch, ``sample`` the
+    ``--subsample`` value (a share of the contacts, or a number of
+    contacts above 1) and ``rng`` the ``numpy.random.RandomState`` its
+    draws come from (None: a fresh one, seeded by the OS)."""
 
     def __init__(
-        self, clr, kernel_config, device, dump=None, smooth=False, inter=False
+        self, clr, kernel_config, device, dump=None, smooth=False, inter=False,
+        sample=None, rng=None,
     ):
         self.dump = None if dump is None else Path(dump)
         if self.dump is not None:
@@ -41,13 +50,37 @@ class HicGenome:
         self.clr = clr
         self.bins = clr.bins()
         self.kernel_config = kernel_config
-        self.device = device
+        single = isinstance(device, (str, torch.device))
+        self.devices = tuple(torch.device(d) for d in ([device] if single else device))
+        self.device = self.devices[0]
         self.smooth = smooth
         self.inter = inter
         self.use_norm = True
         self.sub_mats = None
         self.detectable_bins = np.arange(clr.n_bins)
         self.compute_max_dist()
+        self.sample = self._sample_share(sample)
+        if rng is None and self.sample is not None:
+            rng = np.random.RandomState()
+        self.rng = rng
+
+    def _sample_share(self, sample):
+        """The share of contacts ``--subsample`` keeps, or None
+        (``chromosight_tpu/runtime/genome.py:54-74``)."""
+        if sample is None:
+            return None
+        sample = float(sample)
+        if "sum" not in self.clr.info:
+            raise IOError("sum info missing from cool file. Please fix the file.")
+        total = self.clr.info["sum"]
+        if sample > total:
+            print("sample value is higher than total contacts,skipping subsampling.")
+            return None
+        if sample > 1:
+            return sample / total
+        if sample > 0:
+            return sample
+        raise ValueError("Sample must be a positive value or None")
 
     def compute_max_dist(self):
         """Scanning distance (bins) from the kernel config
@@ -63,18 +96,30 @@ class HicGenome:
             self.max_dist = None
             self.largest_kernel = 3
 
-    def normalize(self, norm="auto"):
-        """Reuse the stored balancing weights; ``raw`` scans the raw
-        counts and keeps the weights only to tell the detectable bins.
-        ICE balancing (``--norm force``, or a map without weights) is not
-        ported yet."""
+    def normalize(self, norm="auto", n_mads=5):
+        """Reuse the stored balancing weights, or, with ``force`` or on a
+        map without weights, compute them by ICE on the host and store them
+        in the source (``chromosight_tpu/runtime/genome.py:92-124``): bins
+        whose log contact sum lies more than ``n_mads`` median absolute
+        deviations below the median get no weight.  ``raw`` scans the raw
+        counts and keeps the weights only to tell the detectable bins."""
         if norm not in ["auto", "raw", "force"]:
             raise ValueError("norm must be one of: auto, raw, force")
-        if "weight" not in self.bins or norm == "force":
-            raise NotPortedError(
-                "ICE balancing (--norm force, or a map without weights)", 10
-            )
-        sys.stderr.write("Matrix already balanced, reusing weights\n")
+        if "weight" in self.bins and norm != "force":
+            sys.stderr.write("Matrix already balanced, reusing weights\n")
+        else:
+            with observability.stage("balance: ICE"):
+                ice_balance(
+                    self.clr,
+                    mad_max=n_mads,
+                    cis_only=not self.inter,
+                    ignore_diags=2,
+                    max_iters=200,
+                    min_nnz=10,
+                    store=True,
+                )
+            print("Whole genome matrix balanced")
+            self.bins = self.clr.bins()
         self.use_norm = norm != "raw"
         self.detectable_bins = np.flatnonzero(np.isfinite(self.bins["weight"]))
         print(
@@ -86,7 +131,8 @@ class HicGenome:
         """One ``ContactMap`` per chromosome and, with ``inter``, per pair
         chr1 < chr2 in the chromosome order, row-major
         (``chromosight_tpu/runtime/genome.py:126-191``).  Trans maps scan
-        the whole rectangle (no ``max_dist``)."""
+        the whole rectangle (no ``max_dist``).  Map i goes to device
+        ``i % len(devices)``."""
         names = self.clr.chromnames
         d = self.detectable_bins
         pairs = [
@@ -96,6 +142,8 @@ class HicGenome:
             if i1 == i2 or (i1 < i2 and self.inter)
         ]
         sys.stderr.write("Preprocessing sub-matrices...\n")
+        if self.sample is not None:
+            sys.stderr.write(f"{np.round(100 * self.sample)}% contacts will be sampled \n")
         self.sub_mats = []
         for idx, (i1, i2) in enumerate(pairs):
             chr1, chr2 = names[i1], names[i2]
@@ -108,19 +156,45 @@ class HicGenome:
             cm = ContactMap(
                 self.clr,
                 [(s1, e1), (s2, e2)],
-                self.device,
+                self.devices[idx % len(self.devices)],
                 name=f"{chr1}-{chr2}",
                 detectable_bins=detectable,
                 use_norm=self.use_norm,
                 smooth=self.smooth,
                 dump=self.dump,
                 inter=i1 != i2,
+                sample=self.sample,
+                rng=self.rng,
+                devices=self.devices,
                 **scan,
             )
             self.sub_mats.append(SubMatrix(chr1, chr2, cm))
         last = self.sub_mats[-1]
         progress(len(pairs), len(pairs), f"{last.chr1}-{last.chr2}\n")
         print("Sub matrices extracted")
+
+    def gather_sub_matrices(self):
+        """The created maps assembled into the upper triangle of a
+        whole-genome scipy CSR matrix (``chromosight_tpu/runtime/
+        genome.py:192-214``)."""
+        import scipy.sparse as sp
+
+        rows, cols, vals = [], [], []
+        for sub in self.sub_mats:
+            block = sub.contact_map.matrix
+            if block is None:
+                continue
+            coo = sp.coo_matrix(block)
+            rows.append(coo.row.astype(np.int64) + self.clr.extent(sub.chr1)[0])
+            cols.append(coo.col.astype(np.int64) + self.clr.extent(sub.chr2)[0])
+            vals.append(coo.data)
+        if not rows:
+            return sp.csr_matrix(self.clr.shape)
+        gathered = sp.coo_matrix(
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+            shape=self.clr.shape,
+        ).tocsr()
+        return sp.triu(gathered)
 
     def get_full_mat_pattern(self, chr1, chr2, patterns):
         """Shift sub-matrix bins of a pattern table to genome bins."""

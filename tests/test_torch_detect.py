@@ -1,9 +1,9 @@
 """The port's detect slice end to end on CPU: the 89-loop golden from the
 cool file and its npz export, state carried over from the JAX package,
 the preprocessed bands of --smooth-trend, --dump and --norm raw against
-the JAX package's, the synthetic genome source, the refusals of what is
-not ported, and the import boundary (no jax, h5py, pandas or
-jsonschema)."""
+the JAX package's, the synthetic genome source, the options and
+subcommands once refused as not ported, and the import boundary (no
+jax, h5py, pandas or jsonschema)."""
 
 import contextlib
 import importlib.util
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import chromosight_tpu.kernels as ck
-from chromosight_torch import NotPortedError
 from chromosight_torch.cli.main import main
 from chromosight_torch.detection import _band_correlate
 from chromosight_torch.io.source import ArraySource, planted_recall
@@ -100,10 +99,20 @@ def test_detect_stderr_matches_golden_log(detect_runs):
     ],
 )
 def test_unported_options_raise(tmp_path, flags, what):
+    """The options the port once refused as not ported now run: a
+    subsampled detect, and ICE balancing from the npz (the weights
+    recomputed and kept in memory); ``tests/test_torch_cli.py`` holds
+    them against the JAX package."""
     argv = ["detect", "--no-plotting", *flags, str(EXAMPLE_NPZ), str(tmp_path / "x")]
-    with pytest.raises(NotPortedError, match=r"ROADMAP\.md, queue 1, item \d+") as exc:
-        main(argv, device="cpu")
-    assert what in str(exc.value)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert main(argv, device="cpu", rng=np.random.RandomState(0)) == 0
+    calls = pd.read_csv(tmp_path / "x.tsv", sep="\t")
+    assert len(calls) > 10 and calls.score.notna().all()
+    if what == "--norm force":
+        assert "Whole genome matrix balanced" in out.getvalue() and len(calls) == 89
+    else:
+        assert "50.0% contacts will be sampled" in err.getvalue() and len(calls) < 89
 
 
 @pytest.mark.parametrize(
@@ -114,10 +123,26 @@ def test_unported_options_raise(tmp_path, flags, what):
         (["test"], "test"),
     ],
 )
-def test_unported_subcommand_raises(tmp_path, argv, what):
-    with pytest.raises(NotPortedError, match=r"ROADMAP\.md, queue 1, item \d+") as exc:
-        main(argv, device="cpu")
-    assert what in str(exc.value)
+def test_unported_subcommand_raises(tmp_path, monkeypatch, argv, what):
+    """The subcommands the port once refused as not ported now run (the
+    self-test offline, on the repository's example map)."""
+    import chromosight_torch.cli.main as cli
+
+    def offline(url, path):
+        raise OSError("no network in this test")
+
+    monkeypatch.setattr(cli, "download_file", offline)
+    monkeypatch.chdir(tmp_path)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert main(argv, device="cpu") == 0
+    if what == "generate-config":
+        assert (tmp_path / "p.json").exists() and (tmp_path / "p.1.txt").exists()
+    elif what == "list-kernels":
+        assert out.getvalue().split() == ck.kernel_names
+    else:
+        assert "89 patterns detected" in err.getvalue()
+        assert "test log differed" not in err.getvalue()
 
 
 def test_state_carried_from_jax_gives_same_pearson(tmp_path):
@@ -274,8 +299,9 @@ def test_synthetic_genome_detect_matches_jax(tmp_path):
 def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
     """Every module of the package loads with jax, h5py, pandas,
     jsonschema and chromosight_tpu blocked, and detect (a short scan
-    distance keeps the CPU run quick), quantify, and detect --inter on
-    the dense and on the tiled engine run from the npz."""
+    distance keeps the CPU run quick), quantify, detect --inter on the
+    dense and on the tiled engine, list-kernels and generate-config run
+    from the npz."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
@@ -300,6 +326,8 @@ for limit, suffix in ((8192, "_inter"), (50, "_tiled")):
             {str(EXAMPLE_NPZ)!r}, {prefix!r} + suffix]
     assert cli.main(argv, device="cpu") == 0
 assert tiled.TILES["scanned"] > 0
+assert cli.main(["list-kernels", "--long", "--mat"]) == 0
+assert cli.main(["generate-config", "--preset", "borders", {prefix + "_cfg"!r}]) == 0
 assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -310,6 +338,8 @@ assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(pathlib.Path(prefix + ".tsv").read_text().splitlines()) > 1
     assert len(pathlib.Path(prefix + "_q.tsv").read_text().splitlines()) == 54
+    assert len(list(tmp_path.glob("blocked_cfg.*.txt"))) == 3
+    assert "loops_small" in res.stdout
     inter = pd.read_csv(prefix + "_inter.tsv", sep="\t")
     tiled = pd.read_csv(prefix + "_tiled.tsv", sep="\t")
     key = ["chrom1", "start1", "chrom2", "start2", "bin1", "bin2", "kernel_id", "iteration"]

@@ -2,10 +2,13 @@
 originals, on the same seeded numpy inputs: preprocessing, FDR, the CLI
 grammar, the native library (connected components, neighbour
 suppression, the fused band scatter, ICE marginals), ICE weights bit for
-bit, the stage timers and the preset files."""
+bit, the stage timers, the preset files, and the CLI surface's copies
+(``print_ascii_mat``, ``subsample_contacts``, ``_extract_window``,
+``TEST_LOG``, the logo)."""
 
 import contextlib
 import io
+import os
 import pathlib
 
 import numpy as np
@@ -319,3 +322,66 @@ def test_zero_pad_sparse(fmt):
     ref = j_pre.zero_pad_sparse(mat.astype(np.float32), 4, 3, fmt=fmt)
     assert out.format == ref.format == fmt and out.dtype == ref.dtype == np.float32
     assert np.array_equal(out.toarray(), ref.toarray())
+
+
+@pytest.mark.parametrize("colored", [False, True])
+@pytest.mark.parametrize("width", [30, 200])
+def test_print_ascii_mat(colored, width, monkeypatch):
+    """The ASCII art of every preset kernel and of a random matrix, at a
+    narrow and a wide terminal, printed and returned."""
+    import chromosight_torch.plotting as t_plot
+    import chromosight_tpu.plotting as j_plot
+
+    monkeypatch.setattr(os, "get_terminal_size", lambda *a: os.terminal_size((width, 40)))
+    mats = [load_kernel_config(name)["kernels"][0] for name in PRESET_NAMES]
+    mats.append(np.random.RandomState(2).rand(13, 41))
+    for mat in mats:
+        for adjust in (True, False):
+            kw = dict(adjust=adjust, colored=colored)
+            art = t_plot.print_ascii_mat(mat, print_str=False, **kw)
+            assert art == j_plot.print_ascii_mat(mat, print_str=False, **kw)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert t_plot.print_ascii_mat(mat, **kw) is None
+            assert out.getvalue() == art
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_subsample_contacts(seed):
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    mat = sp.random(40, 50, density=0.3, random_state=rng, format="coo")
+    mat.data = np.ceil(mat.data * 9)
+    out = t_pre.subsample_contacts(mat, 100, np.random.RandomState(seed))
+    np.random.seed(seed)
+    ref = j_pre.subsample_contacts(mat, 100)
+    assert out.format == ref.format == "coo" and out.dtype == ref.dtype
+    for a, b in ((out.row, ref.row), (out.col, ref.col), (out.data, ref.data)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("center", [(8, 8), (0, 5), (20, 3), (5, 29), (12, 20)])
+def test_extract_window(center):
+    import chromosight_torch.plotting as t_plot
+    import chromosight_tpu.plotting as j_plot
+
+    dense = np.random.RandomState(1).rand(30, 25)
+    out = t_plot._extract_window(dense, *center, 4)
+    ref = j_plot._extract_window(dense, *center, 4)
+    assert (out is None) == (ref is None)
+    assert out is None or np.array_equal(out, ref)
+
+
+def test_self_test_log_logo_and_kernel_names():
+    """The golden log of ``test``, the logo file and the preset names."""
+    import chromosight_torch.cli.main as t_cli
+    import chromosight_torch.kernels as t_kernels
+    import chromosight_tpu.cli.main as j_cli
+    import chromosight_tpu.kernels as j_kernels
+
+    assert t_cli.TEST_LOG == j_cli.TEST_LOG
+    assert t_cli.URL_EXAMPLE_DATASET == j_cli.URL_EXAMPLE_DATASET
+    ours = ROOT / "chromosight_torch" / "cli" / "logo.txt"
+    assert ours.read_bytes() == (ROOT / "chromosight_tpu" / "cli" / "logo.txt").read_bytes()
+    assert t_kernels.kernel_names() == j_kernels.kernel_names == PRESET_NAMES

@@ -287,7 +287,7 @@ def test_carried_inter_map_gives_jax_pearson(example_cool, form, request):
         else:
             ref = j_tiled(cm.sparse, kernel, missing_vectors=miss, **args)[0].toarray()
             got = ttiled.normxcorr2_sparse_tiled(
-                port.sparse, kernel, missing_vectors=miss, **args
+                port.sparse, kernel, missing_vectors=miss, device="cpu", **args
             )[0].toarray()
             assert np.array_equal(ref != 0, got != 0)
         assert (ref != 0).sum() > 1000

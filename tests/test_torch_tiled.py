@@ -90,7 +90,7 @@ def test_tiled_matches_jax_and_dense(form, keep_min, numerator, monkeypatch):
     kw = _kwargs(form, miss_r, miss_c, signal.shape)
     ref = j_tiled(signal, kernel, tile=TILE, **args, **kw)
     before = dict(ttiled.TILES)
-    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, **args, **kw)
+    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args, **kw)
     seen = sum(ttiled.TILES[k] - before[k] for k in ("scanned", "skipped"))
     assert seen == 6 * 8  # the framed 332 x 452 map
     assert all(sp.issparse(m) and m.shape == SHAPE for m in got)
@@ -124,7 +124,7 @@ def test_tiled_upper_symmetric_matches_jax(kname, max_dist):
     kw = _kwargs("sym", miss_r, miss_c, signal.shape, max_dist)
     args = dict(full=True, pval=True, missing_tol=0.5, **kw)
     ref = j_tiled(signal, kernel, tile=TILE, **args)
-    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, **args)
+    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args)
     both = assert_same_csr(ref[0], got[0])
     assert np.abs(ref[1].toarray()[both] - got[1].toarray()[both]).max() < 2e-3
 
@@ -136,7 +136,7 @@ def test_tiled_tsvd_matches_jax():
     args = dict(full=True, pval=True, missing_tol=0.5, tsvd=0.999,
                 missing_vectors=(miss_r, miss_c))
     ref = j_tiled(signal, kernel, tile=TILE, **args)
-    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, **args)
+    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args)
     assert_same_csr(ref[0], got[0])
 
 
@@ -148,8 +148,8 @@ def test_tiled_unframed_and_tile_sizes(full):
     kernel = KERNELS["loops"]()
     signal, miss_r, miss_c = sparse_case(seed=4, shape=(90, 110))
     args = dict(full=full, pval=True, missing_tol=0.5, missing_vectors=(miss_r, miss_c))
-    ref = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, **args)
-    small = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=8, **args)
+    ref = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args)
+    small = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=8, device="cpu", **args)
     jax_ref = j_tiled(signal, kernel, tile=TILE, **args)
     for got in (small, jax_ref):
         assert_same_csr(ref[0], got[0])
@@ -165,7 +165,7 @@ def test_tiled_skips_empty_tiles():
     signal = signal.tocsr()
     args = dict(full=True, pval=True, missing_tol=0.5, missing_vectors=(miss_r, miss_c))
     before = dict(ttiled.TILES)
-    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, **args)
+    got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args)
     scanned = ttiled.TILES["scanned"] - before["scanned"]
     skipped = ttiled.TILES["skipped"] - before["skipped"]
     assert scanned + skipped == 5 * 7 and skipped >= 10  # the framed 316 x 436 map
@@ -211,7 +211,7 @@ def test_xcorr2_sparse_tiled_matches_jax_and_dense(factorised, density, monkeypa
     if factorised:
         kernel = factorise_kernel(kernel, prop_info=0.999)
     signal, _, _ = sparse_case(seed=6)
-    got = ttiled.xcorr2_sparse_tiled(signal, kernel, tile=TILE)
+    got = ttiled.xcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu")
     ref = j_xcorr2_tiled(signal, kernel, tile=TILE)
     dense = t_xcorr2_dense(torch.from_numpy(signal.toarray()).float(), kernel).numpy()
     tol = 2e-6 * np.abs(dense).max()
@@ -225,12 +225,28 @@ def test_tiled_refusals():
     kernel = KERNELS["loops_small"]()
     with pytest.raises(ValueError, match="sym_upper"):
         ttiled.normxcorr2_sparse_tiled(
-            signal, kernel, sym_upper=True, missing_vectors=(miss_r, miss_c)
+            signal, kernel, sym_upper=True, missing_vectors=(miss_r, miss_c), device="cpu"
         )
     with pytest.raises(ValueError, match="not both"):
         ttiled.normxcorr2_sparse_tiled(
             signal, kernel, missing_vectors=(miss_r, miss_c),
-            missing_mask=sp.csr_matrix(np.zeros((60, 60), bool)),
+            missing_mask=sp.csr_matrix(np.zeros((60, 60), bool)), device="cpu",
         )
     with pytest.raises(ValueError, match="positive"):
-        ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=0)
+        ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=0, device="cpu")
+
+
+def test_tiled_needs_a_device_without_a_card(monkeypatch):
+    """Called without a device, both public functions mean the first CUDA
+    card: without one they raise, and never run on the CPU unasked; a
+    device list spreads the batches and gives the one-device result."""
+    signal = sparse_case(3)[0]
+    kernel = np.asarray(KERNELS["loops_small"](), np.float32)
+    one = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu")[0]
+    two = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device=["cpu", "cpu"])[0]
+    assert one.nnz > 0 and (one != two).nnz == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ttiled.xcorr2_sparse_tiled(signal, kernel, tile=TILE)
