@@ -18,15 +18,19 @@ Phases, one line or block each; any failure raises (non-zero exit):
             shapes, the 81x81 centromeres kernel, the --tsvd taps of the
             loops kernel) and in K-kernel mode (the three borders kernels,
             nine 5x9 kernels split over two launches), each K-kernel launch
-            bit-identical to K single launches, and launches on two streams
-            at once equal to launches on one; then chr1 of the synthetic
+            bit-identical to K single launches, launches on two streams
+            at once equal to launches on one, and the three fp32 decision
+            boundaries of tests/test_fp32_boundaries.py (the min_pres cutoff,
+            the 1e-10 guard, the pearson straddle) against their float64
+            oracle; then chr1 of the synthetic
             genome, loops and borders, with device times (CUDA events) of
             one fused launch, K single launches and the plain twins, and the
             kernel-only time (torch.profiler) beside the float64 bound of
             these inputs and its share;
 4. golden   ``detect`` on tests/data/example_cool.npz reproduces
             tests/data/golden_detect_loops{,_raw,_smooth,_tsvd}.tsv and
-            golden_detect_borders.tsv (fused), the ``--dump`` snapshots of
+            golden_detect_borders.tsv (fused), the loops windows against
+            tests/data/golden_detect_loops.json, the ``--dump`` snapshots of
             tests/data/golden_dump/, and ``quantify`` of data_test/example.bed2
             reproduces golden_quantify_loops.tsv and golden_quantify_borders.tsv;
 5. genome   on a synthetic 13 x 48,000-bin genome at 5 kb (the bench.py
@@ -62,6 +66,18 @@ Phases, one line or block each; any failure raises (non-zero exit):
             ``--threads 4`` against ``--threads 1`` with one seed; and the
             native band scatter of the genome on the main thread and on a
             thread of its own.  It runs after phase 5, on the same genome.
+9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
+            card by default: TUTORIAL's block and detect_example.ipynb's loop
+            on the example map (each map's calls those of the command line's
+            per-map path), quantify_api.ipynb's flow (as on the CPU); the
+            notebook loop over the 13 x 48,000 genome with kernels.loops
+            (13 launches, calls identical to detect_multi's, the wall beside
+            phase 5's); ``full=False`` on the example's maps and on the
+            genome's chr1 (48,000 bins, not cut) against the CPU's run.
+10. genome-golden  the reference's own genome-scale calls
+            (tests/data/golden_genome_{loops,borders}.tsv: 159 and 3,706) on
+            the seed-0 3 x 50,000 genome, its fingerprint checked: the same
+            calls, score max|d| < 5e-5, log10 p max|d| < 1e-3.
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line.  Without a
@@ -98,6 +114,7 @@ import chromosight_torch.ops.tiled as tiled  # noqa: E402
 import chromosight_torch.runtime.contact_map as contact_map  # noqa: E402
 from chromosight_torch.cli.main import detect, main, parse_args, quantify  # noqa: E402
 from chromosight_torch.detection import (  # noqa: E402
+    detect_multi,
     frame_contact_map,
     pattern_detector,
     pick_foci,
@@ -115,6 +132,7 @@ from chromosight_torch.ops.band import (  # noqa: E402
     band_frame,
     pearson_reference,
     pearson_reference_multi,
+    shear_kernel,
 )
 from chromosight_torch.ops.normxcorr import (  # noqa: E402
     make_missing_mask_dense,
@@ -145,6 +163,13 @@ INTER_PAIRS = (
     "chr2\t130000\t131000\tchr3\t139000\t140000\n"
 )
 ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
+# walls (s) of the main-path runs, by name
+WALLS = {}
+EXAMPLE_NPZ = "tests/data/example_cool.npz"
+# genome-golden: the genome of tests/data/golden_genome_meta.json
+GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
+# the windows of tests/test_fp32_boundaries.py
+FP32_N, FP32_WIDTH, FP32_MAX_DIST = 512, 128, 100
 
 
 def check(cond, msg):
@@ -390,6 +415,7 @@ def phase_kernels_small():
     case = random_case(stripes.shape[1:], 300, 512, np.random.RandomState(4))
     run_multi("three 31x31 (2 + 1 launches) n_pad=512", *case[:2], stripes, 300, case[2])
     two_streams()
+    fp32_boundaries()
 
 
 def two_streams(reps=8):
@@ -417,14 +443,148 @@ def two_streams(reps=8):
           "single-stream launches")
 
 
+def fp32_oracle(sig_p, mask_p, kernel, threshold=1e-4):
+    """The float64 oracle of tests/test_fp32_boundaries.py:40-77 on framed
+    inputs (numpy): the six correlations and the missing-corrected
+    Pearson with its guards, on the correlation's rows; (corr, n_pres)."""
+    from scipy.signal import correlate2d
+
+    k = np.asarray(kernel, np.float64)
+    ksize = k.size
+    sh_k, sh_k2, sh_1 = (shear_kernel(a) for a in (k, k**2, np.ones_like(k)))
+
+    def snap(x):
+        x = np.asarray(x)
+        x[np.abs(x) < threshold] = 0.0
+        return x
+
+    conv_sk = snap(correlate2d(sig_p, sh_k / ksize, mode="valid"))
+    sig_mean0 = snap(correlate2d(sig_p, sh_1, mode="valid") / ksize)
+    sig2_mean0 = snap(correlate2d(sig_p**2, sh_1, mode="valid") / ksize)
+    n_miss = snap(correlate2d(mask_p, sh_1, mode="valid"))
+    conv_mk = snap(correlate2d(mask_p, sh_k, mode="valid"))
+    conv_mk2 = snap(correlate2d(mask_p, sh_k2, mode="valid"))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        n_pres = ksize - n_miss
+        kmean_eff = (k.sum() - conv_mk) / n_pres
+        k2mean_eff = ((k**2).sum() - conv_mk2) / n_pres
+        corr_f = ksize / n_pres
+        sig_mean = sig_mean0 * corr_f
+        sig2_mean = sig2_mean0 * corr_f
+        denom = np.sqrt((sig2_mean - sig_mean**2) * (k2mean_eff - kmean_eff**2))
+        denom[n_pres < int((1 - MISSING_TOL) * ksize)] = 0.0
+        num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
+        out = np.where(np.abs(denom) < 1e-10, 0.0, num / denom)
+    out[~np.isfinite(out)] = 0.0
+    np.clip(out, -1.0, 1.0, out=out)
+    return out, n_pres
+
+
+def fp32_cases(kernel):
+    """The bands of tests/test_fp32_boundaries.py:127, :171 and :222:
+    {name: (band, missing)}."""
+    n, width = FP32_N, FP32_WIDTH
+    rng = np.random.default_rng(7)
+    band = 1.0 + 0.2 * rng.standard_normal((n, width))
+    missing = np.zeros(n, bool)
+    for idx in (96, np.arange(132, 140), np.arange(293, 299), np.arange(333, 337)):
+        missing[idx] = True
+    band[missing, :] = 0.0
+    ii, dd = np.indices(band.shape)
+    band[np.isin(ii + dd, np.flatnonzero(missing))] = 0.0
+    cases = {"min_pres": (band, missing)}
+    rng = np.random.default_rng(13)
+    band = 1.0 + 0.2 * rng.standard_normal((n, width))
+    band[40:120, 10:90] = 1.0
+    band[200, 40] += 0.1
+    band[340:420, 10:90] = 1.0
+    band[380, 40] += 5e-4
+    cases["guard"] = (band, np.zeros(n, bool))
+    rng = np.random.default_rng(29)
+    mk, nk = kernel.shape
+    kc = (kernel - kernel.mean()).ravel()
+    kc /= np.linalg.norm(kc)
+    q = rng.standard_normal(mk * nk)
+    q -= q.mean()
+    q -= (q @ kc) * kc
+    q /= np.linalg.norm(q)
+    band = np.full((n, width), 1.0)
+    for (r, d), rho in fp32_targets().items():
+        patch = (1.0 + rho * kc + np.sqrt(1 - rho**2) * q).reshape(mk, nk)
+        for u in range(mk):
+            for v in range(nk):
+                band[r - 8 + u, d - u + v] = patch[u, v]
+    cases["straddle"] = (band, np.zeros(n, bool))
+    return cases
+
+
+def fp32_targets():
+    return {(60, 40): PEARSON + 1e-2, (140, 40): PEARSON - 1e-2,
+            (220, 40): PEARSON + 1e-6, (300, 40): PEARSON - 1e-6}
+
+
+def fp32_boundaries():
+    """The three fp32 decision boundaries of tests/test_fp32_boundaries.py
+    through the CUDA kernel, each held to the float64 oracle with that
+    file's bounds (the guard case: the bounds the port meets, and its
+    disagreements outside the variance region counted; ROADMAP section 3)."""
+    kernel = np.asarray(load_kernel_config("loops")["kernels"][0], np.float64)
+    mk, nk = kernel.shape
+    n, max_dist = FP32_N, FP32_MAX_DIST
+    for name, (band, missing) in fp32_cases(kernel).items():
+        sig_p, mask_p = band_frame(
+            torch.from_numpy(band.astype(np.float32)).to(DEVICE),
+            torch.from_numpy(missing).to(DEVICE), (mk, nk), n, max_dist)
+        corr32 = bp.band_pearson(sig_p, mask_p, kernel, n, max_dist, MISSING_TOL,
+                                 PEARSON)[0].double().cpu().numpy()
+        sig64, mask64 = sig_p.double().cpu().numpy(), mask_p.double().cpu().numpy()
+        corr64, n_pres = fp32_oracle(sig64, mask64, kernel)
+        kh = (mk - 1) // 2
+        corr64, n_pres = corr64[kh : kh + n], n_pres[kh : kh + n]
+        i, d = np.indices(corr64.shape)
+        corr64[~((d <= max_dist) & (i < n) & (i + d < n))] = 0.0
+        if name == "min_pres":
+            a, b = (100, 40), (300, 40)
+            min_pres = int((1 - MISSING_TOL) * mk * nk)
+            ok = (n_pres[a] == min_pres and n_pres[b] == min_pres - 1
+                  and corr32[a] != 0 and corr64[a] != 0 and corr32[b] == 0 == corr64[b]
+                  and abs(corr32[a] - corr64[a]) < 5e-5)
+            detail = f"kept at n_pres {n_pres[a]:.0f}, dropped at {n_pres[b]:.0f}, " \
+                     f"|d| {abs(corr32[a] - corr64[a]):.3g}"
+        elif name == "guard":
+            sh_1 = shear_kernel(np.ones((mk, nk)))
+            from scipy.signal import correlate2d
+
+            m1 = correlate2d(sig64, sh_1, mode="valid") / (mk * nk)
+            m2 = correlate2d(sig64**2, sh_1, mode="valid") / (mk * nk)
+            var64 = (m2 - m1**2)[kh:][:n]
+            flip = (corr32 == 0.0) != (corr64 == 0.0)
+            out = flip & (var64 >= 1e-5)
+            gap = float(np.abs(corr32 - corr64)[out].max(initial=0.0))
+            ok = (corr32[64, 40] == 0 == corr64[64, 40] and corr32[200, 40] != 0
+                  and corr64[200, 40] != 0 and gap < 5e-5
+                  and np.abs(corr64[out]).max(initial=0.0) < PEARSON)
+            detail = (f"{int(flip.sum())} zero/non-zero disagreements, {int(out.sum())} of "
+                      f"them outside the variance region (max |d| {gap:.3g})")
+        else:
+            errs = [abs(corr32[p] - rho) for p, rho in fp32_targets().items()]
+            sides = all((corr32[p] >= PEARSON) == (rho >= PEARSON)
+                        for p, rho in fp32_targets().items() if abs(rho - PEARSON) > 1e-3)
+            ok = max(errs) < 5e-5 and sides and all(
+                abs(corr64[p] - rho) < 1e-6 for p, rho in fp32_targets().items())
+            detail = f"max |d| to the built scores {max(errs):.3g}, clear sides kept {sides}"
+        print(f"[kernels] fp32 boundary {name} through the CUDA kernel: {detail}")
+        check(ok, f"fp32 boundary {name}: {detail}")
+
+
 def chromosome_case(source, preset):
     """The framed inputs the main path gives the kernel on chr1, with the
     preset's scan distance: (contact map, kernels, sig_p, mask_p)."""
     cfg = load_kernel_config(preset)
-    genome = HicGenome(source, cfg, DEVICE)
+    genome = HicGenome(source, kernel_config=cfg, device=DEVICE)
     genome.normalize("auto")
     genome.make_sub_matrices()
-    cm = genome.sub_mats[0].contact_map
+    cm = genome.sub_mats.contact_map[0]
     cm.create_mat()
     kernels = np.stack(cfg["kernels"])
     sig_p, mask_p = frame_contact_map(cm, kernels.shape[1:])
@@ -619,9 +779,33 @@ def golden_dump(workdir):
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in sorted(worst.items())})}")
 
 
+def golden_windows(prefix):
+    """The windows of the loops golden run (``--win-fmt json``) against
+    tests/data/golden_detect_loops.json as tests/test_golden_outputs.py:
+    235-265 compares them: matched by (bin1, bin2), the NaN pattern
+    equal, rtol 1e-5 and atol 1e-6."""
+    golden = read_tsv("tests/data/golden_detect_loops.tsv")
+    ours = {(r["bin1"], r["bin2"]): i for i, r in enumerate(read_tsv(prefix + ".tsv"))}
+    with open("tests/data/golden_detect_loops.json") as fh:
+        ref_wins = json.load(fh)
+    with open(prefix + ".json") as fh:
+        our_wins = json.load(fh)
+    check(len(our_wins) == len(ref_wins) == 89, "windows: count")
+    worst = 0.0
+    for gi, row in enumerate(golden):
+        g = np.asarray(ref_wins[str(gi)], dtype=np.float64)
+        o = np.asarray(our_wins[str(ours[(row["bin1"], row["bin2"])])], dtype=np.float64)
+        check(g.shape == o.shape == (17, 17), "windows: shape")
+        check(np.array_equal(np.isnan(g), np.isnan(o)), f"windows {gi}: NaN pattern")
+        check(np.allclose(g, o, rtol=1e-5, atol=1e-6, equal_nan=True), f"windows {gi}")
+        worst = max(worst, float(np.nanmax(np.abs(g - o), initial=0.0)))
+    print(f"[golden] windows (--win-fmt json): 89/89 match golden_detect_loops.json, "
+          f"NaN patterns equal, max|d| {worst:.3g}")
+
+
 def phase_golden(workdir):
-    golden_detect(workdir, "golden_detect_loops", [], {"single": 3, "multi": 0},
-                  tol=1e-6)
+    golden_windows(golden_detect(workdir, "golden_detect_loops", [],
+                                 {"single": 3, "multi": 0}, tol=1e-6))
     for golden, flags in (
         ("golden_detect_loops_raw", ["--norm", "raw"]),
         ("golden_detect_loops_smooth", ["--smooth-trend"]),
@@ -635,19 +819,19 @@ def phase_golden(workdir):
     golden_quantify(workdir, "golden_quantify_borders", ["--pattern", "borders"], 5e-5)
 
 
-def run_genome(name, fn):
-    """One main-path run on the genome: launches counted from 0, stages,
-    wall and peak device memory."""
+def run_genome(name, fn, tag="genome"):
+    """One main-path run on a genome: launches counted from 0, stages,
+    wall (kept in ``WALLS``) and peak device memory."""
     reset_stages()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     out = fn()
-    wall = time.perf_counter() - t0
+    wall = WALLS[name] = time.perf_counter() - t0
     seen = launches()
-    print(f"[genome] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
+    print(f"[{tag}] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print(f"[genome] {name} stages (s): "
+    print(f"[{tag}] {name} stages (s): "
           + json.dumps({k: round(v, 3) for k, v in sorted(stage_seconds().items())}))
     return out, seen
 
@@ -668,10 +852,10 @@ def check_quantify_against_sweep(source, table):
     sel = table["chrom1"] == "chr1"
     span = int(np.max(table["start2"] - table["start1"]))
     cfg["max_dist"] = span
-    genome = HicGenome(source, cfg, DEVICE)
+    genome = HicGenome(source, kernel_config=cfg, device=DEVICE)
     genome.normalize("auto")
     genome.make_sub_matrices()
-    cm = genome.sub_mats[0].contact_map
+    cm = genome.sub_mats.contact_map[0]
     cm.create_mat()
     coords = np.stack([table["bin1"][sel], table["bin2"][sel]], 1).astype(np.int64)
     at = quantify_banded(cm, cfg, cfg["kernels"], coords)[0][0]
@@ -770,7 +954,7 @@ def phase_surface_example(workdir):
     names = [ln for ln in out.getvalue().splitlines() if ln and ln[0].isalpha()]
     print(f"[surface] list-kernels --long --mat: {len(names)} presets {names}, "
           f"{len(out.getvalue().splitlines())} lines")
-    check(names == cli.kernel_names() and len(names) == 7, "list-kernels presets")
+    check(names == cli.kernel_names and len(names) == 7, "list-kernels presets")
 
     cfg = f"{workdir}/borders_cfg"
     check(main(["generate-config", "--preset", "borders", cfg]) == 0, "generate-config")
@@ -945,10 +1129,10 @@ def phase_golden_inter(workdir):
 def inter_cut(source, cfg):
     """One trans map of the genome, preprocessed, cut to INTER_CUT bins a
     side: (CSR matrix, missing rows, missing columns, detectable bins)."""
-    genome = HicGenome(source, cfg, DEVICE, inter=True)
+    genome = HicGenome(source, inter=True, kernel_config=cfg, device=DEVICE)
     genome.normalize("auto")
     genome.make_sub_matrices()
-    cm = next(s.contact_map for s in genome.sub_mats if s.chr1 != s.chr2)
+    cm = next(s.contact_map for s in genome.sub_mats.itertuples() if s.chr1 != s.chr2)
     cm.create_mat()
     cut = cm.sparse[:INTER_CUT, :INTER_CUT].tocsr()
     det = [np.asarray(d)[np.asarray(d) < INTER_CUT] for d in cm.detectable_bins]
@@ -1005,14 +1189,14 @@ def check_inter_cut(source):
     # windows of a sparse trans map are mostly zeros, so every call would
     # fail the 10% zero rule: lifted here, the calls compare something
     relaxed = dict(cfg, max_perc_zero=100.0)
-    calls = {f: pattern_detector(cm, relaxed, kernel)[0] for f, cm in maps.items()}
+    calls = {f: pattern_detector(cm, relaxed, kernel, full=True)[0] for f, cm in maps.items()}
     a, b = calls["dense"], calls["sparse"]
     check(a is not None and b is not None, "inter cut: no call")
-    same = np.array_equal(a["bin1"], b["bin1"]) and np.array_equal(a["bin2"], b["bin2"])
+    same = a[["bin1", "bin2"]].equals(b[["bin1", "bin2"]])
     check(same and len(a["bin1"]) > 0,
           f"inter cut: calls differ ({len(a['bin1'])} vs {len(b['bin1'])})")
-    d = float(np.abs(a["score"] - b["score"]).max())
-    dp = float(np.abs(a["pvalue"] - b["pvalue"]).max())
+    d = float(np.abs(a["score"].to_numpy() - b["score"].to_numpy()).max())
+    dp = float(np.abs(a["pvalue"].to_numpy() - b["pvalue"].to_numpy()).max())
     print(f"[genome-inter] cut: {len(foci)} foci identical on both engines; with the zero "
           f"rule lifted, {len(a['bin1'])} calls identical, score max|d| {d:.3g}, pvalue "
           f"max|d| {dp:.3g}")
@@ -1056,6 +1240,258 @@ def phase_genome_inter(workdir):
     check_inter_cut(source)
 
 
+def source_fingerprint(source):
+    """tests/test_golden_genome_scale.py:45-58 on a source's counts in cool
+    pixel order (bin1, then bin2): the pixel count and the sum of every
+    ``n // 4096``-th count, 4096 of them."""
+    counts = source.count[np.lexsort((source.bin2, source.bin1))]
+    sample = counts[:: max(len(counts) // 4096, 1)][:4096]
+    return {"nnz": int(len(counts)), "checksum": int(np.asarray(sample, np.int64).sum())}
+
+
+def compare_genome_golden(golden_path, prefix, table):
+    """tests/test_golden_genome_scale.py:121-134: the same (bin1, bin2,
+    kernel_id, iteration) calls and chrom/start columns; the score max|d|;
+    and the log10 p max|d| twice: between the written p-values (10
+    decimals in both files, as that test compares them), and between the
+    run's unrounded p-values (``table``) and the interval of values the
+    reference's written decimal stands for.  Returns (calls, score max|d|,
+    text log10 p max|d| and its worst row, unrounded log10 p max|d|)."""
+    import pandas as pd
+
+    key = ["bin1", "bin2", "kernel_id", "iteration"]
+    g = pd.read_csv(golden_path, sep="\t").sort_values(key).reset_index(drop=True)
+    o = pd.read_csv(prefix + ".tsv", sep="\t").sort_values(key).reset_index(drop=True)
+    exact = pd.DataFrame({k: table[k] for k in key + ["pvalue"]})
+    exact = exact.sort_values(key).reset_index(drop=True)
+    check(len(o) == len(g), f"{golden_path}: {len(o)} calls, the reference {len(g)}")
+    for col in key + ["chrom1", "start1", "chrom2", "start2"]:
+        check((g[col] == o[col]).all(), f"{golden_path}: column {col} differs")
+    check(exact[key].equals(o[key]), f"{prefix}: the table and the file differ")
+
+    def log10(p):
+        return np.log10(np.maximum(p, 1e-300))
+
+    text = np.abs(log10(g.pvalue) - log10(o.pvalue))
+    worst = int(np.argmax(text))
+    nearest = np.clip(exact.pvalue, g.pvalue - 5e-11, g.pvalue + 5e-11)
+    unrounded = np.abs(log10(exact.pvalue) - log10(nearest))
+    row = (f"bin1 {g.bin1[worst]}, bin2 {g.bin2[worst]}: written {g.pvalue[worst]:.10f} by the "
+           f"reference, {o.pvalue[worst]:.10f} here, unrounded {exact.pvalue[worst]:.6g}")
+    return (len(g), float(np.abs(g.score - o.score).max()), float(text.max()), row,
+            float(unrounded.max()))
+
+
+def phase_genome_golden(workdir):
+    """The reference's own genome-scale calls (tests/data/golden_genome_
+    {loops,borders}.tsv): the seed-0 3 x 50,000 genome of
+    tools/make_synthetic_cool.py, its fingerprint checked, ``detect`` at
+    --norm auto with loops and with borders, held to the bounds of
+    tests/test_golden_genome_scale.py."""
+    t0 = time.perf_counter()
+    source = ArraySource.from_synthetic(GOLDEN_CHROMS, GOLDEN_BINS, seed=0, binsize=BINSIZE)
+    meta = json.loads(pathlib.Path("tests/data/golden_genome_meta.json").read_text())
+    got = source_fingerprint(source)
+    print(f"[genome-golden] synthetic genome {GOLDEN_CHROMS} x {GOLDEN_BINS} bins, seed 0: "
+          f"generated and balanced in {time.perf_counter() - t0:.1f} s; fingerprint "
+          f"{json.dumps(got)}, the goldens' {json.dumps(meta['fingerprint'])}")
+    check(got == meta["fingerprint"], "genome-golden: fingerprint differs")
+    for name, flags, expect in (("loops", [], {"single": GOLDEN_CHROMS, "multi": 0}),
+                                ("borders", ["--pattern", "borders"],
+                                 {"single": 0, "multi": GOLDEN_CHROMS})):
+        prefix = f"{workdir}/genome_golden_{name}"
+        args = parse_args(["detect", "--no-plotting", "--norm", "auto", *flags, "synthetic",
+                           prefix], "")
+
+        def run_detect():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return detect(source, args, DEVICE)
+
+        (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden")
+        n_calls, d_score, d_text, row, d_logp = compare_genome_golden(
+            f"tests/data/golden_genome_{name}.tsv", prefix, table)
+        print(f"[genome-golden] {name}: {n_calls}/{n_calls} calls of the reference identical "
+              f"(bin1, bin2, kernel_id, iteration, chrom/start); score max|d| {d_score:.3g} "
+              f"(bound 5e-5); log10 p max|d| {d_logp:.3g} (bound 1e-3) from the unrounded "
+              f"p-values to the reference's written decimals, {d_text:.3g} between the written "
+              f"p-values (largest at {row}); launches {seen}")
+        check(d_score < 5e-5 and d_logp < 1e-3, f"genome-golden {name}: outside the bounds")
+        check(seen == expect, f"genome-golden {name}: launches {seen}")
+
+
+def quietly(fn, *args, **kwargs):
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def api_genome(path, device=None, **kwargs):
+    """``HicGenome(path, ...)`` normalized, its maps listed (not made)."""
+    genome = HicGenome(path, device=device, **kwargs)
+    quietly(genome.normalize, norm="auto")
+    quietly(genome.make_sub_matrices)
+    return genome
+
+
+def same_calls(a, b, what, tol=2e-5):
+    """Two pattern tables (DataFrames): the same coordinates, NaN
+    pattern, score within ``tol`` and log10 p within 2e-3 where both are
+    finite; the score max|d|."""
+    check((a is None) == (b is None), f"{what}: one side found nothing")
+    if a is None:
+        return 0.0
+    a, b = a.reset_index(drop=True), b.reset_index(drop=True)
+    check(a[["bin1", "bin2"]].equals(b[["bin1", "bin2"]]), f"{what}: coordinates differ")
+    sa, sb = a.score.to_numpy(), b.score.to_numpy()
+    check(np.array_equal(np.isnan(sa), np.isnan(sb)), f"{what}: NaN scores differ")
+    ok = ~np.isnan(sa)
+    err = float(np.abs(sa[ok] - sb[ok]).max(initial=0.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        la, lb = np.log10(a.pvalue.to_numpy()), np.log10(b.pvalue.to_numpy())
+    both = np.isfinite(la) & np.isfinite(lb)
+    check(err < tol, f"{what}: scores differ by {err}")
+    check(np.abs(la[both] - lb[both]).max(initial=0.0) < 2e-3, f"{what}: p-values differ")
+    return err
+
+
+def api_quantify_flow(device):
+    """quantify_api.ipynb's flow on data_test/example.bed2: bins of the
+    anchors, then ``pattern_detector`` at the first chromosome's pairs."""
+    import chromosight_torch.detection as ctd
+    import chromosight_torch.kernels as ck
+    from chromosight_torch.io import load_bed2d
+
+    config = ck.loops
+    genome = api_genome(EXAMPLE_NPZ, device, kernel_config=config)
+    coords_bp = load_bed2d("data_test/example.bed2")
+    bins1 = genome.coords_to_bins(coords_bp[["chrom1", "start1"]].rename(
+        columns={"chrom1": "chrom", "start1": "pos"}))
+    bins2 = genome.coords_to_bins(coords_bp[["chrom2", "start2"]].rename(
+        columns={"chrom2": "chrom", "start2": "pos"}))
+    inside = ~(np.isnan(bins1.astype(float)) | np.isnan(bins2.astype(float)))
+    pairs = np.stack([bins1[inside], bins2[inside]], axis=1).astype(int)
+    genome.max_dist = int(np.abs(pairs[:, 1] - pairs[:, 0]).max()) + 1
+    quietly(genome.make_sub_matrices)
+    sub = genome.sub_mats.iloc[0]
+    quietly(sub.contact_map.create_mat)
+    kernel = np.asarray(config["kernels"][0])
+    return ctd.pattern_detector(sub.contact_map, config, kernel, coords=pairs, full=True)
+
+
+def phase_api(source):
+    """The Python API of docs/TUTORIAL.md and the notebooks on the card:
+    TUTORIAL's block and detect_example.ipynb's loop on the example map
+    (the calls of the per-map path of the command line), quantify_api.
+    ipynb's flow against the CPU's; the notebook loop at full width on the
+    13 x 48,000 genome with ``kernels.loops`` (launches, calls identical
+    to ``detect_multi``'s on the same maps, the wall beside phase 5's
+    detect wall); ``full=False`` on the example map and on the genome's
+    chr1 against the same run on the CPU."""
+    import pandas as pd
+
+    import chromosight_torch.kernels as ck
+    import chromosight_torch.utils.detection as cud
+
+    kernel = np.asarray(ck.loops["kernels"][0])
+    # docs/TUTORIAL.md's Python API block, on the card by default
+    g = api_genome(EXAMPLE_NPZ, kernel_config=dict(ck.loops))
+    g.compute_max_dist()
+    quietly(g.make_sub_matrices)
+    cm = g.sub_mats.contact_map[0]
+    quietly(cm.create_mat)
+    corr, logp = cud.normxcorr2(cm.matrix, ck.loops["kernels"][0], pval=True)
+    coords, foci = cud.pick_foci(corr, pearson=0.3)
+    reset_launches()
+    patterns, windows = cud.pattern_detector(
+        cm, dict(ck.loops, tsvd=None), ck.loops["kernels"][0], full=True)
+    seen = launches()
+    print(f"[api] TUTORIAL block on {EXAMPLE_NPZ}: normxcorr2 + pick_foci {len(coords)} "
+          f"foci on {cm.name}; pattern_detector(full=True) {len(patterns)} calls, windows "
+          f"{windows.shape}; launches {seen}")
+    check(seen == {"single": 1, "multi": 0} and len(patterns) == len(windows) > 0,
+          "TUTORIAL block")
+    cm.destroy_mat()
+
+    # detect_example.ipynb's loop against the command line's per-map path
+    results, n_maps = [], 0
+    for _, sub in g.sub_mats.iterrows():
+        quietly(sub.contact_map.create_mat)
+        calls, wins = cud.pattern_detector(sub.contact_map, ck.loops, kernel, full=True)
+        cli_calls, cli_wins = detect_multi(sub.contact_map, ck.loops, [kernel])[0]
+        check(calls.equals(pd.DataFrame(cli_calls)) and np.array_equal(
+            wins, cli_wins, equal_nan=True), f"{sub.chr1}: API calls differ from the CLI path")
+        results.append(g.get_full_mat_pattern(sub.chr1, sub.chr2, calls))
+        sub.contact_map.destroy_mat()
+        n_maps += 1
+    example_calls = pd.concat(results, ignore_index=True)
+    print(f"[api] detect_example.ipynb loop: {len(example_calls)} calls over {n_maps} maps, "
+          "each map's identical to the command line's per-map full-mode calls")
+
+    # quantify_api.ipynb on the card and on the CPU
+    (card, card_w), (plain, plain_w) = api_quantify_flow(None), api_quantify_flow("cpu")
+    err = same_calls(plain, card, "quantify_api flow")
+    print(f"[api] quantify_api.ipynb flow: {len(card)} pairs, {int(card.score.notna().sum())} "
+          f"scored, as on the CPU (score max|d| {err:.3g})")
+    check(np.array_equal(np.isnan(card_w), np.isnan(plain_w)), "quantify flow windows")
+
+    # full=False on each map of the example, card against CPU
+    def valid_mode(device):
+        genome = api_genome(EXAMPLE_NPZ, device, kernel_config=ck.loops)
+        tables = []
+        for cm in genome.sub_mats.contact_map:
+            quietly(cm.create_mat)
+            tables.append(cud.pattern_detector(cm, ck.loops, kernel, full=False)[0])
+            cm.destroy_mat()
+        return tables
+
+    card, plain = valid_mode(None), valid_mode("cpu")
+    errs = [same_calls(b, a, "full=False on the example") for a, b in zip(card, plain)]
+    print(f"[api] full=False on the example's {len(card)} maps: "
+          f"{sum(len(t) for t in card if t is not None)} calls, the CPU's; score max|d| "
+          f"{max(errs):.3g}")
+
+    # the notebook loop at full width on the 13 x 48,000 genome
+    genome = api_genome(source, kernel_config=ck.loops)
+    reset_launches()
+    t0 = time.perf_counter()
+    per_map = []
+    for _, sub in genome.sub_mats.iterrows():
+        quietly(sub.contact_map.create_mat)
+        calls, wins = cud.pattern_detector(sub.contact_map, ck.loops, kernel, full=True)
+        per_map.append((calls, wins))
+        sub.contact_map.destroy_mat()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seen = launches()
+    n_calls = sum(len(c) for c, _ in per_map if c is not None)
+    print(f"[api] notebook loop on {len(per_map)} x {GENOME_BINS} bins with kernels.loops: "
+          f"{n_calls} calls, API wall {wall:.2f} s (phase 5's detect wall "
+          f"{WALLS['detect loops']:.2f} s, this run's cards {nvidia_smi('name,power.limit')}); "
+          f"launches {seen}")
+    check(seen == {"single": len(per_map), "multi": 0}, f"API genome launches {seen}")
+    for cm, (calls, wins) in zip(genome.sub_mats.contact_map, per_map):
+        quietly(cm.create_mat)
+        cli_calls, cli_wins = detect_multi(cm, ck.loops, [kernel])[0]
+        cm.destroy_mat()
+        check(calls.equals(pd.DataFrame(cli_calls)) and np.array_equal(
+            wins, cli_wins, equal_nan=True), f"{cm.name}: API calls differ from detect_multi")
+    print(f"[api] genome: every map's calls identical to detect_multi's on the same map")
+
+    # full=False on chr1 of the genome, card against CPU
+    valid = {}
+    for device in (None, "cpu"):
+        genome = api_genome(source, device, kernel_config=ck.loops)
+        cm = genome.sub_mats.contact_map[0]
+        quietly(cm.create_mat)
+        t0 = time.perf_counter()
+        valid[device] = cud.pattern_detector(cm, ck.loops, kernel, full=False)[0]
+        valid[(device, "wall")] = time.perf_counter() - t0
+        cm.destroy_mat()
+    err = same_calls(valid["cpu"], valid[None], "full=False on chr1")
+    print(f"[api] full=False on {cm.name} ({cm.shape[0]} bins, not cut): "
+          f"{len(valid[None])} calls, the CPU's (score max|d| {err:.3g}); wall on the card "
+          f"{valid[(None, 'wall')]:.2f} s, on the CPU {valid[('cpu', 'wall')]:.2f} s")
+
+
 def run(quick):
     phase_env()
     phase_build()
@@ -1074,9 +1510,11 @@ def run(quick):
         runs = phase_genome(source, workdir)
         phase_surface_example(workdir)
         phase_surface_genome(source, workdir)
+        phase_api(source)
         del source
         phase_golden_inter(workdir)
         phase_genome_inter(workdir)
+        phase_genome_golden(workdir)
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "chromosight_tpu" for m in sys.modules),
           "chromosight_tpu was imported")

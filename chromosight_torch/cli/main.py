@@ -155,9 +155,8 @@ import chromosight_torch.detection as cid
 from chromosight_torch import __version__
 from chromosight_torch.cli.args import CliError, parse_args
 from chromosight_torch.device import resolve_devices, stage
-from chromosight_torch.io.bed2d import load_bed2d
+from chromosight_torch.io.bed2d import read_bed2d
 from chromosight_torch.io.config import load_kernel_config
-from chromosight_torch.io.source import ArraySource, CoolSource
 from chromosight_torch.io.writers import (
     check_prefix_dir,
     download_file,
@@ -168,7 +167,7 @@ from chromosight_torch.io.writers import (
 from chromosight_torch.kernels import kernel_names
 from chromosight_torch.parallel import MapScheduler, destroy_maps, retain_maps
 from chromosight_torch.preprocessing import resize_kernel
-from chromosight_torch.runtime.genome import HicGenome
+from chromosight_torch.runtime.genome import HicGenome, open_contacts
 from chromosight_torch.stats import fdr_correction
 
 DETECT_COLUMNS = [
@@ -267,13 +266,6 @@ def scan_config(args):
     return cfg
 
 
-def open_source(path):
-    """A contact source for a .cool file or an ArraySource .npz export."""
-    if str(path).endswith(".npz"):
-        return ArraySource.from_npz(path)
-    return CoolSource(path)
-
-
 def _check_outputs(args):
     """The prefix directory exists and --win-fmt is known."""
     check_prefix_dir(args["<prefix>"])
@@ -290,7 +282,7 @@ def _scan(genome, scheduler, task, keep):
     """``task(contact_map)`` on every map of the genome through the
     scheduler (maps kept created after their task when ``keep``); the
     results in map order, progress drawn as each comes."""
-    subs = genome.sub_mats
+    subs = list(genome.sub_mats.itertuples())
     items = [(i, sub.contact_map) for i, sub in enumerate(subs)]
     results = []
     for done, result in enumerate(scheduler.scan(items, task, keep=keep)):
@@ -309,7 +301,7 @@ def _iterative_scan(genome, cfg, scheduler):
     windows) in kernel-major order, or (None, None) when nothing was
     found."""
     total_runs = len(cfg["kernels"]) * cfg["max_iterations"]
-    subs = genome.sub_mats
+    subs = list(genome.sub_mats.itertuples())
     keep = retain_maps(genome, total_runs)
     per_pass = {}
 
@@ -344,7 +336,9 @@ def _iterative_scan(genome, cfg, scheduler):
                 )
             stack = [current[k] for k in ids]
             multi = _scan(
-                genome, scheduler, lambda cm: cid.detect_multi(cm, cfg, stack, tsvd=tsvd),
+                genome,
+                scheduler,
+                lambda cm: cid.detect_multi(cm, cfg, stack, dump=genome.dump, tsvd=tsvd),
                 keep,
             )
             for k_idx, kid in enumerate(ids):
@@ -363,7 +357,9 @@ def _iterative_scan(genome, cfg, scheduler):
                 results = _scan(
                     genome,
                     scheduler,
-                    lambda cm, k=kernel: cid.pattern_detector(cm, cfg, k, tsvd=tsvd),
+                    lambda cm, k=kernel: cid.pattern_detector(
+                        cm, cfg, k, dump=genome.dump, full=True, tsvd=tsvd
+                    ),
                     keep,
                 )
                 kernel = collect(kernel_id, iteration, results)
@@ -391,14 +387,12 @@ def _finalize(genome, cfg, table, windows):
     p-value filters and FDR q-values (reference cli:805-867)."""
     separation_bins = max(1, int(cfg["min_separation"] // genome.clr.binsize))
     print(f"Minimum pattern separation is : {separation_bins}")
-    keep = cid.remove_neighbours(
-        table["bin1"], table["bin2"], table["score"], win_size=separation_bins
-    )
+    keep = cid.remove_neighbours(table, win_size=separation_bins)
     table, windows = _select(table, keep), windows[keep]
     for axis in (1, 2):
         coords = genome.bins_to_coords(table[f"bin{axis}"])
-        for col, values in coords.items():
-            table[f"{col}{axis}"] = values
+        for col in ("chrom", "start", "end"):
+            table[f"{col}{axis}"] = coords[col].to_numpy(dtype=str if col == "chrom" else None)
     too_close = (table["chrom1"] == table["chrom2"]) & (
         np.abs(table["start2"] - table["start1"]) < cfg["min_dist"]
     )
@@ -429,8 +423,8 @@ def _open_genome(source, args, cfg, devices, rng, **kw):
     ``--subsample`` draws from ``rng``, and the scheduler of
     ``--threads`` over its devices."""
     genome = HicGenome(
-        source, cfg, devices, inter=bool(args["--inter"]),
-        sample=_parse_subsample(args["--subsample"]), rng=rng, **kw,
+        source, inter=bool(args["--inter"]), kernel_config=cfg,
+        sample=_parse_subsample(args["--subsample"]), device=devices, rng=rng, **kw,
     )
     return genome, MapScheduler(genome.devices, int(args["--threads"]))
 
@@ -480,6 +474,13 @@ def detect(source, args, device=None, rng=None):
     return table, windows
 
 
+def _positions(chroms, pos):
+    """The (chrom, pos) table ``HicGenome.coords_to_bins`` reads."""
+    import pandas as pd
+
+    return pd.DataFrame({"chrom": chroms, "pos": pos})
+
+
 def _positions_for_pair(genome, bed2d, chrom1, chrom2):
     """Rows of the bed2d table on one chromosome pair whose anchor
     midpoints fall in a bin, and their (n, 2) map bins; rows outside the
@@ -487,8 +488,10 @@ def _positions_for_pair(genome, bed2d, chrom1, chrom2):
     rows = np.flatnonzero((bed2d["chrom1"] == chrom1) & (bed2d["chrom2"] == chrom2))
     bins = [
         genome.coords_to_bins(
-            bed2d[f"chrom{axis}"][rows],
-            (bed2d[f"start{axis}"][rows] + bed2d[f"end{axis}"][rows]) // 2,
+            _positions(
+                bed2d[f"chrom{axis}"][rows],
+                (bed2d[f"start{axis}"][rows] + bed2d[f"end{axis}"][rows]) // 2,
+            )
         )
         for axis in (1, 2)
     ]
@@ -537,7 +540,7 @@ def quantify(source, args, device=None, rng=None):
     windows)."""
     prefix = args["<prefix>"]
     _check_outputs(args)
-    bed2d = load_bed2d(args["<bed2d>"])
+    bed2d = read_bed2d(args["<bed2d>"])
     if not args["--inter"] and np.any(bed2d["chrom1"] != bed2d["chrom2"]):
         sys.stderr.write(
             "Warning: The bed2d file contains interchromosomal patterns. "
@@ -565,20 +568,18 @@ def quantify(source, args, device=None, rng=None):
     genome.make_sub_matrices()
 
     n_rows = len(bed2d["chrom1"])
-    pairs = [
-        _positions_for_pair(genome, bed2d, sub.chr1, sub.chr2)
-        for sub in genome.sub_mats
-    ]
+    subs = list(genome.sub_mats.itertuples())
+    pairs = [_positions_for_pair(genome, bed2d, sub.chr1, sub.chr2) for sub in subs]
     kernels = [np.asarray(k) for k in cfg["kernels"]]
     # same-shape kernels score every pair in one pass, others one by one
     passes = [kernels] if cid.fuse_kernels_eligible(kernels) else [[k] for k in kernels]
     keep = retain_maps(genome, len(passes))
     # the maps holding a pair, and each one's pairs
     items = [
-        (i, sub.contact_map) for i, (sub, (rows, _)) in enumerate(zip(genome.sub_mats, pairs))
+        (i, sub.contact_map) for i, (sub, (rows, _)) in enumerate(zip(subs, pairs))
         if len(rows)
     ]
-    coords_of = {id(sub.contact_map): coords for sub, (_, coords) in zip(genome.sub_mats, pairs)}
+    coords_of = {id(sub.contact_map): coords for sub, (_, coords) in zip(subs, pairs)}
     scores, pvalues, windows = [], [], []
     for stack in passes:
         for kernel_id in range(len(scores), len(scores) + len(stack)):
@@ -611,7 +612,7 @@ def quantify(source, args, device=None, rng=None):
 
     table, windows = _best_of_kernels(bed2d, scores, pvalues, windows)
     for axis in (1, 2):
-        bins = genome.coords_to_bins(table[f"chrom{axis}"], table[f"start{axis}"])
+        bins = genome.coords_to_bins(_positions(table[f"chrom{axis}"], table[f"start{axis}"]))
         # integers unless a coordinate fell outside the map (pandas' dtype)
         table[f"bin{axis}"] = bins if np.isnan(bins).any() else bins.astype(np.int64)
     table["qvalue"] = fdr_correction(table["pvalue"])
@@ -641,8 +642,8 @@ def _capture_click_windows(args, cfg, win_size, device):
     from chromosight_torch.plotting import _plt, click_finder
 
     genome = HicGenome(
-        open_source(args["--click"]), cfg, resolve_devices(device),
-        inter=bool(args["--inter"]),
+        open_contacts(args["--click"]), inter=bool(args["--inter"]), kernel_config=cfg,
+        device=device,
     )
     genome.normalize(args["--norm"], float(args["--n-mads"]))
     # scan the whole map: a distance beyond any chromosome
@@ -651,8 +652,8 @@ def _capture_click_windows(args, cfg, win_size, device):
     half_w = int((win_size - 1) / 2)
     chroms = args["--chroms"]
     if chroms is None:
-        for sub in genome.sub_mats:
-            sub.contact_map.create_mat()
+        for cm in genome.sub_mats.contact_map:
+            cm.create_mat()
         windows = click_finder(genome.gather_sub_matrices().tocsr(), half_w=half_w)
     else:
         names = chroms.split(",")
@@ -661,7 +662,7 @@ def _capture_click_windows(args, cfg, win_size, device):
             if args["--inter"]
             else [(ch, ch) for ch in names]
         )
-        maps = {(sub.chr1, sub.chr2): sub.contact_map for sub in genome.sub_mats}
+        maps = {(sub.chr1, sub.chr2): sub.contact_map for sub in genome.sub_mats.itertuples()}
         collected = []
         for c1, c2 in pairs:
             if (c1, c2) not in maps:
@@ -719,7 +720,7 @@ def cmd_list_kernels(args):
     as ASCII art."""
     from chromosight_torch.plotting import print_ascii_mat
 
-    available = kernel_names()
+    available = kernel_names
     kernel_name = args["--name"]
     for k in available if kernel_name == "all" else [kernel_name]:
         if k not in available:
@@ -765,7 +766,7 @@ def cmd_test(args, device=None):
         args["<contact_map>"] = path
         args["<prefix>"] = "chromosight_test"
         args["--no-plotting"] = True
-        detect(open_source(path), args, device)
+        detect(open_contacts(path), args, device)
     finally:
         os.unlink(tmp_cool.name)
 
@@ -833,13 +834,13 @@ def main(argv=None, device=None, rng=None):
     if args["test"]:
         _run_self_test(args, device)
     elif args["detect"]:
-        detect(open_source(args["<contact_map>"]), args, device, rng)
+        detect(open_contacts(args["<contact_map>"]), args, device, rng)
     elif args["generate-config"]:
         cmd_generate_config(args, device)
     elif args["list-kernels"]:
         cmd_list_kernels(args)
     elif args["quantify"]:
-        quantify(open_source(args["<contact_map>"]), args, device, rng)
+        quantify(open_contacts(args["<contact_map>"]), args, device, rng)
     return 0
 
 

@@ -1,21 +1,24 @@
 """Detection: Pearson on the device, foci and validation on the host.
 
 Counterpart of ``chromosight_tpu/detection.py``.  ``pattern_detector``
-dispatches on the map's form (``runtime.contact_map``):
+dispatches on the map's form (``runtime.contact_map``) and on ``full``:
 
-* band (intra maps with a scan distance): one kernel or K same-shape
-  kernels in one fused launch of the CUDA band Pearson, and quantify at
-  given coordinates; the correlation maps stay on the device and only the
-  candidates and the gathered scores and windows come back;
+* band (intra maps with a scan distance), ``full=True``: one kernel or K
+  same-shape kernels in one fused launch of the CUDA band Pearson, and
+  quantify at given coordinates; the correlation maps stay on the device
+  and only the candidates and the gathered scores and windows come back;
+* band, ``full=False`` (valid mode): the map's O(nnz) sparse view through
+  the sparse path below, as the JAX package routes it;
 * dense (small inter maps, intra maps without a scan distance): the dense
   engine (``ops.normxcorr``), then the full-matrix foci and validation;
 * sparse (trans maps above ``DENSE_LIMIT``): the tiled engine
-  (``ops.tiled``), in detect mode keeping only the candidates, then the
-  sparse validation, which never densifies the map.
+  (``ops.tiled``), in full detect mode keeping only the candidates, then
+  the sparse validation, which never densifies the map.
 
 The public ``xcorr2`` and ``normxcorr2`` take numpy arrays, tensors or
-scipy sparse matrices, as the reference's do.  Pattern tables are dicts of
-numpy columns (bin1, bin2, score, pvalue).
+scipy sparse matrices, as the reference's do.  The public functions take
+and return the JAX package's pandas tables (bin1, bin2, score, pvalue);
+the engines and the command line work on dicts of numpy columns.
 """
 
 from __future__ import annotations
@@ -204,13 +207,15 @@ def pileup_patterns(pattern_windows):
         return np.nanmean(pattern_windows, axis=0)
 
 
-def remove_neighbours(bin1, bin2, score, win_size=8):
-    """Whitelist after greedy suppression of patterns closer than
-    ``win_size`` on both axes, best scores first (NaN last, ties to the
-    earlier row); reference ``detection.py:348-384``."""
-    b1 = np.asarray(bin1, dtype=np.int64)
-    b2 = np.asarray(bin2, dtype=np.int64)
-    sc = np.asarray(score, dtype=np.float64)
+def remove_neighbours(patterns, win_size=8):
+    """Boolean whitelist, in row order, of a pattern table (a DataFrame
+    or a dict of columns with bin1, bin2, score) after greedy suppression
+    of patterns closer than ``win_size`` on both axes, best scores first
+    (NaN last, ties to the earlier row); reference ``detection.py:
+    348-384``.  Rows count by position, whatever the table's index."""
+    b1 = np.asarray(patterns["bin1"], dtype=np.int64)
+    b2 = np.asarray(patterns["bin2"], dtype=np.int64)
+    sc = np.asarray(patterns["score"], dtype=np.float64)
     keep = native.remove_neighbours(b1, b2, sc, win_size)
     if keep is not None:
         return keep
@@ -354,22 +359,22 @@ def _band_correlate(contact_map, kernel_config, kernels, tsvd=None):
     )
 
 
-def _dump_correlation(contact_map, corr):
-    """The 03 and 04 snapshots of ``--dump``: the band engine trims the
-    diagonals inside the correlation, so both hold the trimmed map
-    (``chromosight_tpu/detection.py:1058-1069``)."""
+def _dump_correlation(contact_map, corr, dump):
+    """The 03 and 04 snapshots of ``--dump`` in the directory ``dump``:
+    the band engine trims the diagonals inside the correlation, so both
+    hold the trimmed map (``chromosight_tpu/detection.py:1058-1069``)."""
     n = contact_map.shape[0]
     corr = corr[:n].double().cpu().numpy()
     i, d = np.nonzero(corr)
     for name in ("03_normxcorr2", "04_diag_trim"):
-        save_snapshot(contact_map.dump, contact_map.name, name, i, i + d, corr[i, d], n)
+        save_snapshot(dump, contact_map.name, name, i, i + d, corr[i, d], n)
 
 
-def _pick_foci(contact_map, corr, cand):
+def _pick_foci(contact_map, corr, cand, dump):
     """Foci of the candidate pixels and the best pixel of each: exact
     extraction, 4-way labelling, foci of two pixels or more.  Returns the
     (n_foci, 2) matrix coordinates, or None; writes the 05 snapshot of
-    ``--dump`` (``chromosight_tpu/detection.py:1075-1150``)."""
+    ``--dump`` in ``dump`` (``chromosight_tpu/detection.py:1075-1150``)."""
     n = contact_map.shape[0]
     with stage("extract", corr.device):
         ii, dd, vals = extract_candidates(corr, cand)
@@ -393,19 +398,19 @@ def _pick_foci(contact_map, corr, cand):
     order2 = np.lexsort((flat, -cv, inv))
     first = np.searchsorted(inv[order2], np.arange(len(uniq)))
     best = order2[first][keep_focus]
-    if contact_map.dump is not None:
+    if dump is not None:
         px = keep_focus[inv]
-        save_snapshot(
-            contact_map.dump, contact_map.name, "05_foci", ci[px], cj[px], inv[px] + 1, n
-        )
+        save_snapshot(dump, contact_map.name, "05_foci", ci[px], cj[px], inv[px] + 1, n)
     return np.stack([ci[best], cj[best]], axis=1).astype(np.int64)
 
 
-def _band_tail(contact_map, kernel_config, kernel_matrix, corr, logp, cand, coords=None):
+def _band_tail(
+    contact_map, kernel_config, kernel_matrix, corr, logp, cand, coords=None, dump=None
+):
     """Host tail of band detection (``chromosight_tpu/detection.py:
     1032-1210``): foci picking (detect), or the given ``coords``
-    (quantify), then the score/window gather and validation.  Returns
-    (table, windows) or (None, None)."""
+    (quantify), then the score/window gather and validation; the 03-05
+    snapshots in ``dump``.  Returns (table, windows) or (None, None)."""
     km, kn = kernel_matrix.shape
     band = contact_map.band
     device = band.device
@@ -413,10 +418,10 @@ def _band_tail(contact_map, kernel_config, kernel_matrix, corr, logp, cand, coor
     width = band.shape[1]
     miss_flags = missing_flags(contact_map.detectable_bins[0], n)
     detect_mode = coords is None
-    if contact_map.dump is not None:
-        _dump_correlation(contact_map, corr)
+    if dump is not None:
+        _dump_correlation(contact_map, corr, dump)
     if detect_mode:
-        coords = _pick_foci(contact_map, corr, cand)
+        coords = _pick_foci(contact_map, corr, cand, dump)
         if coords is None:
             return None, None
     coords = np.array(coords, dtype=np.int64, copy=True).reshape(-1, 2)
@@ -511,20 +516,21 @@ def fuse_kernels_eligible(kernels):
 
 
 def detect_banded_multi(
-    contact_map, kernel_config, kernels, coords=None, tsvd=None
+    contact_map, kernel_config, kernels, coords=None, dump=None, tsvd=None
 ):
     """Detect (or quantify) with every kernel of a config on one banded
-    map (``chromosight_tpu/detection.py:1294-1326``): one ``band_pearson``
-    launch for the whole stack, in single-kernel mode for a stack of one.
-    With ``coords`` (an (n, 2) array of map bins) the given pixels are
-    scored without the sweep, unless ``--dump`` (the map's ``dump``
-    directory) asks for the snapshots, as in the JAX package.  Returns one
-    (table with bin1/bin2/score/pvalue, window stack) pair per kernel, or
-    (None, None) where the map is too small or nothing passes."""
+    map in full mode (``chromosight_tpu/detection.py:1294-1326``): one
+    ``band_pearson`` launch for the whole stack, in single-kernel mode for
+    a stack of one.  With ``coords`` (an (n, 2) array of map bins) the
+    given pixels are scored without the sweep, unless ``dump`` (the
+    ``--dump`` directory) asks for the snapshots, as in the JAX package.
+    Returns one (table with bin1/bin2/score/pvalue, window stack) pair per
+    kernel, or (None, None) where the map is too small or nothing
+    passes."""
     kernels = np.stack([np.asarray(k) for k in kernels])
     if _band_guards(contact_map, kernels[0]):
         return [(None, None)] * len(kernels)
-    if coords is not None and contact_map.dump is None:
+    if coords is not None and dump is None:
         return quantify_banded(contact_map, kernel_config, kernels, coords, tsvd)
     with stage("correlate", contact_map.band.device):
         if len(kernels) == 1:
@@ -534,41 +540,64 @@ def detect_banded_multi(
             corr, logp, cand = _band_correlate(contact_map, kernel_config, kernels, tsvd)
     return [
         _band_tail(
-            contact_map, kernel_config, kernels[k], corr[k], logp[k], cand[k], coords
+            contact_map, kernel_config, kernels[k], corr[k], logp[k], cand[k], coords, dump
         )
         for k in range(len(kernels))
     ]
 
 
-def pattern_detector(contact_map, kernel_config, kernel_matrix, coords=None, tsvd=None):
-    """Detect patterns of one kernel on a created contact map, or with
-    ``coords`` score those pixels, in full mode
-    (``chromosight_tpu/detection.py:1424-1459``): the band engine, the
-    dense engine or the tiled engine by the map's form.  Returns (table
-    with bin1/bin2/score/pvalue, window stack), or (None, None) where the
-    map is too small or nothing passes."""
-    if contact_map.band is not None:
+def _detect_one(contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd):
+    """``pattern_detector`` with the table as a dict of numpy columns."""
+    kernel_matrix = np.asarray(kernel_matrix)
+    if contact_map.band is not None and full:
         return detect_banded_multi(
-            contact_map, kernel_config, [kernel_matrix], coords, tsvd
+            contact_map, kernel_config, [kernel_matrix], coords, dump, tsvd
         )[0]
-    if contact_map.sparse is not None:
+    if contact_map.band is not None or contact_map.sparse is not None:
         return _pattern_detector_sparse(
-            contact_map, kernel_config, np.asarray(kernel_matrix), coords, tsvd
+            contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
         )
     return _pattern_detector_dense(
-        contact_map, kernel_config, np.asarray(kernel_matrix), coords, tsvd
+        contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
     )
 
 
-def detect_multi(contact_map, kernel_config, kernels, coords=None, tsvd=None):
-    """Every kernel of a config on one map: one fused band launch for a
-    band map (``detect_banded_multi``), one ``pattern_detector`` call per
-    kernel otherwise (``chromosight_tpu/cli/main.py:455-466, 522-537``).
-    One (table, windows) pair per kernel."""
+def pattern_detector(
+    contact_map, kernel_config, kernel_matrix, coords=None, dump=None, full=False,
+    tsvd=None,
+):
+    """Detect patterns of one kernel on a created contact map, or with
+    ``coords`` (an (n, 2) array of map bins) score those pixels
+    (``chromosight_tpu/detection.py:1424-1459``), on the map's device.
+
+    ``full=True`` pads the map by the kernel's half-size (the
+    command line's mode): the CUDA band Pearson on a band map, else the
+    dense or tiled engine.  ``full=False`` (valid mode, the JAX package's
+    default) scans only windows inside the map: a band map goes through
+    its O(nnz) sparse view and the sparse path, a dense map through the
+    dense engine.  ``dump`` is a directory for the 03-05 snapshots.
+
+    Returns (DataFrame with bin1, bin2, score, pvalue; window stack), or
+    (None, None) where the map is too small or nothing passes."""
+    import pandas as pd
+
+    table, windows = _detect_one(
+        contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
+    )
+    return (None, None) if table is None else (pd.DataFrame(table), windows)
+
+
+def detect_multi(contact_map, kernel_config, kernels, coords=None, dump=None, tsvd=None):
+    """Every kernel of a config on one map in full mode: one fused band
+    launch for a band map (``detect_banded_multi``), one full-mode
+    ``pattern_detector`` pass per kernel otherwise
+    (``chromosight_tpu/cli/main.py:455-466, 522-537``).  One (table,
+    windows) pair per kernel, the tables as dicts of numpy columns."""
     if contact_map.band is not None:
-        return detect_banded_multi(contact_map, kernel_config, kernels, coords, tsvd)
+        return detect_banded_multi(contact_map, kernel_config, kernels, coords, dump, tsvd)
     return [
-        pattern_detector(contact_map, kernel_config, k, coords, tsvd) for k in kernels
+        _detect_one(contact_map, kernel_config, k, coords, dump, True, tsvd)
+        for k in kernels
     ]
 
 
@@ -663,19 +692,17 @@ def _window_validity(wins, tot, zero_tol, missing_tol):
     return (prop_undetected < missing_tol) & (prop_zero < zero_tol)
 
 
-def validate_patterns(
-    coords, matrix, conv_mat, detectable_bins, kernel_matrix, drop=True,
-    zero_tol=0.3, missing_tol=0.75,
+def _validate_dense(
+    coords, matrix, conv_mat, detectable_bins, kernel_matrix, zero_tol, missing_tol
 ):
-    """Window validation on dense host arrays
-    (``chromosight_tpu/detection.py:297-390``): every candidate's window,
+    """Window validation on dense host arrays: every candidate's window,
     NaN on missing rows and columns, rejected when out of bounds (the
     reference's strict last-row bound kept) or with too many missing or
-    zero pixels.  Returns (table with bin1/bin2/score, windows)."""
+    zero pixels.  Returns (coords, valid, scores, windows), every pattern
+    kept."""
     mat = np.asarray(matrix, dtype=np.float64)
     conv = np.asarray(conv_mat, dtype=np.float64)
     coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
-    n_pat = coords.shape[0]
     win_h, win_w = kernel_matrix.shape
     half_h, half_w = win_h // 2 + 1, win_w // 2 + 1
     miss_rows = missing_flags(detectable_bins[0], mat.shape[0])
@@ -693,7 +720,30 @@ def validate_patterns(
     wins = np.where(miss_cols[cidx][:, None, :], np.nan, wins)
     valid = inbound & _window_validity(wins, win_h * win_w, zero_tol, missing_tol)
     scores = conv[np.clip(p1, 0, conv.shape[0] - 1), np.clip(p2, 0, conv.shape[1] - 1)]
-    return _window_table(coords, valid, scores, wins, drop)
+    return coords, valid, scores, wins
+
+
+def validate_patterns(
+    coords, matrix, conv_mat, detectable_bins, kernel_matrix, drop=True,
+    zero_tol=0.3, missing_tol=0.75,
+):
+    """Filter detected patterns by window quality and extract their
+    windows (``chromosight_tpu/detection.py:297-390``): ``matrix`` and
+    ``conv_mat`` dense arrays or scipy sparse matrices (densified).
+    Returns (DataFrame with bin1/bin2/score, windows): with ``drop`` the
+    valid rows only (their labels kept), else every row, with NaN score
+    and windows where invalid."""
+    import pandas as pd
+
+    sp = _sparse()
+    matrix = matrix.toarray() if sp.issparse(matrix) else matrix
+    conv_mat = conv_mat.toarray() if sp.issparse(conv_mat) else conv_mat
+    coords, valid, scores, wins = _validate_dense(
+        coords, matrix, conv_mat, detectable_bins, kernel_matrix, zero_tol, missing_tol
+    )
+    table, wins = _window_table(coords, valid, scores, wins, drop=False)
+    table = pd.DataFrame(table)
+    return (table.loc[valid, :], wins[valid]) if drop else (table, wins)
 
 
 def _csr_point_values(csr, qr, qc):
@@ -840,34 +890,39 @@ def _pvalues(logp_at, b1, b2, shape):
     return 10**lp
 
 
-def _pattern_detector_dense(contact_map, kernel_config, kernel_matrix, coords, tsvd):
-    """Full-mode detection on a dense map on the device
-    (``chromosight_tpu/detection.py:1461-1568``): the dense engine with
-    the crossing (inter) or upper-symmetric (intra) missing mask, the
-    diagonal trim of intra maps, then foci and validation on the host with
-    the windows' kernel-sized zero padding; ``--dump`` snapshots 03-05."""
+def _pattern_detector_dense(
+    contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
+):
+    """Detection on a dense map on the device (``chromosight_tpu/
+    detection.py:1461-1568``): the dense engine, in ``full`` mode with the
+    crossing (inter) or upper-symmetric (intra) missing mask, the
+    diagonal trim of intra maps, then foci and validation on the host
+    (full mode: with the windows' kernel-sized zero padding); ``dump``
+    snapshots 03-05."""
     mat_dev = contact_map.dense
     n1, n2 = mat_dev.shape
     if min(n1, n2) <= max(kernel_matrix.shape):
         return None, None
     km, kn = kernel_matrix.shape
-    kh, kw = (km - 1) // 2, (kn - 1) // 2
+    kh, kw = ((km - 1) // 2, (kn - 1) // 2) if full else (0, 0)
     inter = contact_map.inter
-    dump = contact_map.dump
     dev = mat_dev.device
     det = contact_map.detectable_bins
     with stage("correlate", dev):
-        miss_r = torch.from_numpy(missing_flags(det[0], n1)).to(dev)
-        miss_c = torch.from_numpy(missing_flags(det[1], n2)).to(dev)
-        mask = make_missing_mask_dense(
-            (n1, n2), miss_r, miss_c, max_dist=contact_map.max_dist, sym_upper=not inter
-        )
+        mask = None
+        if full:
+            miss_r = torch.from_numpy(missing_flags(det[0], n1)).to(dev)
+            miss_c = torch.from_numpy(missing_flags(det[1], n2)).to(dev)
+            mask = make_missing_mask_dense(
+                (n1, n2), miss_r, miss_c, max_dist=contact_map.max_dist,
+                sym_upper=not inter,
+            )
         corr, logp = normxcorr2_dense(
             mat_dev,
             kernel_matrix,
             max_dist=contact_map.max_dist,
             sym_upper=not inter,
-            full=True,
+            full=full,
             missing_mask=mask,
             tsvd=tsvd,
             pval=True,
@@ -904,10 +959,13 @@ def _pattern_detector_dense(contact_map, kernel_config, kernel_matrix, coords, t
             mat = np.where((i - j >= 1) & (i - j <= max(km, kn)), np.nan, mat)
             if kernel_config["max_dist"] == 0:
                 coords[:, 0] = coords[:, 1]
-        table, windows = validate_patterns(
-            coords, mat, mat_conv, det, kernel_matrix, drop=drop,
-            zero_tol=kernel_config["max_perc_zero"] / 100,
-            missing_tol=kernel_config["max_perc_undetected"] / 100,
+        table, windows = _window_table(
+            *_validate_dense(
+                coords, mat, mat_conv, det, kernel_matrix,
+                zero_tol=kernel_config["max_perc_zero"] / 100,
+                missing_tol=kernel_config["max_perc_undetected"] / 100,
+            ),
+            drop=drop,
         )
     table["bin1"] -= kh
     table["bin2"] -= kw
@@ -917,24 +975,30 @@ def _pattern_detector_dense(contact_map, kernel_config, kernel_matrix, coords, t
     return table, windows
 
 
-def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, tsvd):
-    """Full-mode detection on a sparse map (``chromosight_tpu/detection.py:
-    1814-1953``): the tiled engine with the missing bins as two vectors
-    for inter maps (in detect mode keeping only coefficients >= pearson,
-    unless ``--dump`` wants the whole map), its batches spread over the
-    run's devices, then foci and the two-phase sparse validation with
-    virtual padding on the host."""
-    smat = contact_map.sparse.tocsr()
+def _pattern_detector_sparse(
+    contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
+):
+    """Detection on a sparse map, or on the O(nnz) sparse view of a band
+    map (``chromosight_tpu/detection.py:1814-1953``).  Full mode on an
+    inter map: the tiled engine with the missing bins as two vectors (in
+    detect mode keeping only coefficients >= pearson, unless ``dump``
+    wants the whole map), its batches spread over the run's devices.
+    Otherwise the public ``normxcorr2`` (the dense engine up to
+    ``DENSE_LIMIT`` bins a side, the tiled one above), with the
+    upper-symmetric missing mask in full mode and none in valid mode.
+    Then foci and the two-phase sparse validation on the host, with
+    virtual padding in full mode."""
+    source = contact_map.sparse if contact_map.sparse is not None else contact_map.matrix
+    smat = source.tocsr()
     km, kn = kernel_matrix.shape
-    kh, kw = (km - 1) // 2, (kn - 1) // 2
     if min(smat.shape) <= max(kernel_matrix.shape):
         return None, None
+    kh, kw = ((km - 1) // 2, (kn - 1) // 2) if full else (0, 0)
     inter = contact_map.inter
-    dump = contact_map.dump
     dev = contact_map.device
     det = contact_map.detectable_bins
     missing_tol = kernel_config["max_perc_undetected"] / 100
-    if inter:
+    if full and inter:
         keep_min = None
         if coords is None and dump is None and float(kernel_config["pearson"]) > 0:
             keep_min = float(kernel_config["pearson"])
@@ -953,12 +1017,15 @@ def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, 
             device=contact_map.devices,
         )
     else:
-        mask = make_missing_mask(
-            smat.shape, det[0], det[1], max_dist=contact_map.max_dist, sym_upper=True
-        )
+        mask = None
+        if full:
+            mask = make_missing_mask(
+                smat.shape, det[0], det[1], max_dist=contact_map.max_dist,
+                sym_upper=not inter,
+            )
         corr, logp = normxcorr2(
-            smat, kernel_matrix, max_dist=contact_map.max_dist, sym_upper=True,
-            full=True, missing_mask=mask, missing_tol=missing_tol, tsvd=tsvd,
+            smat, kernel_matrix, max_dist=contact_map.max_dist, sym_upper=not inter,
+            full=full, missing_mask=mask, missing_tol=missing_tol, tsvd=tsvd,
             pval=True, device=dev,
         )
     corr = corr.tocsr()
@@ -986,7 +1053,7 @@ def _pattern_detector_sparse(contact_map, kernel_config, kernel_matrix, coords, 
             zero_tol=kernel_config["max_perc_zero"] / 100,
             missing_tol=missing_tol,
             nan_band=0 if inter else max(km, kn),
-            pad=(kh, kw),
+            pad=(kh, kw) if full else None,
         )
     table["bin1"] -= kh
     table["bin2"] -= kw

@@ -1,10 +1,12 @@
-"""2D BED parsing without pandas.
+"""2D BED parsing.
 
 Counterpart of ``chromosight_tpu/io/bed2d.py``: the first six
 tab-separated columns of a file of genomic interval pairs (chrom1 start1
 end1 chrom2 start2 end2), with a header line or without one, as
 ``csv.Sniffer`` decides from the first 64 KiB.  Intra-chromosomal pairs
-are swapped so that start1 <= start2.
+are swapped so that start1 <= start2.  ``read_bed2d`` gives the dict of
+numpy columns the command line works on, ``load_bed2d`` the JAX
+package's DataFrame.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 BED2D_COLUMNS = ["chrom1", "start1", "end1", "chrom2", "start2", "end2"]
 
 
-def load_bed2d(path):
+def read_bed2d(path):
     """Dict of numpy columns (chrom1/chrom2 str, starts and ends int64)
     in file order."""
     with open(path) as handle:
@@ -41,3 +43,11 @@ def load_bed2d(path):
         table[f"{col}1"] = np.where(flipped, b, a)
         table[f"{col}2"] = np.where(flipped, a, b)
     return table
+
+
+def load_bed2d(path):
+    """The pairs of a 2D BED file as a DataFrame of the six columns
+    (``chromosight_tpu/io/bed2d.py:10-39``)."""
+    import pandas as pd
+
+    return pd.DataFrame(read_bed2d(path))

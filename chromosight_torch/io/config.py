@@ -22,8 +22,7 @@ except ImportError:
 
 PRESET_DIR = pathlib.Path(__file__).parents[1] / "kernels" / "data"
 
-# Same content as chromosight_tpu.io.config.KERNEL_SCHEMA (that module
-# cannot be imported here: its package loads h5py and pandas).
+# The JSON schema of a kernel config (chromosight_tpu.io.config.KERNEL_SCHEMA).
 KERNEL_SCHEMA = {
     "type": "object",
     "properties": {
@@ -63,6 +62,11 @@ KERNEL_SCHEMA = {
         "resolution",
     ],
 }
+
+
+def preset_names():
+    """Names of the built-in pattern configurations, sorted."""
+    return sorted(p.stem for p in PRESET_DIR.glob("*.json"))
 
 
 def load_kernel_config(kernel, custom=False):

@@ -6,7 +6,8 @@ chromosome table, a bin table and an upper-triangle pixel table sorted by
 what the detect paths and ICE balancing read: ``chromnames``, ``extent``,
 ``binsize``, ``weights``, ``info`` (``info["sum"]``, the contact total
 ``--subsample`` reads), ``bins()``, ``band_upper`` (intra band),
-``pixels_coo`` (trans maps, dense intra maps, ``--subsample``) and, for
+``trans_coo_raw`` (trans maps), ``pixels_coo`` (dense intra maps,
+``--subsample``, plots) and, for
 ``chromosight_torch.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
 ``_chrom_offset``, ``pixel_chunks``, ``row_slice_raw`` and
 ``store_weights``.
@@ -95,11 +96,7 @@ class _PixelSource:
         s, e = extent
         if n_rows is None:
             n_rows = e - s
-        if balance and self._weight is None:
-            raise ValueError(
-                "No 'weight' column in the contact map; balance it first "
-                "or use raw values."
-            )
+        self._check_balance(balance)
         lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
         if hi <= lo:
             return np.zeros((n_rows, width), dtype=np.float32)
@@ -132,39 +129,49 @@ class _PixelSource:
 
     def pixels_coo(self, extent1, extent2, balance=False):
         """COO triplets (rows, cols, values) of the rectangle
-        [s1, e1) x [s2, e2) of the symmetric map, in local coordinates,
-        balanced with the stored weights when ``balance`` (NaN weights give
-        NaN values).
-
-        A trans rectangle (e1 <= s2) lies wholly in the stored upper
-        triangle: one row slice, float32 values computed as
-        ``count * w[bin1] * w[bin2]`` in float64, as the JAX package's
-        native ``trans_coo_raw`` does.  An overlapping rectangle also takes
-        the mirrored pixels, in float64 (``chromosight_tpu/io/cool.py:
-        128-163``)."""
+        [s1, e1) x [s2, e2) of the symmetric map, in local coordinates
+        and float64, the stored upper triangle mirrored, balanced with the
+        stored weights when ``balance`` (NaN weights give NaN values)
+        (``chromosight_tpu/io/cool.py:128-163``)."""
         s1, e1 = extent1
         s2, e2 = extent2
+        self._check_balance(balance)
+        r1, c1, v1 = self._bbox(s1, e1, s2, e2)
+        r2, c2, v2 = self._bbox(s2, e2, s1, e1)
+        off_diag = r2 != c2
+        rows = np.concatenate([r1.astype(np.int64), c2[off_diag].astype(np.int64)])
+        cols = np.concatenate([c1.astype(np.int64), r2[off_diag].astype(np.int64)])
+        vals = np.concatenate([v1, v2[off_diag]]).astype(np.float64)
+        if balance:
+            vals = vals * self._weight[rows] * self._weight[cols]
+        return rows - s1, cols - s2, vals
+
+    def trans_coo_raw(self, extent1, extent2, balance=False):
+        """COO triplets of a trans rectangle (e1 <= s2), which lies wholly
+        in the stored upper triangle: one row slice, float32 values
+        computed as ``count * w[bin1] * w[bin2]`` in float64 when
+        ``balance``, as the JAX package's native ``trans_coo_raw`` gives
+        them (``chromosight_tpu/io/cool.py:350-395``); None where the
+        ranges overlap."""
+        s1, e1 = extent1
+        s2, e2 = extent2
+        if e1 > s2:
+            return None
+        self._check_balance(balance)
+        b1, b2, ct = self._bbox(s1, e1, s2, e2)
+        rows, cols = b1.astype(np.int64), b2.astype(np.int64)
+        vals = ct.astype(np.float32)
+        if balance:
+            w = self._weight
+            vals = (ct.astype(np.float64) * w[rows] * w[cols]).astype(np.float32)
+        return rows - s1, cols - s2, vals
+
+    def _check_balance(self, balance):
         if balance and self._weight is None:
             raise ValueError(
                 "No 'weight' column in the contact map; balance it first "
                 "or use raw values."
             )
-        b1, b2, ct = self._bbox(s1, e1, s2, e2)
-        rows, cols = b1.astype(np.int64), b2.astype(np.int64)
-        if e1 <= s2:
-            vals = ct.astype(np.float32)
-            if balance:
-                w = self._weight
-                vals = (ct.astype(np.float64) * w[rows] * w[cols]).astype(np.float32)
-            return rows - s1, cols - s2, vals
-        r2, c2, v2 = self._bbox(s2, e2, s1, e1)
-        off_diag = r2 != c2
-        rows = np.concatenate([rows, c2[off_diag].astype(np.int64)])
-        cols = np.concatenate([cols, r2[off_diag].astype(np.int64)])
-        vals = np.concatenate([ct, v2[off_diag]]).astype(np.float64)
-        if balance:
-            vals = vals * self._weight[rows] * self._weight[cols]
-        return rows - s1, cols - s2, vals
 
     def row_slice_raw(self, s, e):
         """``(indptr, bin2, count)`` of rows [s, e) in the stored dtypes;

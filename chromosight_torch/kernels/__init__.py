@@ -1,17 +1,30 @@
-"""Preset pattern configurations (``data/*.json``).
+"""Preset pattern-kernel library.
 
-The port's copies of the seven presets of ``chromosight_tpu/kernels/data``,
-byte for byte, read by ``chromosight_torch.io.config.load_kernel_config``.
-``kernel_names`` lists them in the order of ``chromosight_tpu.kernels
-.kernel_names`` (sorted file names); a preset is loaded when asked for,
-not when this module is imported.
+Each built-in pattern (loops, borders, hairpins, centromeres, stripes,
+...) is a module-level dict loaded by
+``chromosight_torch.io.config.load_kernel_config`` from the port's copies
+of the JAX package's presets (``data/*.json``, byte for byte): the keys of
+the JSON config, with ``kernels`` holding the template matrices as 2-D
+numpy arrays, as in the reference ``chromosight.kernels``
+(``kernels/__init__.py:29-44`` of the reference).  ``kernel_names`` lists
+them in sorted file order:
+
+.. code-block:: python
+
+    import chromosight_torch.kernels as ck
+    kernel = ck.loops["kernels"][0]
+    names = ck.kernel_names
 """
 
 import pathlib
+import sys
 
+from chromosight_torch.io.config import load_kernel_config
+
+_current_module = sys.modules[__name__]
 DATA_DIR = pathlib.Path(__file__).parent / "data"
 
-
-def kernel_names():
-    """The preset names, sorted."""
-    return sorted(p.stem for p in DATA_DIR.glob("*.json"))
+kernel_names = []
+for _cfg_file in sorted(DATA_DIR.glob("*.json")):
+    setattr(_current_module, _cfg_file.stem, load_kernel_config(_cfg_file.stem, custom=False))
+    kernel_names.append(_cfg_file.stem)

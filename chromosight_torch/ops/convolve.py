@@ -52,10 +52,23 @@ def _unbatch(out, batched):
 
 def conv2d_valid(signal, kernel):
     """Valid-mode cross-correlation of ``signal`` ((H, W) or (B, H, W))
-    with an (mk, nk) kernel, summed in float64: (..., H-mk+1, W-nk+1)."""
+    with an (mk, nk) kernel, summed in float64: (..., H-mk+1, W-nk+1).
+
+    On the CPU the taps are added one by one over shifted views: torch's
+    CPU float64 ``conv2d`` unfolds its whole input first, mk * nk values
+    per output pixel (78 GB for a batch of eight 2048-pixel tiles and a
+    17x17 kernel)."""
     x, batched = _nchw(signal)
     w = torch.as_tensor(kernel).to(device=x.device, dtype=torch.float64)
-    return _unbatch(F.conv2d(x, w[None, None]), batched)
+    if x.device.type != "cpu":
+        return _unbatch(F.conv2d(x, w[None, None]), batched)
+    mk, nk = w.shape
+    h, wd = x.shape[-2] - mk + 1, x.shape[-1] - nk + 1
+    out = torch.zeros(x.shape[:-2] + (h, wd), dtype=torch.float64)
+    for u in range(mk):
+        for v in range(nk):
+            out.add_(x[..., u : u + h, v : v + wd], alpha=float(w[u, v]))
+    return _unbatch(out, batched)
 
 
 def window_sums_entries(slot, rows, cols, values, shape, kernel):

@@ -72,8 +72,7 @@ def retain_maps(genome, n_passes):
     if n_passes <= 1 or genome.sample is not None:
         return False
     total = 0
-    for sub in genome.sub_mats:
-        cm = sub.contact_map
+    for cm in genome.sub_mats.contact_map:
         n1, n2 = cm.shape
         if cm.is_banded:
             total += n1 * (cm.keep_distance + 1) * 4
@@ -84,8 +83,8 @@ def retain_maps(genome, n_passes):
 
 def destroy_maps(genome):
     """Free every map of the genome."""
-    for sub in genome.sub_mats:
-        sub.contact_map.destroy_mat()
+    for cm in genome.sub_mats.contact_map:
+        cm.destroy_mat()
 
 
 class MapScheduler:

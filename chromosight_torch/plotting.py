@@ -1,9 +1,9 @@
 """Pileup heatmaps, interactive kernel capture and ASCII kernels.
 
-The port's copies of ``pileup_plot``, ``click_finder`` (with
-``_ClickRecorder`` and ``_extract_window``) and ``print_ascii_mat`` from
-``chromosight_tpu/plotting.py``, with the same colormaps and scales
-(reference ``plotting.py:11-28, 100-249``).  matplotlib is imported when
+The port's copies of ``pileup_plot``, ``plot_whole_matrix``,
+``click_finder`` (with ``_ClickRecorder`` and ``_extract_window``) and
+``print_ascii_mat`` from ``chromosight_tpu/plotting.py``, with the same
+colormaps and scales (reference ``plotting.py:11-28, 31-249``).  matplotlib is imported when
 a plot is drawn, so runs without it (and ``--no-plotting`` runs) never
 load it.
 """
@@ -16,9 +16,10 @@ import sys
 import numpy as np
 
 # pileups render on a fixed seismic [0, 2] scale, matrices on afmhot_r
-# clipped at the 95th percentile
+# clipped at the 95th percentile, overlays on Reds at the 99th
 PILEUP_CMAP, PILEUP_RANGE = "seismic", (0.0, 2.0)
 MATRIX_CMAP, MATRIX_PERCENTILE = "afmhot_r", 95
+OVERLAY_CMAP, OVERLAY_PERCENTILE = "Reds", 99
 
 
 def _plt():
@@ -48,6 +49,51 @@ def pileup_plot(pileup_pattern, output_prefix, name="pileup_patterns"):
     fig.colorbar(image, ax=ax)
     fig.savefig(f"{output_prefix}.pdf", dpi=100, format="pdf")
     plt.close(fig)
+
+
+def plot_whole_matrix(
+    clr, patterns, out=None, region=None, region2=None, log_transform=False
+):
+    """Overlay detected patterns (a DataFrame with bin1 and bin2) on the
+    balanced contact matrix of ``clr`` (a ``CoolFile`` or another contact
+    source); ``region``/``region2`` restrict the view to one chromosome
+    (pair).  Writes to ``out`` or shows interactively."""
+    plt = _plt()
+    if region is None:
+        (s1, e1), (s2, e2) = (0, clr.shape[0]), (0, clr.shape[1])
+    else:
+        s1, e1 = clr.extent(region)
+        s2, e2 = clr.extent(region2) if region2 is not None else (s1, e1)
+
+    rows, cols, vals = clr.pixels_coo((s1, e1), (s2, e2), balance=True)
+    mat = np.zeros((e1 - s1, e2 - s2))
+    mat[rows, cols] = vals
+    if log_transform:
+        mat = np.log(mat)
+    mat[mat == 0] = np.nan
+
+    in_view = patterns.loc[
+        patterns.bin1.between(s1, e1, inclusive="neither")
+        & patterns.bin2.between(s2, e2, inclusive="neither")
+    ]
+
+    fig, ax = plt.subplots(dpi=1200)
+    ax.imshow(
+        mat,
+        cmap=OVERLAY_CMAP,
+        vmax=np.percentile(mat[~np.isnan(mat)], OVERLAY_PERCENTILE),
+    )
+    ax.scatter(
+        in_view.bin1 - s1,
+        in_view.bin2 - s2,
+        facecolors="none",
+        edgecolors="blue",
+        s=0.05,
+    )
+    if out is None:
+        plt.show()
+    else:
+        fig.savefig(out)
 
 
 class _ClickRecorder:

@@ -1,13 +1,16 @@
 """Host helpers for bins, the distance law, kernels and sparse masks.
 
 The port's copies of the functions of ``chromosight_tpu/preprocessing.py``
-that it calls, with the same arithmetic: ``valid_to_missing``,
-``missing_flags``, ``diag_trim``, ``pava_decreasing``,
-``make_missing_mask``, ``frame_missing_mask``, ``check_missing_mask``,
-``zero_pad_sparse``, ``resize_kernel``, ``factorise_kernel`` and
-``subsample_contacts`` (which draws from a ``numpy.random.RandomState``
-it is given, not from numpy's global state).  scipy is imported by the
-functions that need it, when they run.
+that it calls or publishes, with the same arithmetic:
+``valid_to_missing``, ``missing_flags``, ``diag_trim``,
+``pava_decreasing``, ``erase_missing``, ``set_mat_diag``,
+``distance_law``, ``detrend``, ``ztransform``, ``sum_mat_bins``,
+``get_detectable_bins``, ``make_missing_mask``, ``frame_missing_mask``,
+``check_missing_mask``, ``zero_pad_sparse``, ``crop_kernel``,
+``resize_kernel``, ``factorise_kernel`` and ``subsample_contacts``
+(which draws from a ``numpy.random.RandomState`` it is given, not from
+numpy's global state).  scipy is imported by the functions that need
+it, when they run.
 """
 
 from __future__ import annotations
@@ -78,6 +81,208 @@ def pava_decreasing(y):
             counts[-2:] = [total]
     fit = np.repeat(means, counts)
     return fit[::-1][:n]
+
+
+def erase_missing(signal, valid_rows, valid_cols, sym_upper=True):
+    """Zero all pixels falling in missing (non-valid) bins.
+
+    Reference: ``preprocessing.py:19-68``.
+    """
+    import scipy.sparse as sp
+
+    if sym_upper and sp.issparse(signal):
+        if np.any(np.asarray(valid_rows) != np.asarray(valid_cols)):
+            raise ValueError(
+                "Valid rows and columns must be identical with sym_upper=True"
+            )
+        if signal.shape[0] != signal.shape[1]:
+            raise ValueError(
+                "Input matrix must be square when using sym_upper=True"
+            )
+        coo = signal.tocoo(copy=True)
+        good = np.zeros(signal.shape[0], dtype=bool)
+        good[np.asarray(valid_rows, dtype=np.int64)] = True
+        keep = good[coo.row] & good[coo.col]
+        data = np.where(keep, coo.data, 0)
+        out = sp.coo_matrix((data, (coo.row, coo.col)), shape=coo.shape)
+        return out.tocsr()
+    missing_rows = valid_to_missing(valid_rows, signal.shape[0])
+    missing_cols = valid_to_missing(valid_cols, signal.shape[1])
+    if sp.issparse(signal):
+        erased = signal.tolil(copy=True)
+        erased[missing_rows, :] = 0
+        erased[:, missing_cols] = 0
+        return erased.tocsr()
+    erased = np.array(signal, copy=True)
+    erased[missing_rows, :] = 0
+    erased[:, missing_cols] = 0
+    return erased
+
+
+def set_mat_diag(mat, diag=0, val=0):
+    """Set the nth (upper, 0-based) diagonal of a dense array in place.
+
+    Reference: ``preprocessing.py:71-90``.
+    """
+    m = mat.shape[0]
+    idx = np.arange(max(m - abs(diag), 0))
+    if diag >= 0:
+        mat[idx, idx + diag] = val
+    else:
+        mat[idx - diag, idx] = val
+
+
+def distance_law(
+    matrix, detectable_bins=None, max_dist=None, smooth=True, fun=np.nanmean
+):
+    """Per-diagonal average of the upper triangle (the genomic distance law).
+
+    Reference: ``preprocessing.py:129-197``.  Only diagonals up to
+    ``max_dist`` are computed; pixels in non-detectable bins and
+    non-positive pixels are excluded from each diagonal's average.
+    """
+    import scipy.sparse as sp
+
+    matrix = matrix.tocsr() if sp.issparse(matrix) else sp.csr_matrix(matrix)
+    mat_n = matrix.shape[0]
+    if max_dist is None:
+        max_dist = mat_n
+    n_diags = min(mat_n, max_dist + 1)
+    dist = np.zeros(mat_n)
+    if detectable_bins is None:
+        detect = np.ones(mat_n, dtype=bool)
+    else:
+        detect = np.zeros(mat_n, dtype=bool)
+        detect[np.asarray(detectable_bins, dtype=np.int64)] = True
+
+    if fun is np.nanmean:
+        # one bincount pass over the positive, detectable upper-triangle
+        # entries, grouped by diagonal
+        coo = matrix.tocoo()
+        d = coo.col - coo.row
+        sel = (
+            (d >= 0)
+            & (d < n_diags)
+            & detect[coo.row]
+            & detect[coo.col]
+            & (coo.data > 0)
+        )
+        sums = np.bincount(d[sel], weights=coo.data[sel], minlength=n_diags)
+        counts = np.bincount(d[sel], minlength=n_diags)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            dist[:n_diags] = sums[:n_diags] / counts[:n_diags]
+    else:
+        for diag in range(n_diags):
+            vals = matrix.diagonal(diag)
+            dmask = detect[: mat_n - diag] & detect[diag:]
+            vals = vals[dmask]
+            vals = vals[vals > 0]
+            dist[diag] = fun(vals) if len(vals) else np.nan
+
+    if smooth and mat_n > 2:
+        dist[~np.isfinite(dist)] = 0
+        dist = pava_decreasing(dist)
+    return dist
+
+
+def detrend(
+    matrix,
+    detectable_bins=None,
+    max_dist=None,
+    smooth=False,
+    fun=np.nanmean,
+    max_val=10,
+):
+    """Divide each pixel by the distance-law value at its diagonal.
+
+    Reference: ``preprocessing.py:256-310``, including the quirk that
+    detrended values >= ``max_val`` are reset to **1** (not clipped).
+    """
+    import scipy.sparse as sp
+
+    matrix = matrix.tocsr() if sp.issparse(matrix) else sp.csr_matrix(matrix)
+    law = distance_law(
+        matrix,
+        detectable_bins=detectable_bins,
+        max_dist=max_dist,
+        smooth=smooth,
+        fun=fun,
+    )
+    law[np.isnan(law)] = 0.0
+    coo = matrix.tocoo(copy=True)
+    if len(coo.data):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            coo.data = coo.data / law[np.abs(coo.row - coo.col)]
+    out = coo.tocsr()
+    if max_val is not None:
+        big = out.data >= max_val
+        out.data[big] = 1
+    return out
+
+
+def ztransform(matrix):
+    """Standardise the explicit entries of a sparse matrix.
+
+    Reference: ``preprocessing.py:313-334``.
+    """
+    import scipy.sparse as sp
+
+    mat = matrix.copy()
+    if sp.issparse(mat):
+        mu, sd = np.mean(mat.data), np.std(mat.data)
+        mat.data = (mat.data - mu) / sd
+    else:
+        mu, sd = np.mean(mat), np.std(mat)
+        mat = (mat - mu) / sd
+    return mat
+
+
+def sum_mat_bins(mat):
+    """Per-bin sums of a symmetric matrix given either triangle or both.
+
+    Reference: ``preprocessing.py:337-356``.
+    """
+    row = np.asarray(mat.sum(axis=0)).ravel()
+    col = np.asarray(mat.sum(axis=1)).ravel()
+    return row + col - mat.diagonal(0)
+
+
+def get_detectable_bins(mat, n_mads=3, inter=False):
+    """MAD filter on bin coverage to find detectable rows/columns.
+
+    Reference: ``preprocessing.py:200-253``.
+    """
+    import scipy.sparse as sp
+
+    matrix = mat.copy().tocoo() if sp.issparse(mat) else sp.coo_matrix(mat)
+    matrix.eliminate_zeros()
+
+    def mad(x):
+        x = np.asarray(x, dtype=np.float64)
+        x = x[~np.isnan(x)]
+        med = np.median(x)
+        return np.median(np.abs(x - med))
+
+    if not inter:
+        if matrix.shape[0] != matrix.shape[1]:
+            raise ValueError("Intrachromosomal matrices must be symmetric.")
+        # the share of non-zero pixels of each bin
+        binary = matrix.copy()
+        binary.data = np.ones_like(binary.data)
+        sum_bins = sum_mat_bins(binary)
+        sum_mad = mad(sum_bins)
+        sum_med = np.median(sum_bins)
+        detect_threshold = max(1, sum_med - sum_mad * n_mads)
+        good_bins = np.flatnonzero(sum_bins >= detect_threshold)
+        return (good_bins, good_bins)
+    sum_rows = np.asarray(matrix.sum(axis=1)).ravel()
+    sum_cols = np.asarray(matrix.sum(axis=0)).ravel()
+    thr_rows = max(1, np.median(sum_rows) - mad(sum_rows) * n_mads)
+    thr_cols = max(1, np.median(sum_cols) - mad(sum_cols) * n_mads)
+    return (
+        np.flatnonzero(sum_rows > thr_rows),
+        np.flatnonzero(sum_cols > thr_cols),
+    )
 
 
 def make_missing_mask(
@@ -206,6 +411,29 @@ def zero_pad_sparse(mat, margin_h, margin_v, fmt="coo"):
         dtype=mat.dtype,
     )
     return out.asformat(fmt)
+
+
+def crop_kernel(kernel, target_size):
+    """Symmetric crop of a kernel to (odd) target dimensions.
+
+    Reference: ``preprocessing.py:679-728``.
+    """
+    target = list(target_size)
+    adjusted = False
+    for dim in range(len(target)):
+        if not target[dim] % 2:
+            target[dim] += 1
+            adjusted = True
+    if adjusted:
+        sys.stderr.write(
+            "WARNING: Cropped kernel size adjusted to "
+            f"{target[0]}x{target[1]} to keep odd dimensions.\n"
+        )
+    sm, sn = kernel.shape
+    tm, tn = target
+    mr = (sm - tm) // 2 if sm > tm else 0
+    mc = (sn - tn) // 2 if sn > tn else 0
+    return kernel[mr : sm - mr, mc : sn - mc]
 
 
 def resize_kernel(

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chromosight_torch.device import stage
+from chromosight_torch.device import resolve_device, stage
 from chromosight_torch.ops.band import (
     band_detrend_trim,
     band_diag_stats,
@@ -79,7 +79,8 @@ def _jax_band_width(width):
 
 
 class ContactMap:
-    """A contact map on ``device``.
+    """A contact map on ``device`` (None: the first CUDA card, and a raise
+    without one; the CPU only when asked for).
 
     ``extent`` is [(s1, e1), (s2, e2)] in genome bins; ``detectable_bins``
     the (rows, cols) local indices of bins with finite weights; ``inter``
@@ -98,7 +99,7 @@ class ContactMap:
         self,
         clr,
         extent,
-        device,
+        device=None,
         name="",
         detectable_bins=None,
         max_dist=None,
@@ -113,8 +114,8 @@ class ContactMap:
     ):
         self.clr = clr
         self.extent = extent
-        self.device = device
-        self.devices = (device,) if devices is None else tuple(devices)
+        self.device = resolve_device(device)
+        self.devices = (self.device,) if devices is None else tuple(devices)
         self.sample = sample
         self.rng = rng
         self.name = name
@@ -180,8 +181,6 @@ class ContactMap:
 
         (s1, e1), (s2, e2) = self.extent
         rows, cols, vals = self.clr.pixels_coo((s1, e1), (s2, e2), balance=False)
-        # the contact total in float64 (trans pixels come as float32)
-        vals = np.asarray(vals, dtype=np.float64)
         subsample = float(self.sample)
         if subsample < 0:
             raise ValueError("Subsample must be strictly positive.")
@@ -314,9 +313,8 @@ class ContactMap:
         n1, n2 = e1 - s1, e2 - s2
         with stage("io: trans fetch" if self.inter else "io: fetch", self.device):
             if self.sample is None:
-                rows, cols, vals = self.clr.pixels_coo(
-                    (s1, e1), (s2, e2), balance=self.use_norm
-                )
+                fetch = self.clr.trans_coo_raw if self.inter else self.clr.pixels_coo
+                rows, cols, vals = fetch((s1, e1), (s2, e2), balance=self.use_norm)
             else:
                 rows, cols, vals = self.subsample()
             self._materialize(rows, cols, vals)

@@ -1,63 +1,71 @@
-"""Whole-genome runtime on numpy tables: weights, sub-matrices, coordinates.
+"""Whole-genome runtime: weights, sub-matrices, coordinates.
 
-Counterpart of ``chromosight_tpu/runtime/genome.py:25-262``: one map per
-chromosome and, with ``inter``, one per trans pair; pandas tables become
-dicts of numpy columns.  ICE balancing stays on the host
-(``ops.balance.ice_balance``).  The maps go round-robin over the run's
-devices in map order.
+Counterpart of ``chromosight_tpu/runtime/genome.py:25-262``, with its
+signature and its pandas tables: one map per chromosome and, with
+``inter``, one per trans pair, in the DataFrame ``sub_mats`` (chr1, chr2,
+contact_map).  ICE balancing stays on the host (``ops.balance.
+ice_balance``).  The maps go round-robin over the run's devices in map
+order.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from chromosight_torch import observability
+from chromosight_torch.device import resolve_devices
+from chromosight_torch.io.cool import CoolFile, bins_frame
+from chromosight_torch.io.source import ArraySource
 from chromosight_torch.io.writers import progress
 from chromosight_torch.ops.balance import ice_balance
 from chromosight_torch.runtime.contact_map import ContactMap
 
 
-@dataclass
-class SubMatrix:
-    chr1: str
-    chr2: str
-    contact_map: ContactMap
+def open_contacts(path):
+    """A contact source for a ``.cool`` file (``CoolFile``) or an
+    ``ArraySource`` ``.npz`` export."""
+    if str(path).endswith(".npz"):
+        return ArraySource.from_npz(path)
+    return CoolFile(path)
 
 
 class HicGenome:
-    """A contact source, its bin table, and one ``ContactMap`` per
-    chromosome (and, with ``inter``, per trans pair).  ``device`` is one
-    ``torch.device`` or a sequence of them: map i lives on device
-    ``i % len(devices)``.  ``dump`` is the ``--dump`` directory (created
-    here), ``smooth`` the ``--smooth-trend`` switch, ``sample`` the
-    ``--subsample`` value (a share of the contacts, or a number of
-    contacts above 1) and ``rng`` the ``numpy.random.RandomState`` its
-    draws come from (None: a fresh one, seeded by the OS)."""
+    """A contact map, its bin table, and one ``ContactMap`` per chromosome
+    (and, with ``inter``, per trans pair).
+
+    ``path`` is a ``.cool`` file (opened as ``CoolFile``), an
+    ``ArraySource`` ``.npz`` export, or an open contact source of
+    ``chromosight_torch.io``.  ``dump`` is the ``--dump`` directory
+    (created here), ``smooth`` the ``--smooth-trend`` switch, ``sample``
+    the ``--subsample`` value (a share of the contacts, or a number of
+    contacts above 1).  ``device`` is one ``torch.device`` or name or a
+    sequence of them (map i lives on device ``i % len(devices)``); None
+    means every visible CUDA card, and raises without one: the CPU is
+    used only when asked for (``device="cpu"``).  ``rng`` is the
+    ``numpy.random.RandomState`` of the ``--subsample`` draws (None: a
+    fresh one, seeded by the OS)."""
 
     def __init__(
-        self, clr, kernel_config, device, dump=None, smooth=False, inter=False,
-        sample=None, rng=None,
+        self, path, inter=False, kernel_config=None, dump=None, smooth=False,
+        sample=None, *, device=None, rng=None,
     ):
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.dump = None if dump is None else Path(dump)
         if self.dump is not None:
             os.makedirs(self.dump, exist_ok=True)
-        self.clr = clr
-        self.bins = clr.bins()
+        self.clr = open_contacts(path) if isinstance(path, (str, os.PathLike)) else path
+        self.bins = bins_frame(self.clr)
         self.kernel_config = kernel_config
-        single = isinstance(device, (str, torch.device))
-        self.devices = tuple(torch.device(d) for d in ([device] if single else device))
-        self.device = self.devices[0]
         self.smooth = smooth
         self.inter = inter
         self.use_norm = True
         self.sub_mats = None
-        self.detectable_bins = np.arange(clr.n_bins)
+        self.detectable_bins = np.arange(self.clr.n_bins)
         self.compute_max_dist()
         self.sample = self._sample_share(sample)
         if rng is None and self.sample is not None:
@@ -105,7 +113,7 @@ class HicGenome:
         counts and keeps the weights only to tell the detectable bins."""
         if norm not in ["auto", "raw", "force"]:
             raise ValueError("norm must be one of: auto, raw, force")
-        if "weight" in self.bins and norm != "force":
+        if "weight" in self.bins.columns and norm != "force":
             sys.stderr.write("Matrix already balanced, reusing weights\n")
         else:
             with observability.stage("balance: ICE"):
@@ -119,20 +127,23 @@ class HicGenome:
                     store=True,
                 )
             print("Whole genome matrix balanced")
-            self.bins = self.clr.bins()
+            self.bins = bins_frame(self.clr)
         self.use_norm = norm != "raw"
-        self.detectable_bins = np.flatnonzero(np.isfinite(self.bins["weight"]))
+        self.detectable_bins = np.flatnonzero(np.isfinite(self.bins["weight"].to_numpy()))
         print(
             f"Found {len(self.detectable_bins)} / {self.clr.n_bins}"
             " detectable bins"
         )
 
     def make_sub_matrices(self):
-        """One ``ContactMap`` per chromosome and, with ``inter``, per pair
+        """The table ``sub_mats`` (chr1, chr2, contact_map) of one
+        ``ContactMap`` per chromosome and, with ``inter``, per pair
         chr1 < chr2 in the chromosome order, row-major
-        (``chromosight_tpu/runtime/genome.py:126-191``).  Trans maps scan
-        the whole rectangle (no ``max_dist``).  Map i goes to device
-        ``i % len(devices)``."""
+        (``chromosight_tpu/runtime/genome.py:126-191``); the maps are not
+        created.  Trans maps scan the whole rectangle (no ``max_dist``).
+        Map i goes to device ``i % len(devices)``."""
+        import pandas as pd
+
         names = self.clr.chromnames
         d = self.detectable_bins
         pairs = [
@@ -144,7 +155,7 @@ class HicGenome:
         sys.stderr.write("Preprocessing sub-matrices...\n")
         if self.sample is not None:
             sys.stderr.write(f"{np.round(100 * self.sample)}% contacts will be sampled \n")
-        self.sub_mats = []
+        rows = []
         for idx, (i1, i2) in enumerate(pairs):
             chr1, chr2 = names[i1], names[i2]
             (s1, e1), (s2, e2) = self.clr.extent(chr1), self.clr.extent(chr2)
@@ -168,9 +179,9 @@ class HicGenome:
                 devices=self.devices,
                 **scan,
             )
-            self.sub_mats.append(SubMatrix(chr1, chr2, cm))
-        last = self.sub_mats[-1]
-        progress(len(pairs), len(pairs), f"{last.chr1}-{last.chr2}\n")
+            rows.append((chr1, chr2, cm))
+        self.sub_mats = pd.DataFrame(rows, columns=["chr1", "chr2", "contact_map"])
+        progress(len(pairs), len(pairs), f"{rows[-1][0]}-{rows[-1][1]}\n")
         print("Sub matrices extracted")
 
     def gather_sub_matrices(self):
@@ -180,7 +191,7 @@ class HicGenome:
         import scipy.sparse as sp
 
         rows, cols, vals = [], [], []
-        for sub in self.sub_mats:
+        for sub in self.sub_mats.itertuples():
             block = sub.contact_map.matrix
             if block is None:
                 continue
@@ -197,32 +208,43 @@ class HicGenome:
         return sp.triu(gathered)
 
     def get_full_mat_pattern(self, chr1, chr2, patterns):
-        """Shift sub-matrix bins of a pattern table to genome bins."""
-        out = dict(patterns)
+        """A copy of a pattern table (a DataFrame, or the command line's
+        dict of columns) with its sub-matrix bins shifted to genome bins."""
+        out = patterns.copy()
         out["bin1"] = patterns["bin1"] + self.clr.extent(chr1)[0]
         out["bin2"] = patterns["bin2"] + self.clr.extent(chr2)[0]
         return out
 
-    def bins_to_coords(self, bin_idx):
-        """(chrom, start, end) columns of genome bins."""
-        return {k: self.bins[k][bin_idx] for k in ("chrom", "start", "end")}
+    def get_sub_mat_pattern(self, chr1, chr2, patterns):
+        """A copy of a pattern table with its genome bins shifted to
+        sub-matrix bins."""
+        out = patterns.copy()
+        out["bin1"] = patterns["bin1"] - self.clr.extent(chr1)[0]
+        out["bin2"] = patterns["bin2"] - self.clr.extent(chr2)[0]
+        return out
 
-    def coords_to_bins(self, chroms, pos):
-        """Genome bins (float64, NaN where none) of (chrom, pos) pairs: the
-        bin of the chromosome whose start is ``pos`` rounded down to the
-        bin size (``chromosight_tpu/runtime/genome.py:243-262``)."""
-        chroms = np.asarray(chroms).astype(str)
-        pos = np.asarray(pos, dtype=np.int64)
+    def bins_to_coords(self, bin_idx):
+        """The rows of the bin table (chrom, start, end[, weight]) of
+        genome bins."""
+        return self.bins.iloc[bin_idx, :]
+
+    def coords_to_bins(self, coords):
+        """Genome bins of the (chrom, pos) rows of a DataFrame: the bin of
+        the chromosome whose start is ``pos`` rounded down to the bin size
+        (``chromosight_tpu/runtime/genome.py:243-262``), as int64, or as
+        float64 with NaN where a row has no bin."""
+        chroms = np.asarray(coords["chrom"]).astype(str)
+        pos = np.asarray(coords["pos"], dtype=np.int64)
         starts = (pos // self.clr.binsize) * self.clr.binsize
+        bin_starts = self.bins["start"].to_numpy()
         out = np.full(len(pos), np.nan)
         for chrom in np.unique(chroms):
             if chrom not in self.clr.chromnames:
                 continue
             s, e = self.clr.extent(chrom)
-            bin_starts = self.bins["start"][s:e]
             sel = np.flatnonzero(chroms == chrom)
-            idx = np.searchsorted(bin_starts, starts[sel])
-            hit = idx < len(bin_starts)
-            hit[hit] = bin_starts[idx[hit]] == starts[sel][hit]
+            idx = np.searchsorted(bin_starts[s:e], starts[sel])
+            hit = idx < e - s
+            hit[hit] = bin_starts[s:e][idx[hit]] == starts[sel][hit]
             out[sel[hit]] = s + idx[hit]
-        return out
+        return out if np.isnan(out).any() else out.astype(np.int64)

@@ -87,7 +87,7 @@ def test_map_without_weights_balances_first(tmp_path, n_mads):
     src = ArraySource.from_npz(EXAMPLE_NPZ)
     src._weight = None
     cfg = load_kernel_config("loops")
-    genome = HicGenome(src, cfg, torch.device("cpu"))
+    genome = HicGenome(src, kernel_config=cfg, device=torch.device("cpu"))
     out = io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
         genome.normalize("auto", float(n_mads))
@@ -157,12 +157,12 @@ def test_subsample_redraws_and_refusals(tmp_path):
     cfg = load_kernel_config("loops")
     total = src.info["sum"]
     assert total == float(src.count.sum()) > 0
-    assert HicGenome(src, cfg, "cpu", sample=str(total / 2)).sample == 0.5
+    assert HicGenome(src, kernel_config=cfg, sample=str(total / 2), device="cpu").sample == 0.5
     with contextlib.redirect_stdout(io.StringIO()) as out:
-        assert HicGenome(src, cfg, "cpu", sample=2 * total).sample is None
+        assert HicGenome(src, kernel_config=cfg, sample=2 * total, device="cpu").sample is None
     assert "skipping subsampling" in out.getvalue()
     with pytest.raises(ValueError, match="positive"):
-        HicGenome(src, cfg, "cpu", sample="-1")
+        HicGenome(src, kernel_config=cfg, sample="-1", device="cpu")
     tables = []
     for seed in (3, 3, 4):
         prefix = str(tmp_path / f"s{len(tables)}")

@@ -272,7 +272,9 @@ def test_pattern_detector_dense_matches_jax(mode, inter):
     ref = jdet.pattern_detector(
         _JaxDenseMap(mat, max_dist, det, inter), cfg, kernel, coords=coords, full=True
     )
-    got = tdet.pattern_detector(_port_dense_map(mat, max_dist, det, inter), cfg, kernel, coords)
+    got = tdet.pattern_detector(
+        _port_dense_map(mat, max_dist, det, inter), cfg, kernel, coords=coords, full=True
+    )
     assert ref[0] is not None and got[0] is not None
     _assert_tables_close(ref[0], got[0], ref[1], got[1])
 

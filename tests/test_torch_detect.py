@@ -3,7 +3,8 @@ cool file and its npz export, state carried over from the JAX package,
 the preprocessed bands of --smooth-trend, --dump and --norm raw against
 the JAX package's, the synthetic genome source, the options and
 subcommands once refused as not ported, and the import boundary (no
-jax, h5py, pandas or jsonschema)."""
+jax, h5py or jsonschema; the Python API's modules and TUTORIAL's block
+included)."""
 
 import contextlib
 import importlib.util
@@ -196,15 +197,15 @@ def test_preprocessed_band_matches_jax(tmp_path, mode):
     hg.make_sub_matrices()
     port_dump = str(tmp_path / "port_dump") if mode == "dump" else None
     genome = HicGenome(
-        ArraySource.from_npz(EXAMPLE_NPZ), kernel_config_from_jax(cfg), torch.device("cpu"),
-        dump=port_dump, smooth=mode == "smooth",
+        ArraySource.from_npz(EXAMPLE_NPZ), kernel_config=kernel_config_from_jax(cfg),
+        dump=port_dump, smooth=mode == "smooth", device=torch.device("cpu"),
     )
     with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(
         io.StringIO()
     ):
         genome.normalize("raw" if mode == "raw" else "auto")
         genome.make_sub_matrices()
-        for (_, sub), port_sub in zip(hg.sub_mats.iterrows(), genome.sub_mats):
+        for (_, sub), port_sub in zip(hg.sub_mats.iterrows(), genome.sub_mats.itertuples()):
             cm, port_cm = sub.contact_map, port_sub.contact_map
             cm.create_mat()
             port_cm.create_mat()
@@ -297,15 +298,18 @@ def test_synthetic_genome_detect_matches_jax(tmp_path):
 
 
 def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
-    """Every module of the package loads with jax, h5py, pandas,
-    jsonschema and chromosight_tpu blocked, and detect (a short scan
-    distance keeps the CPU run quick), quantify, detect --inter on the
-    dense and on the tiled engine, list-kernels and generate-config run
-    from the npz."""
+    """Every module of the package loads with jax, h5py, jsonschema and
+    chromosight_tpu blocked (the card's machine has neither h5py nor jax;
+    pandas is needed since the Python API returns the JAX package's
+    DataFrames), among them ``utils.*``, ``models``, ``io.cool`` and
+    ``version``; TUTORIAL's Python API block runs on the npz with
+    ``device="cpu"``; and detect (a short scan distance keeps the CPU run
+    quick), quantify, detect --inter on the dense and on the tiled
+    engine, list-kernels and generate-config run from the npz."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
-for name in ("jax", "jaxlib", "h5py", "pandas", "jsonschema", "chromosight_tpu"):
+for name in ("jax", "jaxlib", "h5py", "jsonschema", "chromosight_tpu"):
     sys.modules[name] = None
 import importlib, pkgutil
 import chromosight_torch, chromosight_torch.cli.main as cli
@@ -313,6 +317,38 @@ names = [m.name for m in pkgutil.walk_packages(chromosight_torch.__path__, "chro
 for name in names:
     importlib.import_module(name)
 assert "chromosight_torch.native" in names and "chromosight_torch.ops.balance" in names
+assert {{"chromosight_torch.models", "chromosight_torch.io.cool", "chromosight_torch.version",
+         "chromosight_torch.utils"}} <= set(names)
+for alias in ("detection", "preprocessing", "io", "stats", "plotting", "contacts_map"):
+    importlib.import_module("chromosight_torch.utils." + alias)
+assert chromosight_torch.__version__ == chromosight_torch.version.__version__
+
+# docs/TUTORIAL.md's Python API block, on the npz export and the CPU
+import numpy as np
+import chromosight_torch.kernels as ck
+import chromosight_torch.utils.detection as cud
+import chromosight_torch.utils.preprocessing as cup
+from chromosight_torch.runtime import HicGenome
+from chromosight_torch.io.source import ArraySource
+
+matrix = ArraySource.from_npz({str(EXAMPLE_NPZ)!r}).pixels_coo((0, 200), (0, 200), balance=True)
+import scipy.sparse as sp
+matrix = sp.coo_matrix((np.nan_to_num(matrix[2]), matrix[:2]), shape=(200, 200)).toarray()
+corr, logp = cud.normxcorr2(matrix, ck.loops["kernels"][0], pval=True, device="cpu")
+coords, foci = cud.pick_foci(corr, pearson=0.3)
+assert coords is not None and logp.shape == corr.shape
+
+g = HicGenome({str(EXAMPLE_NPZ)!r}, kernel_config=dict(ck.loops), device="cpu")
+g.normalize(norm="auto")
+g.compute_max_dist()
+g.make_sub_matrices()
+cm = g.sub_mats.contact_map[0]
+cm.create_mat()
+patterns, windows = cud.pattern_detector(
+    cm, dict(ck.loops, tsvd=None), ck.loops["kernels"][0], full=True
+)
+assert len(patterns) == len(windows) > 0 and list(patterns.columns) == ["bin1", "bin2", "score", "pvalue"]
+
 argv = ["detect", "--no-plotting", "--max-dist", "60000", {str(EXAMPLE_NPZ)!r}, {prefix!r}]
 assert cli.main(argv, device="cpu") == 0
 argv = ["quantify", "--no-plotting", {str(ROOT / "data_test" / "example.bed2")!r},
@@ -330,6 +366,7 @@ assert cli.main(["list-kernels", "--long", "--mat"]) == 0
 assert cli.main(["generate-config", "--preset", "borders", {prefix + "_cfg"!r}]) == 0
 assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
+assert sys.modules["jax"] is None and sys.modules["h5py"] is None
 """
     res = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,

@@ -60,6 +60,39 @@ def test_detect_flag_configs_match_reference(tmp_path, golden, flags):
         assert (o.iteration == 1).sum() > 0
 
 
+def test_detect_windows_match_reference(tmp_path):
+    """The windows of ``detect --win-fmt json`` against the reference's
+    own (tests/data/golden_detect_loops.json, as
+    tests/test_golden_outputs.py:235-265 compares them): matched by
+    (bin1, bin2), the same NaN pattern, values within rtol 1e-5 and
+    atol 1e-6."""
+    import json
+
+    prefix = str(tmp_path / "out")
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = main(
+            ["detect", "--no-plotting", "--win-fmt", "json",
+             str(DATA / "example_cool.npz"), prefix],
+            device="cpu",
+        )
+    assert rc == 0
+    golden_tsv = pd.read_csv(DATA / "golden_detect_loops.tsv", sep="\t")
+    with open(DATA / "golden_detect_loops.json") as fh:
+        golden_wins = json.load(fh)
+    ours_tsv = pd.read_csv(prefix + ".tsv", sep="\t")
+    with open(prefix + ".json") as fh:
+        ours_wins = json.load(fh)
+    assert len(ours_wins) == len(golden_wins) == 89
+    ours_idx = {(r.bin1, r.bin2): i for i, r in enumerate(ours_tsv.itertuples())}
+    for gi, grow in enumerate(golden_tsv.itertuples()):
+        oi = ours_idx[(grow.bin1, grow.bin2)]
+        g = np.asarray(golden_wins[str(gi)], dtype=np.float64)
+        o = np.asarray(ours_wins[str(oi)], dtype=np.float64)
+        assert g.shape == o.shape == (17, 17)
+        assert np.array_equal(np.isnan(g), np.isnan(o)), (gi, oi)
+        assert np.allclose(g, o, rtol=1e-5, atol=1e-6, equal_nan=True), (gi, oi)
+
+
 def test_detect_dump_snapshots_match_reference(tmp_path):
     """Every stage snapshot of --dump against the reference's own npz
     dumps, compared as tests/test_golden_outputs.py:268-330 does: the

@@ -384,4 +384,4 @@ def test_self_test_log_logo_and_kernel_names():
     assert t_cli.URL_EXAMPLE_DATASET == j_cli.URL_EXAMPLE_DATASET
     ours = ROOT / "chromosight_torch" / "cli" / "logo.txt"
     assert ours.read_bytes() == (ROOT / "chromosight_tpu" / "cli" / "logo.txt").read_bytes()
-    assert t_kernels.kernel_names() == j_kernels.kernel_names == PRESET_NAMES
+    assert t_kernels.kernel_names == j_kernels.kernel_names == PRESET_NAMES

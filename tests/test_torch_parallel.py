@@ -266,7 +266,9 @@ def test_retain_maps_budget(monkeypatch):
     from chromosight_torch.io.source import ArraySource
     from chromosight_torch.runtime.genome import HicGenome
 
-    genome = HicGenome(ArraySource.from_npz(EXAMPLE_NPZ), load_kernel_config("loops"), "cpu")
+    genome = HicGenome(
+        ArraySource.from_npz(EXAMPLE_NPZ), kernel_config=load_kernel_config("loops"), device="cpu"
+    )
     with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(io.StringIO()):
         genome.normalize("auto")
         genome.make_sub_matrices()

@@ -17,7 +17,7 @@ import torch
 
 from chromosight_torch.cli.main import main
 from chromosight_torch.detection import _band_correlate, quantify_banded
-from chromosight_torch.io.bed2d import load_bed2d
+from chromosight_torch.io.bed2d import read_bed2d
 from chromosight_torch.io.source import ArraySource
 from chromosight_torch.ops.band import band_normxcorr_at_packed
 from chromosight_torch.runtime.genome import HicGenome
@@ -112,11 +112,10 @@ def test_quantify_at_pixels_matches_the_sweep():
         "max_dist": 100000, "max_perc_undetected": 50.0, "max_perc_zero": 10.0,
         "pearson": 0.3,
     }
-    genome = HicGenome(src, cfg, torch.device("cpu"))
+    genome = HicGenome(src, kernel_config=cfg, device=torch.device("cpu"))
     genome.normalize("auto")
     genome.make_sub_matrices()
-    for sub in genome.sub_mats:
-        cm = sub.contact_map
+    for cm in genome.sub_mats.contact_map:
         cm.create_mat()
         corr = _band_correlate(cm, cfg, cfg["kernels"][0])[0].numpy()
         i, d = np.nonzero(np.ones_like(corr, dtype=bool))
@@ -145,7 +144,7 @@ def test_load_bed2d_matches_jax(tmp_path):
     file."""
     for path in _bed2d_cases(tmp_path):
         ref = jax_load_bed2d(str(path))
-        got = load_bed2d(path)
+        got = read_bed2d(path)
         assert list(got) == list(ref.columns)
         for col in ref.columns:
             assert np.array_equal(got[col], ref[col].to_numpy()), (path, col)
@@ -276,22 +275,23 @@ def test_quantify_through_the_sweep_matches_quantify_at(tmp_path):
         "name": "loops", "kernels": [kernel], "max_dist": 200000,
         "max_perc_undetected": 50.0, "max_perc_zero": 10.0, "pearson": 0.3,
     }
-    genome = HicGenome(src, cfg, torch.device("cpu"))
+    genome = HicGenome(src, kernel_config=cfg, device=torch.device("cpu"))
     genome.normalize("auto")
     genome.make_sub_matrices()
-    cm = genome.sub_mats[0].contact_map
+    cm = genome.sub_mats.contact_map[0]
     with contextlib.redirect_stdout(io.StringIO()):
         cm.create_mat()
     rng = np.random.RandomState(2)
     i = rng.randint(0, cm.shape[0], 60)
     coords = np.stack([i, i + rng.randint(0, 220, 60)], axis=1)
-    at_table, at_wins = pattern_detector(cm, cfg, kernel, coords)
-    cm.dump = tmp_path
-    sweep_table, sweep_wins = pattern_detector(cm, cfg, kernel, coords)
+    at_table, at_wins = pattern_detector(cm, cfg, kernel, coords=coords, full=True)
+    sweep_table, sweep_wins = pattern_detector(
+        cm, cfg, kernel, coords=coords, dump=tmp_path, full=True
+    )
     assert (tmp_path / "chr1-chr1_04_diag_trim.npz").exists()
     for table in (at_table, sweep_table):
         assert len(table["score"]) == 60
-    a, b = at_table["score"], sweep_table["score"]
+    a, b = at_table["score"].to_numpy(), sweep_table["score"].to_numpy()
     assert np.array_equal(np.isnan(a), np.isnan(b)) and np.isnan(a).any()
     ok = ~np.isnan(a)
     assert np.abs(a[ok] - b[ok]).max() < 1e-6
