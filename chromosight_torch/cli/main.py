@@ -155,6 +155,7 @@ import chromosight_torch.detection as cid
 from chromosight_torch import __version__
 from chromosight_torch.cli.args import CliError, parse_args
 from chromosight_torch.device import resolve_devices, stage
+from chromosight_torch.observability import maybe_trace
 from chromosight_torch.io.bed2d import read_bed2d
 from chromosight_torch.io.config import load_kernel_config
 from chromosight_torch.io.writers import (
@@ -455,7 +456,8 @@ def detect(source, args, device=None, rng=None):
     genome.normalize(args["--norm"], float(args["--n-mads"]))
     genome.make_sub_matrices()
     sys.stderr.write("Detecting patterns...\n")
-    table, windows = _iterative_scan(genome, cfg, scheduler)
+    with maybe_trace():  # a torch.profiler trace with CHROMOSIGHT_TPU_PROFILE=<dir>
+        table, windows = _iterative_scan(genome, cfg, scheduler)
     if table is None:
         sys.stderr.write("No pattern detected ! Exiting.\n")
         return None, None

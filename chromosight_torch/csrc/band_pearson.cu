@@ -13,19 +13,24 @@
 //     x = sig[i + kh + u][d + mk-1-u + v],  m = mask[i + kh + u][d + mk-1-u + v]
 // for the taps (u, v) of the sheared kernel.  Per kernel it forms three tap
 // sums, sum (K/ksize) x, sum K m and sum K^2 m, each in (u, v) order with
-// float64 taps (exact casts of the float32 table) and fma; the three
+// the float64 taps of the float64 kernel and fma; the three
 // window sums (x, x^2, m) are separable: anti-diagonal sums
 // A[i][c] = sum_u x[i+kh+u][c+mk-1-u] in u order, then sum_v A[i][d+v] in
 // v order (the mask sums are integer counts).  All six sums run in
 // float64: on detrended maps the Pearson numerator cancels most of them,
-// and float32 sums leave ~5e-5 of error in corr.  They are rounded to
-// float32 and snapped to 0 below `threshold` (window sums after the
-// 1/ksize scaling), then the Pearson algebra of
-// chromosight_tpu/ops/band.py:618-634 and the p-value
+// and float32 sums leave ~5e-5 of error in corr.  Each is snapped to 0
+// below `threshold` on its float32 rounding (window sums after the
+// 1/ksize scaling), as the JAX package decides it, and a surviving sum
+// enters the algebra unrounded: the float64 epilogue runs the Pearson
+// algebra of chromosight_tpu/ops/band.py:618-634 with the float64 (ksum,
+// k2sum) of the float64 kernel, and the p-value
 //     log10p = (log(0.5 erfcx(a/sqrt2)) - a^2/2 + log 2) / log 10,
 //     a = |atanh(corr) sqrt(n_pres - 3)|,
-// which is log_ndtr(-a) + log 2 without underflow.  The p-value comes from
-// the untrimmed corr; the trim keeps d <= max_dist, i < n, i + d < n.
+// which is log_ndtr(-a) + log 2 without underflow, in double; corr and
+// log10p are rounded to float32 once, at the end (a float32 numerator
+// cancels to 0 below one ulp on windows whose score is ~1e-6).  The
+// p-value comes from the untrimmed corr; the trim keeps d <= max_dist,
+// i < n, i + d < n, and the candidate test reads the float32 corr.
 // ops/band_pearson.py:band_pearson_emulated transcribes this arithmetic.
 //
 // Bound.  The work the inputs need per output pixel: K mk nk float64 FMAs
@@ -67,7 +72,7 @@
 // 4. K kernels run one after the other over the staged tile, each with
 //    the K = 1 loop and registers (at most 128 per thread, no spills),
 //    and its output plane leaves through shared memory, written
-//    coalesced.  The float32 epilogue is two outlined calls per pixel
+//    coalesced.  The float64 epilogue is two outlined calls per pixel
 //    (pixel_stats, pearson), which keeps the unrolled strip small: fewer
 //    registers and instructions than W inlined copies.
 // Compile-time instances: square 7, 15, 17 and 31, each with W = 7 and 5
@@ -86,15 +91,24 @@
 // a banded Toeplitz GEMM would be mostly zeros.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py
-// (kernel-only, torch.profiler): 1.453 ms for loops and 3.758 ms for
-// borders on 48,000 x 418, 0.298 ms on borders' 19 diagonals, from 9.34,
-// 19.69 and 1.42 ms for the first version; 16.0%, 15.4% and 8.6% of the
-// bound above.  Without the mask-row skip this design took 2.107, 5.789
-// and 0.372 ms.  What keeps it from the bound: the CUDA cores' half rate,
-// every x tap (93.5% of them are non-zero on chr1), the mask planes of
-// every row near a missing bin, and a block life outside the tap loop
-// (staging, A planes, the float32 epilogue, the output plane) that the
-// float64 pipe sits out; the narrow band also stages 48 rows for 32.
+// (kernel-only, torch.profiler), with the float32 epilogue: 1.453 ms for
+// loops and 3.758 ms for borders on 48,000 x 418, 0.298 ms on borders'
+// 19 diagonals, from 9.34, 19.69 and 1.42 ms for the first version;
+// 16.0%, 15.4% and 8.6% of the bound above.  Without the mask-row skip
+// this design took 2.107, 5.789 and 0.372 ms.  The float64 epilogue
+// costs ~0.36 ms per 2e7 pixels and kernel (compare_kernels.py, parent
+// and this design in turns on one card): 1.463 -> 1.823, 3.787 -> 4.736
+// and 0.298 -> 0.403 ms.  What keeps it from the bound: the CUDA cores'
+// half rate, every x tap (93.5% of them are non-zero on chr1), the mask
+// planes of every row near a missing bin, and a block life outside the
+// tap loop (staging, A planes, the float64 epilogue, the output plane)
+// that the tap loop's float64 pipe sits out; the narrow band also stages
+// 48 rows for 32.
+//
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a), float64 epilogue: 128 registers
+// for 17x17 W = 7 (124 at W = 5), 106-128 over the other instances, a
+// 160-byte stack frame (the outlined calls' frames), 0 bytes of spill
+// stores and loads in every instance.
 //
 // Launch contract: the caller allocates the outputs, the kernel runs on
 // the given stream without synchronising, and the C entry returns
@@ -127,7 +141,7 @@ struct Args {
   const float* sig;
   const float* mask;
   const double* taps;  // (K, 3, mk, nk) float64 on the card
-  const float* sums;   // (K, 2): ksum, k2sum
+  const double* sums;  // (K, 2): ksum, k2sum
   int n_k, n_pad, w_out, w_in, mk, nk, n, max_dist;
   float min_pres, threshold, pearson_min;
   float* corr;
@@ -180,13 +194,19 @@ struct Tile {
   }
 };
 
-__device__ __forceinline__ float snap(float x, float threshold) {
-  return fabsf(x) < threshold ? 0.0f : x;
+// `x` unrounded, or 0 where its float32 rounding `xr` is below the
+// threshold: the JAX package's snap decision, the sum itself kept.
+__device__ __forceinline__ double snap(double x, float xr, float threshold) {
+  return fabsf(xr) < threshold ? 0.0 : x;
+}
+
+__device__ __forceinline__ double snap(double x, float threshold) {
+  return snap(x, (float)x, threshold);
 }
 
 // Shared epilogue state of one pixel: what the K kernels have in common.
 struct PixelStats {
-  float ksize, n_pres, corr_f, sig_mean, sig_var, sqrt_dof;
+  double n_pres, corr_f, sig_mean, sig_var, sqrt_dof;
   bool low;
 };
 
@@ -194,43 +214,46 @@ __device__ __noinline__ PixelStats pixel_stats(double s_x, double s_x2,
                                                   double s_m,
                                                   const Args& a) {
   PixelStats p;
-  p.ksize = (float)(a.mk * a.nk);
-  const float inv_ksize = 1.0f / p.ksize;
-  const float sig_mean0 = snap((float)s_x * inv_ksize, a.threshold);
-  const float sig2_mean0 = snap((float)s_x2 * inv_ksize, a.threshold);
-  const float n_miss = snap((float)s_m, a.threshold);
-  p.n_pres = p.ksize - n_miss;
-  p.corr_f = p.ksize / p.n_pres;
+  const int ksize = a.mk * a.nk;
+  const float inv_ksize = 1.0f / (float)ksize;
+  const double sig_mean0 =
+      snap(s_x / ksize, (float)s_x * inv_ksize, a.threshold);
+  const double sig2_mean0 =
+      snap(s_x2 / ksize, (float)s_x2 * inv_ksize, a.threshold);
+  const double n_miss = snap(s_m, a.threshold);
+  p.n_pres = ksize - n_miss;
+  p.corr_f = ksize / p.n_pres;
   p.sig_mean = sig_mean0 * p.corr_f;
-  const float sig2_mean = sig2_mean0 * p.corr_f;
+  const double sig2_mean = sig2_mean0 * p.corr_f;
   p.sig_var = sig2_mean - p.sig_mean * p.sig_mean;
-  p.sqrt_dof = sqrtf(p.n_pres - 3.f);
+  p.sqrt_dof = sqrt(p.n_pres - 3.);
   p.low = p.n_pres < a.min_pres;
   return p;
 }
 
-// corr (untrimmed) and log10 p of kernel k from its three tap sums.
+// corr (untrimmed) and log10 p of kernel k from its three tap sums, in
+// double, each rounded to float32 once.
 __device__ __noinline__ void pearson(const PixelStats& p, double s_k,
                                         double s_mk, double s_mk2, int k,
                                         const Args& a, float* corr,
                                         float* logp) {
-  const float conv_sk = snap((float)s_k, a.threshold);
-  const float conv_mk = snap((float)s_mk, a.threshold);
-  const float conv_mk2 = snap((float)s_mk2, a.threshold);
-  const float kmean_eff = (__ldg(a.sums + 2 * k) - conv_mk) / p.n_pres;
-  const float k2mean_eff = (__ldg(a.sums + 2 * k + 1) - conv_mk2) / p.n_pres;
-  float denom = sqrtf(p.sig_var * (k2mean_eff - kmean_eff * kmean_eff));
-  if (p.low) denom = 0.f;
-  const float num = (conv_sk - p.sig_mean * kmean_eff / p.corr_f) * p.corr_f;
-  const float inv_denom = fabsf(denom) < 1e-10f ? 0.f : 1.f / denom;
-  float out = num * inv_denom;
-  if (!isfinite(out)) out = 0.f;
-  out = fminf(fmaxf(out, -1.f), 1.f);
-  const float z = fabsf(atanhf(out) * p.sqrt_dof);
-  const float log_tail =
-      logf(0.5f * erfcxf(z * 0.70710678118654752f)) - 0.5f * z * z;
-  *logp = (log_tail + logf(2.f)) / logf(10.f);
-  *corr = out;
+  const double conv_sk = snap(s_k, a.threshold);
+  const double conv_mk = snap(s_mk, a.threshold);
+  const double conv_mk2 = snap(s_mk2, a.threshold);
+  const double kmean_eff = (__ldg(a.sums + 2 * k) - conv_mk) / p.n_pres;
+  const double k2mean_eff = (__ldg(a.sums + 2 * k + 1) - conv_mk2) / p.n_pres;
+  double denom = sqrt(p.sig_var * (k2mean_eff - kmean_eff * kmean_eff));
+  if (p.low) denom = 0.;
+  const double num = (conv_sk - p.sig_mean * kmean_eff / p.corr_f) * p.corr_f;
+  const double inv_denom = fabs(denom) < 1e-10 ? 0. : 1. / denom;
+  double out = num * inv_denom;
+  if (!isfinite(out)) out = 0.;
+  out = fmin(fmax(out, -1.), 1.);
+  const double z = fabs(atanh(out) * p.sqrt_dof);
+  const double log_tail =
+      log(0.5 * erfcx(z * 0.70710678118654752)) - 0.5 * z * z;
+  *logp = (float)((log_tail + log(2.)) / log(10.));
+  *corr = (float)out;
 }
 
 __device__ __forceinline__ bool kept(int i, int d, const Args& a) {
@@ -644,9 +667,9 @@ extern "C" long long band_pearson_smem_bytes(int mk, int nk, int n_k,
 }
 
 // n_k kernels in one launch, 1 <= n_k <= band_pearson_max_kernels(mk, nk);
-// taps (n_k, 3, mk, nk) float64 and sums (n_k, 2) float32 on the card.
+// taps (n_k, 3, mk, nk) and sums (n_k, 2) float64 on the card.
 extern "C" int band_pearson_f32(const float* sig, const float* mask,
-                                const double* taps, const float* sums,
+                                const double* taps, const double* sums,
                                 int n_k, int n_pad, int w_out, int w_in,
                                 int mk, int nk, int n, int max_dist,
                                 float min_pres, float threshold,

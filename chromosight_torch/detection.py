@@ -28,8 +28,10 @@ import warnings
 import numpy as np
 import torch
 
-from chromosight_torch.device import resolve_device, stage
+from chromosight_torch import observability
+from chromosight_torch.device import download, resolve_device, stage, upload
 from chromosight_torch.ops.band import (
+    at_cost,
     band_frame,
     band_normxcorr_at_packed,
     extract_candidates,
@@ -71,7 +73,7 @@ def _on_device(signal, device):
     else:
         if _sparse().issparse(signal):
             signal = signal.toarray()
-        signal = torch.from_numpy(np.asarray(signal, dtype=np.float32))
+        return upload(np.asarray(signal, dtype=np.float32), resolve_device(device))
     return signal.to(device=resolve_device(device), dtype=torch.float32)
 
 
@@ -80,7 +82,7 @@ def _like_input(signal, out):
     a numpy array, or a CSR matrix."""
     if isinstance(signal, torch.Tensor):
         return out
-    out = out.cpu().numpy()
+    out = download(out)
     return _sparse().csr_matrix(out) if _sparse().issparse(signal) else out
 
 
@@ -364,7 +366,7 @@ def _dump_correlation(contact_map, corr, dump):
     the band engine trims the diagonals inside the correlation, so both
     hold the trimmed map (``chromosight_tpu/detection.py:1058-1069``)."""
     n = contact_map.shape[0]
-    corr = corr[:n].double().cpu().numpy()
+    corr = download(corr[:n]).astype(np.float64)
     i, d = np.nonzero(corr)
     for name in ("03_normxcorr2", "04_diag_trim"):
         save_snapshot(dump, contact_map.name, name, i, i + d, corr[i, d], n)
@@ -378,9 +380,9 @@ def _pick_foci(contact_map, corr, cand, dump):
     n = contact_map.shape[0]
     with stage("extract", corr.device):
         ii, dd, vals = extract_candidates(corr, cand)
-        ci = ii.cpu().numpy().astype(np.int64)
-        cd = dd.cpu().numpy().astype(np.int64)
-        cv = vals.cpu().numpy().astype(np.float64)
+        ci = download(ii).astype(np.int64)
+        cd = download(dd).astype(np.int64)
+        cv = download(vals).astype(np.float64)
     keep_c = (ci < n) & (ci + cd < n)
     ci, cd, cv = ci[keep_c], cd[keep_c], cv[keep_c]
     cj = ci + cd
@@ -432,7 +434,7 @@ def _band_tail(
         p1 = torch.from_numpy(coords[:, 0]).to(device)
         dsc = torch.from_numpy(coords[:, 1] - coords[:, 0]).to(device)
         tail = gather_tail(corr, logp, band, p1, dsc, km, kn)
-        tail = tail.cpu().numpy().astype(np.float64)
+        tail = download(tail).astype(np.float64)
     n_pat = coords.shape[0]
     raw_windows = tail[:, 2:].reshape(n_pat, km, kn)
     dsc_h = coords[:, 1] - coords[:, 0]
@@ -474,18 +476,22 @@ def quantify_banded(contact_map, kernel_config, kernels, coords, tsvd=None):
     n_pat = coords.shape[0]
     miss_flags = missing_flags(contact_map.detectable_bins[0], n)
     with stage("quantify-at", device):
-        packed = band_normxcorr_at_packed(
+        at_args = (
             band,
             torch.from_numpy(miss_flags).to(device),
             torch.from_numpy(coords[:, 0]).to(device),
             torch.from_numpy(coords[:, 1] - coords[:, 0]).to(device),
             kernels,
+        )
+        observability.account_dispatch("band_normxcorr_at", at_cost, *at_args)
+        packed = band_normxcorr_at_packed(
+            *at_args,
             n,
             int(contact_map.max_dist),
             kernel_config["max_perc_undetected"] / 100,
             tsvd=tsvd,
         )
-        packed = packed.cpu().numpy().astype(np.float64)
+        packed = download(packed).astype(np.float64)
     raw_windows = packed[:, 2 * n_k :].reshape(n_pat, km, kn)
     dsc = coords[:, 1] - coords[:, 0]
     in_band = (coords[:, 0] >= 0) & (coords[:, 0] < n) & (dsc >= 0) & (dsc < width)
@@ -930,14 +936,14 @@ def _pattern_detector_dense(
         )
         del mask
         if dump is not None:
-            save_matrix_snapshot(dump, contact_map.name, "03_normxcorr2", corr.cpu().numpy())
+            save_matrix_snapshot(dump, contact_map.name, "03_normxcorr2", download(corr))
         if not inter:
             corr = diag_trim_dense(corr, contact_map.max_dist)
             if dump is not None:
-                save_matrix_snapshot(dump, contact_map.name, "04_diag_trim", corr.cpu().numpy())
-        mat_conv = corr.double().cpu().numpy()
+                save_matrix_snapshot(dump, contact_map.name, "04_diag_trim", download(corr))
+        mat_conv = download(corr).astype(np.float64)
         mat_conv[np.isnan(mat_conv)] = 0
-        logp = logp.double().cpu().numpy()
+        logp = download(logp).astype(np.float64)
     if coords is None:
         with stage("host: foci", dev):
             coords, foci_mat = pick_foci(mat_conv, kernel_config["pearson"])
@@ -950,7 +956,7 @@ def _pattern_detector_dense(
         drop = False
     coords = np.array(coords, dtype=np.int64, copy=True).reshape(-1, 2)
     with stage("host: validate", dev):
-        mat = np.pad(mat_dev.double().cpu().numpy(), ((kh, kh), (kw, kw)))
+        mat = np.pad(download(mat_dev.double()), ((kh, kh), (kw, kw)))
         mat_conv = np.pad(mat_conv, ((kh, kh), (kw, kw)))
         det = [np.asarray(det[0]) + kh, np.asarray(det[1]) + kw]
         coords += (kh, kw)

@@ -4,12 +4,18 @@ TF32 is off for matmuls and cuDNN convolutions: it keeps about three
 decimal digits, the card's counterpart of the bf16 truncation the JAX
 package avoids with ``precision=HIGHEST``.  The plain twin of the Pearson
 kernel runs ``F.conv2d``, which cuDNN would otherwise run in TF32.
+
+``upload`` and ``download`` copy maps, tables and results across the
+host-device link and count their bytes (``observability.add_bytes``);
+flag and index vectors (missing bins, coordinates, tile ids) are copied
+plainly and not counted, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from contextlib import ExitStack, contextmanager
 
+import numpy as np
 import torch
 
 from chromosight_torch import observability
@@ -91,6 +97,22 @@ def stage(name, device):
         yield
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
+
+
+def upload(array, device):
+    """A host numpy array as a tensor on ``device``, its bytes counted as
+    an upload (``observability.add_bytes``; on the CPU too, as the JAX
+    package counts them on its CPU backend)."""
+    array = np.ascontiguousarray(array)
+    observability.add_bytes("upload", array.nbytes)
+    return torch.from_numpy(array).to(device)
+
+
+def download(tensor):
+    """``tensor`` on the host as a numpy array, its bytes counted as a
+    download (on the CPU too)."""
+    observability.add_bytes("download", tensor.numel() * tensor.element_size())
+    return tensor.cpu().numpy()
 
 
 def reset_stages():

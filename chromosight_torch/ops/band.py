@@ -14,16 +14,17 @@ With ``tsvd`` the taps are the rank-truncated kernels of ``--tsvd``.
 Quantify scores a few pixels through ``band_normxcorr_at_packed``, a
 patch gather and a float64 matmul with no sweep.
 
-Inputs, coefficients and outputs are float32 and the Pearson algebra runs
-in float32 as in the JAX package, but the six window sums (up to mk*nk
-terms each) are accumulated in float64.  On detrended contact maps the
-covariance in the numerator cancels most of those sums, so their f32
-rounding reaches ~5e-5 in corr, and two f32 engines that sum in different
-orders disagree by that much (the JAX package's own XLA and Pallas
-engines differ by 3.6e-5 on ``data_test/example.cool``).  With float64
-sums the CUDA kernel and its plain twin round to the same float32 sums and
-agree on corr (bit for bit in ``chip_smoke.py`` on an NVIDIA H100), and
-both stay within ~1e-5 of the exact Pearson of the float32 band.
+Inputs and outputs are float32, as in the JAX package, but the taps and
+the kernel's sums are float64 (``kernel_coefficients``), the six window
+sums (up to mk*nk terms each) are accumulated in float64, and the Pearson
+algebra and its log10 p-value run in float64 too (``pearson_from_sums``): each sum is snapped to 0 below 1e-4 on its
+float32 rounding, as the JAX package decides it, and enters the algebra
+unrounded; corr and log10 p are rounded to float32 once, at the end.  On
+detrended contact maps the covariance in the numerator cancels most of
+the sums, so float32 sums reach ~5e-5 of error in corr, and a float32
+numerator of float64 sums still cancels to 0 below one ulp on windows
+whose score is ~1e-6.  The CUDA kernel and its plain twin sum in
+different orders, so they may differ by one float32 ulp of corr.
 """
 
 from __future__ import annotations
@@ -101,6 +102,23 @@ def band_preprocess(band, detect, max_val, keep_dist, n_diags, zero_nan):
     if zero_nan:
         out = torch.where(torch.isnan(out), zero, out)
     return out
+
+
+def preprocess_cost(band, detect, *args, **kwargs):
+    """(flops, hbm_min_bytes, hbm_unfused_bytes) of ``band_preprocess``
+    on a band and detectable-bin mask of these shapes, for
+    ``observability.account_dispatch`` (family ``band_preprocess``): the
+    FLOPs and unfused bytes of the function itself on the ``meta`` device
+    (``observability.plain_cost``), and the band read and written once with
+    the mask read once."""
+    from chromosight_torch import observability
+
+    width = band.shape[1]
+    flops, unfused = observability.plain_cost(
+        band_preprocess, band, detect, 10.0, width - 1, width, True
+    )
+    hbm_min = 2 * band.numel() * band.element_size() + detect.numel() * detect.element_size()
+    return flops, hbm_min, unfused
 
 
 def band_detrend_trim(band, law, max_val, keep_dist):
@@ -190,34 +208,32 @@ def conv_kernels(kernel, tsvd=None):
 
 
 def kernel_coefficients(kernel, conv_k=None, conv_k2=None):
-    """Host f32 tap table and sums of a (mk, nk) kernel, as the JAX band
-    engine forms them: planes conv_k * (1/ksize), conv_k, conv_k2, the
-    convolved kernels defaulting to K and K**2 (squared in float64 before
-    the f32 cast).  ``ksum = sum(K)`` and ``k2sum = sum(K * K)`` (f32)
-    always come from the kernel itself: with ``--tsvd`` only the tap
-    planes change (``chromosight_tpu/ops/band.py:818-819``).
+    """Tap table and sums of a (mk, nk) kernel, in float64 from the
+    float64 kernel, as the reference forms them: the planes conv_k / ksize,
+    conv_k and conv_k2, the convolved kernels defaulting to K and K**2,
+    and ``ksum = sum(K)``, ``k2sum = sum(K * K)``, which always come from
+    the kernel itself: with ``--tsvd`` only the tap planes change
+    (``chromosight_tpu/ops/band.py:818-819``).  The JAX band engine rounds
+    the planes and sums to float32; on a window whose score is ~1e-6 that
+    rounding alone moves the score by ~1e-6.
 
-    Returns ``(coef (3, mk, nk) f32 CPU tensor, ksum, k2sum)``."""
+    Returns ``(coef (3, mk, nk), ksum, k2sum)``, float64 CPU tensors."""
     k64 = np.asarray(kernel, dtype=np.float64)
     if k64.ndim != 2:
         raise ValueError(f"kernel must be 2-D, got shape {k64.shape}")
     if conv_k is None:
         conv_k, conv_k2 = k64, k64**2
-    planes = [
-        torch.as_tensor(np.asarray(c, dtype=np.float64)).to(torch.float32)
-        for c in (conv_k, conv_k2)
-    ]
+    planes = [torch.tensor(np.asarray(c, dtype=np.float64)) for c in (conv_k, conv_k2)]
     if any(tuple(p.shape) != k64.shape for p in planes):
         raise ValueError("convolved kernels must have the kernel's shape")
-    k32 = torch.as_tensor(k64).to(torch.float32)
-    inv_ksize = 1.0 / torch.tensor(float(k64.size), dtype=torch.float32)
-    coef = torch.stack([planes[0] * inv_ksize, planes[0], planes[1]])
-    return coef, k32.sum(), (k32 * k32).sum()
+    coef = torch.stack([planes[0] / k64.size, planes[0], planes[1]])
+    return coef, torch.tensor(k64.sum()), torch.tensor((k64 * k64).sum())
 
 
 def kernel_table(kernels, tsvd=None):
     """Tap tables of K same-shape kernels, stacked: ``(coef (K, 3, mk,
-    nk), sums (K, 2))`` f32 CPU tensors, ``sums[k] = (ksum, k2sum)``."""
+    nk), sums (K, 2))`` float64 CPU tensors, ``sums[k] = (ksum,
+    k2sum)``."""
     kernels = np.asarray(kernels, dtype=np.float64)
     if kernels.ndim != 3:
         raise ValueError(f"kernels must be (K, mk, nk), got {kernels.shape}")
@@ -231,12 +247,37 @@ def kernel_table(kernels, tsvd=None):
 
 def _log10p(corr, n_pres):
     """Two-sided log10 p-value of ``corr`` with ``n_pres`` observations
-    (Fisher z), through ``log_ndtr`` so it never underflows."""
+    (Fisher z), through ``log_ndtr`` so it never underflows, in the
+    inputs' dtype."""
     z = torch.atanh(corr)
     logtail = torch.special.log_ndtr(-(z * torch.sqrt(n_pres - 3)).abs())
     two = torch.tensor(2.0, dtype=corr.dtype)
     ten = torch.tensor(10.0, dtype=corr.dtype)
     return (logtail + torch.log(two)) / torch.log(ten)
+
+
+def rounded_pearson(corr, n_pres, log10p=_log10p):
+    """(corr, log10 p) rounded to float32 once, the p-value taken from the
+    float64 ``corr`` (``log10p`` of it and ``n_pres``)."""
+    return corr.float(), log10p(corr, n_pres).float()
+
+
+# FLOPs of the float64 epilogue (the snaps, ``pearson_algebra`` and the
+# log10 p), one per arithmetic operation, snap and special function: per
+# output pixel, and per output pixel and kernel
+EPILOGUE_FLOPS = (11, 30)
+
+
+def pearson_flops(pixels, n_k, mk, nk):
+    """Logical FLOPs of the missing-corrected Pearson of ``n_k`` (mk, nk)
+    kernels at ``pixels`` output pixels, as the plain twin writes the
+    function: per pixel a multiply and an add per tap for each kernel's
+    three tap sums (2 x 3 x K x mk x nk), mk x nk adds for each of the
+    three window sums, and the float64 epilogue (``EPILOGUE_FLOPS``).
+    From shapes only, so the count is the same whatever computes it."""
+    taps = mk * nk
+    per_pixel, per_kernel = EPILOGUE_FLOPS
+    return pixels * (6 * n_k * taps + 3 * taps + per_pixel + per_kernel * n_k)
 
 
 def _trim(corr, n, max_dist, pearson_min):
@@ -249,33 +290,42 @@ def _trim(corr, n, max_dist, pearson_min):
     return corr, (corr >= pearson_min) & (corr != 0)
 
 
+def snap64(t, threshold, rounded=None):
+    """``t`` in float64, 0 where its float32 rounding (``rounded``, by
+    default ``t.float()``) is below ``threshold`` in magnitude: the JAX
+    package's snap decision, on the value it would hold, with the sum
+    itself kept unrounded."""
+    rounded = t.float() if rounded is None else rounded
+    return torch.where(rounded.abs() < threshold, 0.0, t.double())
+
+
 def pearson_from_sums(
     s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, ksize, missing_tol,
     threshold=DEFAULT_THRESHOLD,
 ):
     """Missing-corrected Pearson (``chromosight_tpu/ops/band.py:611-634``)
-    from the six window sums of a set of pixels, each rounded to float32
-    and snapped to 0 below ``threshold`` (the signal sums after their
-    1/ksize scaling, as the JAX engine's ``ws(x, 1/ksize)`` multiplies by
-    the reciprocal), then the float32 algebra in the CUDA kernel's order.
+    from the six float64 window sums of a set of pixels, each snapped to
+    0 below ``threshold`` on its float32 rounding (the signal sums after
+    their 1/ksize scaling, decided as the JAX engine's ``ws(x, 1/ksize)``
+    multiplies by the float32 reciprocal), then the float64 algebra of
+    ``pearson_algebra`` on the unrounded sums (the signal means
+    ``s_x / ksize`` and ``s_x2 / ksize``).
 
     ``s_k``, ``s_mk``, ``s_mk2``: (K, *S) per-kernel sums of K/ksize x,
     K m, K^2 m; ``s_x``, ``s_x2``, ``s_m``: (*S) sums of x, x^2, m;
-    ``sums``: (K, 2) f32 (ksum, k2sum).  Returns (corr (K, *S),
+    ``sums``: (K, 2) (ksum, k2sum).  Returns float64 (corr (K, *S),
     untrimmed, and n_pres (*S))."""
-
-    def snap(t):
-        t = t.float()
-        return torch.where(t.abs() < threshold, 0.0, t)
-
     dev = s_x.device
     inv_ksize = float(1.0 / torch.tensor(float(ksize), dtype=torch.float32))
     per_k = (-1,) + (1,) * s_x.ndim
-    ksum = sums[:, 0].to(dev).reshape(per_k)
-    k2sum = sums[:, 1].to(dev).reshape(per_k)
-    conv_sk, n_miss, conv_mk, conv_mk2 = map(snap, (s_k, s_m, s_mk, s_mk2))
-    sig_mean0 = snap(s_x.float() * inv_ksize)
-    sig2_mean0 = snap(s_x2.float() * inv_ksize)
+    sums = sums.to(device=dev, dtype=torch.float64)
+    ksum = sums[:, 0].reshape(per_k)
+    k2sum = sums[:, 1].reshape(per_k)
+    conv_sk, n_miss, conv_mk, conv_mk2 = (
+        snap64(t, threshold) for t in (s_k, s_m, s_mk, s_mk2)
+    )
+    sig_mean0 = snap64(s_x.double() / ksize, threshold, s_x.float() * inv_ksize)
+    sig2_mean0 = snap64(s_x2.double() / ksize, threshold, s_x2.float() * inv_ksize)
     return pearson_algebra(
         conv_sk, sig_mean0, sig2_mean0, n_miss, conv_mk, conv_mk2, ksum, k2sum,
         ksize, missing_tol,
@@ -286,18 +336,19 @@ def pearson_algebra(
     conv_sk, sig_mean0, sig2_mean0, n_miss, conv_mk, conv_mk2, ksum, k2sum, ksize,
     missing_tol,
 ):
-    """The missing-corrected Pearson in float32 from the snapped window
-    sums: ``conv_sk`` (K/ksize x), ``sig_mean0`` and ``sig2_mean0`` (the
-    means of x and x^2 over the whole window), ``n_miss`` (missing
-    pixels), ``conv_mk`` and ``conv_mk2`` (K m, K^2 m), and the kernel's
-    float32 ``ksum`` and ``k2sum``, all broadcastable.  The ``min_pres``
-    cutoff, the 1e-10 guard, non-finite values to 0 and the clamp of
-    ``chromosight_tpu/ops/normxcorr.py:205-244``.  Returns (corr, n_pres)."""
-    ksize_f = torch.tensor(float(ksize), dtype=torch.float32, device=n_miss.device)
-    n_pres = ksize_f - n_miss
+    """The missing-corrected Pearson in float64 from the snapped float64
+    window sums: ``conv_sk`` (K/ksize x), ``sig_mean0`` and
+    ``sig2_mean0`` (the means of x and x^2 over the whole window),
+    ``n_miss`` (missing pixels), ``conv_mk`` and ``conv_mk2`` (K m, K^2
+    m), and the kernel's float64 ``ksum`` and ``k2sum``, all
+    broadcastable.  The ``min_pres`` cutoff, the 1e-10 guard, non-finite
+    values to 0 and the clamp of ``chromosight_tpu/ops/normxcorr.py:
+    205-244``, in the CUDA kernel's order.  Returns float64 (corr,
+    n_pres)."""
+    n_pres = float(ksize) - n_miss
     kmean_eff = (ksum - conv_mk) / n_pres
     k2mean_eff = (k2sum - conv_mk2) / n_pres
-    corr_f = ksize_f / n_pres
+    corr_f = float(ksize) / n_pres
     sig_mean = sig_mean0 * corr_f
     sig2_mean = sig2_mean0 * corr_f
     denom = torch.sqrt(
@@ -314,9 +365,7 @@ def _sheared_sums(x, kernels, n_pad):
     """Valid correlation of ``x`` with the sheared form of each (mk, nk)
     kernel on the n_pad output rows,
     ``out[c, i, d] = sum_{u,w} Ksh_c[u, w] x[i + kh + u, d + w]``,
-    one matmul per kernel row, in float64, rounded to float32.  Sums of
-    float32 products are then exact or nearly so, as in the CUDA kernel,
-    and both round them to the same float32 values."""
+    one matmul per kernel row, in float64, as the CUDA kernel sums."""
     sheared = torch.stack([torch.from_numpy(shear_kernel(k.numpy())) for k in kernels])
     sheared = sheared.to(device=x.device, dtype=torch.float64)
     mk, wk = sheared.shape[1:]
@@ -326,7 +375,7 @@ def _sheared_sums(x, kernels, n_pad):
     for u in range(mk):
         windows = x[kh + u : kh + u + n_pad].unfold(1, wk, 1)
         out = out + windows @ sheared[:, u].T
-    return out.permute(2, 0, 1).float()
+    return out.permute(2, 0, 1)
 
 
 def pearson_reference_multi(
@@ -353,7 +402,7 @@ def pearson_reference_multi(
     n_k, mk, nk = kernels.shape
     n_pad = sig_p.shape[0] - 2 * (mk - 1)
     coef, sums = kernel_table(kernels, tsvd)
-    ones = torch.ones((mk, nk), dtype=torch.float32)
+    ones = torch.ones((mk, nk), dtype=torch.float64)
     sig_sums = _sheared_sums(sig_p, [*coef[:, 0], ones], n_pad)
     s_x2 = _sheared_sums(sig_p.double() ** 2, [ones], n_pad)[0]
     mask_sums = _sheared_sums(mask_p, [ones, *coef[:, 1], *coef[:, 2]], n_pad)
@@ -369,8 +418,8 @@ def pearson_reference_multi(
         missing_tol,
         threshold,
     )
-    logp = _log10p(out, n_pres)
-    corr, cand = _trim(out, n, max_dist, pearson_min)
+    corr, logp = rounded_pearson(out, n_pres)
+    corr, cand = _trim(corr, n, max_dist, pearson_min)
     return corr, logp, cand
 
 
@@ -464,7 +513,7 @@ def band_normxcorr_at_packed(
     patch = sig_p[ri, ci].reshape(t, mk * wk).double()
     mpatch = mask_p[ri, ci].reshape(t, mk * wk).double()
     coef, sums = kernel_table(kernels, tsvd)
-    ones = torch.ones((mk, nk), dtype=torch.float32)
+    ones = torch.ones((mk, nk), dtype=torch.float64)
     sig_dots = patch @ _stencils([*coef[:, 0], ones], dev).T
     s_x2 = (patch * patch) @ _stencils([ones], dev)[0]
     mask_dots = mpatch @ _stencils([ones, *coef[:, 1], *coef[:, 2]], dev).T
@@ -480,11 +529,32 @@ def band_normxcorr_at_packed(
         missing_tol,
         threshold,
     )
-    logp = _log10p(out, n_pres)
+    out, logp = rounded_pearson(out, n_pres)
     keep = (diags <= max_dist) & (rows < n) & (rows + diags < n)
     corr = torch.where(keep, out, 0.0)
     wins = gather_windows(band, rows, rows + diags, mk, nk).reshape(t, mk * nk)
     return torch.cat([corr.T, logp.T, wins], dim=1)
+
+
+def at_cost(band, missing, rows, diags, kernels):
+    """(flops, hbm_min_bytes, hbm_unfused_bytes) of one
+    ``band_normxcorr_at_packed`` call at these shapes, for
+    ``observability.account_dispatch`` (family ``band_normxcorr_at``):
+    ``pearson_flops`` at the T requested pixels; the band, flags, pixel
+    indices, float64 tap table and the packed (T, 2K + mk*nk) float32
+    output; and the plain function's unfused bytes on the ``meta`` device
+    (``observability.plain_cost``)."""
+    from chromosight_torch import observability
+
+    n_k, mk, nk = np.shape(kernels)
+    t = rows.shape[0]
+    inputs = sum(x.numel() * x.element_size() for x in (band, missing, rows, diags))
+    hbm_min = inputs + n_k * (3 * mk * nk + 2) * 8 + t * (2 * n_k + mk * nk) * 4
+    _, unfused = observability.plain_cost(
+        band_normxcorr_at_packed, band, missing, rows, diags, np.asarray(kernels),
+        band.shape[0], band.shape[1] - 1, 0.5,
+    )
+    return pearson_flops(t, n_k, mk, nk), hbm_min, unfused
 
 
 def extract_candidates(corr, cand):

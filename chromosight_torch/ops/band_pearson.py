@@ -15,8 +15,8 @@ kernels in one pass over the band), with the kernels' own taps or, for
 
 ``band_pearson_emulated`` is a vectorised transcription of the CUDA
 kernel's own arithmetic (float64 taps in (u, v) order, separable window
-sums, the same output indexing and epilogue), so the CPU tests hold the
-kernel's arithmetic against the JAX package.
+sums, the same output indexing and float64 epilogue), so the CPU tests
+hold the kernel's arithmetic against the JAX package.
 """
 
 from __future__ import annotations
@@ -29,12 +29,15 @@ import threading
 import numpy as np
 import torch
 
+from chromosight_torch import observability
 from chromosight_torch.ops import _build
 from chromosight_torch.ops.band import (
     DEFAULT_THRESHOLD,
     kernel_table,
+    pearson_flops,
     pearson_from_sums,
     pearson_reference_multi,
+    rounded_pearson,
 )
 
 # Launches of the CUDA kernel in this process, in single-kernel mode (a
@@ -101,8 +104,7 @@ def _cached_table(kernel_bytes, shape, tsvd, device):
 
 def device_table(kernels, tsvd, device):
     """The kernel's tap table on ``device``: ``kernel_table(kernels,
-    tsvd)`` with the float32 taps cast exactly to float64, and the float32
-    (ksum, k2sum) sums.  Built and uploaded once per kernel stack: later
+    tsvd)``: the float64 taps and (ksum, k2sum) sums.  Built and uploaded once per kernel stack: later
     launches (every chromosome of a genome, every timed repeat) reuse it;
     each device has its own.  The tensors are shared; never write them."""
     k64 = np.ascontiguousarray(kernels, dtype=np.float64)
@@ -116,6 +118,37 @@ def _stack(kernel):
     if kernels.ndim == 2:
         return kernels[None], False
     return kernels, True
+
+
+def band_cost(sig_p, mask_p, kernels):
+    """(flops, hbm_min_bytes, hbm_unfused_bytes) of one ``band_pearson``
+    call on framed inputs of these shapes and a (K, mk, nk) stack, for
+    ``observability.account_dispatch`` (families ``band_normxcorr``, K =
+    1, and ``band_normxcorr_multi``):
+
+    * flops: ``pearson_flops`` over the (n_pad, W) output pixels;
+    * hbm_min_bytes: the two float32 inputs, the float64 tap table and
+      sums, and the K planes of float32 corr and log10 p and byte
+      candidates;
+    * hbm_unfused_bytes: the plain twin's inputs and every tensor it
+      writes (``observability.plain_cost`` of ``pearson_reference_multi``).
+
+    This count reads the shapes only: every tap of every kernel at every
+    pixel.  PERF.md's bound of the kernel counts the work of the data
+    instead (FMAs over non-zero x and set mask bits, window sums as the
+    separable sums): on chr1 of the 13 x 48,000-bin genome with loops
+    (48,000 x 418 pixels, K = 1, 17 x 17) this count is 5.30e10 FLOP,
+    0.79 ms at 66.9 TFLOP/s, where the bound is 0.2332 ms."""
+    n_k, mk, nk = np.shape(kernels)
+    n_pad = sig_p.shape[0] - 2 * (mk - 1)
+    w_out = sig_p.shape[1] - 2 * ((mk - 1) // 2 + (nk - 1) // 2)
+    pixels = n_pad * w_out
+    hbm_min = 2 * 4 * sig_p.numel() + n_k * (3 * mk * nk + 2) * 8 + n_k * pixels * 9
+    _, unfused = observability.plain_cost(
+        pearson_reference_multi, sig_p, mask_p, np.asarray(kernels), n_pad, w_out,
+        0.5, 0.3,
+    )
+    return pearson_flops(pixels, n_k, mk, nk), hbm_min, unfused
 
 
 def band_pearson(
@@ -143,6 +176,8 @@ def band_pearson(
     global LAUNCHES, LAUNCHES_MULTI
     kernels, multi = _stack(kernel)
     mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernels)
+    family = "band_normxcorr" if len(kernels) == 1 else "band_normxcorr_multi"
+    observability.account_dispatch(family, band_cost, sig_p, mask_p, kernels)
     if sig_p.device.type == "cpu":
         out = pearson_reference_multi(
             sig_p, mask_p, kernels, n, max_dist, missing_tol, pearson_min,
@@ -208,6 +243,13 @@ def log10_two_sided(a):
     return (tail + torch.log(two)) / torch.log(ten)
 
 
+def log10_pvalue(corr, n_obs):
+    """Two-sided log10 p-value of ``corr`` with ``n_obs`` observations
+    (Fisher z), without underflow, in the inputs' dtype: the kernel's
+    ``log10_two_sided`` of |atanh(corr) sqrt(n_obs - 3)|."""
+    return log10_two_sided((torch.atanh(corr) * torch.sqrt(n_obs - 3)).abs())
+
+
 def separable_window_sums(sig64, mask64, mk, nk, n_pad, w_out):
     """The kernel's three window sums (x, x^2, m) of every output pixel,
     in float64 and in its order: anti-diagonal sums
@@ -240,11 +282,12 @@ def band_pearson_emulated(
 ):
     """``band_pearson``'s CUDA arithmetic on CPU tensors: per kernel the
     three tap sums over ``sig[i + kh + u, d + mk-1-u + v]`` (and the
-    mask) in (u, v) order with float64 taps (each product of two float32
-    values is exact, so multiply-then-add equals the kernel's fma), the
+    mask) in (u, v) order with float64 taps (multiply-then-add, where the
+    kernel fuses them: the sums may differ in their last bits), the
     separable window sums of ``separable_window_sums``, then the same
-    snaps, float32 Pearson algebra, erfcx p-value, trim and candidate
-    rule, vectorised over the (n_pad, W) output pixels.  Takes and
+    snaps, float64 Pearson algebra and erfcx p-value, one rounding to
+    float32, trim and candidate rule, vectorised over the (n_pad, W)
+    output pixels.  Takes and
     returns what ``band_pearson`` does, in single- or K-kernel mode."""
     kernels, multi = _stack(kernel)
     mk, nk, n_pad, w_out = _geometry(sig_p, mask_p, kernels)
@@ -268,7 +311,7 @@ def band_pearson_emulated(
     out, n_pres = pearson_from_sums(
         s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, mk * nk, missing_tol, threshold
     )
-    logp = log10_two_sided((torch.atanh(out) * torch.sqrt(n_pres - 3.0)).abs())
+    out, logp = rounded_pearson(out, n_pres, log10_pvalue)
     oi = torch.arange(n_pad)[:, None]
     od = torch.arange(w_out)[None, :]
     keep = (od <= max_dist) & (oi < n) & (oi + od < n)

@@ -6,9 +6,11 @@ Counterpart of ``chromosight_tpu/ops/normxcorr.py``: the dense engine
 tiles of an inter-chromosomal map, whose missing mask is a crossing of
 missing rows and missing columns.
 
-The window sums are formed in float64 (``ops.convolve``), rounded to
-float32 once and snapped to 0 below 1e-4; the Pearson algebra then runs in
-float32 as in the JAX package (``ops.band.pearson_algebra``).  The parity
+The window sums are formed in float64 (``ops.convolve``) with the float64
+taps of the float64 kernel, snapped to 0 below 1e-4 on their float32
+rounding, and enter the float64 Pearson algebra of the band engine
+(``ops.band.pearson_algebra``) unrounded; corr and log10 p are rounded to
+float32 once, at the end.  The parity
 rules of the reference are kept: windows with fewer than
 ``int((1 - missing_tol) * ksize)`` present pixels are 0, denominators
 below 1e-10 give 0, non-finite values become 0, coefficients are clamped
@@ -24,14 +26,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from chromosight_torch.ops.band import pearson_algebra, pearson_from_sums
-from chromosight_torch.ops.band_pearson import log10_two_sided
+from chromosight_torch.ops.band import (
+    pearson_algebra,
+    pearson_from_sums,
+    rounded_pearson,
+    snap64,
+)
+from chromosight_torch.ops.band_pearson import log10_pvalue
 from chromosight_torch.ops.convolve import (
     DEFAULT_THRESHOLD,
     conv2d_valid,
     conv2d_valid_separable,
     pad_margins,
-    snap_small,
     window_sum_valid,
 )
 from chromosight_torch.preprocessing import factorise_kernel
@@ -104,12 +110,11 @@ def build_tsvd_pack(kernel, tsvd):
 
 
 def _taps(kernel):
-    """float32 kernel K, its taps K/ksize and K^2, and the float32 sums
-    ksum and k2sum."""
-    k32 = torch.from_numpy(np.ascontiguousarray(kernel, dtype=np.float32))
-    ksize_f = torch.tensor(float(k32.numel()), dtype=torch.float32)
-    k2 = k32 * k32
-    return k32, k32 / ksize_f, k2, k32.sum(), k2.sum()
+    """The float64 kernel K, its taps K/ksize and K^2, and the sums ksum
+    and k2sum, all float64 (``ops.band.kernel_coefficients``)."""
+    k64 = torch.from_numpy(np.array(kernel, dtype=np.float64))
+    k2 = k64 * k64
+    return k64, k64 / k64.numel(), k2, k64.sum(), k2.sum()
 
 
 def _conv(x, taps, factors):
@@ -121,7 +126,7 @@ def _conv(x, taps, factors):
 
 
 def numerator_taps(kernel):
-    """The float32 taps K/ksize of the Pearson numerator's correlation."""
+    """The float64 taps K/ksize of the Pearson numerator's correlation."""
     return _taps(kernel)[1]
 
 
@@ -129,15 +134,15 @@ def pearson_valid(framed, mask, kernel, tsvd_pack=None, missing_tol=0.75,
                   threshold=DEFAULT_THRESHOLD, sums=None):
     """Valid-mode missing-corrected Pearson of a framed float32 signal
     ((H, W) or a (B, H, W) stack) and its missing mask (bool, same shape,
-    or None for no mask), before any triangle rule: ``(corr, n_pres)``
-    of shape (..., H-mk+1, W-nk+1), ``n_pres`` None without a mask
-    (``chromosight_tpu/ops/normxcorr.py:184-237``).  ``sums``, when the
+    or None for no mask), before any triangle rule and before rounding:
+    float64 ``(corr, n_pres)`` of shape (..., H-mk+1, W-nk+1), ``n_pres``
+    None without a mask (``chromosight_tpu/ops/normxcorr.py:184-237``).  ``sums``, when the
     caller has them, are the float64 planes (correlation with
     ``numerator_taps``, window sums of x and x^2) that the tiled engine
     forms from a sparse batch's entries (``window_sums_entries``)."""
     mk, nk = np.shape(kernel)
     ksize = mk * nk
-    k32, k_scaled, k2, ksum, k2sum = _taps(kernel)
+    k64, k_scaled, k2, ksum, k2sum = _taps(kernel)
     tsvd_num, tsvd_k, tsvd_k2 = tsvd_pack if tsvd_pack is not None else (None,) * 3
     x = framed.float()
     if sums is None:
@@ -145,12 +150,12 @@ def pearson_valid(framed, mask, kernel, tsvd_pack=None, missing_tol=0.75,
     s_k, s_x, s_x2 = sums
     if mask is None:
         inv_ksize = float(1.0 / torch.tensor(float(ksize), dtype=torch.float32))
-        sig_mean = snap_small(s_x.float() * inv_ksize, threshold)
-        sig2_mean = snap_small(s_x2.float() * inv_ksize, threshold)
+        sig_mean = snap64(s_x.double() / ksize, threshold, s_x.float() * inv_ksize)
+        sig2_mean = snap64(s_x2.double() / ksize, threshold, s_x2.float() * inv_ksize)
         del s_x, s_x2
-        denom = torch.sqrt(sig2_mean - sig_mean**2) * k32.std(correction=0).item()
+        denom = torch.sqrt(sig2_mean - sig_mean**2) * k64.std(correction=0).item()
         inv_denom = torch.where(denom.abs() < 1e-10, 0.0, 1.0 / denom)
-        num = snap_small(s_k.float(), threshold) - sig_mean * k32.mean().item()
+        num = snap64(s_k, threshold) - sig_mean * k64.mean().item()
         out = num * inv_denom
         return torch.where(torch.isfinite(out), out, 0.0).clamp(-1.0, 1.0), None
     m = mask.to(torch.float32)
@@ -160,7 +165,7 @@ def pearson_valid(framed, mask, kernel, tsvd_pack=None, missing_tol=0.75,
         s_x,
         s_x2,
         window_sum_valid(m, (mk, nk)),
-        _conv(m, k32, tsvd_k)[None],
+        _conv(m, k64, tsvd_k)[None],
         _conv(m, k2, tsvd_k2)[None],
         sums,
         ksize,
@@ -179,12 +184,6 @@ def _window_sums(x, k_scaled, factors=None):
         window_sum_valid(x, window),
         window_sum_valid(x.double() ** 2, window),
     )
-
-
-def log10_pvalue(corr, n_obs):
-    """Two-sided log10 p-value of ``corr`` with ``n_obs`` observations
-    (Fisher z), without underflow."""
-    return log10_two_sided((torch.atanh(corr) * torch.sqrt(n_obs - 3)).abs())
 
 
 def normxcorr_impl(signal, kernel, mask=None, tsvd_pack=None, full=False,
@@ -209,7 +208,8 @@ def normxcorr_impl(signal, kernel, mask=None, tsvd_pack=None, full=False,
         r = torch.arange(out.shape[0], device=out.device)[:, None]
         c = torch.arange(out.shape[1], device=out.device)[None, :]
         out = torch.where(c >= r, out, 0.0)
-    logp = log10_pvalue(out, n_obs) if pval else None
+    out, logp = rounded_pearson(out, n_obs, log10_pvalue)
+    logp = logp if pval else None
     if full:
         out = out[mk - 1 : out.shape[0] - (mk - 1), nk - 1 : out.shape[1] - (nk - 1)]
         if logp is not None:
@@ -219,8 +219,8 @@ def normxcorr_impl(signal, kernel, mask=None, tsvd_pack=None, full=False,
 
 def crossing_pearson(block, rvec, cvec, kernel, missing_tol=0.75,
                      threshold=DEFAULT_THRESHOLD, sums=None):
-    """``normxcorr_crossing_valid`` before its p-value: ``(corr,
-    n_pres)`` in valid shape.  ``block`` (..., H, W) float32, ``rvec``
+    """``normxcorr_crossing_valid`` before its p-value and before
+    rounding: float64 ``(corr, n_pres)`` in valid shape.  ``block`` (..., H, W) float32, ``rvec``
     (..., H) and ``cvec`` (..., W) bool missing flags; ``sums`` as for
     ``pearson_valid``.
 
@@ -233,22 +233,22 @@ def crossing_pearson(block, rvec, cvec, kernel, missing_tol=0.75,
     ksize = mk * nk
     h_out = block.shape[-2] - mk + 1
     w_out = block.shape[-1] - nk + 1
-    k32, k_scaled, k2, ksum, k2sum = _taps(kernel)
+    k64, k_scaled, k2, ksum, k2sum = _taps(kernel)
     ksize_f = torch.tensor(float(ksize), dtype=torch.float32)
     s_k, s_x, s_x2 = _window_sums(block.float(), k_scaled) if sums is None else sums
-    conv_sk = snap_small(s_k.float(), threshold)
-    sig_mean0 = snap_small(s_x.float() / ksize_f, threshold)
-    sig2_mean0 = snap_small(s_x2.float() / ksize_f, threshold)
+    conv_sk = snap64(s_k, threshold)
+    sig_mean0 = snap64(s_x.double() / ksize, threshold, s_x.float() / ksize_f)
+    sig2_mean0 = snap64(s_x2.double() / ksize, threshold, s_x2.float() / ksize_f)
     del s_k, s_x, s_x2
     dev = block.device
     nr = (~rvec).to(torch.float64).unfold(-1, h_out, 1)  # (..., mk, h_out)
     nc = (~cvec).to(torch.float64).unfold(-1, w_out, 1)  # (..., nk, w_out)
     planes = []
-    for taps, total in ((k32, ksum), (k2, k2sum)):
-        g = taps.to(device=dev, dtype=torch.float64) @ nc  # (..., mk, w_out)
-        planes.append(snap_small((float(total) - nr.transpose(-1, -2) @ g).float(), threshold))
+    for taps, total in ((k64, ksum), (k2, k2sum)):
+        g = taps.to(dev) @ nc  # (..., mk, w_out)
+        planes.append(snap64(float(total) - nr.transpose(-1, -2) @ g, threshold))
     n_miss = ksize - nr.sum(-2)[..., :, None] * nc.sum(-2)[..., None, :]
-    n_miss = snap_small(n_miss.float(), threshold)
+    n_miss = snap64(n_miss, threshold)
     dev_sums = [t.to(dev) for t in (ksum, k2sum)]
     return pearson_algebra(
         conv_sk, sig_mean0, sig2_mean0, n_miss, planes[0], planes[1], *dev_sums,
@@ -265,7 +265,8 @@ def normxcorr_crossing_valid(block, rvec, cvec, kernel, missing_tol=0.75,
     with per-window observation counts
     (``chromosight_tpu/ops/normxcorr.py:280-429``)."""
     out, n_pres = crossing_pearson(block, rvec, cvec, kernel, missing_tol, threshold)
-    return out, (log10_pvalue(out, n_pres) if pval else None)
+    out, logp = rounded_pearson(out, n_pres, log10_pvalue)
+    return out, (logp if pval else None)
 
 
 def normxcorr2_dense(

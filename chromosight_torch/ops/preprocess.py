@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from chromosight_torch.device import download
 from chromosight_torch.ops.band import sliding_vector
 from chromosight_torch.preprocessing import pava_decreasing
 
@@ -37,8 +38,9 @@ def distance_law_dense(mat, detect, n_diags, smooth=False):
     n = mat.shape[0]
     n_diags = int(min(n, n_diags))
     sums, counts = diag_sums_counts(mat, detect, n_diags)
-    sums = sums.double().cpu().numpy()
-    counts = counts.double().cpu().numpy()
+    # fitted on the host: a download the JAX package does not count
+    sums = download(sums).astype(np.float64)
+    counts = download(counts).astype(np.float64)
     law = np.zeros(n)
     with np.errstate(invalid="ignore", divide="ignore"):
         law[:n_diags] = sums / counts

@@ -41,12 +41,15 @@ import threading
 import numpy as np
 import torch
 
+from chromosight_torch import observability
 from chromosight_torch.device import (
+    download,
     new_stream,
     on_stream,
     resolve_device,
     resolve_devices,
     stage,
+    upload,
 )
 from chromosight_torch.ops.convolve import (
     DEFAULT_THRESHOLD,
@@ -55,19 +58,24 @@ from chromosight_torch.ops.convolve import (
     snap_small,
     window_sums_entries,
 )
+from chromosight_torch.ops.band_pearson import log10_pvalue
 from chromosight_torch.ops.normxcorr import (
     build_tsvd_pack,
     crossing_pearson,
-    log10_pvalue,
     numerator_taps,
     pearson_valid,
 )
+from chromosight_torch.ops.band import pearson_flops, rounded_pearson
 from chromosight_torch.preprocessing import frame_missing_mask, zero_pad_sparse
 
 DEFAULT_TILE = 2048
 # Tiles per device batch: with T = 2048 and a 17x17 kernel a batch of 8
-# peaks at about 3.2 GiB of device memory (its float64 window sums).
+# holds 0.8 GB of float64 window sums.
 TILE_BATCH = 8
+# Tiles per Pearson call within a batch: the float64 algebra keeps about
+# twenty planes of its tiles alive, 5.5 GiB for a whole batch of eight
+# 2048-pixel tiles; two at a time keep the batch's peak near 3 GiB.
+PEARSON_TILES = 2
 # A batch whose stored entries are at most this share of its blocks'
 # pixels forms its window sums by scatter-add: entries x taps of work
 # against pixels x taps for the dense float64 conv2d.
@@ -117,8 +125,8 @@ class _Tiles:
         self.bm, self.bn = T + mk - 1, T + nk - 1
         self.n_tr = -(-shape[0] // T)
         self.n_tc = -(-shape[1] // T)
-        r = torch.as_tensor(rows, device=device)
-        c = torch.as_tensor(cols, device=device)
+        r = upload(rows, device)
+        c = upload(cols, device)
         src = torch.arange(len(r), device=device)
         a_hi = torch.div(r + self.hm0, T, rounding_mode="floor")
         b_hi = torch.div(c + self.hn0, T, rounding_mode="floor")
@@ -196,6 +204,30 @@ class _Tiles:
         idx = (origin - halo)[:, None] + torch.arange(size, device=vec.device)[None, :]
         ok = (idx >= 0) & (idx < len(vec))
         return vec[idx.clamp(0, len(vec) - 1)] & ok
+
+
+def batch_cost(blocks, kernel, rows_or_mask=None, cols=None):
+    """(flops, hbm_min_bytes, hbm_unfused_bytes) of the Pearson of one
+    batch of (B, T + mk - 1, T + nk - 1) float32 blocks, for
+    ``observability.account_dispatch`` (family ``tiled_batch``): its mask
+    either dense blocks (``rows_or_mask``) or, with ``cols``, per-block
+    missing rows and columns (the crossing); None for no mask.
+    ``ops.band.pearson_flops`` of one kernel over the B T T output pixels
+    (the crossing's collapsed mask sums and the scatter-add window sums
+    count as the dense function); the blocks, mask and float32 corr
+    planes; and the plain function's unfused bytes on the ``meta``
+    device."""
+    b, bm, bn = blocks.shape
+    mk, nk = np.shape(kernel)
+    pixels = b * (bm - mk + 1) * (bn - nk + 1)
+    masks = [t for t in (rows_or_mask, cols) if t is not None]
+    hbm_min = sum(t.numel() * t.element_size() for t in [blocks, *masks]) + 4 * pixels
+    if cols is not None:
+        _, unfused = observability.plain_cost(crossing_pearson, blocks, rows_or_mask, cols,
+                                              kernel)
+    else:
+        _, unfused = observability.plain_cost(pearson_valid, blocks, rows_or_mask, kernel)
+    return pearson_flops(pixels, 1, mk, nk), hbm_min, unfused
 
 
 def _kept(out, r0, c0, T, shape, halo, sym_upper, keep_min):
@@ -286,7 +318,7 @@ def normxcorr2_sparse_tiled(
     batches go round-robin over (``resolve_devices``; None is every
     visible card).  Returns ``(corr, log10p or None)`` as float32 CSR
     matrices shaped like ``signal``."""
-    kernel = np.asarray(kernel, np.float32)
+    kernel = np.asarray(kernel, np.float64)
     mk, nk = kernel.shape
     ksize = mk * nk
     devices = resolve_devices(device)
@@ -330,7 +362,7 @@ def normxcorr2_sparse_tiled(
         """The kept pixels of batches ``which``, ``which + len(devices)``,
         ... on ``device``: {batch index: (rows, cols, corr, log10p)}."""
         tiles = _Tiles(rows, cols, (Ms, Ns), T, (mk, nk), device)
-        values = torch.from_numpy(vals).to(device)
+        values = upload(vals, device)
         vectors = None
         if host_vectors is not None:
             vectors = tuple(v.to(device) for v in host_vectors)
@@ -364,26 +396,37 @@ def normxcorr2_sparse_tiled(
                         (mask_tiles.slot_rows[m_lo:m_hi], mask_tiles.slot_cols[m_lo:m_hi]),
                         mask_true[mask_tiles.src[m_lo:m_hi]],
                     )
+            mask_args = (rvb, cvb) if crossing else (mblocks,)
+            observability.account_dispatch("tiled_batch", batch_cost, blocks, kernel,
+                                           *mask_args)
             sums = None
             if tsvd_pack is None:
                 sums = tiles.window_sums(lo, hi, slot, values, blocks, k_num)
-            if crossing:
-                out, n_pres = crossing_pearson(
-                    blocks, rvb, cvb, kernel, missing_tol, sums=sums
-                )
-            else:
-                out, n_pres = pearson_valid(
-                    blocks, mblocks, kernel, tsvd_pack, missing_tol, sums=sums
-                )
+            pieces = []
+            for b0 in range(0, len(ids), PEARSON_TILES):
+                cut = slice(b0, b0 + PEARSON_TILES)
+                part = None if sums is None else tuple(t[cut] for t in sums)
+                if crossing:
+                    pieces.append(crossing_pearson(
+                        blocks[cut], rvb[cut], cvb[cut], kernel, missing_tol, sums=part
+                    ))
+                else:
+                    mask = None if mblocks is None else mblocks[cut]
+                    pieces.append(pearson_valid(
+                        blocks[cut], mask, kernel, tsvd_pack, missing_tol, sums=part
+                    ))
             del blocks, mblocks, sums
-            b, i, j, gi, gj = _kept(out, r0, c0, T, (Ms, Ns), halo, sym_upper, keep_min)
-            corr = out[b, i, j]
-            if pval:
-                n_obs = n_pres[b, i, j] if window_nobs else torch.full_like(corr, float(ksize))
-                logp = log10_pvalue(corr, n_obs)
-            else:
-                logp = corr
-            parts[index] = tuple(t.cpu().numpy() for t in (gi, gj, corr, logp))
+            out = torch.cat([o for o, _ in pieces])
+            n_pres = None if pieces[0][1] is None else torch.cat([n for _, n in pieces])
+            del pieces
+            # kept pixels chosen on the float32 corr; log10 p from the float64
+            b, i, j, gi, gj = _kept(out.float(), r0, c0, T, (Ms, Ns), halo, sym_upper,
+                                    keep_min)
+            corr64 = out[b, i, j]
+            n_obs = n_pres[b, i, j] if window_nobs else torch.full_like(corr64, float(ksize))
+            corr, logp = rounded_pearson(corr64, n_obs, log10_pvalue)
+            logp = logp if pval else corr
+            parts[index] = tuple(download(t) for t in (gi, gj, corr, logp))
             del out, n_pres
         return parts
 
@@ -422,7 +465,7 @@ def xcorr2_sparse_tiled(signal, kernel, threshold=DEFAULT_THRESHOLD, tile=None,
     hm0, hn0 = (mk - 1) // 2, (nk - 1) // 2
     halo = ((hm0, hn0), (mk - 1 - hm0, nk - 1 - hn0))
     tiles = _Tiles(rows, cols, (Ms, Ns), T, (mk, nk), device)
-    values = torch.from_numpy(vals).to(device)
+    values = upload(vals, device)
     _count(scanned=len(tiles.ids), skipped=tiles.n_tiles - len(tiles.ids))
     parts = []
     for ids, lo, hi, slot in tiles.batches(TILE_BATCH):
@@ -436,5 +479,6 @@ def xcorr2_sparse_tiled(signal, kernel, threshold=DEFAULT_THRESHOLD, tile=None,
         r0, c0 = tiles.origins(ids, device)
         b, i, j, gi, gj = _kept(out, r0, c0, T, (Ms, Ns), halo, False, None)
         vals_k = out[b, i, j]
-        parts.append(tuple(t.cpu().numpy() for t in (gi, gj, vals_k, vals_k)))
+        vals_k = download(vals_k)
+        parts.append((download(gi), download(gj), vals_k, vals_k))
     return _collected(parts, (Ms, Ns), False)[0]

@@ -34,13 +34,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chromosight_torch.device import resolve_device, stage
+from chromosight_torch import observability
+from chromosight_torch.device import download, resolve_device, stage, upload
 from chromosight_torch.ops.band import (
     band_detrend_trim,
     band_diag_stats,
     band_finalize_upload,
     band_preprocess,
     band_zero_missing,
+    preprocess_cost,
 )
 from chromosight_torch.ops.preprocess import (
     diag_trim_dense,
@@ -162,11 +164,11 @@ class ContactMap:
         if self.sparse is not None:
             return self.sparse
         if self.dense is not None:
-            return sp.csr_matrix(self.dense.cpu().numpy())
+            return sp.csr_matrix(download(self.dense))
         if self.band is None:
             return None
         n = self.shape[0]
-        band = self.band[:n].double().cpu().numpy()
+        band = download(self.band[:n]).astype(np.float64)
         i, d = np.nonzero(band)
         ok = i + d < n
         i, d = i[ok], d[ok]
@@ -235,9 +237,7 @@ class ContactMap:
             else:
                 band_host = self._subsampled_band(width)
         with stage("io: upload", self.device):
-            band = band_finalize_upload(
-                torch.from_numpy(band_host).to(self.device), width
-            )
+            band = band_finalize_upload(upload(band_host, self.device), width)
         with stage("preprocess", self.device):
             detect = np.zeros(n, dtype=bool)
             detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
@@ -248,14 +248,17 @@ class ContactMap:
                 if self.use_norm:
                     self.band = torch.where(torch.isnan(self.band), 0.0, self.band)
             else:
-                self.band = band_preprocess(
+                pre_args = (
                     band,
                     detect,
                     self._max_val,
                     self.keep_distance,
                     min(self.keep_distance + 1, n),
-                    zero_nan=self.use_norm,
                 )
+                observability.account_dispatch(
+                    "band_preprocess", preprocess_cost, *pre_args, zero_nan=self.use_norm
+                )
+                self.band = band_preprocess(*pre_args, zero_nan=self.use_norm)
             if not self.use_norm:
                 missing = missing_flags(self.detectable_bins[1], n)
                 self.band = band_zero_missing(
@@ -270,8 +273,10 @@ class ContactMap:
         n = self.shape[0]
         n_diags = min(self.keep_distance + 1, n)
         sums, counts = band_diag_stats(band, detect)
-        sums = sums.double().cpu().numpy()[:n_diags]
-        counts = counts.double().cpu().numpy()[:n_diags]
+        # the law is fitted on the host: a download the JAX package's fused
+        # path does not have, counted all the same
+        sums = download(sums).astype(np.float64)[:n_diags]
+        counts = download(counts).astype(np.float64)[:n_diags]
         law = np.zeros(band.shape[1])
         with np.errstate(invalid="ignore", divide="ignore"):
             law[:n_diags] = sums / counts
@@ -359,8 +364,8 @@ class ContactMap:
 
             self.sparse = sp.coo_matrix((vals, (rows, cols)), shape=(n1, n2)).tocsr()
             return
-        at = tuple(torch.from_numpy(np.asarray(a, np.int64)).to(self.device) for a in (rows, cols))
-        values = torch.from_numpy(np.asarray(vals, np.float64)).to(self.device)
+        at = tuple(upload(np.asarray(a, np.int64), self.device) for a in (rows, cols))
+        values = upload(np.asarray(vals, np.float64), self.device)
         self.dense = torch.zeros((n1, n2), dtype=torch.float64, device=self.device)
         self.dense.index_put_(at, values)
         self._structure = torch.zeros((n1, n2), dtype=torch.bool, device=self.device)
@@ -370,7 +375,7 @@ class ContactMap:
         """The ``--dump`` snapshot of the dense or sparse map."""
         if self.dump is None:
             return
-        mat = self.sparse if self.sparse is not None else self.dense.cpu().numpy()
+        mat = self.sparse if self.sparse is not None else download(self.dense)
         save_matrix_snapshot(self.dump, self.name, stage_name, mat, after)
 
     def preprocess_inter_matrix(self):

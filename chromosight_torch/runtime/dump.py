@@ -19,6 +19,8 @@ from contextlib import contextmanager
 
 import numpy as np
 
+from chromosight_torch.device import download
+
 _SINK = threading.local()
 
 
@@ -59,7 +61,7 @@ def save_band_snapshot(dump_dir, name, stage, band, n, after):
     nonzero pixels (NaN included) with i < n and i + d < n, as the upper
     triangle of the (n, n) matrix.  Says so on stdout, as the JAX
     package's ``DumpMatrix`` does after the method ``after``."""
-    band = band[:n].double().cpu().numpy()
+    band = download(band[:n]).astype(np.float64)
     i, d = np.nonzero(band)
     ok = i + d < n
     i, d = i[ok], d[ok]

@@ -144,16 +144,15 @@ def test_band_pearson_cpu_multi_is_plain_and_launches_nothing():
 
 @pytest.mark.parametrize("tsvd", [None, TSVD])
 def test_device_table_is_the_kernel_table_built_once(tsvd):
-    """The tap table a launch reads is ``kernel_table``'s (its float32
-    taps cast exactly to float64), built once per kernel stack, tsvd share
-    and device, then reused."""
+    """The tap table a launch reads is ``kernel_table``'s (float64 taps
+    and sums), built once per kernel stack, tsvd share and device, then
+    reused."""
     kernels = np.stack(preset_kernels("borders"))
     cpu = torch.device("cpu")
     first = bp.device_table(kernels, tsvd, cpu)
     coef, sums = kernel_table(kernels, tsvd)
-    assert first[0].dtype == torch.float64
-    torch.testing.assert_close(first[0], coef.double(), rtol=0, atol=0)
-    torch.testing.assert_close(first[0].float(), coef, rtol=0, atol=0)
+    assert first[0].dtype == first[1].dtype == torch.float64
+    torch.testing.assert_close(first[0], coef, rtol=0, atol=0)
     torch.testing.assert_close(first[1], sums, rtol=0, atol=0)
     again = bp.device_table(kernels.copy(), tsvd, cpu)
     assert all(a is b for a, b in zip(again, first))
@@ -163,25 +162,26 @@ def test_device_table_is_the_kernel_table_built_once(tsvd):
 
 @pytest.mark.parametrize("name", ["loops", "loops_small", "hairpins", "borders"])
 def test_tsvd_tap_planes_match_jax(name):
-    """The --tsvd planes of ``kernel_coefficients`` are the f32 casts of
-    JAX's rank-truncated ``_band_conv_kernels``, and the sums still come
-    from the original kernel; without tsvd the planes are K and K**2."""
+    """The --tsvd planes of ``kernel_coefficients`` are JAX's
+    rank-truncated ``_band_conv_kernels`` in float64 (the JAX engine
+    rounds them to float32), and the float64 sums still come from the
+    original kernel; without tsvd the planes are K and K**2."""
     kernel = preset_kernels(name)[0]
     ck, ck2 = _band_conv_kernels(kernel, TSVD)
     ours = conv_kernels(kernel, TSVD)
     np.testing.assert_array_equal(ours[0], ck)
     np.testing.assert_array_equal(ours[1], ck2)
     coef, ksum, k2sum = kernel_coefficients(kernel, *ours)
-    inv = np.float32(1) / np.float32(kernel.size)
-    np.testing.assert_array_equal(coef[0].numpy(), ck.astype(np.float32) * inv)
-    np.testing.assert_array_equal(coef[1].numpy(), ck.astype(np.float32))
-    np.testing.assert_array_equal(coef[2].numpy(), ck2.astype(np.float32))
-    k32 = kernel.astype(np.float32)
-    assert float(ksum) == float(np.sum(k32, dtype=np.float32))
-    assert abs(float(k2sum) - float(np.sum(k32 * k32))) <= 1e-6 * float(k2sum)
+    assert coef.dtype == ksum.dtype == k2sum.dtype == torch.float64
+    np.testing.assert_array_equal(coef[0].numpy(), ck / kernel.size)
+    np.testing.assert_array_equal(coef[1].numpy(), ck)
+    np.testing.assert_array_equal(coef[2].numpy(), ck2)
+    k64 = kernel.astype(np.float64)
+    assert float(ksum) == float(np.sum(k64))
+    assert float(k2sum) == float(np.sum(k64 * k64))
     plain, _, _ = kernel_coefficients(kernel)
-    np.testing.assert_array_equal(plain[1].numpy(), k32)
-    np.testing.assert_array_equal(plain[2].numpy(), (kernel**2).astype(np.float32))
+    np.testing.assert_array_equal(plain[1].numpy(), k64)
+    np.testing.assert_array_equal(plain[2].numpy(), k64**2)
 
 
 @pytest.mark.parametrize("impl", ["plain", "emulated"])

@@ -1,11 +1,11 @@
 """The port's band engine at the three fp32 decision boundaries of
 tests/test_fp32_boundaries.py: the ``min_pres`` window cutoff (:127), the
 1e-10 denominator guard (:171) and the straddle of the pearson threshold
-(:222), each held to that file's float64 oracle (:40) with its bounds.
-The guard case's last bound (every zero/non-zero disagreement inside the
-variance's ambiguity region) does not hold on the port at two windows
-whose oracle score is below 2e-6: that test is an expected failure, and
-what does hold of the case is a test of its own.
+(:222), each held to that file's float64 oracle (:40) with its bounds, and
+the two near-zero windows of the guard case, whose oracle scores are below
+2e-6, held to the oracle within 1e-7 (the port's float64 Pearson algebra;
+a float32 numerator cancels to 0 there).  ``pearson_from_sums`` itself is
+held to a numpy float64 transcription on seeded random sums.
 
 The same bands go through the port's framing (``ops.band.band_frame``)
 and then through the plain twin of the CUDA kernel
@@ -125,14 +125,6 @@ def test_denominator_guard_windows_hold_the_parity_budget(engine):
     assert np.abs(corr64[flip]).max(initial=0.0) < PEARSON
 
 
-@pytest.mark.xfail(
-    strict=True,
-    reason="2 zero/non-zero disagreements outside the variance region: at "
-    "band pixels (179, 41) and (179, 48), window variance 0.038 and 0.045, "
-    "the oracle gives 3.8e-7 and 1.9e-6 and the port exactly 0 (its float32 "
-    "numerator, from float64 window sums rounded once, cancels to 0 below "
-    "one ulp); ROADMAP section 3",
-)
 @pytest.mark.parametrize("engine", sorted(ENGINES))
 def test_denominator_guard_constant_and_near_constant_windows(engine):
     """tests/test_fp32_boundaries.py:171 on the port: every zero/non-zero
@@ -143,6 +135,86 @@ def test_denominator_guard_constant_and_near_constant_windows(engine):
     assert corr32[200, 40] != 0.0 and corr64[200, 40] != 0.0
     flip = (corr32 == 0.0) != (corr64 == 0.0)
     assert var64[flip].size == 0 or var64[flip].max() < 1e-5
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_near_zero_guard_windows_match_the_oracle(engine):
+    """Band pixels (179, 41) and (179, 48) of the guard case (window
+    variance 0.038 and 0.045, oracle scores 3.8e-7 and 1.9e-6) within
+    1e-7 of the float64 oracle, and non-zero."""
+    corr32, corr64, _ = _guard_case(engine)
+    for pixel in ((179, 41), (179, 48)):
+        assert 0 < abs(corr64[pixel]) < 2e-6
+        assert corr32[pixel] != 0.0
+        assert abs(corr32[pixel] - corr64[pixel]) < 1e-7
+
+
+def _numpy_pearson(s_k, s_x, s_x2, s_m, s_mk, s_mk2, sums, ksize, missing_tol,
+                   threshold=1e-4):
+    """``pearson_from_sums`` transcribed in numpy float64: the snaps
+    decided on the float32 roundings, the algebra on the sums."""
+    thr = np.float32(threshold)
+    inv_ksize = np.float32(1) / np.float32(ksize)
+
+    def snap(x, rounded=None):
+        rounded = x.astype(np.float32) if rounded is None else rounded
+        return np.where(np.abs(rounded) < thr, 0.0, x)
+
+    ksum, k2sum = sums[:, 0, None], sums[:, 1, None]
+    conv_sk, n_miss, conv_mk, conv_mk2 = map(snap, (s_k, s_m, s_mk, s_mk2))
+    sig_mean0 = snap(s_x / ksize, s_x.astype(np.float32) * inv_ksize)
+    sig2_mean0 = snap(s_x2 / ksize, s_x2.astype(np.float32) * inv_ksize)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        n_pres = ksize - n_miss
+        kmean_eff = (ksum - conv_mk) / n_pres
+        k2mean_eff = (k2sum - conv_mk2) / n_pres
+        corr_f = ksize / n_pres
+        sig_mean = sig_mean0 * corr_f
+        sig2_mean = sig2_mean0 * corr_f
+        denom = np.sqrt((sig2_mean - sig_mean * sig_mean)
+                        * (k2mean_eff - kmean_eff * kmean_eff))
+        denom = np.where(n_pres < int((1 - missing_tol) * ksize), 0.0, denom)
+        num = (conv_sk - sig_mean * kmean_eff / corr_f) * corr_f
+        out = num * np.where(np.abs(denom) < 1e-10, 0.0, 1.0 / denom)
+    return np.clip(np.where(np.isfinite(out), out, 0.0), -1.0, 1.0), n_pres
+
+
+def test_pearson_from_sums_matches_a_float64_oracle():
+    """Seeded random window sums (some within a float32 ulp of the 1e-4
+    snap threshold, some windows below ``min_pres``) through
+    ``pearson_from_sums``: float64 corr and n_pres within rtol 1e-12 of
+    the numpy transcription, every snap decided on the float32 rounding
+    (the zeros equal), and ``snap64`` keeping surviving sums unrounded."""
+    from chromosight_torch.ops.band import pearson_from_sums, snap64
+
+    rng = np.random.default_rng(5)
+    ksize, n_k, size = KSIZE, 3, 4000
+    s_m = rng.integers(0, ksize // 2 + 20, size).astype(np.float64)
+    s_m[::7] = 0.0
+    s_x = rng.uniform(0.5, 2.0, size) * (ksize - s_m)
+    s_x2 = s_x**2 / (ksize - s_m) * rng.uniform(1.0, 1.2, size)
+    s_k = rng.normal(0, 1, (n_k, size)) * 10.0 ** rng.uniform(-7, 0, (n_k, size))
+    s_mk = rng.uniform(0, 1, (n_k, size)) * s_m
+    s_mk2 = s_mk * rng.uniform(0.5, 1.0, (n_k, size))
+    edge = np.float64(np.float32(1e-4))
+    near = edge * (1 + np.array([-1e-7, -1e-9, 0.0, 1e-9, 1e-7, 1e-6]))
+    s_k[0, : len(near)] = near
+    s_x[: len(near)] = near * ksize
+    sums = np.stack([rng.normal(5, 1, n_k), rng.uniform(30, 40, n_k)], 1)
+    args = (s_k, s_x, s_x2, s_m, s_mk, s_mk2)
+    corr, n_pres = pearson_from_sums(
+        *map(torch.from_numpy, args), torch.from_numpy(sums), ksize, MISSING_TOL
+    )
+    want, want_n = _numpy_pearson(*args, sums, ksize, MISSING_TOL)
+    assert corr.dtype == n_pres.dtype == torch.float64
+    np.testing.assert_allclose(corr.numpy(), want, rtol=1e-12, atol=1e-300)
+    np.testing.assert_allclose(n_pres.numpy(), want_n, rtol=1e-12)
+    assert np.array_equal(corr.numpy() == 0, want == 0)
+    assert (want == 0).any() and (want != 0).any()
+    snapped = snap64(torch.from_numpy(s_k), 1e-4).numpy()
+    decided = np.abs(s_k.astype(np.float32)) < np.float32(1e-4)
+    assert np.array_equal(snapped == 0, decided | (s_k == 0))
+    assert np.array_equal(snapped[~decided], s_k[~decided])
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINES))
