@@ -28,18 +28,22 @@ Phases, one line or block each; any failure raises (non-zero exit):
             one fused launch, K single launches and the plain twins, and the
             kernel-only time (torch.profiler) beside the float64 bound of
             these inputs and its share;
-4. golden   ``detect`` on tests/data/example_cool.npz reproduces
+4. golden   ``detect`` on data_test/example.cool (read by the port's own
+            HDF5 reader, chromosight_torch/io/hdf5.py) reproduces
             tests/data/golden_detect_loops{,_raw,_smooth,_tsvd}.tsv and
             golden_detect_borders.tsv (fused), the loops windows against
             tests/data/golden_detect_loops.json, the ``--dump`` snapshots of
-            tests/data/golden_dump/, and ``quantify`` of data_test/example.bed2
-            reproduces golden_quantify_loops.tsv and golden_quantify_borders.tsv;
+            tests/data/golden_dump/; the loops golden again from the
+            cooler-layout fixture tests/data/example_cooler_layout.cool
+            (chunked, gzip, shuffle, an enum); and ``quantify`` of
+            data_test/example.bed2 reproduces golden_quantify_loops.tsv and
+            golden_quantify_borders.tsv;
 5. genome   on a synthetic 13 x 48,000-bin genome at 5 kb (the bench.py
             shape): ``detect`` with loops (recall of the planted loops) and
             with borders (13 fused launches), and ``quantify`` of the planted
             loops written as a bed2d file, scores held against the sweep
             kernel's; walls, stages, launches and peak device memory;
-6. golden-inter  ``detect --inter`` on tests/data/example_cool.npz
+6. golden-inter  ``detect --inter`` on data_test/example.cool
             reproduces tests/data/golden_detect_loops_inter.tsv on the dense
             engine and, with ``DENSE_LIMIT`` lowered to 50, on the tiled
             engine (tiles of 128); ``quantify --inter`` of the four pairs of
@@ -52,12 +56,15 @@ Phases, one line or block each; any failure raises (non-zero exit):
             the tiled engines: the same corr, foci and calls (the 10%
             zero rule lifted for the calls);
 8. surface  the rest of the command line: ``test`` (offline: the download
-            is replaced by a failure, so it reads the npz fallback; 89
+            is replaced by a failure, so it reads data_test/example.cool; 89
             patterns and the golden log lines), ``list-kernels --long
             --mat`` (seven presets), ``generate-config --preset borders``
             then ``detect --kernel-config`` of the file (the borders
-            golden), ``--norm force`` on the npz (calls as the port's own
-            CPU run's); on the 13 x 48,000 genome with its weights dropped,
+            golden), ``--norm force`` on a copy of example.cool (calls as
+            the port's own CPU run's; the copy reopened holds the CPU run's
+            weights bit for bit, and ``--norm auto`` of it gives the forced
+            run's table byte for byte); on the 13 x 48,000 genome with its
+            weights dropped,
             ``detect`` at ``--norm auto`` (ICE on the host, the table byte
             for byte phase 5's), ``--threads`` 1, 2 and 4 and two workers
             on the one card (tables byte for byte the serial one's; walls,
@@ -67,6 +74,12 @@ Phases, one line or block each; any failure raises (non-zero exit):
             ``--threads 4`` against ``--threads 1`` with one seed; and the
             native band scatter of the genome on the main thread and on a
             thread of its own.  It runs after phase 5, on the same genome.
+8b. cool-genome  phase 5's genome written as a ``.cool`` (3.8 GB) by the
+            port's ``create_cool`` (the free space checked first), then
+            ``detect`` with loops from the file (its pages dropped from the
+            page cache first, then again from the cache) and once more from
+            memory: tables byte for byte phase 5's, ``io: fetch+scatter``
+            and walls side by side; the file deleted.
 9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
             card by default: TUTORIAL's block and detect_example.ipynb's loop
             on the example map (each map's calls those of the command line's
@@ -77,7 +90,8 @@ Phases, one line or block each; any failure raises (non-zero exit):
             genome's chr1 (48,000 bins, not cut) against the CPU's run.
 10. genome-golden  the reference's own genome-scale calls
             (tests/data/golden_genome_{loops,borders}.tsv: 159 and 3,706) on
-            the seed-0 3 x 50,000 genome, its fingerprint checked: the same
+            the seed-0 3 x 50,000 genome, its fingerprint checked, written as
+            a ``.cool`` by the port's ``create_cool`` and read back: the same
             calls, score max|d| < 5e-5, log10 p max|d| < 1e-3 from the
             unrounded p-values, and the log10 p max|d| between the written
             tables printed;
@@ -92,7 +106,8 @@ Phases, one line or block each; any failure raises (non-zero exit):
             CHROMOSIGHT_TPU_TIMINGS=1.
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
-limit, then ``{"ok": true, "device": {...}}`` as its last line.  Without a
+limit, then ``{"ok": true, "device": {...}}`` as its last line, after
+checking that neither jax nor h5py was imported.  Without a
 CUDA card, or outside the repository, it exits non-zero and prints no
 result.
 """
@@ -107,6 +122,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -135,6 +151,7 @@ from chromosight_torch.detection import (  # noqa: E402
 )
 from chromosight_torch.device import reset_stages, stage_seconds  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
+from chromosight_torch.io.cool import CoolFile, bins_frame, create_cool  # noqa: E402
 from chromosight_torch.io.source import (  # noqa: E402
     ArraySource,
     native_scatter_available,
@@ -154,7 +171,7 @@ from chromosight_torch.ops.normxcorr import (  # noqa: E402
 from chromosight_torch.ops.tiled import normxcorr2_sparse_tiled  # noqa: E402
 from chromosight_torch.preprocessing import missing_flags  # noqa: E402
 from chromosight_torch.runtime.contact_map import ContactMap  # noqa: E402
-from chromosight_torch.runtime.genome import HicGenome  # noqa: E402
+from chromosight_torch.runtime.genome import HicGenome, open_contacts  # noqa: E402
 
 GENOME_CHROMS, GENOME_BINS, BINSIZE = 13, 48_000, 5000
 # --subsample permutes ~1.5e8 contacts per chromosome on the host: three
@@ -176,9 +193,12 @@ INTER_PAIRS = (
     "chr2\t130000\t131000\tchr3\t139000\t140000\n"
 )
 ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
-# walls (s) of the main-path runs, by name
-WALLS = {}
-EXAMPLE_NPZ = "tests/data/example_cool.npz"
+# walls (s) and stage seconds of the main-path runs, by name
+WALLS, STAGES = {}, {}
+EXAMPLE_COOL = "data_test/example.cool"
+# data_test/example.cool's data in cooler's layout (chunked, gzip 6,
+# shuffle, bins/chrom an enum): tests/test_torch_hdf5.py writes it
+COOLER_LAYOUT = "tests/data/example_cooler_layout.cool"
 # genome-golden: the genome of tests/data/golden_genome_meta.json
 GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
 # the windows of tests/test_fp32_boundaries.py
@@ -704,19 +724,18 @@ def num(value):
     return float(value) if value != "" else float("nan")
 
 
-def golden_detect(workdir, golden, flags, expect, tol=1e-5):
-    """``detect`` with ``flags`` against tests/data/<golden>.tsv: the same
-    (bin1, bin2, kernel_id, iteration) calls, score within 5e-5, p-value
-    and q-value within ``tol`` (1e-6 for the loops golden, 1e-5 for the
-    others, as tests/test_golden_outputs.py holds them); ``expect`` the
-    launches of each mode."""
+def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL):
+    """``detect`` of ``path`` with ``flags`` against tests/data/<golden>.tsv:
+    the same (bin1, bin2, kernel_id, iteration) calls, score within 5e-5,
+    p-value and q-value within ``tol`` (1e-6 for the loops golden, 1e-5
+    for the others, as tests/test_golden_outputs.py holds them);
+    ``expect`` the launches of each mode."""
     prefix = f"{workdir}/{golden}"
     reset_launches()
     with open(f"{workdir}/stdout.txt", "a") as out:
         stdout, sys.stdout = sys.stdout, out
         try:
-            rc = main(["detect", "--no-plotting", *flags,
-                       "tests/data/example_cool.npz", prefix], device=DEVICE)
+            rc = main(["detect", "--no-plotting", *flags, path, prefix], device=DEVICE)
         finally:
             sys.stdout = stdout
     check(rc == 0, f"{golden}: detect failed")
@@ -728,7 +747,7 @@ def golden_detect(workdir, golden, flags, expect, tol=1e-5):
           f"{golden}: calls differ from the golden ({len(ours)} vs {len(ref)})")
     err = {c: max(abs(num(ours[k][c]) - num(ref[k][c])) for k in ref)
            for c in ("score", "pvalue", "qvalue")}
-    print(f"[golden] {golden}: {len(ref)}/{len(ref)} calls identical; max|d| score "
+    print(f"[golden] {golden} from {path}: {len(ref)}/{len(ref)} calls identical; max|d| score "
           f"{err['score']:.3g}, pvalue {err['pvalue']:.3g}, qvalue {err['qvalue']:.3g} "
           f"(bound {tol:g}); launches {seen}")
     check(err["score"] < 5e-5 and err["pvalue"] < tol and err["qvalue"] < tol,
@@ -743,7 +762,7 @@ def golden_quantify(workdir, golden, flags, pvalue_tol):
     prefix = f"{workdir}/{golden}"
     reset_launches()
     check(main(["quantify", "--no-plotting", *flags, "data_test/example.bed2",
-                "tests/data/example_cool.npz", prefix], device=DEVICE) == 0,
+                EXAMPLE_COOL, prefix], device=DEVICE) == 0,
           f"{golden}: quantify failed")
     ours = {(r["bin1"], r["bin2"]): r for r in read_tsv(prefix + ".tsv")}
     ref = {(r["bin1"], r["bin2"]): r for r in read_tsv(f"tests/data/{golden}.tsv")}
@@ -837,6 +856,8 @@ def phase_golden(workdir):
     golden_detect(workdir, "golden_detect_borders", ["--pattern", "borders"],
                   {"single": 0, "multi": 3})
     golden_dump(workdir)
+    golden_detect(workdir, "golden_detect_loops", [], {"single": 3, "multi": 0}, tol=1e-6,
+                  path=COOLER_LAYOUT)
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6)
     golden_quantify(workdir, "golden_quantify_borders", ["--pattern", "borders"], 5e-5)
 
@@ -853,8 +874,9 @@ def run_genome(name, fn, tag="genome"):
     seen = launches()
     print(f"[{tag}] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    STAGES[name] = stage_seconds()
     print(f"[{tag}] {name} stages (s): "
-          + json.dumps({k: round(v, 3) for k, v in sorted(stage_seconds().items())}))
+          + json.dumps({k: round(v, 3) for k, v in sorted(STAGES[name].items())}))
     return out, seen
 
 
@@ -985,23 +1007,43 @@ def phase_surface_example(workdir):
     print("[surface] generate-config --preset borders: detect --kernel-config of the "
           "file reproduces golden_detect_borders.tsv")
 
+    # --norm force on copies of example.cool: ICE on the host, the weights
+    # written into the copy by the port's HDF5 writer
     tables = {}
-    for tag, device in (("card", DEVICE), ("cpu", "cpu")):
+    for tag, device, norm in (("card", DEVICE, "force"), ("cpu", "cpu", "force"),
+                              ("card_reopened", DEVICE, "auto")):
+        cool = f"{workdir}/force_{tag.split('_')[0]}.cool"
+        if norm == "force":
+            shutil.copy(EXAMPLE_COOL, cool)
         prefix = f"{workdir}/force_{tag}"
         reset_launches()
         with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-            check(main(["detect", "--no-plotting", "--norm", "force",
-                        "tests/data/example_cool.npz", prefix], device=device) == 0,
-                  f"--norm force on the {tag} failed")
+            check(main(["detect", "--no-plotting", "--norm", norm, cool, prefix],
+                       device=device) == 0, f"--norm {norm} on the {tag} copy failed")
         tables[tag] = (read_tsv(prefix + ".tsv"), launches())
     (card, seen), (plain, _) = tables["card"], tables["cpu"]
     key = ("bin1", "bin2", "kernel_id", "iteration")
     same = [tuple(r[k] for k in key) for r in card] == [tuple(r[k] for k in key) for r in plain]
     err = max(abs(num(a["score"]) - num(b["score"])) for a, b in zip(card, plain))
-    print(f"[surface] --norm force: {len(card)} calls on the card, {len(plain)} on the "
-          f"CPU, identical {same}, score max|d| {err:.3g}; launches {seen}")
+    print(f"[surface] --norm force on a copy of {EXAMPLE_COOL}: {len(card)} calls on the "
+          f"card, {len(plain)} on the CPU, identical {same}, score max|d| {err:.3g}; "
+          f"launches {seen}")
     check(same and len(card) == 89 and err < 5e-5, "--norm force calls differ")
     check(seen == {"single": 3, "multi": 0}, f"--norm force launches {seen}")
+    stored = CoolFile(f"{workdir}/force_card.cool")
+    cpu_weights = CoolFile(f"{workdir}/force_cpu.cool").weights
+    original = CoolFile(EXAMPLE_COOL).weights
+    reopened = pathlib.Path(f"{workdir}/force_card_reopened.tsv").read_bytes()
+    forced = pathlib.Path(f"{workdir}/force_card.tsv").read_bytes()
+    print(f"[surface] --norm force: the copy reopened holds {np.isfinite(stored.weights).sum()} "
+          f"finite weights, bit for bit the CPU run's copy: "
+          f"{stored.weights.tobytes() == cpu_weights.tobytes()}, max|d| from the example's own "
+          f"{np.nanmax(np.abs(stored.weights - original)):.3g}, stats "
+          f"{json.dumps({k: float(v) for k, v in stored._file['bins/weight'].attrs.items()})}; "
+          f"--norm auto on the reopened copy gives the forced run's table byte for byte: "
+          f"{reopened == forced}")
+    check(stored.weights.tobytes() == cpu_weights.tobytes(), "stored weights differ")
+    check(reopened == forced, "the stored weights are not the ones the run used")
 
 
 def genome_run(source, workdir, tag, flags=(), device=DEVICE, rng=None):
@@ -1111,7 +1153,7 @@ def inter_quantify(workdir, tag):
         handle.write(INTER_PAIRS)
     prefix = f"{workdir}/inter_quantify_{tag}"
     check(main(["quantify", "--no-plotting", "--inter", bed,
-                "tests/data/example_cool.npz", prefix], device=DEVICE) == 0,
+                EXAMPLE_COOL, prefix], device=DEVICE) == 0,
           f"quantify --inter ({tag}) failed")
     return read_tsv(prefix + ".tsv")
 
@@ -1307,7 +1349,8 @@ def compare_genome_golden(golden_path, prefix, table):
 def phase_genome_golden(workdir):
     """The reference's own genome-scale calls (tests/data/golden_genome_
     {loops,borders}.tsv): the seed-0 3 x 50,000 genome of
-    tools/make_synthetic_cool.py, its fingerprint checked, ``detect`` at
+    tools/make_synthetic_cool.py, its fingerprint checked, written as a
+    ``.cool`` by the port's ``create_cool``; ``detect`` of the file at
     --norm auto with loops and with borders, held to the bounds of
     tests/test_golden_genome_scale.py."""
     t0 = time.perf_counter()
@@ -1318,16 +1361,18 @@ def phase_genome_golden(workdir):
           f"generated and balanced in {time.perf_counter() - t0:.1f} s; fingerprint "
           f"{json.dumps(got)}, the goldens' {json.dumps(meta['fingerprint'])}")
     check(got == meta["fingerprint"], "genome-golden: fingerprint differs")
+    path = write_cool(source, f"{workdir}/genome_golden.cool", "genome-golden")
+    del source
     for name, flags, expect in (("loops", [], {"single": GOLDEN_CHROMS, "multi": 0}),
                                 ("borders", ["--pattern", "borders"],
                                  {"single": 0, "multi": GOLDEN_CHROMS})):
         prefix = f"{workdir}/genome_golden_{name}"
-        args = parse_args(["detect", "--no-plotting", "--norm", "auto", *flags, "synthetic",
+        args = parse_args(["detect", "--no-plotting", "--norm", "auto", *flags, path,
                            prefix], "")
 
         def run_detect():
             with contextlib.redirect_stdout(io.StringIO()):
-                return detect(source, args, DEVICE)
+                return detect(open_contacts(path), args, DEVICE)
 
         (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden")
         n_calls, d_score, d_text, row, d_logp = compare_genome_golden(
@@ -1340,6 +1385,78 @@ def phase_genome_golden(workdir):
               f"tests/test_golden_genome_scale.py:134; largest at {row}); launches {seen}")
         check(d_score < 5e-5 and d_logp < 1e-3, f"genome-golden {name}: outside the bounds")
         check(seen == expect, f"genome-golden {name}: launches {seen}")
+
+
+def write_cool(source, path, tag):
+    """``source`` written as a ``.cool`` by the port's ``create_cool``,
+    after checking that the directory can hold it (the phase fails if it
+    cannot); the path."""
+    need = source.nnz * (source.bin1.itemsize + source.bin2.itemsize + source.count.itemsize)
+    need += 64 * source.n_bins + (1 << 20)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    print(f"[{tag}] {os.path.dirname(path)}: {free / 1e9:.2f} GB free, the file needs "
+          f"{need / 1e9:.2f} GB")
+    check(free > need, f"{tag}: {free} bytes free, the .cool file needs {need}")
+    t0 = time.perf_counter()
+    pixels = {"bin1_id": source.bin1, "bin2_id": source.bin2, "count": source.count}
+    create_cool(path, bins_frame(source), pixels)
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    print(f"[{tag}] create_cool wrote {path}: {source.nnz} pixels, {size} bytes in "
+          f"{seconds:.2f} s ({size / seconds / 1e9:.2f} GB/s)")
+    return path
+
+
+def evict(path):
+    """Write ``path``'s pages to disk and ask the kernel to drop them from
+    the page cache (POSIX_FADV_DONTNEED), so the next read comes from the
+    disk as far as the kernel honours the advice."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def phase_cool_genome(source, workdir):
+    """The 13 x 48,000 genome written as a ``.cool`` by the port's
+    ``create_cool``, then ``detect`` with loops from the file (pages
+    dropped first, then again from the page cache) and once more from the
+    in-memory source: each table byte for byte phase 5's in-memory run;
+    ``io: fetch+scatter`` and the wall of each, side by side.  The file is
+    deleted afterwards."""
+    path = write_cool(source, f"{workdir}/genome.cool", "cool-genome")
+    stored = (pathlib.Path(f"{workdir}/genome.tsv").read_bytes()
+              + pathlib.Path(f"{workdir}/genome.json").read_bytes())
+    n_chroms = len(source.chromnames)
+    runs = {"memory (phase 5)": "detect loops"}
+    try:
+        for tag in ("cool, pages dropped", "cool, page cache", "memory"):
+            if tag == "cool, pages dropped":
+                evict(path)
+            prefix = f"{workdir}/cool_genome_{len(runs)}"
+            contacts = path if tag.startswith("cool") else "synthetic"
+            args = parse_args(["detect", "--no-plotting", contacts, prefix], "")
+
+            def run_detect():
+                opened = open_contacts(path) if tag.startswith("cool") else source
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return detect(opened, args, DEVICE)
+
+            runs[tag] = f"detect loops from {tag}"
+            _, seen = run_genome(runs[tag], run_detect, tag="cool-genome")
+            out = (pathlib.Path(prefix + ".tsv").read_bytes()
+                   + pathlib.Path(prefix + ".json").read_bytes())
+            check(out == stored, f"cool-genome: the {tag} table differs from phase 5's")
+            check(seen == {"single": n_chroms, "multi": 0}, f"cool-genome: launches {seen}")
+    finally:
+        os.unlink(path)
+    print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run; "
+          f"{nvidia_smi('name,power.limit')}")
+    for tag, name in runs.items():
+        print(f"[cool-genome] {tag}: io: fetch+scatter "
+              f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, wall {WALLS[name]:.2f} s")
 
 
 def phase_instruments(source, workdir):
@@ -1429,7 +1546,7 @@ def phase_instruments(source, workdir):
 
     # the exit report of a command-line process
     code = ("from chromosight_torch.cli.main import main; "
-            f"main(['detect', '--no-plotting', {EXAMPLE_NPZ!r}, {workdir + '/report'!r}])")
+            f"main(['detect', '--no-plotting', {EXAMPLE_COOL!r}, {workdir + '/report'!r}])")
     env = dict(os.environ, CHROMOSIGHT_TPU_TIMINGS="1")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=600)
@@ -1508,7 +1625,7 @@ def api_quantify_flow(device):
     from chromosight_torch.io import load_bed2d
 
     config = ck.loops
-    genome = api_genome(EXAMPLE_NPZ, device, kernel_config=config)
+    genome = api_genome(EXAMPLE_COOL, device, kernel_config=config)
     coords_bp = load_bed2d("data_test/example.bed2")
     bins1 = genome.coords_to_bins(coords_bp[["chrom1", "start1"]].rename(
         columns={"chrom1": "chrom", "start1": "pos"}))
@@ -1540,7 +1657,7 @@ def phase_api(source):
 
     kernel = np.asarray(ck.loops["kernels"][0])
     # docs/TUTORIAL.md's Python API block, on the card by default
-    g = api_genome(EXAMPLE_NPZ, kernel_config=dict(ck.loops))
+    g = api_genome(EXAMPLE_COOL, kernel_config=dict(ck.loops))
     g.compute_max_dist()
     quietly(g.make_sub_matrices)
     cm = g.sub_mats.contact_map[0]
@@ -1551,7 +1668,7 @@ def phase_api(source):
     patterns, windows = cud.pattern_detector(
         cm, dict(ck.loops, tsvd=None), ck.loops["kernels"][0], full=True)
     seen = launches()
-    print(f"[api] TUTORIAL block on {EXAMPLE_NPZ}: normxcorr2 + pick_foci {len(coords)} "
+    print(f"[api] TUTORIAL block on {EXAMPLE_COOL}: normxcorr2 + pick_foci {len(coords)} "
           f"foci on {cm.name}; pattern_detector(full=True) {len(patterns)} calls, windows "
           f"{windows.shape}; launches {seen}")
     check(seen == {"single": 1, "multi": 0} and len(patterns) == len(windows) > 0,
@@ -1582,7 +1699,7 @@ def phase_api(source):
 
     # full=False on each map of the example, card against CPU
     def valid_mode(device):
-        genome = api_genome(EXAMPLE_NPZ, device, kernel_config=ck.loops)
+        genome = api_genome(EXAMPLE_COOL, device, kernel_config=ck.loops)
         tables = []
         for cm in genome.sub_mats.contact_map:
             quietly(cm.create_mat)
@@ -1658,12 +1775,14 @@ def run(quick):
         phase_instruments(source, workdir)
         phase_surface_example(workdir)
         phase_surface_genome(source, workdir)
+        phase_cool_genome(source, workdir)
         phase_api(source)
         del source
         phase_golden_inter(workdir)
         phase_genome_inter(workdir)
         phase_genome_golden(workdir)
     check("jax" not in sys.modules, "jax was imported")
+    check("h5py" not in sys.modules, "h5py was imported")
     check(not any(m.split(".")[0] == "chromosight_tpu" for m in sys.modules),
           "chromosight_tpu was imported")
     entry = {

@@ -38,8 +38,7 @@ Usage:
     test:
         runs loop detection on the example map and compares its log with
         the golden record.  It tries to download the map first, and falls
-        back to the copy in the repository (data_test/example.cool, or
-        its npz export where h5py does not import).
+        back to the copy in the repository (data_test/example.cool).
 
 Arguments for detect:
     <contact_map>               The Hi-C contact map: a .cool file, or an
@@ -740,13 +739,8 @@ def cmd_list_kernels(args):
 
 def example_dataset():
     """The example map in the repository, the self-test's fallback
-    (``chromosight_tpu/cli/main.py:179-182``): ``data_test/example.cool``
-    where h5py imports, else its npz export ``tests/data/
-    example_cool.npz``."""
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return str(REPO_ROOT / "tests" / "data" / "example_cool.npz")
+    (``chromosight_tpu/cli/main.py:179-182``): ``data_test/example.cool``,
+    read with the port's own HDF5 reader on every machine."""
     return str(REPO_ROOT / "data_test" / "example.cool")
 
 

@@ -1,6 +1,6 @@
-"""IO layer: the .cool reader and writer (h5py, imported when a file is
-opened), contact sources, kernel-config loading, bed2d parsing, pattern and
-window writers and the terminal progress bar.
+"""IO layer: the .cool reader and writer (on the port's own HDF5 reader
+and writer, ``io.hdf5``), contact sources, kernel-config loading, bed2d
+parsing, pattern and window writers and the terminal progress bar.
 
 The exports of ``chromosight_tpu/io/__init__.py`` (the reference
 ``chromosight/utils/io.py``).

@@ -2,10 +2,9 @@
 
 Counterpart of ``chromosight_tpu/io/cool.py``: ``CoolFile`` (the port's
 ``CoolSource`` with its chromosome and bin tables as DataFrames),
-``load_cool`` and ``create_cool``.  h5py is imported when a file is
-opened or written, pandas when a table is built: the card's machine may
-lack h5py, and reads ``.npz`` exports (``io.source.ArraySource``)
-instead.
+``load_cool`` and ``create_cool``.  Files are read and written with the
+port's own HDF5 code (``chromosight_torch.io.hdf5``), not h5py; pandas
+is imported when a table is built.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ import json
 
 import numpy as np
 
+from chromosight_torch.io import hdf5
 from chromosight_torch.io.source import CoolSource
 
 
@@ -37,8 +37,7 @@ class CoolFile(CoolSource):
 
     def __init__(self, path):
         super().__init__(path)
-        with self._h5py.File(self.path, "r") as f:
-            self._chrom_lengths = f[self.group]["chroms/length"][:].astype(np.int64)
+        self._chrom_lengths = self._file[self.group]["chroms/length"][:].astype(np.int64)
 
     def chroms(self):
         """Chromosome table as a DataFrame (name, length)."""
@@ -92,26 +91,33 @@ def load_cool(cool_path):
     return mat, chroms, bins, clr.binsize
 
 
+def _sorted_pairs(b1, b2):
+    """Whether the pairs (b1, b2) are in lexicographic order."""
+    step1 = np.diff(b1)
+    return not np.any((step1 < 0) | ((step1 == 0) & (np.diff(b2) < 0)))
+
+
 def create_cool(
     path, bins, pixels, assembly="unknown", metadata=None, minimal_dtypes=True
 ):
     """Write a minimal single-resolution .cool file
-    (``chromosight_tpu/io/cool.py:473-572``; the reference relies on
-    ``cooler.create_cooler``).
+    (``chromosight_tpu/io/cool.py:473-572``, which writes the same
+    datasets, dtypes and attributes with h5py; the reference relies on
+    ``cooler.create_cooler``), with ``chromosight_torch.io.hdf5``.
 
     Parameters
     ----------
     path : str
     bins : pandas.DataFrame with columns chrom, start, end (and optionally
         weight).
-    pixels : pandas.DataFrame with columns bin1_id, bin2_id, count
-        (upper triangle).
+    pixels : pandas.DataFrame, or a dict of numpy columns, with columns
+        bin1_id, bin2_id, count (upper triangle); sorted here by (bin1_id,
+        bin2_id) unless they already are.
     minimal_dtypes : bool
         When True (default), pixel id/count columns are stored in the
         narrowest lossless integer dtype (int32 when they fit); pass False
         for the canonical int64 columns ``cooler.create_cooler`` writes.
     """
-    import h5py
     import pandas as pd
 
     bins = bins.reset_index(drop=True)
@@ -126,58 +132,61 @@ def create_cool(
     )
     n_bins = len(bins)
     chrom_offset = np.zeros(len(chrom_names) + 1, dtype=np.int64)
-    for cid in chrom_ids:
-        chrom_offset[cid + 1] += 1
-    chrom_offset = np.cumsum(chrom_offset)
+    np.cumsum(np.bincount(chrom_ids, minlength=len(chrom_names)), out=chrom_offset[1:])
 
-    pixels = pixels.sort_values(["bin1_id", "bin2_id"]).reset_index(drop=True)
-    b1 = pixels["bin1_id"].to_numpy(np.int64)
-    b2 = pixels["bin2_id"].to_numpy(np.int64)
-    ct = pixels["count"].to_numpy()
+    b1 = np.asarray(pixels["bin1_id"])
+    b2 = np.asarray(pixels["bin2_id"])
+    ct = np.asarray(pixels["count"])
+    if not _sorted_pairs(b1, b2):
+        order = np.lexsort((b2, b1))
+        b1, b2, ct = b1[order], b2[order], ct[order]
     bin1_offset = np.zeros(n_bins + 1, dtype=np.int64)
-    np.add.at(bin1_offset, b1 + 1, 1)
-    bin1_offset = np.cumsum(bin1_offset)
+    np.cumsum(np.bincount(b1, minlength=n_bins), out=bin1_offset[1:])
 
     sizes = bins["end"].to_numpy(np.int64) - bins["start"].to_numpy(np.int64)
     binsize = int(np.bincount(sizes).argmax()) if len(sizes) else 0
 
-    with h5py.File(path, "w") as f:
-        f.attrs["format"] = "HDF5::Cooler"
-        f.attrs["format-version"] = "3"
-        f.attrs["format-url"] = "https://github.com/mirnylab/cooler"
-        f.attrs["bin-type"] = "fixed"
-        f.attrs["bin-size"] = binsize
-        f.attrs["storage-mode"] = "symmetric-upper"
-        f.attrs["nbins"] = n_bins
-        f.attrs["nchroms"] = len(chrom_names)
-        f.attrs["nnz"] = len(b1)
-        f.attrs["sum"] = float(ct.sum())
-        f.attrs["genome-assembly"] = assembly
-        f.attrs["generated-by"] = "chromosight-torch"
-        f.attrs["metadata"] = json.dumps(metadata or {})
-        f.create_dataset("chroms/name", data=np.array(chrom_names, dtype="S32"))
-        f.create_dataset("chroms/length", data=lengths.astype(np.int32))
-        f.create_dataset("bins/chrom", data=chrom_ids)
-        f.create_dataset("bins/start", data=bins["start"].to_numpy(np.int32))
-        f.create_dataset("bins/end", data=bins["end"].to_numpy(np.int32))
-        if "weight" in bins.columns:
-            f.create_dataset("bins/weight", data=bins["weight"].to_numpy(np.float64))
-        id_dtype = (
-            np.int32
-            if minimal_dtypes and n_bins <= np.iinfo(np.int32).max
-            else np.int64
-        )
-        if (
-            minimal_dtypes
-            and np.issubdtype(ct.dtype, np.integer)
-            and ct.size
-            and ct.max() <= np.iinfo(np.int32).max
-            and ct.min() >= 0
-        ):
-            ct = ct.astype(np.int32)
-        f.create_dataset("pixels/bin1_id", data=b1.astype(id_dtype))
-        f.create_dataset("pixels/bin2_id", data=b2.astype(id_dtype))
-        f.create_dataset("pixels/count", data=ct)
-        f.create_dataset("indexes/chrom_offset", data=chrom_offset)
-        f.create_dataset("indexes/bin1_offset", data=bin1_offset)
+    id_dtype = (
+        np.int32 if minimal_dtypes and n_bins <= np.iinfo(np.int32).max else np.int64
+    )
+    if (
+        minimal_dtypes
+        and np.issubdtype(ct.dtype, np.integer)
+        and ct.size
+        and ct.max() <= np.iinfo(np.int32).max
+        and ct.min() >= 0
+    ):
+        ct = ct.astype(np.int32, copy=False)
+    datasets = {
+        "chroms/name": np.array(chrom_names, dtype="S32"),
+        "chroms/length": lengths.astype(np.int32),
+        "bins/chrom": chrom_ids,
+        "bins/start": bins["start"].to_numpy(np.int32),
+        "bins/end": bins["end"].to_numpy(np.int32),
+    }
+    if "weight" in bins.columns:
+        datasets["bins/weight"] = bins["weight"].to_numpy(np.float64)
+    datasets.update({
+        "pixels/bin1_id": b1.astype(id_dtype, copy=False),
+        "pixels/bin2_id": b2.astype(id_dtype, copy=False),
+        "pixels/count": ct,
+        "indexes/chrom_offset": chrom_offset,
+        "indexes/bin1_offset": bin1_offset,
+    })
+    attrs = {
+        "format": "HDF5::Cooler",
+        "format-version": "3",
+        "format-url": "https://github.com/mirnylab/cooler",
+        "bin-type": "fixed",
+        "bin-size": binsize,
+        "storage-mode": "symmetric-upper",
+        "nbins": n_bins,
+        "nchroms": len(chrom_names),
+        "nnz": len(b1),
+        "sum": float(ct.sum()),
+        "genome-assembly": assembly,
+        "generated-by": "chromosight-torch",
+        "metadata": json.dumps(metadata or {}),
+    }
+    hdf5.write(path, datasets, attrs)
     return path

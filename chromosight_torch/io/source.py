@@ -12,9 +12,10 @@ what the detect paths and ICE balancing read: ``chromnames``, ``extent``,
 ``_chrom_offset``, ``pixel_chunks``, ``row_slice_raw`` and
 ``store_weights``.
 
-* ``CoolSource`` reads a ``.cool`` file with h5py, imported when one is
-  opened: the card's machine may not have h5py.  ICE weights are written
-  back into the file, as the JAX package does.
+* ``CoolSource`` reads a ``.cool`` file with the port's own HDF5 reader
+  (``chromosight_torch.io.hdf5``: numpy and the standard library, no
+  h5py).  ICE weights are written back into the file, as the JAX package
+  does.
 * ``ArraySource`` holds the tables in memory: from an ``.npz`` export
   (``to_npz``/``from_npz``) or from the synthetic genome generator of
   ``tools/make_synthetic_cool.py`` (``from_synthetic``).
@@ -27,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 from chromosight_torch import native
+from chromosight_torch.io import hdf5
 
 
 def native_scatter_available():
@@ -194,34 +196,31 @@ class _PixelSource:
 
 class CoolSource(_PixelSource):
     """A single-resolution ``.cool`` file (``file.cool`` or
-    ``file.cool::/group``), read with h5py."""
+    ``file.cool::/group``), read with the port's own HDF5 reader
+    (``chromosight_torch.io.hdf5``), which stays open while the source
+    lives."""
 
     def __init__(self, path):
-        import h5py
-
-        self._h5py = h5py
         self.path = str(path)
         self.group = "/"
         if "::" in self.path:
             self.path, self.group = self.path.split("::", 1)
-        with h5py.File(self.path, "r") as f:
-            g = f[self.group]
-            binsize = g.attrs.get("bin-size")
-            self._chrom_names = [
-                n.decode() if isinstance(n, bytes) else str(n)
-                for n in g["chroms/name"][:]
-            ]
-            self._chrom_offset = g["indexes/chrom_offset"][:].astype(np.int64)
-            self._bin1_offset = g["indexes/bin1_offset"][:].astype(np.int64)
-            self._bin_chrom_ids = g["bins/chrom"][:].astype(np.int64)
-            self._bin_start = g["bins/start"][:].astype(np.int64)
-            self._bin_end = g["bins/end"][:].astype(np.int64)
-            self._weight = (
-                g["bins/weight"][:].astype(np.float64)
-                if "weight" in g["bins"]
-                else None
-            )
-            self.info = dict(g.attrs)
+        self._file = hdf5.File(self.path)
+        g = self._file[self.group]
+        binsize = g.attrs.get("bin-size")
+        self._chrom_names = [
+            n.decode() if isinstance(n, bytes) else str(n) for n in g["chroms/name"][:]
+        ]
+        self._chrom_offset = g["indexes/chrom_offset"][:].astype(np.int64)
+        self._bin1_offset = g["indexes/bin1_offset"][:].astype(np.int64)
+        self._bin_chrom_ids = g["bins/chrom"][:].astype(np.int64)
+        self._bin_start = g["bins/start"][:].astype(np.int64)
+        self._bin_end = g["bins/end"][:].astype(np.int64)
+        self._weight = (
+            g["bins/weight"][:].astype(np.float64) if "weight" in g["bins"] else None
+        )
+        self._columns = tuple(g[f"pixels/{c}"] for c in ("bin1_id", "bin2_id", "count"))
+        self.info = dict(g.attrs)
         self.binsize = int(binsize) if binsize is not None else None
 
     def store_weights(self, weights, name="weight", stats=None):
@@ -231,23 +230,12 @@ class CoolSource(_PixelSource):
         weights = np.asarray(weights, dtype=np.float64)
         if weights.shape[0] != self.n_bins:
             raise ValueError("weights length must equal number of bins")
-        with self._h5py.File(self.path, "r+") as f:
-            g = f[self.group]
-            if name in g["bins"]:
-                del g["bins"][name]
-            d = g["bins"].create_dataset(name, data=weights)
-            for key, value in (stats or {}).items():
-                d.attrs[key] = value
+        with hdf5.File(self.path, "r+") as f:
+            f.write_dataset(f"{self.group.rstrip('/')}/bins/{name}", weights, stats)
         self._weight = weights
 
     def _pixels(self, lo, hi):
-        with self._h5py.File(self.path, "r") as f:
-            g = f[self.group]
-            return (
-                g["pixels/bin1_id"][lo:hi],
-                g["pixels/bin2_id"][lo:hi],
-                g["pixels/count"][lo:hi],
-            )
+        return tuple(column[lo:hi] for column in self._columns)
 
 
 class ArraySource(_PixelSource):

@@ -14,6 +14,7 @@ import shutil
 import subprocess
 import sys
 
+import h5py
 import numpy as np
 import pandas as pd
 import pytest
@@ -32,6 +33,7 @@ from torch_parity import assert_pearson_close, torch_one_thread  # noqa: F401
 ROOT = pathlib.Path(__file__).parents[1]
 DATA = ROOT / "tests" / "data"
 EXAMPLE_NPZ = DATA / "example_cool.npz"
+EXAMPLE_COOL = ROOT / "data_test" / "example.cool"
 
 # chromosight_tpu/cli/main.py TEST_LOG, up to the table line
 GOLDEN_LOG = """pearson set to 0.3 based on config file.
@@ -305,7 +307,10 @@ def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
     ``version``; TUTORIAL's Python API block runs on the npz with
     ``device="cpu"``; and detect (a short scan distance keeps the CPU run
     quick), quantify, detect --inter on the dense and on the tiled
-    engine, list-kernels and generate-config run from the npz."""
+    engine, list-kernels and generate-config run from the npz; and, as on
+    the card's machine, detect from data_test/example.cool gives the 89
+    golden loops, and create_cool and store_weights write files that the
+    port (and h5py, here) reads back."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
@@ -364,6 +369,23 @@ for limit, suffix in ((8192, "_inter"), (50, "_tiled")):
 assert tiled.TILES["scanned"] > 0
 assert cli.main(["list-kernels", "--long", "--mat"]) == 0
 assert cli.main(["generate-config", "--preset", "borders", {prefix + "_cfg"!r}]) == 0
+
+# the card's machine reads .cool files with the port's own HDF5 code:
+# detect from data_test/example.cool, then create_cool and store_weights
+import shutil
+argv = ["detect", "--no-plotting", {str(EXAMPLE_COOL)!r}, {prefix + "_cool"!r}]
+assert cli.main(argv, device="cpu") == 0
+from chromosight_torch.io import CoolFile, create_cool
+from chromosight_torch.io.source import CoolSource
+clr = CoolFile({str(EXAMPLE_COOL)!r})
+pixels = dict(zip(("bin1_id", "bin2_id", "count"), clr._pixels(0, clr.nnz)))
+create_cool({prefix + "_new.cool"!r}, clr.bins(), pixels)
+shutil.copy({str(EXAMPLE_COOL)!r}, {prefix + "_copy.cool"!r})
+for path in ({prefix + "_new.cool"!r}, {prefix + "_copy.cool"!r}):
+    CoolSource(path).store_weights(np.arange(720.0), stats={{"mad_max": 5}})
+    again = CoolFile(path)
+    assert np.array_equal(again.weights, np.arange(720.0)) and again.nnz == clr.nnz
+    assert again.info["nnz"] == clr.info["nnz"] and again.chroms().equals(clr.chroms())
 assert not any(m == "chromosight_tpu" or m.startswith("chromosight_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 assert sys.modules["jax"] is None and sys.modules["h5py"] is None
@@ -374,6 +396,13 @@ assert sys.modules["jax"] is None and sys.modules["h5py"] is None
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(pathlib.Path(prefix + ".tsv").read_text().splitlines()) > 1
+    golden = pd.read_csv(DATA / "golden_detect_loops.tsv", sep="\t")
+    from_cool = pd.read_csv(prefix + "_cool.tsv", sep="\t")
+    key = ["bin1", "bin2", "kernel_id", "iteration"]
+    assert len(from_cool) == 89 and from_cool[key].equals(golden[key])
+    assert np.abs(from_cool.score - golden.score).max() < 5e-5
+    with h5py.File(prefix + "_new.cool", "r") as f:
+        assert f["bins/weight"][:].tolist() == list(np.arange(720.0))
     assert len(pathlib.Path(prefix + "_q.tsv").read_text().splitlines()) == 54
     assert len(list(tmp_path.glob("blocked_cfg.*.txt"))) == 3
     assert "loops_small" in res.stdout

@@ -1,8 +1,8 @@
 """The port's CLI detect against the reference-generated goldens of the
 single-option configs (tests/test_golden_outputs.py:70-121), and its
 --dump snapshots against tests/data/golden_dump
-(tests/test_golden_outputs.py:268-330), from the npz export of
-data_test/example.cool, on CPU.  Borders (three 17x17 kernels) runs
+(tests/test_golden_outputs.py:268-330), from data_test/example.cool read
+through the port's own HDF5 reader, on CPU.  Borders (three 17x17 kernels) runs
 through the fused K-kernel launch."""
 
 import contextlib
@@ -17,6 +17,7 @@ from chromosight_torch.cli.main import main
 from torch_parity import torch_one_thread  # noqa: F401
 
 DATA = pathlib.Path(__file__).parent / "data"
+EXAMPLE_COOL = str(pathlib.Path(__file__).parents[1] / "data_test" / "example.cool")
 
 
 @pytest.mark.parametrize(
@@ -44,7 +45,7 @@ def test_detect_flag_configs_match_reference(tmp_path, golden, flags):
     prefix = str(tmp_path / "out")
     with contextlib.redirect_stderr(io.StringIO()):
         rc = main(
-            ["detect", "--no-plotting", *flags, str(DATA / "example_cool.npz"), prefix],
+            ["detect", "--no-plotting", *flags, EXAMPLE_COOL, prefix],
             device="cpu",
         )
     assert rc == 0
@@ -72,7 +73,7 @@ def test_detect_windows_match_reference(tmp_path):
     with contextlib.redirect_stderr(io.StringIO()):
         rc = main(
             ["detect", "--no-plotting", "--win-fmt", "json",
-             str(DATA / "example_cool.npz"), prefix],
+             EXAMPLE_COOL, prefix],
             device="cpu",
         )
     assert rc == 0
@@ -110,7 +111,7 @@ def test_detect_dump_snapshots_match_reference(tmp_path):
         rc = main(
             [
                 "detect", "--no-plotting", "--iterations", "1", "--dump",
-                str(dumpdir), str(DATA / "example_cool.npz"), prefix,
+                str(dumpdir), EXAMPLE_COOL, prefix,
             ],
             device="cpu",
         )
