@@ -42,7 +42,15 @@ Phases, one line or block each; any failure raises (non-zero exit):
             shape): ``detect`` with loops (recall of the planted loops) and
             with borders (13 fused launches), and ``quantify`` of the planted
             loops written as a bed2d file, scores held against the sweep
-            kernel's; walls, stages, launches and peak device memory;
+            kernel's; walls, stages, launches and peak device memory; each
+            chromosome's band upload (the count path: its mode, u4, u8 or
+            u16, its exceptions and bytes; the run fails if one took the
+            float32 band); then the three runs again with
+            ``contact_map.COUNT_PACKING = None`` (the float32 band scattered
+            and balanced on the host): tables and windows byte for byte,
+            ``io: fetch+scatter``, ``io: upload`` and walls side by side;
+            and chr1's preprocessed band through u4, u8, u16 and the f32
+            path, balanced and raw, bit for bit;
 6. golden-inter  ``detect --inter`` on data_test/example.cool
             reproduces tests/data/golden_detect_loops_inter.tsv on the dense
             engine and, with ``DENSE_LIMIT`` lowered to 50, on the tiled
@@ -52,9 +60,11 @@ Phases, one line or block each; any failure raises (non-zero exit):
             contacts at 1e-3 of the cells: ``detect --inter`` with loops
             (recall, trans calls, tiles scanned and skipped, walls, stages,
             launches, peak device memory held below one dense trans map);
-            then an 8,192 x 8,192 cut of a trans map through the dense and
-            the tiled engines: the same corr, foci and calls (the 10%
-            zero rule lifted for the calls);
+            the trans fetch of each pair through the native
+            ``trans_coo_balanced`` against its numpy fallback (the same
+            triplets, seconds of both); then an 8,192 x 8,192 cut of a
+            trans map through the dense and the tiled engines: the same
+            corr, foci and calls (the 10% zero rule lifted for the calls);
 8. surface  the rest of the command line: ``test`` (offline: the download
             is replaced by a failure, so it reads data_test/example.cool; 89
             patterns and the golden log lines), ``list-kernels --long
@@ -72,14 +82,17 @@ Phases, one line or block each; any failure raises (non-zero exit):
             first three chromosomes (the 10% zero rule lifted: half the
             contacts leave most windows of this map over 10% zeros),
             ``--threads 4`` against ``--threads 1`` with one seed; and the
-            native band scatter of the genome on the main thread and on a
-            thread of its own.  It runs after phase 5, on the same genome.
+            native float32 band scatter and count scatter of the genome, on
+            the main thread and on a thread of its own.  It runs after
+            phase 5, on the same genome.
 8b. cool-genome  phase 5's genome written as a ``.cool`` (3.8 GB) by the
             port's ``create_cool`` (the free space checked first), then
             ``detect`` with loops from the file (its pages dropped from the
-            page cache first, then again from the cache) and once more from
-            memory: tables byte for byte phase 5's, ``io: fetch+scatter``
-            and walls side by side; the file deleted.
+            page cache first, then again from the cache, then through the
+            float32 band) and once more from memory: tables byte for byte
+            phase 5's, the bytes read from each pixel column (the count
+            path never reads bin1_id), ``io: fetch+scatter``, ``io:
+            upload`` and walls side by side; the file deleted.
 9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
             card by default: TUTORIAL's block and detect_example.ipynb's loop
             on the example map (each map's calls those of the command line's
@@ -98,8 +111,9 @@ Phases, one line or block each; any failure raises (non-zero exit):
 11. instruments  chromosight_torch.observability on the loops run of
             phase 5's genome (it runs after phase 5): compute accounting per
             program family, link bytes, device_peaks(), FLOP/s per family
-            over its stage; 13 band dispatches, uploads equal to the bands'
-            bytes, downloads; a CHROMOSIGHT_TPU_PROFILE trace of one
+            over its stage; 13 band dispatches, uploads equal to the packed
+            bands' bytes (reckoned from each map's mode and exceptions, the
+            float32 bands' bytes beside them), downloads; a CHROMOSIGHT_TPU_PROFILE trace of one
             chromosome naming the band kernel, and of the genome's detect
             passes (the card's busy and idle share, device time by
             kernel); the exit report of a command-line process with
@@ -137,6 +151,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
 import chromosight_torch.cli.main as cli  # noqa: E402
+import chromosight_torch.native as host_native  # noqa: E402
 import chromosight_torch.observability as observability  # noqa: E402
 import chromosight_torch.ops.band_pearson as bp  # noqa: E402
 import chromosight_torch.ops.tiled as tiled  # noqa: E402
@@ -150,6 +165,7 @@ from chromosight_torch.detection import (  # noqa: E402
     quantify_banded,
 )
 from chromosight_torch.device import reset_stages, stage_seconds  # noqa: E402
+from chromosight_torch.io import hdf5  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
 from chromosight_torch.io.cool import CoolFile, bins_frame, create_cool  # noqa: E402
 from chromosight_torch.io.source import (  # noqa: E402
@@ -203,6 +219,7 @@ COOLER_LAYOUT = "tests/data/example_cooler_layout.cool"
 GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
 # the windows of tests/test_fp32_boundaries.py
 FP32_N, FP32_WIDTH, FP32_MAX_DIST = 512, 128, 100
+COUNT_MODES = ("u4", "u8", "u16")
 
 
 def check(cond, msg):
@@ -225,6 +242,77 @@ def reset_launches():
 
 def launches():
     return {"single": bp.LAUNCHES, "multi": bp.LAUNCHES_MULTI}
+
+
+@contextlib.contextmanager
+def packing(mode):
+    """Band maps made inside the block ship their counts in ``mode``
+    (``contact_map.COUNT_PACKING``: "u4", "u8", "u16"; None: the float32
+    band); the default is restored after it."""
+    old = contact_map.COUNT_PACKING
+    contact_map.COUNT_PACKING = mode
+    try:
+        yield
+    finally:
+        contact_map.COUNT_PACKING = old
+
+
+def packed_bytes(record):
+    """The bytes a balanced band map's upload ships, reckoned from its
+    ``observability.band_uploads()`` record: the packed arrays, 8 bytes per
+    exception (int32 index, float32 value) and the rows' float64
+    weights; or the float32 band."""
+    (n, width), mode = record["shape"], record["mode"]
+    extra = 8 * record["exceptions"] + 8 * n
+    if mode == "u4":
+        head = contact_map.U4_HEAD
+        return n * head + n * ((width - head + 1) // 2) + extra
+    if mode == "u8":
+        return n * width + extra
+    if mode == "u16":
+        return 2 * n * width + extra
+    return 4 * n * width
+
+
+def band_uploads(source, tag, modes=COUNT_MODES):
+    """Each of the genome's chromosomes' band upload in the last run
+    (``observability.band_uploads()``: mode, exceptions, bytes), printed;
+    fails unless every one took one of ``modes``.  Returns the bytes
+    they shipped."""
+    uploads = observability.band_uploads()
+    records = [uploads[f"{c}-{c}"] for c in source.chromnames]
+    print(f"[{tag}] band uploads (mode, exceptions, bytes): " + "; ".join(
+        f"{c} {r['mode']} {r['exceptions']} {packed_bytes(r)}"
+        for c, r in zip(source.chromnames, records)))
+    left = [c for c, r in zip(source.chromnames, records) if r["mode"] not in modes]
+    check(not left, f"{tag}: {left} did not take {modes}")
+    return sum(packed_bytes(r) for r in records)
+
+
+def outputs(prefix):
+    """{file name suffix: bytes} of the files a run wrote at ``prefix``."""
+    path = pathlib.Path(prefix)
+    return {p.name[len(path.name):]: p.read_bytes()
+            for p in path.parent.glob(path.name + ".*")}
+
+
+@contextlib.contextmanager
+def counting_reads(totals):
+    """Bytes that the port's HDF5 reader returns inside the block, added
+    to ``totals`` by dataset ("pixels/count", ...)."""
+    getitem = hdf5.Dataset.__getitem__
+
+    def counted(self, key):
+        out = getitem(self, key)
+        name = "/".join(self.name.rstrip("/").rsplit("/", 2)[-2:])
+        totals[name] = totals.get(name, 0) + out.nbytes
+        return out
+
+    hdf5.Dataset.__getitem__ = counted
+    try:
+        yield totals
+    finally:
+        hdf5.Dataset.__getitem__ = getitem
 
 
 def phase_env():
@@ -928,6 +1016,7 @@ def phase_genome(source, workdir):
           f"{len(table['bin1'])} calls, recall {recall:.4f} ({len(source.planted)} "
           f"planted, +-2 bins)")
     n_chroms = len(source.chromnames)
+    band_uploads(source, "genome")
     check(seen == {"single": n_chroms, "multi": 0}, f"loops launches {seen}")
     check(recall >= 0.95, f"recall {recall} below 0.95")
     check(all(np.isfinite(table["score"])) and all(np.isfinite(table["pvalue"])),
@@ -939,6 +1028,7 @@ def phase_genome(source, workdir):
     runs["borders"] = seen
     n_calls = 0 if table is None else len(table["bin1"])
     print(f"[genome] borders: {n_calls} calls from {seen['multi']} fused launches")
+    band_uploads(source, "genome")
     check(seen == {"single": 0, "multi": n_chroms}, f"borders launches {seen}")
     if table is not None:
         check(all(np.isfinite(table["score"])), "non-finite border scores")
@@ -951,6 +1041,7 @@ def phase_genome(source, workdir):
         "quantify planted loops", lambda: quantify(source, args, DEVICE)
     )
     runs["quantify"] = seen
+    band_uploads(source, "genome")
     scored = ~np.isnan(table["score"])
     print(f"[genome] quantify: {len(table['score'])} pairs, {int(scored.sum())} scored, "
           f"median score {np.nanmedian(table['score']):.4f}, "
@@ -961,7 +1052,68 @@ def phase_genome(source, workdir):
           "planted loops score low")
     check(seen == {"single": 0, "multi": 0}, f"quantify swept the band: {seen}")
     check_quantify_against_sweep(source, table)
+    compare_f32_path(source, workdir, bed, runs)
+    check_count_modes(source)
     return runs
+
+
+def check_count_modes(source):
+    """chr1's band made on the card through each count mode (u4, u8 and
+    u16, set by ``contact_map.COUNT_PACKING``) and through the f32 path,
+    balanced and at --norm raw: every preprocessed band bit for bit the
+    f32 path's."""
+    cfg = load_kernel_config("loops")
+    for norm in ("auto", "raw"):
+        bands = {}
+        for mode in (*COUNT_MODES, "f32"):
+            with packing(None if mode == "f32" else mode):
+                genome = HicGenome(source, kernel_config=cfg, device=DEVICE)
+                quietly(genome.normalize, norm)
+                genome.compute_max_dist()
+                quietly(genome.make_sub_matrices)
+                cm = genome.sub_mats.contact_map[0]
+                observability.reset()
+                cm.create_mat()
+            got = observability.band_uploads()[cm.name]["mode"]
+            check(got == mode, f"count modes: {mode} asked, {got} taken")
+            bands[mode] = cm.band.cpu().numpy().tobytes()
+            cm.destroy_mat()
+        shape = observability.band_uploads()[cm.name]["shape"]
+        check(all(band == bands["f32"] for band in bands.values()),
+              f"count modes at --norm {norm}: a band differs from the f32 path's")
+        print(f"[genome] {cm.name} {shape} at --norm {norm}: the u4, u8 and u16 count "
+              f"paths' preprocessed bands bit for bit the f32 path's")
+
+
+def compare_f32_path(source, workdir, bed, runs):
+    """Loops, borders and quantify of the genome once more with
+    ``contact_map.COUNT_PACKING = None`` (each chromosome's balanced float32
+    band scattered on the host and uploaded): tables and windows byte for
+    byte the count path's, the same launches; ``io: fetch+scatter``,
+    ``io: upload`` and the wall of both paths side by side."""
+    names = {"loops": ("detect loops", ["detect"], "genome"),
+             "borders": ("detect borders", ["detect", "--pattern", "borders"], "borders"),
+             "quantify": ("quantify planted loops", ["quantify", bed], "quantify")}
+    with packing(None):
+        for key, (name, cmd, prefix) in names.items():
+            args = parse_args([cmd[0], "--no-plotting", *cmd[1:], "synthetic",
+                               f"{workdir}/{prefix}_f32"], "")
+            fn = quantify if cmd[0] == "quantify" else detect
+            _, seen = run_genome(f"{name}, f32 path",
+                                 lambda: quietly(fn, source, args, DEVICE))
+            band_uploads(source, "genome", modes=("f32",))
+            check(seen == runs[key], f"{name}, f32 path: launches {seen}")
+            same = outputs(f"{workdir}/{prefix}_f32") == outputs(f"{workdir}/{prefix}")
+            check(same and outputs(f"{workdir}/{prefix}"),
+                  f"{name}: the f32 path's table or windows differ from the count path's")
+    print(f"[genome] count path / f32 path: tables and windows byte for byte; "
+          f"{nvidia_smi('name,power.limit')}")
+    for name, _, _ in names.values():
+        a, b = STAGES[name], STAGES[f"{name}, f32 path"]
+        print(f"[genome]   {name} (s): " + ", ".join(
+            f"{stage} {a.get(stage, 0.0):.3f} / {b.get(stage, 0.0):.3f}"
+            for stage in ("io: fetch+scatter", "io: upload"))
+            + f", wall {WALLS[name]:.2f} / {WALLS[f'{name}, f32 path']:.2f}")
 
 
 def phase_surface_example(workdir):
@@ -1061,12 +1213,17 @@ def genome_run(source, workdir, tag, flags=(), device=DEVICE, rng=None):
     return table, seen, out
 
 
-def scatter_seconds(source, width=418):
+def scatter_seconds(source, counts=False, width=418):
     """Seconds of the native band scatter of every chromosome of the
-    genome, on the calling thread."""
+    genome, on the calling thread: the balanced float32 band, or with
+    ``counts`` the packed raw counts of the count path."""
     t0 = time.perf_counter()
     for chrom in source.chromnames:
-        source.band_upper(source.extent(chrom), width, balance=True)
+        if counts:
+            source.band_upper_counts_auto(source.extent(chrom), width,
+                                          u4_head=contact_map.U4_HEAD)
+        else:
+            source.band_upper(source.extent(chrom), width, balance=True)
     return time.perf_counter() - t0
 
 
@@ -1115,11 +1272,12 @@ def phase_surface_genome(source, workdir):
         check(seen == {"single": n_chroms, "multi": 0}, f"{tag}: launches {seen}")
     print("[surface] walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     # why the scheduler's producer is the caller's thread
-    times = [(scatter_seconds(source), on_new_thread(scatter_seconds, source))
-             for _ in range(2)]
-    print("[surface] native band scatter of the genome's chromosomes (s), on the main "
-          "thread / on a thread of its own: "
-          + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in times))
+    for counts, what in ((False, "float32 band scatter"), (True, "count scatter")):
+        times = [(scatter_seconds(source, counts), on_new_thread(scatter_seconds, source, counts))
+                 for _ in range(2)]
+        print(f"[surface] native {what} of the genome's chromosomes (s), on the main "
+              "thread / on a thread of its own: "
+              + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in times))
 
     first = SUBSAMPLE_CHROMS
     end = int(source._chrom_offset[first])
@@ -1301,7 +1459,39 @@ def phase_genome_inter(workdir):
     check(peak < dense_map / 2, f"peak device memory {peak} near a dense trans map")
     check(all(np.isfinite(table["score"])) and all(np.isfinite(table["pvalue"])),
           "non-finite --inter scores")
+    check_trans_fetch(source)
     check_inter_cut(source)
+
+
+def check_trans_fetch(source):
+    """Each trans pair's fetch through the native ``trans_coo_balanced``
+    against its numpy fallback: the same triplets; host seconds of
+    both, beside the run's ``io: trans fetch``."""
+    names = source.chromnames
+    pairs = [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
+    seconds = {"native": 0.0, "numpy": 0.0}
+    fetched = {}
+    for how in ("native", "numpy"):
+        saved = host_native.trans_coo_balanced
+        if how == "numpy":
+            host_native.trans_coo_balanced = lambda *args: None
+        try:
+            for pair in pairs:
+                t0 = time.perf_counter()
+                out = source.trans_coo_raw(source.extent(pair[0]), source.extent(pair[1]),
+                                           balance=True)
+                seconds[how] += time.perf_counter() - t0
+                fetched.setdefault(pair, []).append(out)
+        finally:
+            host_native.trans_coo_balanced = saved
+    for pair, (a, b) in fetched.items():
+        check(all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b)),
+              f"trans fetch of {pair}: native and numpy differ")
+    n = sum(len(a[0]) for a, _ in fetched.values())
+    print(f"[genome-inter] trans fetch of the {len(pairs)} pairs ({n} pixels): native "
+          f"{seconds['native']:.3f} s, numpy fallback {seconds['numpy']:.3f} s, the same "
+          f"triplets; io: trans fetch of the detect run "
+          f"{STAGES['detect --inter loops'].get('io: trans fetch', 0.0):.3f} s")
 
 
 def source_fingerprint(source):
@@ -1431,13 +1621,16 @@ def phase_cool_genome(source, workdir):
               + pathlib.Path(f"{workdir}/genome.json").read_bytes())
     n_chroms = len(source.chromnames)
     runs = {"memory (phase 5)": "detect loops"}
+    read = {}
     try:
-        for tag in ("cool, pages dropped", "cool, page cache", "memory"):
+        for tag in ("cool, pages dropped", "cool, page cache", "cool, page cache, f32 path",
+                    "memory"):
             if tag == "cool, pages dropped":
                 evict(path)
             prefix = f"{workdir}/cool_genome_{len(runs)}"
             contacts = path if tag.startswith("cool") else "synthetic"
             args = parse_args(["detect", "--no-plotting", contacts, prefix], "")
+            f32 = tag.endswith("f32 path")
 
             def run_detect():
                 opened = open_contacts(path) if tag.startswith("cool") else source
@@ -1445,29 +1638,39 @@ def phase_cool_genome(source, workdir):
                     return detect(opened, args, DEVICE)
 
             runs[tag] = f"detect loops from {tag}"
-            _, seen = run_genome(runs[tag], run_detect, tag="cool-genome")
+            with packing(None if f32 else contact_map.COUNT_PACKING), \
+                    counting_reads(read.setdefault(tag, {})):
+                _, seen = run_genome(runs[tag], run_detect, tag="cool-genome")
+            band_uploads(source, "cool-genome", modes=("f32",) if f32 else COUNT_MODES)
             out = (pathlib.Path(prefix + ".tsv").read_bytes()
                    + pathlib.Path(prefix + ".json").read_bytes())
             check(out == stored, f"cool-genome: the {tag} table differs from phase 5's")
             check(seen == {"single": n_chroms, "multi": 0}, f"cool-genome: launches {seen}")
+            if tag.startswith("cool"):
+                # the count path reads bin2_id and count, never bin1_id
+                check(("pixels/bin1_id" in read[tag]) == f32,
+                      f"cool-genome: {tag} read {sorted(read[tag])}")
     finally:
         os.unlink(path)
     print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run; "
           f"{nvidia_smi('name,power.limit')}")
     for tag, name in runs.items():
+        pixels = {k: v for k, v in read.get(tag, {}).items() if k.startswith("pixels/")}
         print(f"[cool-genome] {tag}: io: fetch+scatter "
-              f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, wall {WALLS[name]:.2f} s")
+              f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, io: upload "
+              f"{STAGES[name].get('io: upload', 0.0):.3f} s, wall {WALLS[name]:.2f} s"
+              + (f"; bytes read {sum(pixels.values())} {json.dumps(pixels)}" if pixels else ""))
 
 
 def phase_instruments(source, workdir):
     """The port's instruments (chromosight_torch.observability) on the
     genome loops run (13 x 48,000 bins): the compute accounting per program
     family, the link bytes, the card's peaks and each family's FLOP/s over
-    its stage; 13 band dispatches, the uploads equal to the bands' bytes
-    worked out from the chromosome sizes, downloads; then a torch.profiler
-    trace (CHROMOSIGHT_TPU_PROFILE) of one chromosome that names the band
-    kernel, and the exit report of a command-line process with
-    CHROMOSIGHT_TPU_TIMINGS=1."""
+    its stage; 13 band dispatches, the uploads equal to the packed bands'
+    bytes worked out from each map's mode, exceptions and size, downloads;
+    then a torch.profiler trace (CHROMOSIGHT_TPU_PROFILE) of one chromosome
+    that names the band kernel, and the exit report of a command-line
+    process with CHROMOSIGHT_TPU_TIMINGS=1."""
     cfg = load_kernel_config("loops")
     args = parse_args(["detect", "--no-plotting", "synthetic", f"{workdir}/instr"], "")
 
@@ -1493,16 +1696,21 @@ def phase_instruments(source, workdir):
     width = min(cfg["max_dist"] // BINSIZE, GENOME_BINS) + max(np.shape(cfg["kernels"][0])) + 1
     bands = sum(4 * (end - start) * width for start, end in
                 (source.extent(chrom) for chrom in source.chromnames))
+    packed = band_uploads(source, "instruments")
+    check(all(r["shape"][1] == width for r in observability.band_uploads().values()),
+          "instruments: band widths")
     check(compute.get("band_normxcorr", {}).get("dispatches") == len(source.chromnames),
           f"instruments: band dispatches {compute.get('band_normxcorr')}")
     check(compute["band_preprocess"]["dispatches"] == len(source.chromnames),
           "instruments: band_preprocess dispatches")
-    check(link.get("upload") == bands,
-          f"instruments: uploads {link.get('upload')}, the bands hold {bands} bytes")
+    check(link.get("upload") == packed,
+          f"instruments: uploads {link.get('upload')}, the packed bands hold {packed} bytes")
     check(link.get("download", 0) > 0, "instruments: no download counted")
     print(f"[instruments] {compute['band_normxcorr']['dispatches']} band dispatches; uploads "
-          f"{link['upload']} bytes = the {len(source.chromnames)} bands' float32 bytes "
-          f"(n x {width} each); downloads {link['download']} bytes")
+          f"{link['upload']} bytes = the {len(source.chromnames)} packed bands with their "
+          f"exceptions and float64 weights ({packed} bytes reckoned from their modes); their "
+          f"float32 bands would hold {bands} bytes (n x {width} each, "
+          f"{bands / packed:.2f}x); downloads {link['download']} bytes")
 
     # a profiler trace of one chromosome's detect pass
     trace_dir = pathlib.Path(workdir) / "trace"

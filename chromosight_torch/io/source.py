@@ -5,9 +5,11 @@ chromosome table, a bin table and an upper-triangle pixel table sorted by
 (bin1, bin2) and indexed by ``bin1_offset`` (the cool layout).  It offers
 what the detect paths and ICE balancing read: ``chromnames``, ``extent``,
 ``binsize``, ``weights``, ``info`` (``info["sum"]``, the contact total
-``--subsample`` reads), ``bins()``, ``band_upper`` (intra band),
-``trans_coo_raw`` (trans maps), ``pixels_coo`` (dense intra maps,
-``--subsample``, plots) and, for
+``--subsample`` reads), ``bins()``, ``band_upper`` (intra band, balanced
+float32), ``band_upper_counts_auto`` (intra band of raw counts packed
+into u4/u8/u16 for the card to finalize), ``trans_coo_raw`` (trans
+maps), ``pixels_coo`` (dense intra maps, ``--subsample``, plots) and,
+for
 ``chromosight_torch.ops.balance.ice_balance``, ``n_bins``, ``nnz``,
 ``_chrom_offset``, ``pixel_chunks``, ``row_slice_raw`` and
 ``store_weights``.
@@ -40,7 +42,9 @@ def native_scatter_available():
 class _PixelSource:
     """Accessors shared by the sources.  Subclasses set the tables and
     implement ``_pixels(lo, hi)`` -> (bin1, bin2, count) of pixel rows
-    [lo, hi) in their stored dtypes."""
+    [lo, hi) in their stored dtypes, ``_pixels_b2_ct(lo, hi)`` -> (bin2,
+    count) of the same rows without reading bin1 (``bin1_offset`` implies
+    it), and ``_count_dtype`` (the stored count dtype)."""
 
     _chrom_names: list
     _chrom_offset: np.ndarray
@@ -121,6 +125,57 @@ class _PixelSource:
         band[b1 - s, d] = vals
         return band
 
+    def band_upper_counts_auto(
+        self, extent, width, n_rows=None, allow_u8=True, allow_u4=True, *, u4_head
+    ):
+        """Upper band of RAW counts in the narrowest exact form
+        (``chromosight_tpu/io/cool.py:277-334``):
+
+        * ``("u4", head, tail, exc_idx, exc_val)``: columns [0, d0) as
+          uint8 (n_rows, d0), columns [d0, width) two per byte (even
+          column in the low nibble), with d0 = ``u4_head`` (only while
+          0 < d0 <= width // 2);
+        * ``("u8", band_u8, exc_idx, exc_val)``;
+        * ``("u16", band_u16)``;
+        * None: no native library, a count dtype other than int32, int64,
+          float32 or float64, a count that is non-integral, negative or
+          above 2^24 (above 65535 in u16), or more exceptions than the
+          packing saves; the caller then ships :meth:`band_upper`.
+
+        Exceptions are the counts that do not fit their lane (head > 255,
+        tail > 15), as int64 flat indices into the unpacked (n_rows,
+        width) band and float32 values, in no set order.  Eligibility is
+        checked before the read, ``bin2`` and ``count`` of the rows are
+        read once (``bin1_offset`` implies ``bin1``), and the u4 -> u8 ->
+        u16 fallbacks scatter the slices already in memory again."""
+        if native.get_lib() is None:
+            return None
+        s, e = extent
+        if n_rows is None:
+            n_rows = e - s
+        supported = tuple(np.dtype(t) for t in (np.int32, np.int64, np.float32, np.float64))
+        if self._count_dtype not in supported:
+            return None
+        lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
+        if hi <= lo:
+            return ("u16", np.zeros((n_rows, width), dtype=np.uint16))
+        b2, ct = self._pixels_b2_ct(lo, hi)
+        indptr = self._bin1_offset[s : e + 1]
+        if allow_u4 and allow_u8 and 0 < u4_head <= width // 2:
+            out = native.band_scatter_counts_u4_indptr(
+                indptr, b2, ct, s, e, width, u4_head, n_rows=n_rows
+            )
+            if out is not None:
+                return ("u4",) + out
+        if allow_u8:
+            out = native.band_scatter_counts_u8_indptr(
+                indptr, b2, ct, s, e, width, n_rows=n_rows
+            )
+            if out is not None:
+                return ("u8",) + out
+        band = native.band_scatter_counts_indptr(indptr, b2, ct, s, e, width, n_rows=n_rows)
+        return None if band is None else ("u16", band)
+
     def _bbox(self, s1, e1, s2, e2):
         """Stored (upper-triangle) pixels with bin1 in [s1, e1) and bin2
         in [s2, e2): (bin1, bin2, count) in their stored dtypes."""
@@ -149,24 +204,39 @@ class _PixelSource:
         return rows - s1, cols - s2, vals
 
     def trans_coo_raw(self, extent1, extent2, balance=False):
-        """COO triplets of a trans rectangle (e1 <= s2), which lies wholly
-        in the stored upper triangle: one row slice, float32 values
-        computed as ``count * w[bin1] * w[bin2]`` in float64 when
-        ``balance``, as the JAX package's native ``trans_coo_raw`` gives
-        them (``chromosight_tpu/io/cool.py:350-395``); None where the
-        ranges overlap."""
+        """COO triplets (rows, cols, values) of a trans rectangle (e1 <=
+        s2), which lies wholly in the stored upper triangle, in local
+        coordinates: int32 rows and cols, float32 values computed as
+        ``count * w[bin1] * w[bin2]`` in float64 when ``balance``; None
+        where the ranges overlap.
+
+        The row slice's ``bin2`` and ``count`` are read in their stored
+        dtypes (never ``bin1``), and the native ``trans_coo_balanced``
+        finds each row's columns in [s2, e2) by two binary searches and
+        fills the triplets in one parallel pass
+        (``chromosight_tpu/io/cool.py:350-395``); without the native
+        library, a numpy filter of the same slice gives the same
+        triplets."""
         s1, e1 = extent1
         s2, e2 = extent2
         if e1 > s2:
             return None
         self._check_balance(balance)
-        b1, b2, ct = self._bbox(s1, e1, s2, e2)
-        rows, cols = b1.astype(np.int64), b2.astype(np.int64)
-        vals = ct.astype(np.float32)
+        lo, hi = int(self._bin1_offset[s1]), int(self._bin1_offset[e1])
+        b2, ct = self._pixels_b2_ct(lo, hi)
+        w1 = w2 = None
         if balance:
-            w = self._weight
-            vals = (ct.astype(np.float64) * w[rows] * w[cols]).astype(np.float32)
-        return rows - s1, cols - s2, vals
+            w1, w2 = self._weight[s1:e1], self._weight[s2:e2]
+        indptr = self._bin1_offset[s1 : e1 + 1]
+        out = native.trans_coo_balanced(indptr, b2, ct, s2, e2, w1, w2)
+        if out is not None:
+            return out
+        rows = np.repeat(np.arange(e1 - s1, dtype=np.int32), np.diff(indptr))
+        keep = (b2 >= s2) & (b2 < e2)
+        rows, cols, ct = rows[keep], (b2[keep] - s2).astype(np.int32), ct[keep]
+        if balance:
+            return rows, cols, (ct.astype(np.float64) * w1[rows] * w2[cols]).astype(np.float32)
+        return rows, cols, ct.astype(np.float32)
 
     def _check_balance(self, balance):
         if balance and self._weight is None:
@@ -179,7 +249,7 @@ class _PixelSource:
         """``(indptr, bin2, count)`` of rows [s, e) in the stored dtypes;
         ``indptr`` is the absolute ``bin1_offset[s : e+1]`` slice."""
         lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
-        _, b2, ct = self._pixels(lo, hi)
+        b2, ct = self._pixels_b2_ct(lo, hi)
         return self._bin1_offset[s : e + 1], b2, ct
 
     def pixel_chunks(self, chunksize=10_000_000):
@@ -234,8 +304,15 @@ class CoolSource(_PixelSource):
             f.write_dataset(f"{self.group.rstrip('/')}/bins/{name}", weights, stats)
         self._weight = weights
 
+    @property
+    def _count_dtype(self):
+        return self._columns[2].dtype
+
     def _pixels(self, lo, hi):
         return tuple(column[lo:hi] for column in self._columns)
+
+    def _pixels_b2_ct(self, lo, hi):
+        return self._columns[1][lo:hi], self._columns[2][lo:hi]
 
 
 class ArraySource(_PixelSource):
@@ -286,8 +363,15 @@ class ArraySource(_PixelSource):
         """The attributes a cool file would hold: its contact total."""
         return {"sum": float(self.count.sum())}
 
+    @property
+    def _count_dtype(self):
+        return self.count.dtype
+
     def _pixels(self, lo, hi):
         return self.bin1[lo:hi], self.bin2[lo:hi], self.count[lo:hi]
+
+    def _pixels_b2_ct(self, lo, hi):
+        return self.bin2[lo:hi], self.count[lo:hi]
 
     def store_weights(self, weights, name="weight", stats=None):
         """Keep balancing weights (``ice_balance(..., store=True)``)."""

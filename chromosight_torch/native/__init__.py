@@ -1,8 +1,11 @@
 """Native (C++) host kernels, bound via ctypes with transparent fallback.
 
 The port's copy of the entries of ``chromosight_tpu/native`` that it
-calls: ``cc_label``, ``remove_neighbours``, ``band_scatter_fused`` and the
-ICE loops (``marginal_sums``, ``ice_iterate``, ``ice_iterate_csr``,
+calls: ``cc_label``, ``coo_to_band``, ``band_scatter_fused``, the raw-count
+band scatters (``band_scatter_counts_indptr``,
+``band_scatter_counts_u8_indptr``, ``band_scatter_counts_u4_indptr``),
+``trans_coo_balanced``, ``remove_neighbours`` and the ICE loops
+(``marginal_sums``, ``ice_iterate``, ``ice_iterate_csr``,
 ``ice_prep_csr``, ``ice_iterate_csr_prebuilt``), with the same bodies.
 
 ``kernels.cpp`` is built with g++ (OpenMP when the toolchain has it) at
@@ -91,6 +94,26 @@ def _load_locked():
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64),
         ]
+        lib.coo_to_band_f64.restype = None
+        lib.coo_to_band_f64.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.coo_to_band_f32.restype = None
+        lib.coo_to_band_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float),
+        ]
         for suffix, ctype in (
             ("f64", ctypes.c_double),
             ("i32", ctypes.c_int32),
@@ -110,6 +133,66 @@ def _load_locked():
                 ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_float),
             ]
+        # indptr-driven count scatters come in b2-int64 and b2-int32
+        # flavors (minimal-dtype cool files store 4-byte ids; reading
+        # them straight skips a whole-table host cast).
+        for b2suf, b2ctype in (("", ctypes.c_int64), ("_b2i32", ctypes.c_int32)):
+            for suffix, ctype in (
+                ("i32", ctypes.c_int32),
+                ("i64", ctypes.c_int64),
+                ("f64", ctypes.c_double),
+            ):
+                fn = getattr(lib, f"band_scatter_counts_indptr_{suffix}{b2suf}")
+                fn.restype = ctypes.c_int64
+                fn.argtypes = [
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(b2ctype),
+                    ctypes.POINTER(ctype),
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_uint16),
+                ]
+                fn8 = getattr(
+                    lib, f"band_scatter_counts_u8_indptr_{suffix}{b2suf}"
+                )
+                fn8.restype = ctypes.c_int64
+                fn8.argtypes = [
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(b2ctype),
+                    ctypes.POINTER(ctype),
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(ctypes.c_float),
+                    ctypes.c_int64,
+                ]
+                fn4 = getattr(
+                    lib, f"band_scatter_counts_u4_indptr_{suffix}{b2suf}"
+                )
+                fn4.restype = ctypes.c_int64
+                fn4.argtypes = [
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(b2ctype),
+                    ctypes.POINTER(ctype),
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(ctypes.c_float),
+                    ctypes.c_int64,
+                ]
         lib.remove_neighbours.restype = None
         lib.remove_neighbours.argtypes = [
             ctypes.POINTER(ctypes.c_int64),
@@ -198,6 +281,39 @@ def _load_locked():
             ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_double),
         ]
+        for b2suf, b2ct in (("", ctypes.c_int64), ("_b2i32", ctypes.c_int32)):
+            fno = getattr(lib, f"trans_range_offsets{b2suf}")
+            fno.restype = ctypes.c_int64
+            fno.argtypes = [
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(b2ct),
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+            ]
+            for csuf, cct in (
+                ("i32", ctypes.c_int32),
+                ("i64", ctypes.c_int64),
+                ("f32", ctypes.c_float),
+                ("f64", ctypes.c_double),
+            ):
+                fnf = getattr(lib, f"trans_fill_{csuf}{b2suf}")
+                fnf.restype = None
+                fnf.argtypes = [
+                    ctypes.POINTER(b2ct),
+                    ctypes.POINTER(cct),
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.POINTER(ctypes.c_int64),
+                    ctypes.c_int64,
+                    ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_double),
+                    ctypes.POINTER(ctypes.c_double),
+                    ctypes.POINTER(ctypes.c_int32),
+                    ctypes.POINTER(ctypes.c_int32),
+                    ctypes.POINTER(ctypes.c_float),
+                ]
         _LIB = lib
     except Exception as exc:  # toolchain missing, build failure, ...
         sys.stderr.write(f"chromosight-torch: native build unavailable ({exc})\n")
@@ -246,6 +362,42 @@ def cc_label(rows, cols, ncols):
     return labels
 
 
+def coo_to_band(rows, cols, vals, n, width, dtype=np.float64):
+    """Scatter COO triplets into an (n, width) upper band B[i, d] =
+    M[i, i+d] of ``dtype`` (float32 or float64), dropping entries off the
+    band; None if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    if dtype == np.float32:
+        vals = np.ascontiguousarray(vals, dtype=np.float32)
+        band = np.empty((int(n), int(width)), dtype=np.float32)
+        lib.coo_to_band_f32(
+            _i64p(rows),
+            _i64p(cols),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            len(rows),
+            int(n),
+            int(width),
+            band.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        )
+        return band
+    vals = np.ascontiguousarray(vals, dtype=np.float64)
+    band = np.empty((int(n), int(width)), dtype=np.float64)
+    lib.coo_to_band_f64(
+        _i64p(rows),
+        _i64p(cols),
+        _f64p(vals),
+        len(rows),
+        int(n),
+        int(width),
+        _f64p(band),
+    )
+    return band
+
+
 def band_scatter_fused(b1, b2, counts, weights, s, e, width, n_rows=None):
     """Filter + balance + scatter raw pixel-slice arrays into an upper
     band tensor in one native pass, or None if unavailable.
@@ -291,6 +443,248 @@ def band_scatter_fused(b1, b2, counts, weights, s, e, width, n_rows=None):
         band.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
     )
     return band
+
+
+def band_scatter_counts_u8_indptr(
+    indptr, b2, counts, s, e, width, n_rows=None, exc_cap=None
+):
+    """Indptr-driven uint8 + exceptions count scatter: the band ships as
+    1-byte pixels (half the uint16 path again) plus a short (flat index,
+    value) exception list for counts > 255, so values stay exact.
+    Returns ``(band_u8, exc_idx, exc_val)`` or None when the native tier
+    is unavailable, a value is non-integral / negative / > 2^24, or the
+    exception list would not be worth the bytes (caller falls back to
+    the uint16 path)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts)
+    b2, b2suf = _b2_native(b2)
+    if counts.dtype == np.int32:
+        csuf, cptr = "i32", ctypes.c_int32
+    elif counts.dtype == np.int64:
+        csuf, cptr = "i64", ctypes.c_int64
+    elif counts.dtype in (np.float64, np.float32):
+        counts = np.ascontiguousarray(counts, dtype=np.float64)
+        csuf, cptr = "f64", ctypes.c_double
+    else:
+        return None
+    fn = getattr(lib, f"band_scatter_counts_u8_indptr_{csuf}{b2suf}")
+    if n_rows is None:
+        n_rows = int(e) - int(s)
+    if int(n_rows) * int(width) >= 1 << 31:
+        return None  # exception flat indices upload as int32
+    if exc_cap is None:
+        # u8 + 8-byte exceptions beat the u16 band only while
+        # n_exc * 8 < n_rows * width; past that the caller should ship
+        # uint16 anyway.
+        exc_cap = max(1024, (int(n_rows) * int(width)) // 8)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    n_rows_src = len(indptr) - 1
+    band = np.empty((int(n_rows), int(width)), dtype=np.uint8)
+    exc_idx = np.empty(int(exc_cap), dtype=np.int64)
+    exc_val = np.empty(int(exc_cap), dtype=np.float32)
+    n_exc = fn(
+        _i64p(indptr),
+        _b2p(b2),
+        counts.ctypes.data_as(ctypes.POINTER(cptr)),
+        n_rows_src,
+        int(s),
+        int(e),
+        int(width),
+        int(n_rows),
+        band.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        _i64p(exc_idx),
+        exc_val.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(exc_cap),
+    )
+    if n_exc < 0 or n_exc > exc_cap:
+        return None
+    return band, exc_idx[:n_exc], exc_val[:n_exc]
+
+
+def band_scatter_counts_u4_indptr(
+    indptr, b2, counts, s, e, width, d0, n_rows=None, exc_cap=None
+):
+    """Split uint8-head / packed-uint4-tail count scatter: columns
+    ``[0, d0)`` (near-diagonal, large Poisson means) ship as 1-byte
+    pixels and columns ``[d0, width)`` pack two 4-bit counts per byte —
+    about half the u8 path's bytes again for wide scan bands.  Counts
+    that do not fit their lane (head > 255, tail > 15) ride a (flat
+    UNPACKED-band index, value) exception list, so values stay exact.
+    Returns ``(head_u8, tail_packed_u8, exc_idx, exc_val)`` or None when
+    the native tier is unavailable, a value is non-integral / negative /
+    > 2^24, or the exception list outgrows the bytes the packing saves
+    (caller falls back to the u8 path)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts)
+    b2, b2suf = _b2_native(b2)
+    if counts.dtype == np.int32:
+        csuf, cptr = "i32", ctypes.c_int32
+    elif counts.dtype == np.int64:
+        csuf, cptr = "i64", ctypes.c_int64
+    elif counts.dtype in (np.float64, np.float32):
+        counts = np.ascontiguousarray(counts, dtype=np.float64)
+        csuf, cptr = "f64", ctypes.c_double
+    else:
+        return None
+    fn = getattr(lib, f"band_scatter_counts_u4_indptr_{csuf}{b2suf}")
+    if n_rows is None:
+        n_rows = int(e) - int(s)
+    d0 = int(min(d0, width))
+    if int(n_rows) * int(width) >= 1 << 31:
+        return None  # exception flat indices upload as int32
+    tp = (int(width) - d0 + 1) // 2
+    if exc_cap is None:
+        # the nibble pack saves n_rows * (width - d0) / 2 bytes over u8;
+        # exceptions cost 8 bytes each on the link, so past saved/8 of
+        # them the caller should ship u8 anyway.
+        exc_cap = max(1024, (int(n_rows) * (int(width) - d0)) // 16)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    n_rows_src = len(indptr) - 1
+    head = np.empty((int(n_rows), d0), dtype=np.uint8)
+    tail = np.empty((int(n_rows), tp), dtype=np.uint8)
+    exc_idx = np.empty(int(exc_cap), dtype=np.int64)
+    exc_val = np.empty(int(exc_cap), dtype=np.float32)
+    n_exc = fn(
+        _i64p(indptr),
+        _b2p(b2),
+        counts.ctypes.data_as(ctypes.POINTER(cptr)),
+        n_rows_src,
+        int(s),
+        int(e),
+        int(width),
+        d0,
+        int(n_rows),
+        head.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        tail.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        _i64p(exc_idx),
+        exc_val.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(exc_cap),
+    )
+    if n_exc < 0 or n_exc > exc_cap:
+        return None
+    return head, tail, exc_idx[:n_exc], exc_val[:n_exc]
+
+
+def band_scatter_counts_indptr(indptr, b2, counts, s, e, width, n_rows=None):
+    """Scatter RAW integer counts into a uint16 (n_rows, width) band —
+    half the upload bytes of the balanced f32 band, with exact values
+    (the device applies weights and casts, see
+    ``ops.band.band_weighted``).  bin1 ids are implied by the cool file's
+    per-row pixel offsets (``indptr[r]..indptr[r+1]`` are row ``s+r``'s
+    pixels, absolute into the pixel table), so the bin1_id dataset is
+    never read or materialised.
+
+    Returns None when the native library is unavailable, the count dtype
+    is not integral, or any kept pixel is non-integral, negative or
+    overflows uint16 (callers fall back to the f32 path).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts)
+    b2, b2suf = _b2_native(b2)
+    if counts.dtype == np.int32:
+        csuf, cptr = "i32", ctypes.c_int32
+    elif counts.dtype == np.int64:
+        csuf, cptr = "i64", ctypes.c_int64
+    elif counts.dtype in (np.float64, np.float32):
+        counts = np.ascontiguousarray(counts, dtype=np.float64)
+        csuf, cptr = "f64", ctypes.c_double
+    else:
+        return None
+    fn = getattr(lib, f"band_scatter_counts_indptr_{csuf}{b2suf}")
+    if n_rows is None:
+        n_rows = int(e) - int(s)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    n_rows_src = len(indptr) - 1
+    band = np.empty((int(n_rows), int(width)), dtype=np.uint16)
+    overflow = fn(
+        _i64p(indptr),
+        _b2p(b2),
+        counts.ctypes.data_as(ctypes.POINTER(cptr)),
+        n_rows_src,
+        int(s),
+        int(e),
+        int(width),
+        int(n_rows),
+        band.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+    )
+    if overflow:
+        return None
+    return band
+
+
+def trans_coo_balanced(indptr, b2, counts, s2, e2, w1=None, w2=None):
+    """Stored-dtype trans rectangle fetch (see kernels.cpp
+    ``trans_range_offsets`` / ``trans_fill_*``).
+
+    ``indptr`` is the absolute ``bin1_offset[s1 : e1 + 1]`` slice; ``b2``
+    and ``counts`` the matching pixel-table slices in their STORED
+    dtypes.  Each row's kept column range [s2, e2) is located with two
+    binary searches (cooler sort invariant), then exact-sized
+    ``(rows_i32, cols_i32, vals_f32)`` local-coordinate triplets are
+    filled in one parallel pass, applying the ``w1[r] * w2[j]``
+    balancing product (f64 weights, f64 accumulate, f32 store; NaN
+    weights propagate).  Returns None when the native library is
+    unavailable (callers fall back to the generic python fetch).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    b2, b2suf = _b2_native(b2)
+    counts = np.ascontiguousarray(counts)
+    suffixes = {
+        np.dtype(np.int32): ("i32", ctypes.c_int32),
+        np.dtype(np.int64): ("i64", ctypes.c_int64),
+        np.dtype(np.float32): ("f32", ctypes.c_float),
+        np.dtype(np.float64): ("f64", ctypes.c_double),
+    }
+    if counts.dtype not in suffixes:
+        return None
+    csuf, cptr = suffixes[counts.dtype]
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    n_rows = len(indptr) - 1
+    offsets = np.empty(n_rows + 1, dtype=np.int64)
+    klo = np.empty(max(n_rows, 1), dtype=np.int64)
+    total = getattr(lib, f"trans_range_offsets{b2suf}")(
+        _i64p(indptr),
+        _b2p(b2),
+        n_rows,
+        int(s2),
+        int(e2),
+        _i64p(offsets),
+        _i64p(klo),
+    )
+    rows = np.empty(total, dtype=np.int32)
+    cols = np.empty(total, dtype=np.int32)
+    vals = np.empty(total, dtype=np.float32)
+    if (w1 is None) != (w2 is None):
+        raise ValueError("w1 and w2 must be supplied together")
+    if w1 is not None:
+        w1 = np.ascontiguousarray(w1, dtype=np.float64)
+        w2 = np.ascontiguousarray(w2, dtype=np.float64)
+        w1p, w2p = _f64p(w1), _f64p(w2)
+    else:
+        w1p = w2p = ctypes.POINTER(ctypes.c_double)()
+    if total:
+        getattr(lib, f"trans_fill_{csuf}{b2suf}")(
+            _b2p(b2),
+            counts.ctypes.data_as(ctypes.POINTER(cptr)),
+            _i64p(offsets),
+            _i64p(klo),
+            n_rows,
+            int(s2),
+            w1p,
+            w2p,
+            rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        )
+    return rows, cols, vals
 
 
 def remove_neighbours(bin1, bin2, score, win_size):

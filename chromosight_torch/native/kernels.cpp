@@ -3,10 +3,13 @@
 // The port's copy of the entries of chromosight_tpu/native/kernels.cpp
 // that it calls, with their helpers and unchanged bodies: connected-
 // component labelling of candidate pixels (reference
-// utils/detection.py:459-554), greedy neighbour suppression, the fused
-// filter + balance + scatter of a pixel slice into the upper band, and
-// the ICE balancing loops.  Built as a plain shared library with g++ and
-// bound through ctypes (chromosight_torch/native/__init__.py).
+// utils/detection.py:459-554), the COO -> band scatter (--subsample),
+// the fused filter + balance + scatter of a pixel slice into the upper
+// band, the raw-count scatters into u16, u8 + exceptions and u8-head /
+// nibble-packed-tail bands (COO and bin1_offset-driven, with int32 and
+// int64 bin2 ids), greedy neighbour suppression, the ICE balancing loops,
+// and the trans rectangle fetch.  Built as a plain shared library with
+// g++ and bound through ctypes (chromosight_torch/native/__init__.py).
 //
 // All index arrays are int64 unless a name says otherwise; pixel lists
 // must be sorted row-major (row, col ascending), which is how both the
@@ -110,6 +113,35 @@ int64_t cc_label(const int64_t *rows, const int64_t *cols, int64_t n,
     return count;
 }
 
+// ------------------------------------------------------------------ //
+// Scatter symmetric COO triplets into the upper band B[i, d] = M[i, i+d].
+// Entries with d outside [0, width) are skipped.
+// ------------------------------------------------------------------ //
+void coo_to_band_f64(const int64_t *rows, const int64_t *cols,
+                     const double *vals, int64_t nnz, int64_t n,
+                     int64_t width, double *band_out) {
+    std::memset(band_out, 0, sizeof(double) * (size_t)n * (size_t)width);
+    for (int64_t k = 0; k < nnz; ++k) {
+        int64_t i = rows[k];
+        int64_t d = cols[k] - i;
+        if (d >= 0 && d < width && i >= 0 && i < n)
+            band_out[i * width + d] = vals[k];
+    }
+}
+
+// float32 variant feeding device tensors directly.
+void coo_to_band_f32(const int64_t *rows, const int64_t *cols,
+                     const float *vals, int64_t nnz, int64_t n,
+                     int64_t width, float *band_out) {
+    std::memset(band_out, 0, sizeof(float) * (size_t)n * (size_t)width);
+    for (int64_t k = 0; k < nnz; ++k) {
+        int64_t i = rows[k];
+        int64_t d = cols[k] - i;
+        if (d >= 0 && d < width && i >= 0 && i < n)
+            band_out[i * width + d] = vals[k];
+    }
+}
+
 }  // extern "C" (templates need C++ linkage)
 
 // ------------------------------------------------------------------ //
@@ -156,6 +188,305 @@ static void band_scatter_fused_impl(const int64_t *b1, const int64_t *b2,
         }
     }
 }
+
+// Scatter RAW integer counts into a uint16 band (half the bytes of the
+// f32 band, exact values): the device applies the balancing weights and
+// casts to f32 (ops/band.py:band_weighted).  bin1 ids are implied by the
+// cool file's bin1_offset index (indptr[r] .. indptr[r+1] are row s+r's
+// pixels), so the host never reads or materialises the bin1_id dataset
+// at all — one-third of the pixel-table bytes on the fetch path.
+// Parallelises over rows.  Returns 1 when any kept pixel is
+// non-integral, negative or overflows uint16 (caller falls back to the
+// f32 path).
+template <typename CT, typename B2>
+static int64_t band_scatter_counts_indptr_impl(
+    const int64_t *indptr, const B2 *b2, const CT *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width,
+    int64_t n_rows, uint16_t *band_out) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n_rows * width; ++i) band_out[i] = 0;
+    int64_t overflow = 0;
+    const int64_t base = indptr[0];
+    // never write past the allocated band (bucket padding rows excluded)
+    const int64_t r_end = n_rows_src < n_rows ? n_rows_src : n_rows;
+#pragma omp parallel for schedule(dynamic, 64) reduction(| : overflow)
+    for (int64_t r = 0; r < r_end; ++r) {
+        uint16_t *row_out = band_out + r * width;
+        for (int64_t k = indptr[r] - base; k < indptr[r + 1] - base; ++k) {
+            int64_t j = b2[k];
+            int64_t d = j - (s + r);
+            if (d < 0 || d >= width || j >= e) continue;
+            double c = (double)counts[k];
+            int64_t ci = (int64_t)c;
+            if (c != (double)ci || ci < 0 || ci > 65535) {
+                overflow = 1;
+                continue;
+            }
+            row_out[d] = (uint16_t)ci;
+        }
+    }
+    return overflow;
+}
+
+extern "C" {
+
+int64_t band_scatter_counts_indptr_i32(const int64_t *indptr,
+                                       const int64_t *b2,
+                                       const int32_t *counts,
+                                       int64_t n_rows_src, int64_t s,
+                                       int64_t e, int64_t width,
+                                       int64_t n_rows,
+                                       uint16_t *band_out) {
+    return band_scatter_counts_indptr_impl(indptr, b2, counts, n_rows_src,
+                                           s, e, width, n_rows, band_out);
+}
+
+int64_t band_scatter_counts_indptr_i64(const int64_t *indptr,
+                                       const int64_t *b2,
+                                       const int64_t *counts,
+                                       int64_t n_rows_src, int64_t s,
+                                       int64_t e, int64_t width,
+                                       int64_t n_rows,
+                                       uint16_t *band_out) {
+    return band_scatter_counts_indptr_impl(indptr, b2, counts, n_rows_src,
+                                           s, e, width, n_rows, band_out);
+}
+
+int64_t band_scatter_counts_indptr_f64(const int64_t *indptr,
+                                       const int64_t *b2,
+                                       const double *counts,
+                                       int64_t n_rows_src, int64_t s,
+                                       int64_t e, int64_t width,
+                                       int64_t n_rows,
+                                       uint16_t *band_out) {
+    return band_scatter_counts_indptr_impl(indptr, b2, counts, n_rows_src,
+                                           s, e, width, n_rows, band_out);
+}
+
+}  // extern "C" (template below needs C++ linkage)
+
+// uint8 + exceptions variant: most Hi-C counts fit one byte, so the
+// host ships a 1-byte band (half the uint16 path's bytes again) plus a
+// short exception list (flat index, value) for the rare counts > 255.
+// Values stay exact: exceptions hold anything up to 2^24 (f32-exact on
+// the device side, where they are scattered over the cast band).
+// Returns the exception count, or -1 when a kept value is non-integral,
+// negative, or > 2^24 (caller falls back to uint16 / f32).  Exceptions
+// past exc_cap are not written (caller compares the returned count).
+template <typename CT, typename B2>
+static int64_t band_scatter_counts_u8_indptr_impl(
+    const int64_t *indptr, const B2 *b2, const CT *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width,
+    int64_t n_rows, uint8_t *band_out, int64_t *exc_idx, float *exc_val,
+    int64_t exc_cap) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n_rows * width; ++i) band_out[i] = 0;
+    int64_t bad = 0;
+    int64_t n_exc = 0;
+    const int64_t base = indptr[0];
+    // never write past the allocated band (bucket padding rows excluded)
+    const int64_t r_end = n_rows_src < n_rows ? n_rows_src : n_rows;
+#pragma omp parallel for schedule(dynamic, 64) reduction(| : bad)
+    for (int64_t r = 0; r < r_end; ++r) {
+        uint8_t *row_out = band_out + r * width;
+        for (int64_t k = indptr[r] - base; k < indptr[r + 1] - base; ++k) {
+            int64_t j = b2[k];
+            int64_t d = j - (s + r);
+            if (d < 0 || d >= width || j >= e) continue;
+            double c = (double)counts[k];
+            int64_t ci = (int64_t)c;
+            if (c != (double)ci || ci < 0 || ci > (1 << 24)) {
+                bad = 1;
+                continue;
+            }
+            if (ci <= 255) {
+                row_out[d] = (uint8_t)ci;
+            } else {
+                int64_t slot;
+#pragma omp atomic capture
+                slot = n_exc++;
+                if (slot < exc_cap) {
+                    exc_idx[slot] = r * width + d;
+                    exc_val[slot] = (float)ci;
+                }
+            }
+        }
+    }
+    if (bad) return -1;
+    return n_exc;
+}
+
+extern "C" {
+
+int64_t band_scatter_counts_u8_indptr_i32(
+    const int64_t *indptr, const int64_t *b2, const int32_t *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width,
+    int64_t n_rows, uint8_t *band_out, int64_t *exc_idx, float *exc_val,
+    int64_t exc_cap) {
+    return band_scatter_counts_u8_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, n_rows, band_out,
+        exc_idx, exc_val, exc_cap);
+}
+
+int64_t band_scatter_counts_u8_indptr_i64(
+    const int64_t *indptr, const int64_t *b2, const int64_t *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width,
+    int64_t n_rows, uint8_t *band_out, int64_t *exc_idx, float *exc_val,
+    int64_t exc_cap) {
+    return band_scatter_counts_u8_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, n_rows, band_out,
+        exc_idx, exc_val, exc_cap);
+}
+
+int64_t band_scatter_counts_u8_indptr_f64(
+    const int64_t *indptr, const int64_t *b2, const double *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width,
+    int64_t n_rows, uint8_t *band_out, int64_t *exc_idx, float *exc_val,
+    int64_t exc_cap) {
+    return band_scatter_counts_u8_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, n_rows, band_out,
+        exc_idx, exc_val, exc_cap);
+}
+
+}  // extern "C" (template below needs C++ linkage)
+
+// uint4 split variant: Hi-C counts decay with diagonal distance, so the
+// first d0 band columns (near the diagonal, where Poisson means are
+// large) ship as 1-byte pixels and the remaining width-d0 columns pack
+// TWO 4-bit counts per byte — roughly half the u8 path's bytes again
+// for wide bands.  Counts that do not fit their lane (head > 255, tail
+// > 15) ride the same (flat logical index, value) exception list as the
+// u8 path; flat indices address the UNPACKED (n_rows, width) band, so
+// the device scatters them after nibble expansion.  Same -1-on-bad /
+// count-vs-cap contract as the u8 scatter.
+template <typename CT, typename B2>
+static int64_t band_scatter_counts_u4_indptr_impl(
+    const int64_t *indptr, const B2 *b2, const CT *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width, int64_t d0,
+    int64_t n_rows, uint8_t *head_out, uint8_t *tail_out,
+    int64_t *exc_idx, float *exc_val, int64_t exc_cap) {
+    const int64_t tp = (width - d0 + 1) / 2;  // packed tail bytes/row
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n_rows * d0; ++i) head_out[i] = 0;
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n_rows * tp; ++i) tail_out[i] = 0;
+    int64_t bad = 0;
+    int64_t n_exc = 0;
+    const int64_t base = indptr[0];
+    const int64_t r_end = n_rows_src < n_rows ? n_rows_src : n_rows;
+#pragma omp parallel for schedule(dynamic, 64) reduction(| : bad)
+    for (int64_t r = 0; r < r_end; ++r) {
+        uint8_t *hrow = head_out + r * d0;
+        uint8_t *trow = tail_out + r * tp;
+        for (int64_t k = indptr[r] - base; k < indptr[r + 1] - base; ++k) {
+            int64_t j = b2[k];
+            int64_t d = j - (s + r);
+            if (d < 0 || d >= width || j >= e) continue;
+            double c = (double)counts[k];
+            int64_t ci = (int64_t)c;
+            if (c != (double)ci || ci < 0 || ci > (1 << 24)) {
+                bad = 1;
+                continue;
+            }
+            bool exc;
+            if (d < d0) {
+                exc = ci > 255;
+                if (!exc) hrow[d] = (uint8_t)ci;
+            } else {
+                exc = ci > 15;
+                if (!exc) {
+                    int64_t t = d - d0;
+                    // even tail column -> low nibble, odd -> high
+                    if (t & 1)
+                        trow[t >> 1] |= (uint8_t)(ci << 4);
+                    else
+                        trow[t >> 1] |= (uint8_t)ci;
+                }
+            }
+            if (exc) {
+                int64_t slot;
+#pragma omp atomic capture
+                slot = n_exc++;
+                if (slot < exc_cap) {
+                    exc_idx[slot] = r * width + d;
+                    exc_val[slot] = (float)ci;
+                }
+            }
+        }
+    }
+    if (bad) return -1;
+    return n_exc;
+}
+
+extern "C" {
+
+int64_t band_scatter_counts_u4_indptr_i32(
+    const int64_t *indptr, const int64_t *b2, const int32_t *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width, int64_t d0,
+    int64_t n_rows, uint8_t *head_out, uint8_t *tail_out,
+    int64_t *exc_idx, float *exc_val, int64_t exc_cap) {
+    return band_scatter_counts_u4_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, d0, n_rows, head_out,
+        tail_out, exc_idx, exc_val, exc_cap);
+}
+
+int64_t band_scatter_counts_u4_indptr_i64(
+    const int64_t *indptr, const int64_t *b2, const int64_t *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width, int64_t d0,
+    int64_t n_rows, uint8_t *head_out, uint8_t *tail_out,
+    int64_t *exc_idx, float *exc_val, int64_t exc_cap) {
+    return band_scatter_counts_u4_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, d0, n_rows, head_out,
+        tail_out, exc_idx, exc_val, exc_cap);
+}
+
+int64_t band_scatter_counts_u4_indptr_f64(
+    const int64_t *indptr, const int64_t *b2, const double *counts,
+    int64_t n_rows_src, int64_t s, int64_t e, int64_t width, int64_t d0,
+    int64_t n_rows, uint8_t *head_out, uint8_t *tail_out,
+    int64_t *exc_idx, float *exc_val, int64_t exc_cap) {
+    return band_scatter_counts_u4_indptr_impl(
+        indptr, b2, counts, n_rows_src, s, e, width, d0, n_rows, head_out,
+        tail_out, exc_idx, exc_val, exc_cap);
+}
+
+// int32 bin2_id variants: cool files written with minimal pixel dtypes
+// (io/cool.py:create_cool) store 4-byte ids; scattering straight from
+// the stored dtype skips a whole-pixel-table int64 cast on the host
+// (a multi-second per-genome sweep on slow-memory hosts).
+#define CHROMO_EXPORT_B2I32(CTSUF, CT)                                      \
+    int64_t band_scatter_counts_indptr_##CTSUF##_b2i32(                     \
+        const int64_t *indptr, const int32_t *b2, const CT *counts,         \
+        int64_t n_rows_src, int64_t s, int64_t e, int64_t width,            \
+        int64_t n_rows, uint16_t *band_out) {                               \
+        return band_scatter_counts_indptr_impl(                             \
+            indptr, b2, counts, n_rows_src, s, e, width, n_rows, band_out); \
+    }                                                                       \
+    int64_t band_scatter_counts_u8_indptr_##CTSUF##_b2i32(                  \
+        const int64_t *indptr, const int32_t *b2, const CT *counts,         \
+        int64_t n_rows_src, int64_t s, int64_t e, int64_t width,            \
+        int64_t n_rows, uint8_t *band_out, int64_t *exc_idx,                \
+        float *exc_val, int64_t exc_cap) {                                  \
+        return band_scatter_counts_u8_indptr_impl(                          \
+            indptr, b2, counts, n_rows_src, s, e, width, n_rows, band_out,  \
+            exc_idx, exc_val, exc_cap);                                     \
+    }                                                                       \
+    int64_t band_scatter_counts_u4_indptr_##CTSUF##_b2i32(                  \
+        const int64_t *indptr, const int32_t *b2, const CT *counts,         \
+        int64_t n_rows_src, int64_t s, int64_t e, int64_t width,            \
+        int64_t d0, int64_t n_rows, uint8_t *head_out, uint8_t *tail_out,   \
+        int64_t *exc_idx, float *exc_val, int64_t exc_cap) {                \
+        return band_scatter_counts_u4_indptr_impl(                          \
+            indptr, b2, counts, n_rows_src, s, e, width, d0, n_rows,       \
+            head_out, tail_out, exc_idx, exc_val, exc_cap);                 \
+    }
+
+CHROMO_EXPORT_B2I32(i32, int32_t)
+CHROMO_EXPORT_B2I32(i64, int64_t)
+CHROMO_EXPORT_B2I32(f64, double)
+#undef CHROMO_EXPORT_B2I32
+
+}  // extern "C"
 
 extern "C" {
 
@@ -675,5 +1006,111 @@ CHROMO_EXPORT_ICE_PREP(i32, int32_t, _b2i32, int32_t)
 CHROMO_EXPORT_ICE_PREP(i64, int64_t, _b2i32, int32_t)
 CHROMO_EXPORT_ICE_PREP(f64, double, _b2i32, int32_t)
 #undef CHROMO_EXPORT_ICE_PREP
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ //
+// Stored-dtype trans (inter) rectangle fetch.
+//
+// For a trans chromosome pair (row range strictly below the column
+// range) the stored upper triangle holds the ENTIRE rectangle, so the
+// mirror query the generic pixels_coo path issues is provably empty —
+// and its full-slab read of the column chromosome's pixel rows is pure
+// waste.  This path reads only the row slab, in the file's stored
+// dtypes (no int64/f64 cast sweeps), and exploits the cooler sort
+// invariant (pixels ordered by (bin1_id, bin2_id) — the same invariant
+// the bin1_offset CSR index relies on) to locate each row's kept
+// column range with two binary searches instead of a per-pixel filter.
+// Pass 1 emits per-row offsets (prefix-summed) + slice starts; pass 2
+// fills exact-sized (rows, cols, vals) triplets, applying the ICE
+// balancing product in the same sweep (double accumulate, f32 store —
+// NaN weights propagate).  Replaces reference contacts_map.py:529's
+// cooler fetch on the --inter path.
+// ------------------------------------------------------------------ //
+template <typename B2>
+static int64_t trans_range_offsets_impl(const int64_t *indptr, const B2 *b2,
+                                        int64_t n_rows, int64_t s2,
+                                        int64_t e2, int64_t *offsets,
+                                        int64_t *klo) {
+    const int64_t base = indptr[0];
+#pragma omp parallel for schedule(dynamic, 256)
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const B2 *lo_p = b2 + (indptr[r] - base);
+        const B2 *hi_p = b2 + (indptr[r + 1] - base);
+        const B2 *a = std::lower_bound(lo_p, hi_p, (B2)s2);
+        const B2 *bN = std::lower_bound(a, hi_p, (B2)e2);
+        klo[r] = a - b2;
+        offsets[r + 1] = bN - a;
+    }
+    offsets[0] = 0;
+    for (int64_t r = 0; r < n_rows; ++r) offsets[r + 1] += offsets[r];
+    return offsets[n_rows];
+}
+
+template <typename CT, typename B2>
+static void trans_fill_balance_impl(const B2 *b2, const CT *ct,
+                                    const int64_t *offsets,
+                                    const int64_t *klo, int64_t n_rows,
+                                    int64_t s2, const double *w1,
+                                    const double *w2, int32_t *rows_out,
+                                    int32_t *cols_out, float *vals_out) {
+#pragma omp parallel for schedule(dynamic, 256)
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const int64_t o = offsets[r];
+        const int64_t cnt = offsets[r + 1] - o;
+        const int64_t k0 = klo[r];
+        if (w1 != nullptr) {
+            const double wr = w1[r];
+            for (int64_t t = 0; t < cnt; ++t) {
+                const int64_t j = (int64_t)b2[k0 + t] - s2;
+                rows_out[o + t] = (int32_t)r;
+                cols_out[o + t] = (int32_t)j;
+                vals_out[o + t] = (float)((double)ct[k0 + t] * wr * w2[j]);
+            }
+        } else {
+            for (int64_t t = 0; t < cnt; ++t) {
+                rows_out[o + t] = (int32_t)r;
+                cols_out[o + t] = (int32_t)((int64_t)b2[k0 + t] - s2);
+                vals_out[o + t] = (float)ct[k0 + t];
+            }
+        }
+    }
+}
+
+extern "C" {
+
+int64_t trans_range_offsets(const int64_t *indptr, const int64_t *b2,
+                            int64_t n_rows, int64_t s2, int64_t e2,
+                            int64_t *offsets, int64_t *klo) {
+    return trans_range_offsets_impl(indptr, b2, n_rows, s2, e2, offsets,
+                                    klo);
+}
+
+int64_t trans_range_offsets_b2i32(const int64_t *indptr, const int32_t *b2,
+                                  int64_t n_rows, int64_t s2, int64_t e2,
+                                  int64_t *offsets, int64_t *klo) {
+    return trans_range_offsets_impl(indptr, b2, n_rows, s2, e2, offsets,
+                                    klo);
+}
+
+#define CHROMO_EXPORT_TRANS_FILL(CTSUF, CT, B2SUF, B2T)                    \
+    void trans_fill_##CTSUF##B2SUF(                                       \
+        const B2T *b2, const CT *ct, const int64_t *offsets,              \
+        const int64_t *klo, int64_t n_rows, int64_t s2, const double *w1, \
+        const double *w2, int32_t *rows_out, int32_t *cols_out,           \
+        float *vals_out) {                                                \
+        trans_fill_balance_impl(b2, ct, offsets, klo, n_rows, s2, w1, w2, \
+                                rows_out, cols_out, vals_out);            \
+    }
+
+CHROMO_EXPORT_TRANS_FILL(i32, int32_t, , int64_t)
+CHROMO_EXPORT_TRANS_FILL(i64, int64_t, , int64_t)
+CHROMO_EXPORT_TRANS_FILL(f32, float, , int64_t)
+CHROMO_EXPORT_TRANS_FILL(f64, double, , int64_t)
+CHROMO_EXPORT_TRANS_FILL(i32, int32_t, _b2i32, int32_t)
+CHROMO_EXPORT_TRANS_FILL(i64, int64_t, _b2i32, int32_t)
+CHROMO_EXPORT_TRANS_FILL(f32, float, _b2i32, int32_t)
+CHROMO_EXPORT_TRANS_FILL(f64, double, _b2i32, int32_t)
+#undef CHROMO_EXPORT_TRANS_FILL
 
 }  // extern "C"

@@ -7,6 +7,8 @@ names, dict keys, report format and environment variables:
   stage (``device.stage`` wraps it with a device synchronise);
 * ``add_bytes(channel, n)`` - bytes crossing the host-device link
   ("upload", "download"), counted on the CPU path too;
+* ``record_band_upload(name, ...)`` and ``band_uploads()`` - the form
+  each band map's upload took (packed counts or the float32 band);
 * ``account_dispatch(name, cost, *args, **kwargs)`` and
   ``compute_snapshot()`` - logical FLOPs and HBM byte bounds per program
   family, from a cost function kept next to the program it describes
@@ -34,6 +36,8 @@ from contextlib import contextmanager
 _STAGE_TOTALS = defaultdict(float)
 _STAGE_COUNTS = defaultdict(int)
 _BYTE_TOTALS = defaultdict(int)
+# map name -> {"mode", "exceptions", "shape"} of its last band upload
+_BAND_UPLOADS = {}
 # Per-program-family compute accounting (MFU / roofline): dispatches per
 # (family, shape signature), and per signature its cost, or the cost
 # function and shape stand-ins of its arguments until a snapshot or the
@@ -61,6 +65,23 @@ def add_bytes(channel, n):
         _BYTE_TOTALS[channel] += int(n)
 
 
+def record_band_upload(name, mode, exceptions, shape):
+    """Record the form of map ``name``'s band upload: ``mode`` "u4", "u8"
+    or "u16" (packed raw counts, with ``exceptions`` counts that did not
+    fit their lane) or "f32" (the host-scattered float32 band), and the
+    (rows, width) ``shape`` of the band it gave."""
+    with _LOCK:
+        _BAND_UPLOADS[name] = {"mode": mode, "exceptions": int(exceptions),
+                               "shape": tuple(shape)}
+
+
+def band_uploads():
+    """{map name: {"mode", "exceptions", "shape"}} of the band uploads
+    since the last ``reset`` (a copy)."""
+    with _LOCK:
+        return {name: dict(rec) for name, rec in _BAND_UPLOADS.items()}
+
+
 def snapshot():
     """(stage_totals, stage_counts, byte_totals) copies for benchmarks."""
     with _LOCK:
@@ -68,9 +89,9 @@ def snapshot():
 
 
 def reset():
-    """Clear accumulated stage, byte and compute counters."""
+    """Clear accumulated stage, byte, band-upload and compute counters."""
     with _LOCK:
-        for totals in (_STAGE_TOTALS, _STAGE_COUNTS, _BYTE_TOTALS, _DISPATCHES):
+        for totals in (_STAGE_TOTALS, _STAGE_COUNTS, _BYTE_TOTALS, _BAND_UPLOADS, _DISPATCHES):
             totals.clear()
 
 

@@ -66,6 +66,45 @@ def band_finalize_upload(band, width):
     return F.pad(band, (0, pad)) if pad else band
 
 
+def band_unpack(mode, arrays, width):
+    """The float32 (n, width) raw counts of a count pack on the device
+    (``band_upper_counts_auto``'s arrays, uploaded): ``mode`` "u16", the
+    band; "u8", the band, then the exceptions' int32 flat indices and
+    float32 values; "u4", a uint8 head (n, d0) and a tail of two columns
+    per byte (even tail columns in the low nibble, odd ones in the high
+    nibble, as the native packer writes them), then the exceptions.  The
+    exceptions are written over the unpacked band
+    (``chromosight_tpu/ops/band.py:128-233``, without its padding to a
+    shape bucket)."""
+    if mode == "u16":
+        return arrays[0].to(torch.float32)
+    *parts, exc_idx, exc_val = arrays
+    if mode == "u8":
+        band = parts[0].to(torch.float32)
+    else:
+        head, tail_packed = parts
+        n, d0 = head.shape
+        tail = torch.stack([tail_packed & 0xF, tail_packed >> 4], dim=-1).reshape(n, -1)
+        band = torch.cat([head, tail[:, : width - d0]], dim=1).to(torch.float32)
+    band.view(-1)[exc_idx.long()] = exc_val
+    return band
+
+
+def band_weighted(counts, weights):
+    """``out[i, d] = float32((c * w[i]) * w[i + d])`` in float64 where the
+    count ``c = counts[i, d]`` is > 0, else exactly 0 (a NaN weight
+    leaves cells without a pixel at 0): the product and its order of the
+    native ``band_scatter_fused``, so the band equals the host-balanced
+    one bit for bit, except that a stored count of 0 gives 0 there where
+    a NaN weight gives NaN on the host.  ``weights`` are the rows' float64
+    weights; ``w[i + d]`` is a view of them, zero past the last row."""
+    n, width = counts.shape
+    w = weights.to(torch.float64)
+    w_j = sliding_vector(torch.cat([w, w.new_zeros(width)]), n, width)
+    out = counts.to(torch.float64).mul_(w[:, None]).mul_(w_j)
+    return torch.where(counts > 0, out, 0.0).to(torch.float32)
+
+
 def band_diag_stats(band, detect):
     """Per-diagonal sums and counts of positive pixels between two
     detectable bins (the distance law in band space)."""

@@ -6,12 +6,18 @@ one of three forms:
 * ``band``: an intra map with a bounded scan distance, its upper band
   (rows, keep_distance + 1) in float32 on the device (the band engine;
   every such map goes there, ``BAND_THRESHOLD = 0`` in the JAX package).
-  ``create_mat`` scatters the balanced (or, with ``--norm raw``, the raw)
-  band on the host, uploads it and preprocesses it on the device: distance
-  law, detrend, trim, then NaN zeroing (balanced) or zeroing of the
-  missing bins (raw).  The fused ``band_preprocess`` is the default;
-  ``--smooth-trend`` (isotonic distance law) and ``--dump`` take the
-  staged ``detrend`` then ``remove_diags``, as the JAX package does.
+  ``create_mat`` scatters the band on the host, uploads it and
+  preprocesses it on the device: distance law, detrend, trim, then NaN
+  zeroing (balanced) or zeroing of the missing bins (raw).  A map ships
+  its raw counts packed into u4, u8 or u16 (``band_upper_counts_auto``)
+  with its float64 weights, and the device unpacks and balances them
+  (``ops.band.band_unpack``, ``band_weighted``) into the band the host
+  path gives; a map whose counts do not pack, and a ``--subsample`` draw,
+  ship the balanced (or, with ``--norm raw``, the raw) float32 band.
+  ``observability.band_uploads()`` records the form each band map took.
+  The fused ``band_preprocess`` is the default; ``--smooth-trend``
+  (isotonic distance law) and ``--dump`` take the staged ``detrend`` then
+  ``remove_diags``, as the JAX package does.
 * ``dense``: an inter map, or an intra map without a bounded scan
   distance, of at most ``DENSE_LIMIT`` bins per side: the whole
   rectangle in float64 on the device (the dense engine).
@@ -34,13 +40,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chromosight_torch import observability
+from chromosight_torch import native, observability
 from chromosight_torch.device import download, resolve_device, stage, upload
 from chromosight_torch.ops.band import (
     band_detrend_trim,
     band_diag_stats,
     band_finalize_upload,
     band_preprocess,
+    band_unpack,
+    band_weighted,
     band_zero_missing,
     preprocess_cost,
 )
@@ -67,6 +75,15 @@ from chromosight_torch.runtime.dump import (
 # stay sparse and go to the tiled engine.  Tests lower it to force that
 # path on small maps.
 DENSE_LIMIT = 8192
+
+# The narrowest form a band map's raw counts ship in: "u4" (a uint8 head
+# of U4_HEAD diagonals, the other diagonals two per byte), "u8" or "u16",
+# each with the counts that do not fit as exceptions; a map whose counts
+# do not fit falls back to the next wider form, then to the float32 band.
+# None ships the float32 band (tests and chip_smoke.py set it to compare
+# the forms; every form gives the same band).
+COUNT_PACKING = "u4"
+U4_HEAD = 64
 
 
 def _jax_band_width(width):
@@ -208,9 +225,11 @@ class ContactMap:
         rows, cols, vals = self.subsample()
         rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
         d = cols - rows
-        keep = (d >= 0) & (d < width)
-        band = np.zeros((n, width), dtype=np.float32)
-        band[rows[keep], d[keep]] = vals[keep]
+        band = native.coo_to_band(rows, cols, vals, n, width, dtype=np.float32)
+        if band is None:
+            keep = (d >= 0) & (d < width)
+            band = np.zeros((n, width), dtype=np.float32)
+            band[rows[keep], d[keep]] = vals[keep]
         if self.dump is not None:
             keep = (d >= 0) & (d < _jax_band_width(width))
             v = vals[keep].astype(np.float32)
@@ -231,13 +250,32 @@ class ContactMap:
         (s1, e1), _ = self.extent
         n = e1 - s1
         width = self.keep_distance + 1
+        pack = None
         with stage("io: fetch+scatter", self.device):
-            if self.sample is None:
+            if (
+                self.sample is None
+                and COUNT_PACKING is not None
+                and (not self.use_norm or self.clr.weights is not None)
+            ):
+                pack = self.clr.band_upper_counts_auto(
+                    (s1, e1),
+                    width,
+                    allow_u8=COUNT_PACKING in ("u4", "u8"),
+                    allow_u4=COUNT_PACKING == "u4",
+                    u4_head=U4_HEAD,
+                )
+            if pack is None and self.sample is None:
                 band_host = self.clr.band_upper((s1, e1), width, balance=self.use_norm)
-            else:
+            elif pack is None:
                 band_host = self._subsampled_band(width)
         with stage("io: upload", self.device):
-            band = band_finalize_upload(upload(band_host, self.device), width)
+            if pack is None:
+                band = band_finalize_upload(upload(band_host, self.device), width)
+            else:
+                band = self._finalize_counts(pack, width)
+        mode = "f32" if pack is None else pack[0]
+        exceptions = len(pack[-1]) if mode in ("u4", "u8") else 0
+        observability.record_band_upload(self.name, mode, exceptions, (n, width))
         with stage("preprocess", self.device):
             detect = np.zeros(n, dtype=bool)
             detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
@@ -264,6 +302,22 @@ class ContactMap:
                 self.band = band_zero_missing(
                     self.band, torch.from_numpy(missing).to(self.device)
                 )
+
+    def _finalize_counts(self, pack, width):
+        """The float32 (n, width) band on the device from a
+        ``band_upper_counts_auto`` pack: its arrays (the exceptions as
+        int32 flat indices and float32 values) and, unless ``--norm raw``,
+        the rows' float64 weights are uploaded, then unpacked and balanced
+        on the device (``chromosight_tpu/runtime/contact_map.py:265-324``,
+        without the power-of-two padding of the exceptions)."""
+        mode, *arrays = pack
+        if mode != "u16":
+            arrays[-2] = arrays[-2].astype(np.int32)  # n * width < 2^31
+        band = band_unpack(mode, [upload(a, self.device) for a in arrays], width)
+        if not self.use_norm:
+            return band
+        (s1, e1), _ = self.extent
+        return band_weighted(band, upload(self.clr.weights[s1:e1], self.device))
 
     def detrend(self, band, detect):
         """Detrend by the distance law, with its isotonic (non-increasing)

@@ -309,8 +309,9 @@ def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
     quick), quantify, detect --inter on the dense and on the tiled
     engine, list-kernels and generate-config run from the npz; and, as on
     the card's machine, detect from data_test/example.cool gives the 89
-    golden loops, and create_cool and store_weights write files that the
-    port (and h5py, here) reads back."""
+    golden loops, through the count path and through the f32 band (the
+    same table and windows), and create_cool and store_weights write
+    files that the port (and h5py, here) reads back."""
     prefix = str(tmp_path / "blocked")
     code = f"""
 import sys
@@ -373,8 +374,18 @@ assert cli.main(["generate-config", "--preset", "borders", {prefix + "_cfg"!r}])
 # the card's machine reads .cool files with the port's own HDF5 code:
 # detect from data_test/example.cool, then create_cool and store_weights
 import shutil
+# through the count path (packed raw counts read without bin1_id,
+# unpacked and balanced by torch), then through the f32 band
+from chromosight_torch import observability
+observability.reset()
 argv = ["detect", "--no-plotting", {str(EXAMPLE_COOL)!r}, {prefix + "_cool"!r}]
 assert cli.main(argv, device="cpu") == 0
+modes = [r["mode"] for r in observability.band_uploads().values()]
+assert modes == ["u4"] * 3, modes
+contact_map.COUNT_PACKING = None
+argv = ["detect", "--no-plotting", {str(EXAMPLE_COOL)!r}, {prefix + "_f32"!r}]
+assert cli.main(argv, device="cpu") == 0
+contact_map.COUNT_PACKING = "u4"
 from chromosight_torch.io import CoolFile, create_cool
 from chromosight_torch.io.source import CoolSource
 clr = CoolFile({str(EXAMPLE_COOL)!r})
@@ -400,6 +411,9 @@ assert sys.modules["jax"] is None and sys.modules["h5py"] is None
     from_cool = pd.read_csv(prefix + "_cool.tsv", sep="\t")
     key = ["bin1", "bin2", "kernel_id", "iteration"]
     assert len(from_cool) == 89 and from_cool[key].equals(golden[key])
+    for ext in (".tsv", ".json"):
+        f32_path = pathlib.Path(prefix + "_f32" + ext).read_bytes()
+        assert f32_path == pathlib.Path(prefix + "_cool" + ext).read_bytes()
     assert np.abs(from_cool.score - golden.score).max() < 5e-5
     with h5py.File(prefix + "_new.cool", "r") as f:
         assert f["bins/weight"][:].tolist() == list(np.arange(720.0))

@@ -1,15 +1,16 @@
 """The port's own copies of the JAX package's host helpers against their
 originals, on the same seeded numpy inputs: preprocessing, FDR, the CLI
-grammar, the native library (connected components, neighbour
-suppression, the fused band scatter, ICE marginals), ICE weights bit for
-bit, the stage timers, the preset files, and the CLI surface's copies
-(``print_ascii_mat``, ``subsample_contacts``, ``_extract_window``,
-``TEST_LOG``, the logo)."""
+grammar, the native library (every definition of its source the
+original's text; connected components, neighbour suppression, the fused
+band scatter, ICE marginals), ICE weights bit for bit, the stage timers,
+the preset files, and the CLI surface's copies (``print_ascii_mat``,
+``subsample_contacts``, ``_extract_window``, ``TEST_LOG``, the logo)."""
 
 import contextlib
 import io
 import os
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -34,6 +35,27 @@ from torch_parity import torch_one_thread  # noqa: F401
 ROOT = pathlib.Path(__file__).parents[1]
 EXAMPLE_NPZ = ROOT / "tests" / "data" / "example_cool.npz"
 PRESET_NAMES = sorted(p.stem for p in (ROOT / "chromosight_tpu" / "kernels" / "data").glob("*.json"))
+PORT_CPP = ROOT / "chromosight_torch" / "native" / "kernels.cpp"
+JAX_CPP = ROOT / "chromosight_tpu" / "native" / "kernels.cpp"
+
+
+def cpp_definitions(path):
+    """{name: source text} of the top-level function definitions (from
+    the signature to the first line that starts with a closing brace)
+    and ``#define`` ... ``#undef`` macro blocks of a C++ file."""
+    text = path.read_text()
+    out = {}
+    for m in re.finditer(
+        r"^(?:template <[^>]*>\n)?(?:static )?(?:inline )?[\w:]+ \*?(\w+)\(.*?^\}",
+        text, re.S | re.M,
+    ):
+        out.setdefault(m.group(1), m.group(0))
+    for m in re.finditer(r"^#define (\w+).*?^#undef \1$", text, re.S | re.M):
+        out[m.group(1)] = m.group(0)
+    return out
+
+
+NATIVE_DEFINITIONS = sorted(cpp_definitions(PORT_CPP))
 
 
 def test_native_libraries_build():
@@ -41,6 +63,32 @@ def test_native_libraries_build():
     built = pathlib.Path(t_native.get_lib()._name)
     assert built.is_relative_to(t_native.BUILD_DIR)
     assert not list(pathlib.Path(t_native.__file__).parent.glob("*.so"))
+
+
+@pytest.mark.parametrize("name", NATIVE_DEFINITIONS)
+def test_native_source_is_a_copy(name):
+    """Every definition of the port's kernels.cpp is its original's text."""
+    assert cpp_definitions(PORT_CPP)[name] == cpp_definitions(JAX_CPP)[name]
+
+
+def test_native_count_path_copied():
+    """The count scatters, their ``_b2i32`` macro block, the trans fetch
+    and ``coo_to_band`` are among the copies, and the port's library
+    exports every entry its wrappers bind."""
+    assert {
+        "coo_to_band_f32", "coo_to_band_f64", "band_scatter_counts_indptr_impl",
+        "band_scatter_counts_u8_indptr_impl", "band_scatter_counts_u4_indptr_impl",
+        "CHROMO_EXPORT_B2I32", "trans_range_offsets_impl", "trans_fill_balance_impl",
+        "CHROMO_EXPORT_TRANS_FILL",
+    } <= set(NATIVE_DEFINITIONS)
+    lib = t_native.get_lib()
+    for b2 in ("", "_b2i32"):
+        getattr(lib, f"trans_range_offsets{b2}")
+        for ct in ("i32", "i64", "f64"):
+            for kind in ("indptr", "u8_indptr", "u4_indptr"):
+                getattr(lib, f"band_scatter_counts_{kind}_{ct}{b2}")
+        for ct in ("i32", "i64", "f32", "f64"):
+            getattr(lib, f"trans_fill_{ct}{b2}")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -90,11 +90,28 @@ def test_account_dispatch_never_raises_on_bad_args():
 def test_reset_clears_compute_totals():
     obs.account_dispatch("x", _mm_cost, torch.zeros((2, 2)), torch.zeros((2, 2)))
     obs.add_bytes("upload", 16)
+    obs.record_band_upload("chr1-chr1", "u4", 3, (10, 4))
     with obs.stage("s"):
         pass
     obs.reset()
     assert obs.compute_snapshot() == {}
     assert obs.snapshot() == ({}, {}, {})
+    assert obs.band_uploads() == {}
+
+
+def test_band_uploads_keep_each_maps_last_upload():
+    """``band_uploads`` holds the last form each map's band took, as a
+    copy the caller cannot alter."""
+    obs.reset()
+    obs.record_band_upload("chr1-chr1", "f32", 0, (10, 4))
+    obs.record_band_upload("chr2-chr2", "u8", 2, (7, 4))
+    obs.record_band_upload("chr1-chr1", "u4", 5, (10, 4))
+    got = obs.band_uploads()
+    assert got == {"chr1-chr1": {"mode": "u4", "exceptions": 5, "shape": (10, 4)},
+                   "chr2-chr2": {"mode": "u8", "exceptions": 2, "shape": (7, 4)}}
+    got["chr1-chr1"]["mode"] = "u16"
+    assert obs.band_uploads()["chr1-chr1"]["mode"] == "u4"
+    obs.reset()
 
 
 def test_device_peaks_cpu_is_none(monkeypatch):
@@ -163,7 +180,9 @@ def _port_detect(prefix, pattern):
 
 def _expected_link_bytes(pattern):
     """Uploads and downloads of a CPU detect of the example, worked out
-    from shapes: each chromosome's band, n x (keep_distance + 1) float32;
+    from shapes: each chromosome's band as the count path ships it (its
+    packed raw counts, 8 bytes per exception and the rows' float64
+    weights);
     per chromosome and kernel, the candidates' (row, diagonal, corr)
     (int64, int64, float32) and each focus' score, log10 p and window
     (float32).  The candidates and foci come from the plain twin and the
@@ -171,6 +190,7 @@ def _expected_link_bytes(pattern):
     from chromosight_torch.detection import frame_contact_map, pick_foci
     from chromosight_torch.io.config import load_kernel_config
     from chromosight_torch.ops.band import pearson_reference_multi
+    from chromosight_torch.runtime import contact_map
     from chromosight_torch.runtime.genome import HicGenome
 
     cfg = load_kernel_config(pattern)
@@ -182,7 +202,13 @@ def _expected_link_bytes(pattern):
     for cm in genome.sub_mats.contact_map:
         cm.create_mat()
         n = cm.shape[0]
-        up += 4 * n * (cm.keep_distance + 1)
+        (s, e), _ = cm.extent
+        pack = cm.clr.band_upper_counts_auto((s, e), cm.keep_distance + 1,
+                                             u4_head=contact_map.U4_HEAD)
+        mode, *arrays = pack
+        if mode != "u16":  # exceptions ship as int32 indices and float32 values
+            arrays = arrays[:-2] + [np.zeros(2 * len(arrays[-1]), np.float32)]
+        up += sum(a.nbytes for a in arrays) + 8 * n
         sig_p, mask_p = frame_contact_map(cm, kernels.shape[1:])
         corr, _, cand = pearson_reference_multi(
             sig_p, mask_p, kernels, n, cm.max_dist, cfg["max_perc_undetected"] / 100,
