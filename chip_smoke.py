@@ -38,6 +38,19 @@ Phases, one line or block each; any failure raises (non-zero exit):
             (chunked, gzip, shuffle, an enum); and ``quantify`` of
             data_test/example.bed2 reproduces golden_quantify_loops.tsv and
             golden_quantify_borders.tsv;
+4b. formats the same goldens from HDF5's newer formats, read by the
+            port's reader: tests/data/example_latest.cool (libver "latest":
+            superblock 3, dense attributes, extensible- and fixed-array
+            chunk indexes) and example_latest.mcool::/resolutions/1000
+            (libver "v110", dense links, LZF): the seconds of each file's
+            open, index walk and read and the structures walked, ``detect``
+            loops and borders and ``quantify`` loops from the .cool and
+            loops from the .mcool, each table byte for byte the one from
+            data_test/example.cool and the band kernel launched on every
+            map; ``--norm force`` on a copy of the .cool with its weights
+            dropped (``File.unlink``) stores the weights that ``--norm
+            force`` stores into a copy of example.cool, bit for bit, and
+            gives its table byte for byte;
 5. genome   on a synthetic 13 x 48,000-bin genome at 5 kb (the bench.py
             shape): ``detect`` with loops (recall of the planted loops) and
             with borders (13 fused launches), and ``quantify`` of the planted
@@ -215,6 +228,10 @@ EXAMPLE_COOL = "data_test/example.cool"
 # data_test/example.cool's data in cooler's layout (chunked, gzip 6,
 # shuffle, bins/chrom an enum): tests/test_torch_hdf5.py writes it
 COOLER_LAYOUT = "tests/data/example_cooler_layout.cool"
+# the same data in HDF5's newer formats (tests/test_torch_hdf5_formats.py
+# writes them): libver "latest", and a libver "v110" .mcool with LZF
+LATEST_COOL = "tests/data/example_latest.cool"
+LATEST_MCOOL = "tests/data/example_latest.mcool"
 # genome-golden: the genome of tests/data/golden_genome_meta.json
 GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
 # the windows of tests/test_fp32_boundaries.py
@@ -812,13 +829,14 @@ def num(value):
     return float(value) if value != "" else float("nan")
 
 
-def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL):
+def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL, tag=""):
     """``detect`` of ``path`` with ``flags`` against tests/data/<golden>.tsv:
     the same (bin1, bin2, kernel_id, iteration) calls, score within 5e-5,
     p-value and q-value within ``tol`` (1e-6 for the loops golden, 1e-5
     for the others, as tests/test_golden_outputs.py holds them);
-    ``expect`` the launches of each mode."""
-    prefix = f"{workdir}/{golden}"
+    ``expect`` the launches of each mode; the table at
+    ``{workdir}/{golden}{tag}.tsv``."""
+    prefix = f"{workdir}/{golden}{tag}"
     reset_launches()
     with open(f"{workdir}/stdout.txt", "a") as out:
         stdout, sys.stdout = sys.stdout, out
@@ -844,13 +862,13 @@ def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL):
     return prefix
 
 
-def golden_quantify(workdir, golden, flags, pvalue_tol):
-    """``quantify`` of data_test/example.bed2 against tests/data/<golden>.tsv
-    (tests/test_golden_outputs.py:124-173)."""
-    prefix = f"{workdir}/{golden}"
+def golden_quantify(workdir, golden, flags, pvalue_tol, path=EXAMPLE_COOL, tag=""):
+    """``quantify`` of data_test/example.bed2 from ``path`` against
+    tests/data/<golden>.tsv (tests/test_golden_outputs.py:124-173)."""
+    prefix = f"{workdir}/{golden}{tag}"
     reset_launches()
     check(main(["quantify", "--no-plotting", *flags, "data_test/example.bed2",
-                EXAMPLE_COOL, prefix], device=DEVICE) == 0,
+                path, prefix], device=DEVICE) == 0,
           f"{golden}: quantify failed")
     ours = {(r["bin1"], r["bin2"]): r for r in read_tsv(prefix + ".tsv")}
     ref = {(r["bin1"], r["bin2"]): r for r in read_tsv(f"tests/data/{golden}.tsv")}
@@ -863,7 +881,7 @@ def golden_quantify(workdir, golden, flags, pvalue_tol):
         ok = ~np.isnan(b)
         err[col] = float(np.abs(a[ok] - b[ok]).max())
     check(all(ours[k]["qvalue"] == "" for k in ref), f"{golden}: q-values not NaN")
-    print(f"[golden] {golden}: 53/53 rows, max|d| score {err['score']:.3g}, "
+    print(f"[golden] {golden} from {path}: 53/53 rows, max|d| score {err['score']:.3g}, "
           f"pvalue {err['pvalue']:.3g}; launches {launches()} (no sweep)")
     check(err["score"] < 5e-5 and err["pvalue"] < pvalue_tol, f"{golden}: {err}")
 
@@ -948,6 +966,97 @@ def phase_golden(workdir):
                   path=COOLER_LAYOUT)
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6)
     golden_quantify(workdir, "golden_quantify_borders", ["--pattern", "borders"], 5e-5)
+
+
+def timed_read(path):
+    """The port's reader on every object of ``path``: seconds to open it
+    and walk its object headers, to walk every chunk index, and to read
+    every dataset; the structures it walked, by signature."""
+    t0 = time.perf_counter()
+    with hdf5.File(path) as f:
+        datasets, groups = [], [f.root]
+        while groups:
+            group = groups.pop()
+            for name in group.keys():
+                obj = group[name]
+                (groups if isinstance(obj, hdf5.Group) else datasets).append(obj)
+        t1 = time.perf_counter()
+        for d in datasets:
+            if d._class == 2:
+                d._chunk_index()
+        t2 = time.perf_counter()
+        n_bytes = sum(d[()].nbytes for d in datasets)
+        t3 = time.perf_counter()
+        return (t1 - t0, t2 - t1, t3 - t2), len(datasets), n_bytes, dict(f.walked)
+
+
+def phase_formats(workdir):
+    """The example's goldens from the newer-format fixtures, through the
+    command line on the card: tables byte for byte those from
+    data_test/example.cool, the band kernel launched on every map."""
+    card = nvidia_smi("name,power.limit")
+    expect_walked = {LATEST_COOL: ("superblock v3", "OHDR", "BTHD type 8", "FHDB", "EAHD", "EAIB",
+                                   "EADB", "FAHD", "FADB", "chunk index 1"),
+                     LATEST_MCOOL: ("superblock v3", "BTHD type 5", "FHDB", "EAHD", "FAHD",
+                                    "LZF chunk")}
+    for path, signatures in expect_walked.items():
+        (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
+        print(f"[formats] {path}: open + headers {t_open:.6f} s, index walk {t_index:.6f} s, "
+              f"read {t_read:.6f} s ({n} datasets, {n_bytes} bytes) on the host of {card}; "
+              f"walked {json.dumps(walked, sort_keys=True)}")
+        missing = [sig for sig in signatures if not walked.get(sig)]
+        check(not missing, f"{path}: structures not walked: {missing}")
+    loops = ("golden_detect_loops", [], {"single": 3, "multi": 0}, 1e-6)
+    borders = ("golden_detect_borders", ["--pattern", "borders"], {"single": 0, "multi": 3}, 1e-5)
+    for (golden, flags, expect, tol), path in ((loops, LATEST_COOL), (borders, LATEST_COOL),
+                                              (loops, f"{LATEST_MCOOL}::/resolutions/1000")):
+        old = golden_detect(workdir, golden, flags, expect, tol, tag="_v0")
+        new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest")
+        same = pathlib.Path(new + ".tsv").read_bytes() == pathlib.Path(old + ".tsv").read_bytes()
+        print(f"[formats] {golden} from {path}: table byte for byte the one from "
+              f"{EXAMPLE_COOL}: {same}")
+        check(same, f"{golden} from {path}: table differs from {EXAMPLE_COOL}'s")
+    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0")
+    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest")
+    same = (pathlib.Path(f"{workdir}/golden_quantify_loops_latest.tsv").read_bytes()
+            == pathlib.Path(f"{workdir}/golden_quantify_loops_v0.tsv").read_bytes())
+    print(f"[formats] quantify from {LATEST_COOL}: table byte for byte the one from "
+          f"{EXAMPLE_COOL}: {same}")
+    check(same, "quantify table differs")
+
+    # --norm force on a weightless newer-format copy and on a copy of
+    # example.cool: ICE on the host, the weights stored by the port's writer
+    old, new = f"{workdir}/formats_force_v0.cool", f"{workdir}/formats_force_latest.cool"
+    shutil.copy(EXAMPLE_COOL, old)
+    shutil.copy(LATEST_COOL, new)
+    with hdf5.File(new, "r+") as f:
+        f.unlink("bins/weight")
+        chunks = len(f._v2_chunks(f["bins"].addr)[1])
+    check(CoolFile(new).weights is None, "bins/weight not dropped")
+    runs = {}
+    for path in (old, new):
+        reset_launches()
+        t0 = time.perf_counter()
+        quiet = io.StringIO()
+        with contextlib.redirect_stdout(quiet), contextlib.redirect_stderr(quiet):
+            check(main(["detect", "--no-plotting", "--norm", "force", path, path + ".out"],
+                       device=DEVICE) == 0, f"--norm force on {path} failed")
+        runs[path] = (time.perf_counter() - t0, launches(),
+                      pathlib.Path(path + ".out.tsv").read_bytes())
+    weights = CoolFile(new).weights
+    same_w = weights.tobytes() == CoolFile(old).weights.tobytes()
+    same_t = runs[new][2] == runs[old][2]
+    with hdf5.File(new) as f:
+        bins = f["bins"]
+        grew = len(f._v2_chunks(bins.addr)[1]) > chunks
+        where = "a new OCHK chunk" if grew else "a NIL message"
+    print(f"[formats] --norm force on {LATEST_COOL} without its weights: "
+          f"{np.isfinite(weights).sum()} finite weights stored through {where} of the bins "
+          f"group, bit for bit those stored into a copy of {EXAMPLE_COOL}: {same_w}; tables "
+          f"byte for byte: {same_t}; walls {runs[new][0]:.3f} / {runs[old][0]:.3f} s "
+          f"({card}); launches {runs[new][1]}")
+    check(same_w and same_t, "--norm force on the newer-format copy differs")
+    check(runs[new][1] == {"single": 3, "multi": 0}, f"--norm force launches {runs[new][1]}")
 
 
 def run_genome(name, fn, tag="genome"):
@@ -1979,6 +2088,7 @@ def run(quick):
     times, bounds = phase_kernels_chromosome(source)
     with tempfile.TemporaryDirectory() as workdir:
         phase_golden(workdir)
+        phase_formats(workdir)
         runs = phase_genome(source, workdir)
         phase_instruments(source, workdir)
         phase_surface_example(workdir)

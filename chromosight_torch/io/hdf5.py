@@ -1,66 +1,96 @@
-"""A reader and writer of the HDF5 subset that ``.cool`` files use, in
-numpy and the standard library (``os.pread``, ``struct``, ``zlib``).
+"""A reader and writer of the HDF5 subset that ``.cool`` and ``.mcool``
+files use, in numpy and the standard library (``os.pread``, ``struct``,
+``zlib``); the newer formats' shared structures are in ``hdf5_index``.
 
 The port reads and writes cooler files without h5py.  The surface is a
 small part of h5py's: ``File(path)``, ``f["pixels/count"]``, ``name in
-group``, ``obj.attrs`` (a dict) and ``Dataset`` with ``shape``, ``dtype``
-and ``[lo:hi]`` / ``[:]`` slicing along the first axis.  Attribute values
-come back as h5py gives them: ``str`` for a variable-length string,
-``np.bytes_`` for a fixed-length one, numpy scalars for numbers, numpy
-arrays for non-scalar dataspaces; an enum reads as its base integer type.
+group``, ``obj.attrs`` (a dict, in h5py's order: by name, or by creation
+order where the object tracks it) and ``Dataset`` with ``shape``,
+``dtype`` and ``[lo:hi]`` / ``[:]`` slicing along the first axis.
+Attribute values come back as h5py gives them: ``str`` for a
+variable-length string, ``np.bytes_`` for a fixed-length one, numpy
+scalars for numbers, numpy arrays for non-scalar dataspaces; an enum
+reads as its base integer type.  ``File.walked`` counts the structures
+read, by signature.
 
-What it reads is what h5py writes at its default library version
-("earliest"), which is what cooler writes:
+What it reads is what h5py writes at every library-version bound
+("earliest" to "latest", with default property lists), which covers what
+cooler writes:
 
-* superblock versions 0 and 1 (sizes of offsets and lengths from the
-  superblock, a user block before it);
-* version-1 object headers with continuation blocks;
-* symbol-table groups: the v1 B-tree of type 0, ``SNOD`` nodes and the
-  local heap;
-* dataspaces (scalar, simple), datatypes of class 0 (integers, either
-  byte order), 1 (IEEE floats), 3 (fixed strings), 8 (enums) and 9
-  (variable-length strings, from the global heap);
-* data layout version 3: compact, contiguous, and chunked through a v1
-  B-tree of type 1 of any depth; the filters deflate, shuffle and
-  fletcher32 (checked), honouring each chunk's filter mask; storage not
-  allocated reads as the fill value;
-* attribute messages of versions 1 to 3.
+* superblock versions 0 and 1, and 2 and 3 (lookup3 checksum; the
+  superblock extension's B-tree K values), a user block before it;
+* version-1 object headers with continuation blocks, and version-2
+  object headers (``OHDR``, continuation chunks ``OCHK``, each chunk's
+  checksum checked, creation order of messages);
+* symbol-table groups (the v1 B-tree of type 0, ``SNOD`` nodes, the local
+  heap) and new-style groups: link messages in the header (compact) or
+  in a fractal heap under a v2 B-tree name index (dense); hard links;
+* attribute messages of versions 1 to 3, in the header or dense (the
+  attribute info message: a fractal heap under a v2 B-tree of record
+  type 8, managed, tiny and huge heap objects);
+* dataspaces of versions 1 and 2 with their maximum dimensions,
+  datatypes of class 0 (integers, either byte order), 1 (IEEE floats),
+  3 (fixed strings), 8 (enums) and 9 (variable-length strings, from the
+  global heap);
+* data layout versions 3 and 4: compact, contiguous, and chunked through
+  a v1 B-tree of type 1 of any depth, or the chunk indexes of version 4
+  (single chunk, implicit, fixed array, extensible array, v2 B-tree of
+  record types 10 and 11, partial edge chunks left unfiltered); the
+  filters deflate, shuffle, fletcher32 (checked) and LZF (h5py's filter
+  32000, decoded by ``native/lzf.cpp``), honouring each chunk's filter
+  mask; storage not allocated reads as the fill value.
 
 Anything else raises ``NotImplementedError`` naming the feature and the
-file offset (superblock v2/v3, v2 object headers, link-message groups,
-layout v4 chunk indexes, szip, nbit, ...): nothing is read wrong
-silently.  A contiguous slice reads exactly its bytes; a chunked slice
-inflates only the chunks that overlap it, from a chunk index walked once
-per dataset.
+file offset: shared object-header messages and the shared-message
+table, soft and external links, virtual and external storage, the
+filters scale-offset, n-bit and szip, fractal heaps with I/O filters,
+datatypes outside the list above.  Nothing is read wrong silently.  A
+contiguous slice reads exactly its bytes; a chunked slice inflates only
+the chunks that overlap it, from a chunk index walked once per dataset.
 
-The writer makes new files in the same subset (``write``: superblock
-v0, symbol-table groups, contiguous datasets, attributes of integers,
-floats and variable-length UTF-8 strings) and adds or replaces a
-dataset of an existing file (``File(path, "r+").write_dataset``): the
-data and its object header go at the end of the file, the symbol-table
-node and its B-tree key and the local heap are updated in place (the
-heap's data segment moves to the end of the file when it has no room),
-and the superblock's end-of-file address follows.
+The writer makes new files (``write``: superblock v0, symbol-table
+groups, contiguous datasets, attributes of integers, floats and
+variable-length UTF-8 strings) and adds, replaces or removes a link of an
+existing file (``File(path, "r+").write_dataset`` and ``unlink``): the
+data and its version-1 object header go at the end of the file; in a
+symbol-table group the node and its B-tree key and the local heap are
+updated in place (the heap's data segment moves to the end of the file
+when it has no room, and a full node splits in two under a one-level
+B-tree); in a compact new-style group a link message goes into a NIL
+message of the group's version-2 header, or into a new ``OCHK`` chunk at
+the end of the file; the superblock's end-of-file address (and, in
+versions 2 and 3, its checksum) follows.  A group with dense link
+storage, a link past a group's compact limit, and a group B-tree of
+more than one level or a full B-tree node raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import struct
 import zlib
 
 import numpy as np
 
+from chromosight_torch import native
+from chromosight_torch.io import hdf5_index as index
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 # object header message types
 NIL, DATASPACE, LINK_INFO, DATATYPE, FILL_OLD, FILL, LINK = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5, 0x6
 LAYOUT, GROUP_INFO, FILTERS, ATTRIBUTE = 0x8, 0xA, 0xB, 0xC
-CONTINUATION, SYMBOL_TABLE = 0x10, 0x11
-# messages that say nothing about the data read here
-IGNORED = {NIL, 0x0D, 0x0E, 0x12, 0x13, 0x16}
+SHARED_TABLE, CONTINUATION, SYMBOL_TABLE, BTREE_K, ATTRIBUTE_INFO = 0xF, 0x10, 0x11, 0x13, 0x15
+# messages that say nothing about the data read here (comment, times,
+# reference count, file space info)
+IGNORED = {NIL, 0x0D, 0x0E, 0x12, 0x16, 0x17}
 # messages whose body this module interprets: a shared one lives elsewhere
-INTERPRETED = {DATASPACE, DATATYPE, FILL_OLD, FILL, LAYOUT, FILTERS, ATTRIBUTE}
-DEFLATE, SHUFFLE, FLETCHER32 = 1, 2, 3
+INTERPRETED = {DATASPACE, DATATYPE, FILL_OLD, FILL, LAYOUT, FILTERS, ATTRIBUTE, LINK_INFO,
+               LINK, GROUP_INFO, ATTRIBUTE_INFO, SYMBOL_TABLE, BTREE_K}
+DEFLATE, SHUFFLE, FLETCHER32, LZF = 1, 2, 3, 32000
+# chunk indexes of data layout version 4
+SINGLE_CHUNK, IMPLICIT, FIXED_ARRAY, EXTENSIBLE_ARRAY, BTREE2 = 1, 2, 3, 4, 5
+UNLIMITED = (1 << 64) - 1
 # local heap free-list terminator (H5HL_FREE_NULL)
 FREE_NULL = 1
 # group B-tree node sizes of the files this module writes (HDF5's defaults)
@@ -96,6 +126,8 @@ class File:
         self._fd = os.open(self.filename, os.O_RDONLY if mode == "r" else os.O_RDWR)
         self._objects = {}
         self._global_heaps = {}
+        # signatures and structures read, by name (see hdf5_index)
+        self.walked = collections.Counter()
         try:
             self._read_superblock()
             self.root = self._object(self._root_addr, "/")
@@ -176,35 +208,55 @@ class File:
         else:
             raise OSError(f"{self.filename}: not an HDF5 file (no signature found)")
         head = os.pread(self._fd, 128, base)
-        version = head[8]
-        if version not in (0, 1):
+        self._version = version = head[8]
+        if version not in (0, 1, 2, 3):
             raise self._unsupported(f"superblock version {version}", base)
-        self._so, self._sl = head[13], head[14]
+        self._so, self._sl = (head[13], head[14]) if version < 2 else (head[9], head[10])
         if self._so not in (2, 4, 8) or self._sl not in (2, 4, 8):
             raise self._unsupported(f"sizes of offsets {self._so} and lengths {self._sl}", base)
         self._undef = (1 << (8 * self._so)) - 1
-        self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
-        pos = 24 if version == 0 else 28
         so = self._so
         # addresses count from the signature, wherever the stored base
         # address says it is (HDF5's H5F__super_read does the same)
         self._base = base
-        self._eof_pos = base + pos + 2 * so
-        self._eof = _uint(head, pos + 2 * so, so)
-        entry = pos + 4 * so
-        self._root_addr = _uint(head, entry + so, so)
         self._entry_size = 2 * so + 24
+        self.walked[f"superblock v{version}"] += 1
+        if version < 2:
+            self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
+            pos = 24 if version == 0 else 28
+            self._eof_pos = base + pos + 2 * so
+            self._eof = _uint(head, pos + 2 * so, so)
+            self._root_addr = _uint(head, pos + 5 * so, so)
+            return
+        # versions 2 and 3: base, extension, end-of-file and root header
+        # addresses, then a lookup3 checksum of the whole superblock
+        self._sb_size = 12 + 4 * so + 4
+        index.checked(self, head[: self._sb_size], 0, f"superblock version {version}")
+        self._leaf_k, self._internal_k = LEAF_K, INTERNAL_K
+        self._eof_pos = base + 12 + 2 * so
+        self._eof = _uint(head, 12 + 2 * so, so)
+        self._root_addr = _uint(head, 12 + 3 * so, so)
+        extension = self._addr(head, 12 + so)
+        if extension is not None:
+            for kind, body, where in self._messages(extension):
+                if kind == BTREE_K:
+                    # version 0: chunk internal K, group internal K, group leaf K
+                    self._internal_k, self._leaf_k = struct.unpack_from("<HH", body, 3)
 
     # -- adding a dataset --------------------------------------------- #
     def write_dataset(self, path, data, attrs=None):
         """Add the dataset ``path`` ("bins/weight"), or replace it, in a
-        file opened with ``"r+"``: the array contiguous and its object
-        header at the end of the file, ``attrs`` its attributes (see
-        ``_attribute_messages``).  The parent group's symbol-table node
-        gets the entry in name order; a replaced entry points to the new
-        header and the old object stays as dead space, as h5py's ``del``
-        leaves it.  A full node, or a group B-tree of more than one level,
-        raises ``NotImplementedError``."""
+        file opened with ``"r+"``: the array contiguous and its (version 1)
+        object header at the end of the file, ``attrs`` its attributes (see
+        ``_attribute_messages``).  In a symbol-table group the entry goes
+        into its node in name order (a full node is split in two); in a
+        new-style group with compact links a link message goes into the
+        group's header (see ``_add_link``).  A replaced link points to the
+        new header and the old object stays as dead space, as h5py's
+        ``del`` leaves it.  The superblock's end-of-file address follows
+        (and its checksum, in versions 2 and 3).  A group B-tree of more
+        than one level, a full B-tree node and a group with dense link
+        storage raise ``NotImplementedError``."""
         if self.mode != "r+":
             raise ValueError(f"{self.filename} is open read-only")
         if self._base or (self._so, self._sl) != (OFFSET_SIZE, LENGTH_SIZE):
@@ -213,11 +265,62 @@ class File:
         group = self.root[parent]
         if not isinstance(group, Group):
             raise KeyError(f"{parent} is not a group")
+        if group.dense:
+            raise self._unsupported("adding a link to a group with dense link storage",
+                                    group.addr)
         out = _Appender(self._fd, self._eof)
         header = _dataset_header(np.ascontiguousarray(data), out, attrs)
-        self._link(group, name.encode("utf-8"), header, out)
+        if group.link_info is None:
+            self._link(group, name.encode("utf-8"), header, out)
+        else:
+            self._add_link(group, name, header, out)
+            group.__init__(self, group.addr, group.name, self._messages(group.addr))
         self._eof = out.finish()
         self._write(self._eof_pos, self._eof.to_bytes(self._so, "little"))
+        if self._version >= 2:
+            head = self._read(0, self._sb_size - 4)
+            self._write(self._sb_size - 4, struct.pack("<I", index.lookup3(head)))
+        group._links = None
+
+    def unlink(self, path):
+        """Remove the link ``path`` from its group, as h5py's ``del`` does
+        (the object it pointed to stays as dead space): a link message of
+        a compact new-style group becomes a NIL message; a symbol-table
+        entry leaves its node (its name stays in the local heap).  A group
+        with dense link storage raises ``NotImplementedError``."""
+        if self.mode != "r+":
+            raise ValueError(f"{self.filename} is open read-only")
+        parent, _, name = str(path).strip("/").rpartition("/")
+        group = self.root[parent]
+        if not isinstance(group, Group) or name not in group._members():
+            raise KeyError(f"no link {name!r} in {group.name}")
+        if group.dense:
+            raise self._unsupported("removing a link from a group with dense link storage",
+                                    group.addr)
+        if group.link_info is not None:
+            if self._read(group.addr, 4) != b"OHDR":
+                raise self._unsupported("removing a link from a version-1 object header",
+                                        group.addr)
+            where = next(where for kind, body, where in group.messages
+                         if kind == LINK and self._link_message(body, where)[0] == name)
+            self._patch_header(group.addr, where - _v2_hsize(group.messages.flags), bytes([NIL]))
+            group.__init__(self, group.addr, group.name, self._messages(group.addr))
+        else:
+            size, _, heap_data = self._local_heap(group.heap)
+            names = self._read(heap_data, size)
+            encoded, width = name.encode("utf-8"), self._entry_size
+            for _, node in self._btree_leaves(group.btree, self._sl):
+                count, raw = self._snod(node)
+                rows = [raw[i * width : (i + 1) * width] for i in range(count)]
+                keep = [row for row in rows
+                        if names[_uint(row, 0, self._so) :].split(b"\0", 1)[0] != encoded]
+                if len(keep) < count:
+                    if not keep:
+                        raise self._unsupported("removing the last entry of a symbol-table node",
+                                                node)
+                    self._write(node + 6, struct.pack("<H", len(keep)) + b"".join(keep)
+                                + bytes(width))
+                    break
         group._links = None
 
     def _link(self, group, name, header, out):
@@ -233,25 +336,152 @@ class File:
             return names[offset : names.index(b"\0", offset)]
 
         keys = [_uint(key, 0, sl) for key, _ in items] + [_uint(last, 0, sl)]
+        children = [child for _, child in items]
         child = next((i for i in range(len(items)) if name <= name_at(keys[i + 1])), None)
         if child is None:
             child = len(items) - 1
-        node = items[child][1]
+        node = children[child]
         count, raw = self._snod(node)
         rows = [raw[i * size : (i + 1) * size] for i in range(count)]
         row_names = [name_at(_uint(row, 0, so)) for row in rows]
         if name in row_names:
             i = row_names.index(name)
             rows[i] = _entry(_uint(rows[i], 0, so), header)
+            self._write(node + 6, struct.pack("<H", len(rows)) + b"".join(rows))
+            return
+        if count >= 2 * self._leaf_k and len(items) >= 2 * self._internal_k:
+            raise self._unsupported("adding to a full group B-tree node", group.btree)
+        offset = self._heap_insert(group.heap, name, out)
+        rows.insert(sum(n < name for n in row_names), _entry(offset, header))
+        if name > name_at(keys[child + 1]):
+            keys[child + 1] = offset
+        if count < 2 * self._leaf_k:
+            self._write(node + 6, struct.pack("<H", len(rows)) + b"".join(rows))
         else:
-            if count >= 2 * self._leaf_k:
-                raise self._unsupported("adding to a full symbol-table node", node)
-            offset = self._heap_insert(group.heap, name, out)
-            rows.insert(sum(n < name for n in row_names), _entry(offset, header))
-            if name > name_at(keys[child + 1]):
-                key_pos = group.btree + 8 + 2 * so + (child + 1) * (sl + so)
-                self._write(key_pos, offset.to_bytes(sl, "little"))
-        self._write(node + 6, struct.pack("<H", len(rows)) + b"".join(rows))
+            # a full node: the first half stays, the rest goes to a new
+            # node after it in the B-tree, keyed by the first half's last
+            # name (H5G__node_insert splits the same way)
+            half = (len(rows) + 1) // 2
+            self._write(node + 6, struct.pack("<H", half) + b"".join(rows[:half]))
+            empty = bytes(8 + 2 * self._leaf_k * size)
+            right = b"SNOD" + struct.pack("<BBH", 1, 0, len(rows) - half) + b"".join(rows[half:])
+            children.insert(child + 1, out.put(right + empty[len(right):]))
+            keys.insert(child + 1, _uint(rows[half - 1], 0, so))
+        body = b"".join(k.to_bytes(sl, "little") + c.to_bytes(so, "little")
+                        for k, c in zip(keys, children)) + keys[-1].to_bytes(sl, "little")
+        self._write(group.btree + 6, struct.pack("<H", len(children)))
+        self._write(group.btree + 8 + 2 * so, body)
+
+    # -- links in a version-2 object header ------------------------------ #
+    def _add_link(self, group, name, header, out):
+        """Point the link ``name`` of a compact new-style group at
+        ``header``: its address rewritten in place, or a new link message
+        in the group's header (creation order from the link info message,
+        whose maximum creation index goes up by one; a replaced link of a
+        group that tracks creation order is made anew, as h5py's ``del``
+        and create make it).  Past the group info's compact limit the
+        group would turn dense: that raises."""
+        so = self._so
+        if self._read(group.addr, 4) != b"OHDR":
+            raise self._unsupported("adding a link to a version-1 object header", group.addr)
+        where, flags = group.link_info[:2]
+        links = sum(kind == LINK for kind, _, _ in group.messages)
+        for kind, body, at in group.messages:
+            if kind == LINK and self._link_message(body, at)[0] == name:
+                target = self._link_message(body, at)[1]
+                if isinstance(target, _Soft):
+                    raise self._unsupported(f"replacing a {target.kind} link", at)
+                if not flags & 0x1:
+                    self._patch_header(group.addr, at + len(body) - so,
+                                       header.to_bytes(so, "little"))
+                    return
+                # creation order tracked: the link is made anew, last, as
+                # h5py's del and create order it
+                self._patch_header(group.addr, at - _v2_hsize(group.messages.flags),
+                                   bytes([NIL]))
+                links -= 1
+        if links + 1 > group.max_compact:
+            raise self._unsupported(
+                f"adding a link past the compact limit of {group.max_compact} (dense link storage)",
+                group.addr)
+        encoded = name.encode("utf-8")
+        width = 0 if len(encoded) < 256 else 1
+        # version 1, flags: name length width, creation order, UTF-8
+        body = bytearray([1, width])
+        if flags & 0x1:
+            order = struct.unpack_from("<q", self._read(where + 2, 8))[0]
+            self._patch_header(group.addr, where + 2, struct.pack("<q", order + 1))
+            body[1] |= 0x4
+            body += struct.pack("<q", order)
+        if not encoded.isascii():
+            body[1] |= 0x10
+            body.append(1)
+        body += len(encoded).to_bytes(1 << width, "little") + encoded
+        body += header.to_bytes(so, "little")
+        self._add_message(group.addr, LINK, bytes(body), out)
+
+    def _patch_header(self, addr, at, data):
+        """Write ``data`` at file address ``at``, inside the version-2
+        object header at ``addr``, and update that chunk's checksum."""
+        _, chunks = self._v2_chunks(addr)
+        for caddr, chunk, _ in chunks:
+            if caddr <= at and at + len(data) <= caddr + len(chunk) - 4:
+                chunk = bytearray(chunk)
+                chunk[at - caddr : at - caddr + len(data)] = data
+                chunk[-4:] = struct.pack("<I", index.lookup3(chunk[:-4]))
+                self._write(caddr, chunk)
+                return
+        raise OSError(f"{self.filename}: offset {at} is not inside the object header at {addr}")
+
+    def _add_message(self, addr, kind, body, out):
+        """Put a message into the version-2 object header at ``addr``: into
+        a NIL message that holds it (the rest stays NIL), or else into a new
+        ``OCHK`` chunk at the end of the file, reached through a
+        continuation message that takes the place of a NIL message or of
+        a message moved into the new chunk with it."""
+        flags, chunks = self._v2_chunks(addr)
+        hsize = _v2_hsize(flags)
+
+        def message(kind, body):
+            head = struct.pack("<BHB", kind, len(body), 0) + (bytes(2) if hsize == 6 else b"")
+            return head + body
+
+        def fits(size, need):
+            return size == need or size - need >= hsize
+
+        slots = [(c, at, k, size) for c, (_, data, start) in enumerate(chunks)
+                 for at, k, size, _ in _v2_slots(data, start, flags)]
+        nil = next(((c, at, size) for c, at, k, size in slots
+                    if k == NIL and fits(size, len(body))), None)
+        if nil is None:
+            cont = 2 * self._so
+            nil = next(((c, at, size) for c, at, k, size in slots
+                        if k == NIL and fits(size, cont)), None)
+            moved = b""
+            if nil is None:
+                slot = next((s for s in reversed(slots)
+                             if s[2] not in (NIL, CONTINUATION) and fits(s[3], cont)), None)
+                if slot is None:
+                    raise self._unsupported("an object header with no room for a continuation",
+                                            addr)
+                c, at, _, size = slot
+                nil = (c, at, size)
+                data = chunks[c][1]
+                moved = data[at : at + hsize + size]
+            block = b"OCHK" + moved + message(kind, body)
+            block += struct.pack("<I", index.lookup3(block))
+            target = out.put(block)
+            kind = CONTINUATION
+            body = struct.pack("<QQ", target, len(block))
+        c, at, size = nil
+        caddr, data, _ = chunks[c]
+        data = bytearray(data)
+        new = message(kind, body)
+        if size > len(body):
+            new += message(NIL, bytes(size - len(body) - hsize))
+        data[at : at + len(new)] = new
+        data[-4:] = struct.pack("<I", index.lookup3(data[:-4]))
+        self._write(caddr, data)
 
     def _heap_insert(self, heap, name, out):
         """Put ``name`` (null-terminated, 8-byte aligned) in the local heap
@@ -299,14 +529,16 @@ class File:
     # -- object headers ------------------------------------------------ #
     def _messages(self, addr):
         """(type, body, file offset of the body) of every message of the
-        version-1 object header at ``addr``, continuation blocks followed."""
+        object header at ``addr`` (version 1, or version 2 with its
+        checksums), continuation blocks followed, as a ``_Header``."""
         prefix = self._read(addr, 16)
         if prefix[:4] == b"OHDR":
-            raise self._unsupported("a version-2 object header", addr)
+            return self._messages_v2(addr)
         if prefix[0] != 1:
             raise self._unsupported(f"object header version {prefix[0]}", addr)
+        self.walked["object header v1"] += 1
         blocks = [(addr + 16, struct.unpack_from("<I", prefix, 8)[0])]
-        messages = []
+        messages = _Header()
         while blocks:
             start, length = blocks.pop(0)
             block = self._read(start, length)
@@ -318,14 +550,60 @@ class File:
                 pos += 8 + size
                 if kind == CONTINUATION:
                     blocks.append((_uint(body, 0, self._so), _uint(body, self._so, self._sl)))
-                elif kind in INTERPRETED or kind == SYMBOL_TABLE:
-                    if flags & 0x2:
-                        raise self._unsupported(f"a shared message of type 0x{kind:04x}", where)
-                    messages.append((kind, body, where))
-                elif kind in (LINK_INFO, LINK, GROUP_INFO):
-                    raise self._unsupported("a link-message group (new-style group)", where)
-                elif kind not in IGNORED:
-                    raise self._unsupported(f"object header message type 0x{kind:04x}", where)
+                else:
+                    self._keep(messages, kind, flags, body, where)
+        return messages
+
+    def _keep(self, messages, kind, flags, body, where):
+        if kind in INTERPRETED:
+            if flags & 0x2:
+                raise self._unsupported(f"a shared message of type 0x{kind:04x}", where)
+            messages.append((kind, body, where))
+        elif kind == SHARED_TABLE:
+            raise self._unsupported("a shared-message table", where)
+        elif kind not in IGNORED:
+            raise self._unsupported(f"object header message type 0x{kind:04x}", where)
+
+    def _v2_chunks(self, addr):
+        """The chunks of the version-2 object header at ``addr``: its flags
+        and a list of (chunk address, chunk bytes with checksum, offset of
+        the first message); each chunk's checksum checked."""
+        head = self._read(addr, 6)
+        flags = head[5]
+        if head[4] != 2:
+            raise self._unsupported(f"object header version {head[4]}", addr)
+        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 0x3)
+        size = _uint(self._read(addr + pos, width), 0, width)
+        first = index.checked(self, self._read(addr, pos + width + size + 4), addr, "OHDR")
+        chunks = [(addr, first, pos + width)]
+        self.walked["OHDR"] += 1
+        for caddr, data, start in chunks:
+            for at, kind, size, _ in _v2_slots(data, start, flags):
+                if kind == CONTINUATION:
+                    body = data[at + _v2_hsize(flags) :]
+                    target = _uint(body, 0, self._so)
+                    length = _uint(body, self._so, self._sl)
+                    block = index.checked(self, self._read(target, length), target, "OCHK")
+                    if block[:4] != b"OCHK":
+                        raise OSError(f"{self.filename}: no OCHK at file offset {target}")
+                    self.walked["OCHK"] += 1
+                    chunks.append((target, block, 4))
+        return flags, chunks
+
+    def _messages_v2(self, addr):
+        flags, chunks = self._v2_chunks(addr)
+        messages = _Header(flags)
+        hsize = _v2_hsize(flags)
+        for caddr, data, start in chunks:
+            for at, kind, size, mflags in _v2_slots(data, start, flags):
+                if kind == CONTINUATION:
+                    continue
+                where = caddr + at + hsize
+                body = data[at + hsize : at + hsize + size]
+                if flags & 0x4:
+                    messages.orders[where] = struct.unpack_from("<H", data, at + 4)[0]
+                self._keep(messages, kind, mflags, body, where)
         return messages
 
     def _object(self, addr, name):
@@ -333,7 +611,7 @@ class File:
         if obj is None:
             messages = self._messages(addr)
             kinds = {kind for kind, _, _ in messages}
-            if SYMBOL_TABLE in kinds:
+            if SYMBOL_TABLE in kinds or LINK_INFO in kinds:
                 obj = Group(self, addr, name, messages)
             elif LAYOUT in kinds:
                 obj = Dataset(self, addr, name, messages)
@@ -436,7 +714,12 @@ class File:
         raise self._unsupported(f"datatype class {cls}", where)
 
     def _dataspace(self, data, pos, where):
-        version, rank = data[pos], data[pos + 1]
+        return self._dataspace_dims(data, pos, where)[0]
+
+    def _dataspace_dims(self, data, pos, where):
+        """(dimensions, maximum dimensions) of the dataspace at ``pos``;
+        an unlimited maximum is ``UNLIMITED``."""
+        version, rank, flags = data[pos], data[pos + 1], data[pos + 2]
         if version == 1:
             start = pos + 8
         elif version == 2:
@@ -445,7 +728,13 @@ class File:
             start = pos + 4
         else:
             raise self._unsupported(f"dataspace version {version}", where)
-        return tuple(_uint(data, start + i * self._sl, self._sl) for i in range(rank))
+        sl = self._sl
+        dims = tuple(_uint(data, start + i * sl, sl) for i in range(rank))
+        if not flags & 0x1:
+            return dims, dims
+        top = (1 << (8 * sl)) - 1
+        maxdims = tuple(_uint(data, start + (rank + i) * sl, sl) for i in range(rank))
+        return dims, tuple(UNLIMITED if m == top else m for m in maxdims)
 
     def _values(self, kind, raw, shape, decode):
         """The array of ``shape`` stored in ``raw``; variable-length
@@ -467,29 +756,83 @@ class File:
         return out.reshape(shape)
 
     def _attributes(self, messages):
-        """The attribute messages as a dict, in name order (h5py's)."""
-        attrs = {}
+        """The attributes of an object header as a dict, compact (attribute
+        messages) or dense (a fractal heap under a v2 B-tree of records of
+        type 8), in h5py's order: by name, or by creation order where the
+        header tracks it."""
+        found = []  # (creation order, name, value)
         for kind, body, where in messages:
-            if kind != ATTRIBUTE:
-                continue
-            version = body[0]
-            if version not in (1, 2, 3):
-                raise self._unsupported(f"attribute message version {version}", where)
-            if version > 1 and body[1] & 0x3:
-                raise self._unsupported("an attribute of a shared type or space", where)
-            name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
-            pad = _align8 if version == 1 else int
-            pos = 8 if version < 3 else 9
-            name = body[pos : pos + name_size].split(b"\0", 1)[0].decode("utf-8")
-            pos += pad(name_size)
-            kind_, _ = self._datatype(body, pos, where)
-            pos += pad(type_size)
-            shape = self._dataspace(body, pos, where)
-            pos += pad(space_size)
-            value = self._values(kind_, body[pos:], shape, decode=True)
-            attrs[name] = value[()] if shape == () else value
-        return dict(sorted(attrs.items()))
+            if kind == ATTRIBUTE:
+                found.append((messages.orders.get(where, 0), *self._attribute(body, where)))
+            elif kind == ATTRIBUTE_INFO:
+                found.extend(self._dense_attributes(body, where))
+        if messages.flags & 0x4:
+            found.sort(key=lambda item: item[0])
+        else:
+            found.sort(key=lambda item: item[1].encode("utf-8"))
+        return {name: value for _, name, value in found}
 
+    def _dense_attributes(self, body, where):
+        if body[0] != 0:
+            raise self._unsupported(f"attribute info message version {body[0]}", where)
+        pos = 2 + (2 if body[1] & 0x1 else 0)
+        heap_addr, names = self._addr(body, pos), self._addr(body, pos + self._so)
+        if heap_addr is None:
+            return []
+        heap, tree = index.FractalHeap(self, heap_addr), index.BTree2(self, names)
+        if tree.type != 8:
+            raise self._unsupported(f"an attribute name index of record type {tree.type}", names)
+        found = []
+        for record in tree.records():
+            # heap ID (8), message flags (1), creation order (4), name hash (4)
+            if record[8] & 0x2:
+                raise self._unsupported("a shared attribute in dense storage", names)
+            message = heap.get(record[:8], heap_addr)
+            order = struct.unpack_from("<I", record, 9)[0]
+            found.append((order, *self._attribute(message, heap_addr)))
+        return found
+
+    def _attribute(self, body, where):
+        """(name, value) of an attribute message."""
+        version = body[0]
+        if version not in (1, 2, 3):
+            raise self._unsupported(f"attribute message version {version}", where)
+        if version > 1 and body[1] & 0x3:
+            raise self._unsupported("an attribute of a shared type or space", where)
+        name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
+        pad = _align8 if version == 1 else int
+        pos = 8 if version < 3 else 9
+        name = body[pos : pos + name_size].split(b"\0", 1)[0].decode("utf-8")
+        pos += pad(name_size)
+        kind, _ = self._datatype(body, pos, where)
+        pos += pad(type_size)
+        shape = self._dataspace(body, pos, where)
+        pos += pad(space_size)
+        value = self._values(kind, body[pos:], shape, decode=True)
+        return name, value[()] if shape == () else value
+
+    def _link_message(self, body, where):
+        """(name, target, creation order) of a link message: ``target`` the
+        object header address of a hard link, a ``_Soft`` otherwise."""
+        if body[0] != 1:
+            raise self._unsupported(f"link message version {body[0]}", where)
+        flags, pos = body[1], 2
+        kind = 0
+        if flags & 0x8:
+            kind, pos = body[pos], pos + 1
+        order = None
+        if flags & 0x4:
+            order, pos = struct.unpack_from("<q", body, pos)[0], pos + 8
+        if flags & 0x10:
+            pos += 1
+        width = 1 << (flags & 0x3)
+        length = _uint(body, pos, width)
+        pos += width
+        name = body[pos : pos + length].decode("utf-8")
+        pos += length
+        if kind == 0:
+            return name, _uint(body, pos, self._so), order
+        return name, _Soft({1: "soft", 64: "external"}.get(kind, f"type {kind}"), where), order
 
 class _Type:
     """A datatype: its numpy dtype (``object`` for variable-length
@@ -502,34 +845,119 @@ class _Type:
         self.size = dtype.itemsize if size is None else size
 
 
+class _Header(list):
+    """The messages of an object header, a list of (type, body, file
+    offset of the body); ``flags`` of a version-2 header (bit 2: the
+    creation order of attributes is tracked) and ``orders``, the
+    creation order of each message by its body's offset."""
+
+    def __init__(self, flags=0):
+        super().__init__()
+        self.flags, self.orders = flags, {}
+
+
+def _v2_hsize(flags):
+    """Size of a message's header in a version-2 object header."""
+    return 6 if flags & 0x4 else 4
+
+
+def _v2_slots(data, start, flags):
+    """(offset, type, body size, message flags) of the messages of a
+    version-2 header chunk (``data`` ends in its checksum) from
+    ``start``; a gap shorter than a message header ends the chunk."""
+    hsize, end, pos = _v2_hsize(flags), len(data) - 4, start
+    out = []
+    while pos + hsize <= end:
+        kind, size, mflags = data[pos], struct.unpack_from("<H", data, pos + 1)[0], data[pos + 3]
+        if pos + hsize + size > end:
+            raise OSError(f"message of {size} bytes past the end of its header chunk")
+        out.append((pos, kind, size, mflags))
+        pos += hsize + size
+    return out
+
+
+class _Soft:
+    """A soft or external link: what it is and where its message is."""
+
+    __slots__ = ("kind", "where")
+
+    def __init__(self, kind, where):
+        self.kind, self.where = kind, where
+
+
 class Group:
-    """A symbol-table group: ``g[path]``, ``name in g``, ``g.keys()``,
-    ``g.attrs``."""
+    """A group, symbol-table (``btree`` and ``heap``) or new-style (link
+    messages, compact in its header or dense in a fractal heap):
+    ``g[path]``, ``name in g``, ``g.keys()``, ``g.attrs``."""
 
     def __init__(self, file, addr, name, messages):
         self.file, self.addr, self.name = file, addr, name
-        body = next(body for kind, body, _ in messages if kind == SYMBOL_TABLE)
-        self.btree = _uint(body, 0, file._so)
-        self.heap = _uint(body, file._so, file._so)
+        self.btree = self.heap = None
+        self.link_info = None
+        so = file._so
+        for kind, body, where in messages:
+            if kind == SYMBOL_TABLE:
+                self.btree, self.heap = _uint(body, 0, so), _uint(body, so, so)
+            elif kind == LINK_INFO:
+                if body[0] != 0:
+                    raise file._unsupported(f"link info message version {body[0]}", where)
+                pos = 2 + (8 if body[1] & 0x1 else 0)
+                # (offset of the message body, flags, fractal heap, name index)
+                self.link_info = (where, body[1], file._addr(body, pos),
+                                  file._addr(body, pos + so))
+        self.max_compact = next(
+            (struct.unpack_from("<H", body, 2)[0] for kind, body, _ in messages
+             if kind == GROUP_INFO and body[1] & 0x1), 8)
+        self.messages = messages
         self.attrs = file._attributes(messages)
         self._links = None
 
+    @property
+    def dense(self):
+        return self.link_info is not None and self.link_info[2] is not None
+
     def _members(self):
-        """{name: object header address} of the group's entries."""
+        """{name: object header address (or ``_Soft``)} of the group's
+        links, by name or, where the group tracks it, by creation order."""
         if self._links is None:
             f = self.file
-            size, _, heap_data = f._local_heap(self.heap)
-            names = f._read(heap_data, size)
-            links = {}
-            for _, node in f._btree_leaves(self.btree, f._sl):
-                count, entries = f._snod(node)
-                for i in range(count):
-                    pos = i * f._entry_size
-                    offset = _uint(entries, pos, f._so)
-                    name = names[offset : names.index(b"\0", offset)].decode("utf-8")
-                    links[name] = _uint(entries, pos + f._so, f._so)
-            self._links = links
+            if self.link_info is None:
+                self._links = self._symbol_table()
+                return self._links
+            if self.dense:
+                _, _, heap_addr, names = self.link_info
+                heap, tree = index.FractalHeap(f, heap_addr), index.BTree2(f, names)
+                if tree.type != 5:
+                    raise f._unsupported(f"a link name index of record type {tree.type}", names)
+                found = [f._link_message(heap.get(r[4:], heap_addr), heap_addr)
+                         for r in tree.records()]
+            else:
+                found = [f._link_message(body, where) for kind, body, where in self.messages
+                         if kind == LINK]
+            if self.link_info[1] & 0x1:
+                found.sort(key=lambda link: link[2])
+            else:
+                found.sort(key=lambda link: link[0].encode("utf-8"))
+            self._links = {name: target for name, target, _ in found}
         return self._links
+
+    def _symbol_table(self):
+        f = self.file
+        size, _, heap_data = f._local_heap(self.heap)
+        names = f._read(heap_data, size)
+        links = {}
+        for _, node in f._btree_leaves(self.btree, f._sl):
+            count, entries = f._snod(node)
+            for i in range(count):
+                pos = i * f._entry_size
+                offset = _uint(entries, pos, f._so)
+                name = names[offset : names.index(b"\0", offset)].decode("utf-8")
+                if _uint(entries, pos + 2 * f._so, 4) == 2:
+                    # cache type 2: a soft link, its value in the local heap
+                    links[name] = _Soft("soft", node + 8 + pos)
+                else:
+                    links[name] = _uint(entries, pos + f._so, f._so)
+        return links
 
     def keys(self):
         return list(self._members())
@@ -542,7 +970,10 @@ class Group:
             members = obj._members()
             if part not in members:
                 raise KeyError(f"no object {part!r} in {obj.name}")
-            obj = self.file._object(members[part], f"{obj.name.rstrip('/')}/{part}")
+            target = members[part]
+            if isinstance(target, _Soft):
+                raise self.file._unsupported(f"a {target.kind} link {part!r}", target.where)
+            obj = self.file._object(target, f"{obj.name.rstrip('/')}/{part}")
         return obj
 
     def __contains__(self, path):
@@ -560,9 +991,10 @@ class Dataset:
     def __init__(self, file, addr, name, messages):
         self.file, self.addr, self.name = file, addr, name
         self._filters, fill, self._chunks = [], None, None
+        self._index_type, self._edge_unfiltered = None, False
         for kind, body, where in messages:
             if kind == DATASPACE:
-                self.shape = file._dataspace(body, 0, where)
+                self.shape, self.maxshape = file._dataspace_dims(body, 0, where)
             elif kind == DATATYPE:
                 self._type, _ = file._datatype(body, 0, where)
             elif kind == LAYOUT:
@@ -579,20 +1011,53 @@ class Dataset:
 
     def _layout(self, body, where):
         f = self.file
-        if body[0] != 3:
-            raise f._unsupported(f"data layout version {body[0]}", where)
+        version = body[0]
+        if version not in (3, 4):
+            raise f._unsupported(f"data layout version {version}", where)
         self._class = body[1]
         if self._class == 0:
             self._compact = body[4 : 4 + struct.unpack_from("<H", body, 2)[0]]
         elif self._class == 1:
             self._address = f._addr(body, 2)
-        elif self._class == 2:
+        elif self._class == 2 and version == 3:
             rank = body[2] - 1
             self._btree_addr = f._addr(body, 3)
             pos = 3 + f._so
             self._chunk_shape = struct.unpack_from(f"<{rank}I", body, pos)
+        elif self._class == 2:
+            self._layout_v4(body, where)
         else:
-            raise f._unsupported(f"data layout class {self._class}", where)
+            name = {3: " (virtual)"}.get(self._class, "")
+            raise f._unsupported(f"data layout class {self._class}{name}", where)
+
+    def _layout_v4(self, body, where):
+        """A chunked layout of version 4: chunk dimensions of ``body[4]``
+        bytes each (the last is the element size), then the chunk index's
+        type, parameters and address."""
+        f = self.file
+        flags, dims, width = body[2], body[3], body[4]
+        pos = 5
+        self._chunk_shape = tuple(_uint(body, pos + i * width, width) for i in range(dims - 1))
+        pos += dims * width
+        self._index_type = kind = body[pos]
+        pos += 1
+        self._edge_unfiltered = bool(flags & 0x1)
+        self._single = None
+        if kind == SINGLE_CHUNK:
+            if flags & 0x2:
+                self._single = (_uint(body, pos, f._sl), struct.unpack_from("<I", body,
+                                                                             pos + f._sl)[0])
+                pos += f._sl + 4
+        elif kind == FIXED_ARRAY:
+            pos += 1
+        elif kind == EXTENSIBLE_ARRAY:
+            pos += 5
+        elif kind == BTREE2:
+            pos += 6
+        elif kind != IMPLICIT:
+            raise f._unsupported(f"chunk index type {kind}", where)
+        self._index_addr = f._addr(body, pos)
+        self._layout_where = where
 
     def _pipeline(self, body, where):
         version, count = body[0], body[1]
@@ -612,8 +1077,9 @@ class Dataset:
             pos += _align8(name_size) if version == 1 else name_size
             values = struct.unpack_from(f"<{n_values}I", body, pos)
             pos += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
-            if fid not in (DEFLATE, SHUFFLE, FLETCHER32):
-                raise self.file._unsupported(f"filter {fid} ({name or 'unnamed'})", where)
+            if fid not in (DEFLATE, SHUFFLE, FLETCHER32, LZF):
+                name = name or {4: "szip", 5: "nbit", 6: "scaleoffset"}.get(fid, "unnamed")
+                raise self.file._unsupported(f"filter {fid} ({name})", where)
             filters.append((fid, values))
         return filters
 
@@ -685,23 +1151,123 @@ class Dataset:
         return self.file._values(self._type, raw, shape, decode=False)
 
     # -- chunked ------------------------------------------------------- #
+    @property
+    def _chunk_bytes(self):
+        return self._type.size * int(np.prod(self._chunk_shape, dtype=np.int64))
+
+    def _chunk_grid(self, dims):
+        """Chunks along each axis for dimensions ``dims``."""
+        return [-(-int(d) // c) for d, c in zip(dims, self._chunk_shape)]
+
     def _chunk_index(self):
         """Chunk offsets (n, rank), addresses, stored sizes and filter
-        masks, sorted by offset: the chunk B-tree walked once."""
+        masks, sorted by offset, of the chunks inside the dataset: the
+        chunk index walked once."""
         if self._chunks is None:
-            f = self.file
             rank = len(self._chunk_shape)
-            key_size = 16 + 8 * rank
-            leaves = [] if self._btree_addr is None else f._btree_leaves(self._btree_addr, key_size)
-            offsets = np.array(
-                [struct.unpack_from(f"<{rank}Q", key, 8) for key, _ in leaves], dtype=np.int64
-            ).reshape(len(leaves), rank)
-            sizes = np.array([struct.unpack_from("<II", key)[0] for key, _ in leaves], np.int64)
-            masks = np.array([struct.unpack_from("<II", key)[1] for key, _ in leaves], np.int64)
-            addrs = np.array([child for _, child in leaves], dtype=np.uint64)
+            if self._index_type is None:
+                offsets, addrs, sizes, masks = self._btree1_chunks(rank)
+            else:
+                offsets, addrs, sizes, masks = self._v4_chunks(rank)
+                if not self._filters:
+                    sizes = np.full(len(addrs), self._chunk_bytes, np.int64)
+            offsets = np.asarray(offsets, np.int64).reshape(len(addrs), rank)
+            inside = np.all(offsets < np.array(self.shape, np.int64), axis=1)
+            offsets, addrs = offsets[inside], np.asarray(addrs, np.uint64)[inside]
+            sizes, masks = np.asarray(sizes, np.int64)[inside], np.asarray(masks, np.int64)[inside]
+            if self._edge_unfiltered and self._filters:
+                edge = np.any(offsets + np.array(self._chunk_shape) > np.array(self.shape), axis=1)
+                masks[edge] = -1
+                sizes[edge] = self._chunk_bytes
             order = np.lexsort(offsets.T[::-1])
             self._chunks = (offsets[order], addrs[order], sizes[order], masks[order])
         return self._chunks
+
+    def _btree1_chunks(self, rank):
+        """The chunks of a version-3 layout, from its v1 B-tree of type 1."""
+        f = self.file
+        key_size = 16 + 8 * rank
+        leaves = [] if self._btree_addr is None else f._btree_leaves(self._btree_addr, key_size)
+        offsets = [struct.unpack_from(f"<{rank}Q", key, 8) for key, _ in leaves]
+        sizes = [struct.unpack_from("<II", key)[0] for key, _ in leaves]
+        masks = [struct.unpack_from("<II", key)[1] for key, _ in leaves]
+        return offsets, [child for _, child in leaves], sizes, masks
+
+    def _v4_chunks(self, rank):
+        """The chunks of a version-4 layout, from its chunk index."""
+        f, kind, addr = self.file, self._index_type, self._index_addr
+        chunk = np.array(self._chunk_shape, np.int64)
+        nothing = (np.zeros((0, rank), np.int64), [], [], [])
+        f.walked[f"chunk index {kind}"] += 1
+        if addr is None:
+            return nothing
+        if kind == SINGLE_CHUNK:
+            size, mask = self._single or (self._chunk_bytes, 0)
+            return np.zeros((1, rank), np.int64), [addr], [size], [mask]
+        if kind == BTREE2:
+            return self._btree2_chunks(rank, chunk)
+        if kind == IMPLICIT:
+            grid = self._chunk_grid(self.maxshape)
+            linear = np.arange(int(np.prod(grid)), dtype=np.int64)
+            addrs = np.uint64(addr) + linear.astype(np.uint64) * np.uint64(self._chunk_bytes)
+            return self._unravel(linear, grid) * chunk, addrs, [0] * len(linear), [0] * len(linear)
+        where = self._layout_where
+        if kind == FIXED_ARRAY:
+            linear, addrs, sizes, masks = index.fixed_array(f, addr, self._chunk_bytes, where)
+            offsets = self._unravel(linear, self._chunk_grid(self.maxshape)) * chunk
+            return offsets, addrs, sizes, masks
+        linear, addrs, sizes, masks = index.extensible_array(f, addr, self._chunk_bytes, where)
+        # H5D__earray: the linear index runs over the chunk grid with the
+        # unlimited axis moved first (the slowest)
+        unlimited = [i for i, m in enumerate(self.maxshape) if m == UNLIMITED]
+        if len(unlimited) != 1:
+            raise f._unsupported("an extensible-array index without one unlimited axis", where)
+        axis = unlimited[0]
+        grid = self._chunk_grid(self.maxshape)
+        order = [axis] + [i for i in range(rank) if i != axis]
+        grid[axis] = 1 << 62
+        swizzled = self._unravel(linear, [grid[i] for i in order])
+        offsets = np.empty_like(swizzled)
+        offsets[:, order] = swizzled
+        return offsets * chunk, addrs, sizes, masks
+
+    @staticmethod
+    def _unravel(linear, grid):
+        """Row-major chunk coordinates (n, rank) of linear indexes."""
+        out = np.empty((len(linear), len(grid)), np.int64)
+        rest = np.asarray(linear, np.int64)
+        for axis in reversed(range(len(grid))):
+            out[:, axis] = rest % grid[axis]
+            rest = rest // grid[axis]
+        return out
+
+    def _btree2_chunks(self, rank, chunk):
+        """Chunks from a v2 B-tree of records of type 10 (address, scaled
+        offsets) or 11 (address, size, filter mask, scaled offsets)."""
+        f = self.file
+        tree = index.BTree2(f, self._index_addr)
+        records = tree.records()
+        so = f._so
+        if tree.type == 10:
+            fields = [(0, so)] + [(so + 8 * i, 8) for i in range(rank)]
+            width = so + 8 * rank
+        elif tree.type == 11:
+            size_len = index.chunk_size_len(self._chunk_bytes)
+            base = so + size_len + 4
+            fields = [(0, so), (so, size_len), (so + size_len, 4)] + [
+                (base + 8 * i, 8) for i in range(rank)]
+            width = base + 8 * rank
+        else:
+            raise f._unsupported(f"a chunk B-tree of record type {tree.type}", self._index_addr)
+        if tree.record_size != width:
+            raise f._unsupported(f"chunk B-tree records of {tree.record_size} bytes",
+                                 self._index_addr)
+        columns = index.uints(b"".join(records), len(records), width, fields)
+        scaled = np.stack(columns[-rank:], axis=1).astype(np.int64).reshape(len(records), rank)
+        if tree.type == 10:
+            zeros = [0] * len(records)
+            return scaled * chunk, columns[0], zeros, zeros
+        return scaled * chunk, columns[0], columns[1].astype(np.int64), columns[2].astype(np.int64)
 
     def _chunked_rows(self, lo, hi, shape):
         offsets, addrs, sizes, masks = self._chunk_index()
@@ -732,6 +1298,10 @@ class Dataset:
             fid, values = self._filters[i]
             if fid == DEFLATE:
                 raw = zlib.decompress(raw)
+            elif fid == LZF:
+                size = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
+                raw = native.lzf_decompress(raw, size)
+                self.file.walked["LZF chunk"] += 1
             elif fid == SHUFFLE:
                 raw = _unshuffle(raw, values[0] if values else self._type.size)
             else:

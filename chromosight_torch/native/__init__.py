@@ -30,26 +30,28 @@ import threading
 import numpy as np
 
 _SRC = pathlib.Path(__file__).parent / "kernels.cpp"
+_LZF_SRC = pathlib.Path(__file__).parent / "lzf.cpp"
 BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LIB = None
 _TRIED = False
+_LZF = None
 _LOCK = threading.Lock()
 
 
-def _build(openmp=True):
-    """Compile ``kernels.cpp`` unless this source and command line were
-    built before; returns the library's path."""
+def _build(openmp=True, src=_SRC, name="libchromosight_native.so"):
+    """Compile ``src`` (``kernels.cpp``) unless this source and command
+    line were built before; returns the library's path."""
     flags = [*_FLAGS, "-fopenmp"] if openmp else list(_FLAGS)
     digest = hashlib.sha256(" ".join(flags).encode())
-    digest.update(_SRC.read_bytes())
-    out = BUILD_DIR / digest.hexdigest()[:16] / "libchromosight_native.so"
+    digest.update(src.read_bytes())
+    out = BUILD_DIR / digest.hexdigest()[:16] / name
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f"tmp{os.getpid()}.so"
     subprocess.run(
-        ["g++", *flags, str(_SRC), "-o", str(tmp)], check=True, capture_output=True
+        ["g++", *flags, str(src), "-o", str(tmp)], check=True, capture_output=True
     )
     os.replace(tmp, out)
     return out
@@ -981,3 +983,28 @@ def marginal_sums(b1, b2, counts, bias, n_bins):
         _f64p(marg),
     )
     return marg
+
+
+def lzf_decompress(data, size):
+    """The ``size`` bytes LZF-compressed in ``data`` (one chunk of h5py's
+    LZF filter), decoded by ``lzf.cpp``, which is built with g++ at first
+    use beside ``kernels.cpp``'s library.  Raises OSError when the block
+    does not decode to exactly ``size`` bytes; the library not building
+    raises too (there is no Python decoder)."""
+    global _LZF
+    if _LZF is None:
+        with _LOCK:
+            if _LZF is None:
+                lib = ctypes.CDLL(str(_build(openmp=False, src=_LZF_SRC, name="liblzf.so")))
+                lib.lzf_decompress.restype = ctypes.c_int64
+                lib.lzf_decompress.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ]
+                _LZF = lib
+    out = np.empty(int(size), dtype=np.uint8)
+    got = _LZF.lzf_decompress(bytes(data), len(data), out.ctypes.data, out.size)
+    if got != out.size:
+        why = {-1: "more than the chunk's bytes", -2: "not a valid LZF block"}
+        raise OSError(f"LZF block of {len(data)} bytes: {why.get(got, f'{got} bytes')}, "
+                      f"{size} expected")
+    return out.tobytes()

@@ -13,7 +13,9 @@ against h5py, which is the oracle here and nowhere in the port.
 * Files the port writes (``create_cool``) or modifies
   (``store_weights``) read through h5py and the JAX package's
   ``CoolFile`` as h5py's own do, and h5py can write to them again.
-* Features outside the subset raise ``NotImplementedError``.
+* Features outside the subset raise ``NotImplementedError``; the newer
+  formats this file once held to that read like h5py
+  (tests/test_torch_hdf5_formats.py covers them all).
 * The cooler-layout fixture (tests/data/example_cooler_layout.cool,
   written by ``write_cooler_layout``) holds data_test/example.cool's
   data, and the loops golden runs from it through the port.
@@ -294,14 +296,41 @@ def _scaleoffset(path):
     return "x"
 
 
+def _nbit(path):
+    with h5py.File(path, "w") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((10,))
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT, 0)
+        f.create_dataset("x", data=np.arange(30, dtype=np.int32), dcpl=dcpl)
+    return "x"
+
+
+def _soft_link(path):
+    with h5py.File(path, "w") as f:
+        f["x"] = np.arange(3)
+        f["soft"] = h5py.SoftLink("/x")
+    return "soft"
+
+
 def _link_group(path):
     with h5py.File(path, "w") as f:
         f.create_group("g", track_order=True)["x"] = np.arange(3)
     return "g/x"
 
 
-@pytest.mark.parametrize("make", [_latest, _lzf, _scaleoffset, _link_group],
-                         ids=["superblock_v3", "lzf", "scaleoffset", "link_group"])
+@pytest.mark.parametrize("make", [_latest, _lzf, _link_group],
+                         ids=["superblock_v3", "lzf", "link_group"])
+def test_newer_formats_read_like_h5py(tmp_path, make):
+    """What this reader once refused (a superblock-v3 file, LZF, a group
+    of link messages) reads as h5py reads it
+    (tests/test_torch_hdf5_formats.py holds every newer structure)."""
+    path = tmp_path / "x.h5"
+    name = make(path)
+    assert name in assert_reads_like_h5py(path)
+
+
+@pytest.mark.parametrize("make", [_scaleoffset, _nbit, _soft_link],
+                         ids=["scaleoffset", "nbit", "soft_link"])
 def test_outside_the_subset_raises(tmp_path, make):
     """A feature outside the subset raises NotImplementedError naming it
     and its file offset, never a wrong read."""
@@ -312,15 +341,21 @@ def test_outside_the_subset_raises(tmp_path, make):
             f[name][:]
 
 
-def test_full_symbol_table_node_raises(tmp_path):
+def test_full_symbol_table_node_splits(tmp_path):
+    """A 9th member of a group whose one symbol-table node holds 8: the
+    node splits in two under the group's B-tree, and h5py reads all 9."""
     path = tmp_path / "full.h5"
     with h5py.File(path, "w") as f:
         for i in range(8):
             f[f"bins/c{i}"] = np.arange(3)
-    with hdf5.File(path, "r+") as f, pytest.raises(NotImplementedError, match="full"):
+    with hdf5.File(path, "r+") as f:
         f.write_dataset("bins/weight", np.zeros(3))
+        level, items, _ = f._btree(f["bins"].btree, 8)
+        assert level == 0 and len(items) == 2
     with h5py.File(path, "r") as f:
-        assert len(f["bins"]) == 8
+        assert sorted(f["bins"]) == sorted([f"c{i}" for i in range(8)] + ["weight"])
+        assert f["bins/weight"][:].tolist() == [0.0] * 3 and f["bins/c7"][:].tolist() == [0, 1, 2]
+    assert_reads_like_h5py(path)
 
 
 # -- what the port writes --------------------------------------------------- #
