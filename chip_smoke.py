@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, one line or block each; any failure raises (non-zero exit):
 
 1. env      torch and CUDA versions, nvidia-smi's driver_version, the card,
-            optional packages;
+            optional packages, the host's CPU model and core count;
 2. build    nvcc build of chromosight_torch/csrc/*.cu for sm_90a: registers
             and spills of every instance (ptxas), and the dynamic shared
             memory of the chr1 and centromeres launches;
@@ -102,10 +102,22 @@ Phases, one line or block each; any failure raises (non-zero exit):
             port's ``create_cool`` (the free space checked first), then
             ``detect`` with loops from the file (its pages dropped from the
             page cache first, then again from the cache, then through the
-            float32 band) and once more from memory: tables byte for byte
-            phase 5's, the bytes read from each pixel column (the count
-            path never reads bin1_id), ``io: fetch+scatter``, ``io:
+            float32 band), ``quantify`` of the planted loops from it, and
+            ``detect`` once more from memory: tables and windows byte for
+            byte phase 5's, the bytes read from each pixel column (the
+            count path never reads bin1_id), ``io: fetch+scatter``, ``io:
             upload`` and walls side by side; the file deleted.
+8c. cooler-genome  phase 5's genome (not cut) written by the port in
+            cooler's own layout as ``genome.mcool::/resolutions/5000`` (int64
+            ids, int32 counts, every dataset chunked, 6,094 / 12,188 rows a
+            pixel chunk, shuffle + gzip 6, an enum ``bins/chrom``; the free
+            space checked first): the write's seconds, the file's size and
+            each pixel column's chunk B-tree depth (2 for bin2_id's 52,084
+            chunks); ``detect`` loops and ``quantify`` from it, pages
+            dropped and from the page cache: tables and windows byte for
+            byte phase 5's, 13 single launches for loops, ``io:
+            fetch+scatter``, ``io: upload``, walls and bytes read per column
+            beside the contiguous ``.cool``'s runs of 8b; the file deleted.
 9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
             card by default: TUTORIAL's block and detect_example.ipynb's loop
             on the example map (each map's calls those of the command line's
@@ -140,6 +152,7 @@ result.
 """
 
 import argparse
+import builtins
 import contextlib
 import copy
 import csv
@@ -148,6 +161,7 @@ import io
 import json
 import os
 import pathlib
+import platform
 import re
 import shutil
 import statistics
@@ -180,7 +194,12 @@ from chromosight_torch.detection import (  # noqa: E402
 from chromosight_torch.device import reset_stages, stage_seconds  # noqa: E402
 from chromosight_torch.io import hdf5  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
-from chromosight_torch.io.cool import CoolFile, bins_frame, create_cool  # noqa: E402
+from chromosight_torch.io.cool import (  # noqa: E402
+    CoolFile,
+    bins_frame,
+    create_cool,
+    write_cooler_layout,
+)
 from chromosight_torch.io.source import (  # noqa: E402
     ArraySource,
     native_scatter_available,
@@ -222,6 +241,7 @@ INTER_PAIRS = (
     "chr2\t130000\t131000\tchr3\t139000\t140000\n"
 )
 ERRS = {"single": [], "multi": []}  # corr max|d| against the plain twins
+UPLOADS_SHOWN = set()  # the band-uploads lines printed
 # walls (s) and stage seconds of the main-path runs, by name
 WALLS, STAGES = {}, {}
 EXAMPLE_COOL = "data_test/example.cool"
@@ -237,6 +257,21 @@ GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
 # the windows of tests/test_fp32_boundaries.py
 FP32_N, FP32_WIDTH, FP32_MAX_DIST = 512, 128, 100
 COUNT_MODES = ("u4", "u8", "u16")
+# cooler-genome: cooler creates its pixel columns resizable at an estimate
+# of their length and h5py picks their chunks from it; at 5 x 624,000 rows
+# the chunks hold 6,094 int64 or 12,188 int32 rows
+COOLER_PIXEL_ROWS = 5 * 624_000
+
+
+# the script's own lines go to the standard output; run() sends what the
+# port prints there (progress, "Found ... detectable bins") to stderr
+RESULTS = sys.stdout
+
+
+def print(*args, **kwargs):
+    kwargs.setdefault("file", RESULTS)
+    kwargs.setdefault("flush", True)
+    builtins.print(*args, **kwargs)
 
 
 def check(cond, msg):
@@ -257,8 +292,17 @@ def reset_launches():
     bp.LAUNCHES_MULTI = 0
 
 
+class Launches(dict):
+    """Launch counts by mode ({"single": n, "multi": m}), printed short."""
+
+    def __repr__(self):
+        return f"{self['single']} single + {self['multi']} multi"
+
+    __str__ = __repr__
+
+
 def launches():
-    return {"single": bp.LAUNCHES, "multi": bp.LAUNCHES_MULTI}
+    return Launches(single=bp.LAUNCHES, multi=bp.LAUNCHES_MULTI)
 
 
 @contextlib.contextmanager
@@ -298,12 +342,20 @@ def band_uploads(source, tag, modes=COUNT_MODES):
     they shipped."""
     uploads = observability.band_uploads()
     records = [uploads[f"{c}-{c}"] for c in source.chromnames]
-    print(f"[{tag}] band uploads (mode, exceptions, bytes): " + "; ".join(
-        f"{c} {r['mode']} {r['exceptions']} {packed_bytes(r)}"
-        for c, r in zip(source.chromnames, records)))
+    taken = {}
+    for r in records:
+        taken[r["mode"]] = taken.get(r["mode"], 0) + 1
+    exceptions = [r["exceptions"] for r in records]
+    total = sum(packed_bytes(r) for r in records)
+    line = (", ".join(f"{n} {m}" for m, n in sorted(taken.items()))
+            + f"; exceptions {min(exceptions)}-{max(exceptions)} a map; {total} bytes")
+    if line not in UPLOADS_SHOWN:
+        # a run whose uploads repeat ones already shown prints nothing more
+        print(f"[{tag}] band uploads: {line}")
+        UPLOADS_SHOWN.add(line)
     left = [c for c, r in zip(source.chromnames, records) if r["mode"] not in modes]
     check(not left, f"{tag}: {left} did not take {modes}")
-    return sum(packed_bytes(r) for r in records)
+    return total
 
 
 def outputs(prefix):
@@ -332,6 +384,19 @@ def counting_reads(totals):
         hdf5.Dataset.__getitem__ = getitem
 
 
+def host_cpu():
+    """The host's CPU as /proc/cpuinfo names it: model name, vendor,
+    family and model number (a virtual machine may hide the name)."""
+    info = {}
+    with open("/proc/cpuinfo") as handle:
+        for line in handle:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', platform.processor() or 'unknown')} "
+            f"({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {platform.machine()})")
+
+
 def phase_env():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} driver_version {nvidia_smi('driver_version')}")
@@ -342,7 +407,9 @@ def phase_env():
                              capture_output=True, timeout=120)
         imports[name] = res.returncode == 0
     print(f"[env] imports: {json.dumps(imports)}")
-    print(f"[env] host native scatter (g++): {native_scatter_available()}")
+    print(f"[env] host native scatter (g++): {native_scatter_available()}; HDF5 filters "
+          f"native: {host_native.filters_native()}; host CPU {host_cpu()}, {os.cpu_count()} "
+          f"cores")
     print(nvidia_smi("name,power.limit"))
 
 
@@ -350,26 +417,35 @@ def phase_build():
     _build.load()
     info = _build.BUILD_INFO
     print(f"[build] {info['path']} in {info['seconds']:.2f} s")
-    kernels_per_launch, entry, own = None, None, False
+    # ptxas per instance (side x side, or "any" shape / diagonals per
+    # thread): registers, stack frame bytes, spill stores / loads bytes
+    instances, name, entry, own = {}, None, None, False
     for line in info["log"].splitlines():
         if "Compiling entry function" in line:
             entry, own = line.split("'")[1], True
             inst = re.search(r"band_pearson_tiledILi(\d+)ELi(\d+)E", line)
-            side = inst and ("any shape" if inst.group(1) == "0"
-                             else f"{inst.group(1)}x{inst.group(1)}")
-            kernels_per_launch = (
-                f"{side}, {inst.group(2)} diagonals per thread" if inst else "?")
+            name = (f"{'any' if inst.group(1) == '0' else inst.group(1)}/{inst.group(2)}"
+                    if inst else "?")
+            instances[name] = {}
         elif "Function properties for" in line:
             # the outlined epilogue functions report their own frames
             own = entry is not None and line.rstrip().endswith(entry)
-        elif "registers" in line or ("spill" in line and own):
-            print(f"[build] {kernels_per_launch}: {line.split(':', 1)[-1].strip()}")
+        elif name is not None and ("registers" in line or ("spill" in line and own)):
+            for key, pattern in (("regs", r"Used (\d+) registers"),
+                                 ("stack", r"(\d+) bytes stack frame"),
+                                 ("spills", r"(\d+ bytes spill stores, \d+) bytes spill loads")):
+                found = re.search(pattern, line)
+                if found:
+                    instances[name][key] = found.group(1).replace(" bytes spill stores, ", "/")
+    print("[build] ptxas, side/diagonals per thread: registers, stack frame bytes, spill "
+          "stores/loads bytes: " + "; ".join(
+              f"{n} {v.get('regs', '?')} {v.get('stack', '?')} {v.get('spills', '?')}"
+              for n, v in instances.items()))
     lib = _build.load()
     lib.band_pearson_smem_bytes.restype = ctypes.c_longlong
-    for side, k, w_out in ((17, 1, 418), (17, 3, 418), (17, 3, 19), (81, 1, 122)):
-        smem = lib.band_pearson_smem_bytes(side, side, k, w_out)
-        print(f"[build] dynamic shared memory, {side}x{side} K={k} at {w_out} "
-              f"diagonals: {smem} bytes per block")
+    print("[build] dynamic shared memory per block (bytes), side K at diagonals: " + ", ".join(
+        f"{side}x{side} K={k} at {w_out}: {lib.band_pearson_smem_bytes(side, side, k, w_out)}"
+        for side, k, w_out in ((17, 1, 418), (17, 3, 418), (17, 3, 19), (81, 1, 122))))
 
 
 def compare(name, ref, got, n, max_dist, pearson=PEARSON):
@@ -396,14 +472,35 @@ def compare(name, ref, got, n, max_dist, pearson=PEARSON):
     logp_err = float(d_logp.max(initial=0.0))
     ulps = float((d_logp / np.spacing(np.abs(a[both]))).max(initial=0.0))
     logp_ok = bool(np.all(d_logp <= np.maximum(1e-5, 2 * np.spacing(np.abs(a[both])))))
-    print(f"[kernels] {name}: corr max|d| {corr_err:.3g}, log10p max|d| "
-          f"{logp_err:.3g} ({ulps:.0f} float32 ulps at most), cand flips "
-          f"{int(flips.sum())} (max gap {flip_gap:.2g}), candidates {int(cand_r.sum())}")
     check(corr_err <= 1e-6, f"{name}: corr differs by {corr_err}")
     check(same_kind, f"{name}: log10p finiteness differs")
     check(logp_ok, f"{name}: log10p differs by {logp_err}")
     check(flip_gap <= 1e-6, f"{name}: candidate flip {flip_gap} from the threshold")
-    return corr_err
+    return {"corr": corr_err, "logp": logp_err, "ulps": ulps, "flips": int(flips.sum()),
+            "gap": flip_gap, "cand": int(cand_r.sum())}
+
+
+REPORTS = []  # the kernel-against-twin results of a phase, printed by flush_reports
+
+
+def report(name, results):
+    """Keep, for one line of ``flush_reports``, the kernel-against-twin
+    comparisons ``results`` (one per kernel of a launch): the largest
+    differences and the candidate counts."""
+    worst = {key: max(r[key] for r in results) for key in ("corr", "logp", "ulps", "gap")}
+    REPORTS.append(f"{name} {worst['corr']:.3g} {worst['logp']:.3g} {worst['ulps']:.0f} "
+                   f"{sum(r['flips'] for r in results)} {worst['gap']:.2g} "
+                   + "/".join(str(r["cand"]) for r in results))
+
+
+def flush_reports(what):
+    """One line of the kept comparisons: per case, corr max|d|, log10 p
+    max|d|, its float32 ulps, candidate flips, their largest gap to the
+    threshold, candidates (per kernel of a K-kernel launch, each slice
+    bit-identical to its single launch)."""
+    print(f"[kernels] {what} against the plain twin (corr max|d|, log10p max|d|, ulps, cand "
+          f"flips, max gap, candidates): " + "; ".join(REPORTS))
+    REPORTS.clear()
 
 
 def random_case(kernel_shape, n, n_pad, rng):
@@ -430,7 +527,9 @@ def run_both(name, sig_p, mask_p, kernel, n, max_dist, pearson=PEARSON, tsvd=Non
     got = bp.band_pearson(sig_p, mask_p, *args, tsvd=tsvd)
     ref = pearson_reference(sig_p, mask_p, *args, tsvd=tsvd)
     torch.cuda.synchronize()
-    ERRS["single"].append(compare(name, ref, got, n, max_dist, pearson))
+    result = compare(name, ref, got, n, max_dist, pearson)
+    ERRS["single"].append(result["corr"])
+    report(name, [result])
 
 
 def run_multi(name, sig_p, mask_p, kernels, n, max_dist, pearson=PEARSON):
@@ -441,16 +540,17 @@ def run_multi(name, sig_p, mask_p, kernels, n, max_dist, pearson=PEARSON):
     singles = [bp.band_pearson(sig_p, mask_p, k, *args) for k in kernels]
     ref = pearson_reference_multi(sig_p, mask_p, kernels, *args)
     torch.cuda.synchronize()
+    results = []
     for k, single in enumerate(singles):
         for out, one in zip(got, single):
             check(torch.equal(out[k].view(torch.uint8), one.view(torch.uint8)),
                   f"{name}: K-kernel slice {k} differs from its single launch")
-        ERRS["multi"].append(compare(
+        results.append(compare(
             f"{name} k={k}", [r[k] for r in ref], [g[k] for g in got], n, max_dist,
             pearson,
         ))
-    print(f"[kernels] {name}: K={len(kernels)} launch bit-identical to "
-          f"{len(kernels)} single launches")
+        ERRS["multi"].append(results[-1]["corr"])
+    report(f"{name} K={len(kernels)}", results)
 
 
 def device_ms(fn, reps=5):
@@ -523,9 +623,9 @@ def bound_ms(sig_p, mask_p, kernels, rate):
     ops = fmas + 3 * (mk + nk) * pixels
     nbytes = 2 * 4 * sig_p.numel() + pixels * n_k * 9 + n_k * (3 * mk * nk * 8 + 8)
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): window taps over "
-          f"a non-zero x {x_taps / (pixels * mk * nk):.4f}, over a set mask bit "
-          f"{m_taps / (pixels * mk * nk):.4f}; {fmas:.6g} FMAs needed of {dense:.6g} dense")
+    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): taps over a non-zero x "
+          f"{x_taps / (pixels * mk * nk):.4f}, a set mask bit {m_taps / (pixels * mk * nk):.4f}; "
+          f"{fmas:.6g} of {dense:.6g} dense FMAs")
     return (t_ops, "operations", fmas, dense) if t_ops >= t_bytes else (
         t_bytes, "bytes", fmas, dense)
 
@@ -534,30 +634,31 @@ def phase_kernels_small():
     for preset in ("loops_small", "hairpins", "loops", "stripes_left"):
         kernel = np.asarray(load_kernel_config(preset)["kernels"][0], np.float32)
         case = random_case(kernel.shape, 300, 512, np.random.RandomState(0))
-        run_both(f"{preset} n_pad=512", *case[:2], kernel, 300, case[2])
+        run_both(f"{preset}", *case[:2], kernel, 300, case[2])
     for shape in ((5, 9), (3, 17)):
         rng = np.random.RandomState(11)
         kernel = (rng.rand(*shape) + 0.1).astype(np.float32)
         case = random_case(shape, 300, 512, rng)
-        run_both(f"{shape} n_pad=512", *case[:2], kernel, 300, case[2])
+        run_both(f"{shape}", *case[:2], kernel, 300, case[2])
     cfg = load_kernel_config("centromeres")
     kernel = cfg["kernels"][0]
     case = random_case(kernel.shape, 400, 400, np.random.RandomState(2))
     run_both("centromeres 81x81 n=400", *case[:2], kernel, 400, case[2], cfg["pearson"])
     kernel = load_kernel_config("loops")["kernels"][0]
     case = random_case(kernel.shape, 300, 512, np.random.RandomState(0))
-    run_both("loops --tsvd n_pad=512", *case[:2], kernel, 300, case[2], tsvd=TSVD)
+    run_both("loops --tsvd", *case[:2], kernel, 300, case[2], tsvd=TSVD)
     borders = np.stack(load_kernel_config("borders")["kernels"])
     case = random_case(borders.shape[1:], 300, 512, np.random.RandomState(0))
-    run_multi("borders n_pad=512", *case[:2], borders, 300, case[2])
+    run_multi("borders", *case[:2], borders, 300, case[2])
     rng = np.random.RandomState(7)
     nine = rng.rand(9, 5, 9) + 0.1
     case = random_case((5, 9), 300, 512, rng)
-    run_multi("nine 5x9 n_pad=512", *case[:2], nine, 300, case[2])
+    run_multi("nine 5x9", *case[:2], nine, 300, case[2])
     stripes = np.stack([load_kernel_config(name)["kernels"][0]
                         for name in ("stripes_left", "stripes_right", "stripes_left")])
     case = random_case(stripes.shape[1:], 300, 512, np.random.RandomState(4))
-    run_multi("three 31x31 (2 + 1 launches) n_pad=512", *case[:2], stripes, 300, case[2])
+    run_multi("three 31x31 (2 + 1 launches)", *case[:2], stripes, 300, case[2])
+    flush_reports("random bands, single- and K-kernel launches")
     two_streams()
     fp32_boundaries()
 
@@ -708,11 +809,10 @@ def fp32_boundaries():
             near = [abs(corr32[p] - corr64[p]) for p in ((179, 41), (179, 48))]
             ok = (corr32[64, 40] == 0 == corr64[64, 40] and corr32[200, 40] != 0
                   and corr64[200, 40] != 0 and not out.any() and max(near) < 1e-7)
-            detail = (f"{int(flip.sum())} zero/non-zero disagreements, {int(out.sum())} of "
-                      f"them outside the variance region; band pixels (179, 41) and "
-                      f"(179, 48): {corr32[179, 41]:.4g} and {corr32[179, 48]:.4g}, oracle "
-                      f"{corr64[179, 41]:.4g} and {corr64[179, 48]:.4g} (|d| {near[0]:.2g}, "
-                      f"{near[1]:.2g}); max |d| over the map {np.abs(corr32 - corr64).max():.3g}")
+            detail = (f"{int(flip.sum())} zero/non-zero disagreements, {int(out.sum())} outside "
+                      f"the variance region; (179, 41), (179, 48): {corr32[179, 41]:.4g}, "
+                      f"{corr32[179, 48]:.4g} (|d| {near[0]:.2g}, {near[1]:.2g}); map max|d| "
+                      f"{np.abs(corr32 - corr64).max():.3g}")
         else:
             errs = [abs(corr32[p] - rho) for p, rho in fp32_targets().items()]
             sides = all((corr32[p] >= PEARSON) == (rho >= PEARSON)
@@ -775,17 +875,9 @@ def phase_kernels_chromosome(source):
     times["borders"] = fused_times(sig_p, mask_p, kernels, bargs)
     bounds["borders"] = bound_ms(sig_p, mask_p, kernels, rate)
     cm.destroy_mat()
-    print("[kernels] ms per call, median of 5 by CUDA events (tap table cached on "
-          "the card; kernel-only time from torch.profiler in brackets)")
-    for key, name in (("loops", "loops 17x17"), ("tsvd", "loops 17x17 --tsvd")):
-        ev, kern, plain = times[key]
-        print(f"[kernels] {name} at {shape}: kernel {ev:.3f} [{fmt_ms(kern)}], "
-              f"plain {plain:.3f}")
-    for key, where in (("borders_wide", shape), ("borders", bshape)):
-        t = times[key]
-        print(f"[kernels] borders K=3 17x17 at {where}: fused launch {t['fused'][0]:.3f} "
-              f"[{fmt_ms(t['fused'][1])}], 3 single launches {t['three'][0]:.3f} "
-              f"[{fmt_ms(t['three'][1])}], plain twin {t['plain']:.3f}")
+    flush_reports(f"chr1 of the genome, loops {shape} and borders {bshape}")
+    print("[kernels] ms a call, kernel-only (profiler) / CUDA events, median of 5; bound, its "
+          "share (of events); float64 FMAs per second (T) needed / dense; plain twin")
     timed = {"loops": times["loops"][:2], "tsvd": times["tsvd"][:2],
              "borders_wide": times["borders_wide"]["fused"],
              "borders": times["borders"]["fused"]}
@@ -797,10 +889,15 @@ def phase_kernels_chromosome(source):
         ev, ms = timed[key]
         share = "not measured" if ms is None else f"{100 * b / ms:.1f}%"
         rates = "not measured" if ms is None else (
-            f"{fmas / ms / 1e9:.4g} needed, {dense / ms / 1e9:.4g} dense")
-        print(f"[kernels] {name}: kernel-only {fmt_ms(ms)} ms (events {ev:.3f}), "
-              f"bound {b:.4f} ms ({by}), share of the bound {share} "
-              f"(events {100 * b / ev:.1f}%); float64 FMAs per second (T): {rates}")
+            f"{fmas / ms / 1e9:.4g} / {dense / ms / 1e9:.4g}")
+        if key in ("loops", "tsvd"):
+            plain = f"plain {times[key][2]:.3f}"
+        else:
+            t = times[key]
+            plain = (f"3 single launches {fmt_ms(t['three'][1])} / {t['three'][0]:.3f}, plain "
+                     f"{t['plain']:.3f}")
+        print(f"[kernels] {name}: {fmt_ms(ms)} / {ev:.3f}; bound {b:.4f} ({by}), {share} "
+              f"({100 * b / ev:.1f}%); {rates}; {plain}")
     return times, bounds
 
 
@@ -820,6 +917,12 @@ def fused_times(sig_p, mask_p, kernels, args):
     }
 
 
+def short_path(uri):
+    """A file's name, with its group (``x.mcool::/resolutions/1000``)."""
+    path, sep, group = str(uri).partition("::")
+    return os.path.basename(path) + sep + group
+
+
 def read_tsv(path):
     with open(path) as handle:
         return list(csv.DictReader(handle, delimiter="\t"))
@@ -829,13 +932,14 @@ def num(value):
     return float(value) if value != "" else float("nan")
 
 
-def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL, tag=""):
+def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL, tag="",
+                  show=True):
     """``detect`` of ``path`` with ``flags`` against tests/data/<golden>.tsv:
     the same (bin1, bin2, kernel_id, iteration) calls, score within 5e-5,
     p-value and q-value within ``tol`` (1e-6 for the loops golden, 1e-5
     for the others, as tests/test_golden_outputs.py holds them);
     ``expect`` the launches of each mode; the table at
-    ``{workdir}/{golden}{tag}.tsv``."""
+    ``{workdir}/{golden}{tag}.tsv``; its line printed when ``show``."""
     prefix = f"{workdir}/{golden}{tag}"
     reset_launches()
     with open(f"{workdir}/stdout.txt", "a") as out:
@@ -853,18 +957,20 @@ def golden_detect(workdir, golden, flags, expect, tol=1e-5, path=EXAMPLE_COOL, t
           f"{golden}: calls differ from the golden ({len(ours)} vs {len(ref)})")
     err = {c: max(abs(num(ours[k][c]) - num(ref[k][c])) for k in ref)
            for c in ("score", "pvalue", "qvalue")}
-    print(f"[golden] {golden} from {path}: {len(ref)}/{len(ref)} calls identical; max|d| score "
-          f"{err['score']:.3g}, pvalue {err['pvalue']:.3g}, qvalue {err['qvalue']:.3g} "
-          f"(bound {tol:g}); launches {seen}")
+    if show:
+        print(f"[golden] {golden[len('golden_'):]}, {short_path(path)}: {len(ref)}/{len(ref)} "
+              f"calls; max|d| score {err['score']:.3g}, p {err['pvalue']:.3g}, q "
+              f"{err['qvalue']:.3g} (bound {tol:g}); {seen}")
     check(err["score"] < 5e-5 and err["pvalue"] < tol and err["qvalue"] < tol,
           f"{golden}: {err}")
     check(seen == expect, f"{golden}: expected launches {expect}, saw {seen}")
     return prefix
 
 
-def golden_quantify(workdir, golden, flags, pvalue_tol, path=EXAMPLE_COOL, tag=""):
+def golden_quantify(workdir, golden, flags, pvalue_tol, path=EXAMPLE_COOL, tag="", show=True):
     """``quantify`` of data_test/example.bed2 from ``path`` against
-    tests/data/<golden>.tsv (tests/test_golden_outputs.py:124-173)."""
+    tests/data/<golden>.tsv (tests/test_golden_outputs.py:124-173); its
+    line printed when ``show``."""
     prefix = f"{workdir}/{golden}{tag}"
     reset_launches()
     check(main(["quantify", "--no-plotting", *flags, "data_test/example.bed2",
@@ -881,8 +987,9 @@ def golden_quantify(workdir, golden, flags, pvalue_tol, path=EXAMPLE_COOL, tag="
         ok = ~np.isnan(b)
         err[col] = float(np.abs(a[ok] - b[ok]).max())
     check(all(ours[k]["qvalue"] == "" for k in ref), f"{golden}: q-values not NaN")
-    print(f"[golden] {golden} from {path}: 53/53 rows, max|d| score {err['score']:.3g}, "
-          f"pvalue {err['pvalue']:.3g}; launches {launches()} (no sweep)")
+    if show:
+        print(f"[golden] {golden[len('golden_'):]}, {short_path(path)}: 53/53 rows, max|d| "
+              f"score {err['score']:.3g}, p {err['pvalue']:.3g}; {launches()} (no sweep)")
     check(err["score"] < 5e-5 and err["pvalue"] < pvalue_tol, f"{golden}: {err}")
 
 
@@ -895,7 +1002,7 @@ def golden_dump(workdir):
 
     dump = pathlib.Path(workdir) / "dump"
     golden_detect(workdir, "golden_detect_loops", ["--dump", str(dump)],
-                  {"single": 3, "multi": 0}, tol=1e-6)
+                  {"single": 3, "multi": 0}, tol=1e-6, show=False)
     names = sorted(p.name for p in pathlib.Path("tests/data/golden_dump").glob("*.npz"))
     check(sorted(p.name for p in dump.glob("*.npz")) == names and len(names) == 15,
           "dump snapshots differ in name")
@@ -1003,21 +1110,23 @@ def phase_formats(workdir):
         (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
         print(f"[formats] {path}: open + headers {t_open:.6f} s, index walk {t_index:.6f} s, "
               f"read {t_read:.6f} s ({n} datasets, {n_bytes} bytes) on the host of {card}; "
-              f"walked {json.dumps(walked, sort_keys=True)}")
+              f"walked {json.dumps({sig: walked.get(sig, 0) for sig in signatures})}")
         missing = [sig for sig in signatures if not walked.get(sig)]
         check(not missing, f"{path}: structures not walked: {missing}")
     loops = ("golden_detect_loops", [], {"single": 3, "multi": 0}, 1e-6)
     borders = ("golden_detect_borders", ["--pattern", "borders"], {"single": 0, "multi": 3}, 1e-5)
     for (golden, flags, expect, tol), path in ((loops, LATEST_COOL), (borders, LATEST_COOL),
                                               (loops, f"{LATEST_MCOOL}::/resolutions/1000")):
-        old = golden_detect(workdir, golden, flags, expect, tol, tag="_v0")
-        new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest")
+        old = golden_detect(workdir, golden, flags, expect, tol, tag="_v0", show=False)
+        new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest",
+                            show=False)
         same = pathlib.Path(new + ".tsv").read_bytes() == pathlib.Path(old + ".tsv").read_bytes()
         print(f"[formats] {golden} from {path}: table byte for byte the one from "
               f"{EXAMPLE_COOL}: {same}")
         check(same, f"{golden} from {path}: table differs from {EXAMPLE_COOL}'s")
-    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0")
-    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest")
+    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0", show=False)
+    golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest",
+                    show=False)
     same = (pathlib.Path(f"{workdir}/golden_quantify_loops_latest.tsv").read_bytes()
             == pathlib.Path(f"{workdir}/golden_quantify_loops_v0.tsv").read_bytes())
     print(f"[formats] quantify from {LATEST_COOL}: table byte for byte the one from "
@@ -1059,9 +1168,11 @@ def phase_formats(workdir):
     check(runs[new][1] == {"single": 3, "multi": 0}, f"--norm force launches {runs[new][1]}")
 
 
-def run_genome(name, fn, tag="genome"):
-    """One main-path run on a genome: launches counted from 0, stages,
-    wall (kept in ``WALLS``) and peak device memory."""
+def run_genome(name, fn, tag="genome", show="short"):
+    """One main-path run on a genome: launches counted from 0, stages
+    (kept in ``STAGES``), wall (kept in ``WALLS``) and peak device memory,
+    printed on one line (``show`` "short"), with the stages ("stages"),
+    or left to the caller (None)."""
     reset_stages()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1069,11 +1180,12 @@ def run_genome(name, fn, tag="genome"):
     out = fn()
     wall = WALLS[name] = time.perf_counter() - t0
     seen = launches()
-    print(f"[{tag}] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     STAGES[name] = stage_seconds()
-    print(f"[{tag}] {name} stages (s): "
-          + json.dumps({k: round(v, 3) for k, v in sorted(STAGES[name].items())}))
+    if show:
+        print(f"[{tag}] {name}: wall {wall:.2f} s, launches {seen}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB" + ("; stages (s) " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(STAGES[name].items()))
+                  if show == "stages" else ""))
     return out, seen
 
 
@@ -1118,7 +1230,8 @@ def check_quantify_against_sweep(source, table):
 def phase_genome(source, workdir):
     runs = {}
     args = parse_args(["detect", "--no-plotting", "synthetic", f"{workdir}/genome"], "")
-    (table, _), seen = run_genome("detect loops", lambda: detect(source, args, DEVICE))
+    (table, _), seen = run_genome("detect loops", lambda: detect(source, args, DEVICE),
+                                  show="stages")
     runs["loops"] = seen
     recall = planted_recall(source, table)
     print(f"[genome] {len(source.chromnames)} x {GENOME_BINS} bins, loops: "
@@ -1133,7 +1246,8 @@ def phase_genome(source, workdir):
 
     args = parse_args(["detect", "--no-plotting", "--pattern", "borders", "synthetic",
                        f"{workdir}/borders"], "")
-    (table, _), seen = run_genome("detect borders", lambda: detect(source, args, DEVICE))
+    (table, _), seen = run_genome("detect borders", lambda: detect(source, args, DEVICE),
+                                  show="stages")
     runs["borders"] = seen
     n_calls = 0 if table is None else len(table["bin1"])
     print(f"[genome] borders: {n_calls} calls from {seen['multi']} fused launches")
@@ -1147,7 +1261,7 @@ def phase_genome(source, workdir):
     args = parse_args(["quantify", "--no-plotting", bed, "synthetic",
                        f"{workdir}/quantify"], "")
     (table, windows), seen = run_genome(
-        "quantify planted loops", lambda: quantify(source, args, DEVICE)
+        "quantify planted loops", lambda: quantify(source, args, DEVICE), show="stages"
     )
     runs["quantify"] = seen
     band_uploads(source, "genome")
@@ -1190,8 +1304,8 @@ def check_count_modes(source):
         shape = observability.band_uploads()[cm.name]["shape"]
         check(all(band == bands["f32"] for band in bands.values()),
               f"count modes at --norm {norm}: a band differs from the f32 path's")
-        print(f"[genome] {cm.name} {shape} at --norm {norm}: the u4, u8 and u16 count "
-              f"paths' preprocessed bands bit for bit the f32 path's")
+    print(f"[genome] {cm.name} {shape} at --norm auto and raw: the u4, u8 and u16 count "
+          f"paths' preprocessed bands bit for bit the f32 path's")
 
 
 def compare_f32_path(source, workdir, bed, runs):
@@ -1209,7 +1323,7 @@ def compare_f32_path(source, workdir, bed, runs):
                                f"{workdir}/{prefix}_f32"], "")
             fn = quantify if cmd[0] == "quantify" else detect
             _, seen = run_genome(f"{name}, f32 path",
-                                 lambda: quietly(fn, source, args, DEVICE))
+                                 lambda: quietly(fn, source, args, DEVICE), show=None)
             band_uploads(source, "genome", modes=("f32",))
             check(seen == runs[key], f"{name}, f32 path: launches {seen}")
             same = outputs(f"{workdir}/{prefix}_f32") == outputs(f"{workdir}/{prefix}")
@@ -1264,7 +1378,7 @@ def phase_surface_example(workdir):
     cfg = f"{workdir}/borders_cfg"
     check(main(["generate-config", "--preset", "borders", cfg]) == 0, "generate-config")
     golden_detect(workdir, "golden_detect_borders", ["--kernel-config", cfg + ".json"],
-                  {"single": 0, "multi": 3})
+                  {"single": 0, "multi": 3}, show=False)
     print("[surface] generate-config --preset borders: detect --kernel-config of the "
           "file reproduces golden_detect_borders.tsv")
 
@@ -1317,7 +1431,7 @@ def genome_run(source, workdir, tag, flags=(), device=DEVICE, rng=None):
         with contextlib.redirect_stdout(io.StringIO()):
             return detect(source, args, device, rng)
 
-    (table, _), seen = run_genome(f"detect {tag}", run)
+    (table, _), seen = run_genome(f"detect {tag}", run, show=None)
     out = pathlib.Path(prefix + ".tsv").read_bytes() + pathlib.Path(prefix + ".json").read_bytes()
     return table, seen, out
 
@@ -1364,7 +1478,7 @@ def phase_surface_genome(source, workdir):
     check(ice is not None and out == stored, "ICE run differs from the stored weights")
     check(recall >= 0.95 and seen == {"single": n_chroms, "multi": 0}, "ICE run recall")
     check(np.array_equal(bare.weights, source.weights, equal_nan=True), "ICE weights differ")
-    walls = {}
+    walls, lines = {}, []
     # the serial run last again: the spread of one configuration
     for tag, flags, device in (("threads1", ["--threads", "1"], DEVICE),
                                ("threads2", ["--threads", "2"], DEVICE),
@@ -1375,11 +1489,11 @@ def phase_surface_genome(source, workdir):
         _, seen, out = genome_run(source, workdir, tag, flags, device)
         walls[tag] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[surface] {tag}: wall {walls[tag]:.2f} s, peak device memory {peak:.3f} GiB, "
-              f"byte-identical to the serial table: {out == stored}; launches {seen}")
+        lines.append(f"{tag} {walls[tag]:.2f} s, {peak:.3f} GiB, {out == stored}, {seen}")
         check(out == stored, f"{tag}: table differs from the serial run")
         check(seen == {"single": n_chroms, "multi": 0}, f"{tag}: launches {seen}")
-    print("[surface] walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    print("[surface] wall, peak device memory, table byte for byte the serial one, launches: "
+          + "; ".join(lines))
     # why the scheduler's producer is the caller's thread
     for counts, what in ((False, "float32 band scatter"), (True, "count scatter")):
         times = [(scatter_seconds(source, counts), on_new_thread(scatter_seconds, source, counts))
@@ -1547,7 +1661,7 @@ def phase_genome_inter(workdir):
                        f"{workdir}/inter"], "")
     tiled.TILES.update(scanned=0, skipped=0, scattered=0)
     (table, _), seen = run_genome("detect --inter loops",
-                                  lambda: detect(source, args, DEVICE))
+                                  lambda: detect(source, args, DEVICE), show="stages")
     peak = torch.cuda.max_memory_allocated()
     dense_map = 4 * INTER_BINS * INTER_BINS
     trans = table["chrom1"] != table["chrom2"]
@@ -1658,7 +1772,7 @@ def phase_genome_golden(workdir):
     got = source_fingerprint(source)
     print(f"[genome-golden] synthetic genome {GOLDEN_CHROMS} x {GOLDEN_BINS} bins, seed 0: "
           f"generated and balanced in {time.perf_counter() - t0:.1f} s; fingerprint "
-          f"{json.dumps(got)}, the goldens' {json.dumps(meta['fingerprint'])}")
+          f"{json.dumps(got)}, the goldens' {got == meta['fingerprint']}")
     check(got == meta["fingerprint"], "genome-golden: fingerprint differs")
     path = write_cool(source, f"{workdir}/genome_golden.cool", "genome-golden")
     del source
@@ -1676,12 +1790,10 @@ def phase_genome_golden(workdir):
         (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden")
         n_calls, d_score, d_text, row, d_logp = compare_genome_golden(
             f"tests/data/golden_genome_{name}.tsv", prefix, table)
-        print(f"[genome-golden] {name}: {n_calls}/{n_calls} calls of the reference identical "
-              f"(bin1, bin2, kernel_id, iteration, chrom/start); score max|d| {d_score:.3g} "
-              f"(bound 5e-5); log10 p max|d| {d_logp:.3g} (bound 1e-3) from the unrounded "
-              f"p-values to the reference's written decimals; written-table log10 p max|d| "
-              f"{d_text:.3g} ({'within' if d_text <= 1e-3 else 'above'} the 1e-3 of "
-              f"tests/test_golden_genome_scale.py:134; largest at {row}); launches {seen}")
+        print(f"[genome-golden] {name}: {n_calls}/{n_calls} reference calls identical; score "
+              f"max|d| {d_score:.3g} (5e-5); log10 p max|d| {d_logp:.3g} (1e-3) unrounded, "
+              f"{d_text:.3g} written ({'within' if d_text <= 1e-3 else 'above'} 1e-3; {row}); "
+              f"{seen}")
         check(d_score < 5e-5 and d_logp < 1e-3, f"genome-golden {name}: outside the bounds")
         check(seen == expect, f"genome-golden {name}: launches {seen}")
 
@@ -1721,54 +1833,167 @@ def evict(path):
 def phase_cool_genome(source, workdir):
     """The 13 x 48,000 genome written as a ``.cool`` by the port's
     ``create_cool``, then ``detect`` with loops from the file (pages
-    dropped first, then again from the page cache) and once more from the
-    in-memory source: each table byte for byte phase 5's in-memory run;
-    ``io: fetch+scatter`` and the wall of each, side by side.  The file is
-    deleted afterwards."""
+    dropped first, then again from the page cache, then through the f32
+    path), ``quantify`` of the planted loops from it, and ``detect`` once
+    more from the in-memory source: each table and window file byte for
+    byte phase 5's in-memory run; ``io: fetch+scatter`` and the wall of
+    each, side by side.  The file is deleted afterwards.  Returns the
+    bytes read from each column by run (``phase_cooler_genome`` prints
+    them beside its own)."""
+    phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
     path = write_cool(source, f"{workdir}/genome.cool", "cool-genome")
-    stored = (pathlib.Path(f"{workdir}/genome.tsv").read_bytes()
-              + pathlib.Path(f"{workdir}/genome.json").read_bytes())
     n_chroms = len(source.chromnames)
     runs = {"memory (phase 5)": "detect loops"}
     read = {}
     try:
-        for tag in ("cool, pages dropped", "cool, page cache", "cool, page cache, f32 path",
-                    "memory"):
+        for tag, quant in (("cool, pages dropped", False), ("cool, page cache", False),
+                           ("cool, page cache, f32 path", False), ("cool, page cache", True),
+                           ("memory", False)):
             if tag == "cool, pages dropped":
                 evict(path)
             prefix = f"{workdir}/cool_genome_{len(runs)}"
             contacts = path if tag.startswith("cool") else "synthetic"
-            args = parse_args(["detect", "--no-plotting", contacts, prefix], "")
+            if quant:
+                argv = ["quantify", "--no-plotting", f"{workdir}/planted.bed2", contacts, prefix]
+            else:
+                argv = ["detect", "--no-plotting", contacts, prefix]
+            args = parse_args(argv, "")
             f32 = tag.endswith("f32 path")
 
-            def run_detect():
+            def run_main():
                 opened = open_contacts(path) if tag.startswith("cool") else source
                 with contextlib.redirect_stdout(io.StringIO()):
-                    return detect(opened, args, DEVICE)
+                    return (quantify if quant else detect)(opened, args, DEVICE)
 
-            runs[tag] = f"detect loops from {tag}"
+            name = f"{'quantify planted loops' if quant else 'detect loops'} from {tag}"
+            runs[f"{'quantify' if quant else 'loops'}, {tag}"] = name
             with packing(None if f32 else contact_map.COUNT_PACKING), \
-                    counting_reads(read.setdefault(tag, {})):
-                _, seen = run_genome(runs[tag], run_detect, tag="cool-genome")
+                    counting_reads(read.setdefault(name, {})):
+                _, seen = run_genome(name, run_main, tag="cool-genome", show=None)
             band_uploads(source, "cool-genome", modes=("f32",) if f32 else COUNT_MODES)
-            out = (pathlib.Path(prefix + ".tsv").read_bytes()
-                   + pathlib.Path(prefix + ".json").read_bytes())
-            check(out == stored, f"cool-genome: the {tag} table differs from phase 5's")
-            check(seen == {"single": n_chroms, "multi": 0}, f"cool-genome: launches {seen}")
+            stored = phase5["quantify" if quant else "genome"]
+            check(outputs(prefix) == stored and stored,
+                  f"cool-genome: the {tag} table or windows differ from phase 5's")
+            check(seen == {"single": 0 if quant else n_chroms, "multi": 0},
+                  f"cool-genome: launches {seen}")
             if tag.startswith("cool"):
                 # the count path reads bin2_id and count, never bin1_id
-                check(("pixels/bin1_id" in read[tag]) == f32,
-                      f"cool-genome: {tag} read {sorted(read[tag])}")
+                check(("pixels/bin1_id" in read[name]) == f32,
+                      f"cool-genome: {name} read {sorted(read[name])}")
     finally:
         os.unlink(path)
-    print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run; "
-          f"{nvidia_smi('name,power.limit')}")
+    print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run, {n_chroms} "
+          f"single launches a loops run, none a quantify run; {nvidia_smi('name,power.limit')}")
     for tag, name in runs.items():
-        pixels = {k: v for k, v in read.get(tag, {}).items() if k.startswith("pixels/")}
+        got = bytes_read(read.get(name, {}))
         print(f"[cool-genome] {tag}: io: fetch+scatter "
               f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, io: upload "
               f"{STAGES[name].get('io: upload', 0.0):.3f} s, wall {WALLS[name]:.2f} s"
-              + (f"; bytes read {sum(pixels.values())} {json.dumps(pixels)}" if pixels else ""))
+              + (f"; bytes read {got}" if got else ""))
+    return read
+
+
+def bytes_read(totals):
+    """The bytes read from each pixel column (``counting_reads``), short."""
+    return ", ".join(f"{k.split('/')[1]} {v}" for k, v in sorted(totals.items())
+                     if k.startswith("pixels/"))
+
+
+def phase_cooler_genome(source, workdir, contiguous_read):
+    """Phase 5's genome (not cut) written by the port in cooler's own
+    layout as ``genome.mcool::/resolutions/5000``: int64 ids and int32
+    counts, every dataset chunked (6,094 rows for the int64 pixel columns,
+    12,188 for the int32 one: h5py's chunks for columns created at
+    ``COOLER_PIXEL_ROWS``), shuffle + gzip 6, ``bins/chrom`` an enum; the
+    free space checked first, the write's seconds, the file's size and
+    each pixel column's chunk B-tree depth printed.  Then ``detect`` loops
+    and ``quantify`` of the planted loops from it, pages dropped and from
+    the page cache: tables and windows byte for byte phase 5's, 13 single
+    launches for loops and none for quantify, ``io: fetch+scatter``, ``io:
+    upload``, the wall and the bytes read by column beside the
+    contiguous ``.cool``'s runs of phase ``cool-genome``
+    (``contiguous_read``).  The file is deleted afterwards."""
+    tag = "cooler-genome"
+    os.makedirs(f"{workdir}/cooler", exist_ok=True)
+    path = f"{workdir}/cooler/genome.mcool"
+    uri = f"{path}::/resolutions/5000"
+    raw = source.nnz * (8 + 8 + source.count.itemsize)
+    need = raw + 64 * source.n_bins + (1 << 20)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    print(f"[{tag}] {free / 1e9:.2f} GB free, the columns hold {raw / 1e9:.2f} GB raw "
+          f"(the file less)")
+    check(free > need, f"{tag}: {free} bytes free, the .mcool file may need {need}")
+    card = nvidia_smi("name,power.limit")
+    n_chroms = len(source.chromnames)
+    phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
+    try:
+        t0 = time.perf_counter()
+        write_cooler_layout(path, bins_frame(source), {"bin1_id": source.bin1, "bin2_id":
+                            source.bin2, "count": source.count.astype(np.int32, copy=False)},
+                            group="/resolutions/5000", pixel_rows=COOLER_PIXEL_ROWS)
+        seconds = time.perf_counter() - t0
+        columns = {}
+        with hdf5.File(path) as f:
+            for col in ("bin1_id", "bin2_id", "count"):
+                d = f[f"resolutions/5000/pixels/{col}"]
+                level = f._btree(d._btree_addr, 24)[0]
+                columns[col] = (str(d.dtype), d._chunk_shape[0], len(d._chunk_index()[1]), level)
+            enum = f["resolutions/5000/bins/chrom"].dtype
+        size = os.path.getsize(path)
+        print(f"[{tag}] write_cooler_layout wrote {uri}: {source.nnz} pixels, {size} bytes in "
+              f"{seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of pixel columns, "
+              f"{hdf5.THREADS} threads) on the host of {card}; pixel columns (dtype, chunk "
+              f"rows, chunks, chunk B-tree depth): " + "; ".join(
+                  f"{col} {' '.join(map(str, v))}" for col, v in columns.items()))
+        check([v[:2] for v in columns.values()] == [("int64", 6094), ("int64", 6094),
+                                                     ("int32", 12188)],
+              f"{tag}: pixel columns {columns}")
+        check(columns["bin2_id"][3] == 2, f"{tag}: bin2_id's chunk B-tree depth "
+                                          f"{columns['bin2_id'][3]}, 2 expected")
+        check(enum == np.int32, f"{tag}: bins/chrom read as {enum}")
+        runs, read = {}, {}
+        for kind, contiguous in (("loops", "detect loops from cool, "),
+                                 ("quantify", "quantify planted loops from cool, page cache")):
+            stored = phase5["genome" if kind == "loops" else "quantify"]
+            for cache in ("pages dropped", "page cache"):
+                if cache == "pages dropped":
+                    evict(path)
+                name = f"{kind} from .mcool, {cache}"
+                prefix = f"{workdir}/cooler_{kind}_{len(runs)}"
+                if kind == "loops":
+                    argv = ["detect", "--no-plotting", uri, prefix]
+                else:
+                    argv = ["quantify", "--no-plotting", f"{workdir}/planted.bed2", uri, prefix]
+                args = parse_args(argv, "")
+
+                def run_main():
+                    opened = open_contacts(uri)
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        return (detect if kind == "loops" else quantify)(opened, args, DEVICE)
+
+                with counting_reads(read.setdefault(name, {})):
+                    _, seen = run_genome(name, run_main, tag=tag, show=None)
+                band_uploads(source, tag)
+                runs[name] = contiguous + (cache if kind == "loops" else "")
+                check(outputs(prefix) == stored and stored,
+                      f"{tag}: the {name} table or windows differ from phase 5's")
+                check(seen == {"single": n_chroms if kind == "loops" else 0, "multi": 0},
+                      f"{tag}: {name} launches {seen}")
+                check("pixels/bin1_id" not in read[name], f"{tag}: {name} read bin1_id")
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    print(f"[{tag}] tables and windows byte for byte phase 5's in-memory run, {n_chroms} single "
+          f"launches a loops run, none a quantify run; {card}; each run beside the contiguous "
+          f".cool's of cool-genome, which read "
+          f"{bytes_read(contiguous_read[next(iter(runs.values()))])}:")
+    for name, contiguous in runs.items():
+        a, b = STAGES[name], STAGES[contiguous]
+        print(f"[{tag}] {name}: " + ", ".join(
+            f"{stage} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f}) s"
+            for stage in ("io: fetch+scatter", "io: upload"))
+            + f", wall {WALLS[name]:.2f} ({WALLS[contiguous]:.2f}) s; read "
+              f"{bytes_read(read[name])}")
 
 
 def phase_instruments(source, workdir):
@@ -1816,10 +2041,8 @@ def phase_instruments(source, workdir):
           f"instruments: uploads {link.get('upload')}, the packed bands hold {packed} bytes")
     check(link.get("download", 0) > 0, "instruments: no download counted")
     print(f"[instruments] {compute['band_normxcorr']['dispatches']} band dispatches; uploads "
-          f"{link['upload']} bytes = the {len(source.chromnames)} packed bands with their "
-          f"exceptions and float64 weights ({packed} bytes reckoned from their modes); their "
-          f"float32 bands would hold {bands} bytes (n x {width} each, "
-          f"{bands / packed:.2f}x); downloads {link['download']} bytes")
+          f"{link['upload']} bytes = the packed bands' ({packed} reckoned from their modes; "
+          f"float32 bands {bands} bytes, {bands / packed:.2f}x); downloads {link['download']}")
 
     # a profiler trace of one chromosome's detect pass
     trace_dir = pathlib.Path(workdir) / "trace"
@@ -1870,14 +2093,13 @@ def phase_instruments(source, workdir):
     check(res.returncode == 0, f"instruments: CLI failed: {res.stderr[-2000:]}")
     head = "-- chromosight-torch stage timings --"
     report = res.stderr[res.stderr.find(head):] if head in res.stderr else ""
-    print("[instruments] CLI exit report (CHROMOSIGHT_TPU_TIMINGS=1):")
-    for line in report.strip().splitlines():
-        print(f"[instruments]   {line}")
+    print("[instruments] CLI exit report (CHROMOSIGHT_TPU_TIMINGS=1), its lines joined: "
+          + " | ".join(" ".join(line.split()) for line in report.strip().splitlines()))
     check("band_normxcorr " in report and "(3 dispatches)" in report,
           "instruments: no exit report")
 
 
-def device_busy(path, top=6):
+def device_busy(path, top=4):
     """(seconds the card was busy, seconds the trace spans, device seconds
     of its ``top`` kernels by name) of a torch.profiler Chrome trace: the
     union of its kernel, memcpy and memset intervals, against the span of
@@ -1895,7 +2117,7 @@ def device_busy(path, top=6):
     by_name = {}
     for e in events:
         if e.get("cat") == "kernel":
-            by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e6
+            by_name[e["name"][:40]] = by_name.get(e["name"][:40], 0.0) + e["dur"] / 1e6
     kernels = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
     return busy / 1e6, span / 1e6, {k: round(v, 6) for k, v in kernels.items()}
 
@@ -2093,7 +2315,8 @@ def run(quick):
         phase_instruments(source, workdir)
         phase_surface_example(workdir)
         phase_surface_genome(source, workdir)
-        phase_cool_genome(source, workdir)
+        contiguous_read = phase_cool_genome(source, workdir)
+        phase_cooler_genome(source, workdir, contiguous_read)
         phase_api(source)
         del source
         phase_golden_inter(workdir)
@@ -2135,4 +2358,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
                         help="env, build and small kernel checks only")
-    run(parser.parse_args().quick)
+    quick = parser.parse_args().quick
+    with contextlib.redirect_stdout(sys.stderr):
+        run(quick)

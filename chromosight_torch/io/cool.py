@@ -2,9 +2,11 @@
 
 Counterpart of ``chromosight_tpu/io/cool.py``: ``CoolFile`` (the port's
 ``CoolSource`` with its chromosome and bin tables as DataFrames),
-``load_cool`` and ``create_cool``.  Files are read and written with the
-port's own HDF5 code (``chromosight_torch.io.hdf5``), not h5py; pandas
-is imported when a table is built.
+``load_cool`` and ``create_cool``; ``write_cooler_layout`` writes
+cooler's own chunked layout, which the JAX package never writes.  Files
+are read and written with the port's own HDF5 code
+(``chromosight_torch.io.hdf5``), not h5py; pandas is imported when a
+table is built.
 """
 
 from __future__ import annotations
@@ -97,27 +99,9 @@ def _sorted_pairs(b1, b2):
     return not np.any((step1 < 0) | ((step1 == 0) & (np.diff(b2) < 0)))
 
 
-def create_cool(
-    path, bins, pixels, assembly="unknown", metadata=None, minimal_dtypes=True
-):
-    """Write a minimal single-resolution .cool file
-    (``chromosight_tpu/io/cool.py:473-572``, which writes the same
-    datasets, dtypes and attributes with h5py; the reference relies on
-    ``cooler.create_cooler``), with ``chromosight_torch.io.hdf5``.
-
-    Parameters
-    ----------
-    path : str
-    bins : pandas.DataFrame with columns chrom, start, end (and optionally
-        weight).
-    pixels : pandas.DataFrame, or a dict of numpy columns, with columns
-        bin1_id, bin2_id, count (upper triangle); sorted here by (bin1_id,
-        bin2_id) unless they already are.
-    minimal_dtypes : bool
-        When True (default), pixel id/count columns are stored in the
-        narrowest lossless integer dtype (int32 when they fit); pass False
-        for the canonical int64 columns ``cooler.create_cooler`` writes.
-    """
+def cool_tables(bins, pixels, assembly="unknown", metadata=None, minimal_dtypes=True):
+    """The datasets ({path: array}) and attributes of a single-resolution
+    .cool file, as ``create_cool`` writes them (its parameters)."""
     import pandas as pd
 
     bins = bins.reset_index(drop=True)
@@ -188,5 +172,79 @@ def create_cool(
         "generated-by": "chromosight-torch",
         "metadata": json.dumps(metadata or {}),
     }
+    return datasets, attrs
+
+
+def create_cool(
+    path, bins, pixels, assembly="unknown", metadata=None, minimal_dtypes=True
+):
+    """Write a minimal single-resolution .cool file
+    (``chromosight_tpu/io/cool.py:473-572``, which writes the same
+    datasets, dtypes and attributes with h5py; the reference relies on
+    ``cooler.create_cooler``), with ``chromosight_torch.io.hdf5``.
+
+    Parameters
+    ----------
+    path : str
+    bins : pandas.DataFrame with columns chrom, start, end (and optionally
+        weight).
+    pixels : pandas.DataFrame, or a dict of numpy columns, with columns
+        bin1_id, bin2_id, count (upper triangle); sorted here by (bin1_id,
+        bin2_id) unless they already are.
+    minimal_dtypes : bool
+        When True (default), pixel id/count columns are stored in the
+        narrowest lossless integer dtype (int32 when they fit); pass False
+        for the canonical int64 columns ``cooler.create_cooler`` writes.
+    """
+    datasets, attrs = cool_tables(bins, pixels, assembly, metadata, minimal_dtypes)
     hdf5.write(path, datasets, attrs)
+    return path
+
+
+def chunk_rows(rows, itemsize):
+    """The rows of a chunk that h5py picks for a one-dimensional dataset
+    of ``rows`` elements of ``itemsize`` bytes (``guess_chunk`` of
+    ``h5py/_hl/filters.py``: halve until within half of a target that
+    grows with the dataset's size, under 1 MiB)."""
+    chunks = float(rows or 1024)
+    target = 16 * 1024 * 2 ** np.log10(chunks * itemsize / (1024.0 * 1024))
+    target = min(max(target, 8 * 1024), 1024 * 1024)
+    while True:
+        size = chunks * itemsize
+        if (size < target or abs(size - target) / target < 0.5) and size < 1024 * 1024:
+            break
+        if chunks == 1:
+            break
+        chunks = np.ceil(chunks / 2.0)
+    return int(chunks)
+
+
+def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None):
+    """Write ``bins`` and ``pixels`` (as ``create_cool`` takes them) in
+    cooler's own layout: int64 pixel ids (``minimal_dtypes=False``),
+    ``bins/chrom`` an enum of the chromosome names, every dataset chunked
+    with shuffle and gzip 6, unlimited along its axis, in the chunks h5py
+    picks (``chunk_rows``; for the pixel columns from ``pixel_rows``, the
+    rows cooler created them with, by default their length).  ``group``
+    "/resolutions/5000" writes an ``.mcool`` resolution (its attributes on
+    the group, the root's those of cooler's ``.mcool``), read back as
+    ``path::/resolutions/5000``.  The port's own chunked files, for the tests and the card's smoke run; the
+    JAX package writes contiguous ones (``create_cool``)."""
+    datasets, attrs = cool_tables(bins, pixels, minimal_dtypes=False)
+    names = [n.decode() for n in datasets["chroms/name"]]
+    enum = hdf5.enum_dtype({name: i for i, name in enumerate(names)}, np.int32)
+    datasets["bins/chrom"] = datasets["bins/chrom"].view(enum)
+    prefix = group.strip("/")
+    chunks = {}
+    for name, array in datasets.items():
+        rows = len(array)
+        if name.startswith("pixels/") and pixel_rows is not None:
+            rows = pixel_rows
+        chunks[f"{prefix}/{name}".strip("/")] = chunk_rows(rows, array.dtype.itemsize)
+    datasets = {f"{prefix}/{name}".strip("/"): array for name, array in datasets.items()}
+    if prefix:
+        root, group_attrs = {"format": "HDF5::MCOOL", "format-version": 2}, {prefix: attrs}
+    else:
+        root, group_attrs = attrs, {}
+    hdf5.write(path, datasets, root, chunks=chunks, group_attrs=group_attrs)
     return path

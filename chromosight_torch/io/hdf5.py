@@ -37,20 +37,26 @@ cooler writes:
   (single chunk, implicit, fixed array, extensible array, v2 B-tree of
   record types 10 and 11, partial edge chunks left unfiltered); the
   filters deflate, shuffle, fletcher32 (checked) and LZF (h5py's filter
-  32000, decoded by ``native/lzf.cpp``), honouring each chunk's filter
-  mask; storage not allocated reads as the fill value.
+  32000), honouring each chunk's filter mask; storage not allocated reads
+  as the fill value.  The filters run natively where g++ builds them
+  (``native/lzf.cpp``, ``shuffle.cpp``, ``inflate.cpp``), else in Python
+  and numpy.
 
 Anything else raises ``NotImplementedError`` naming the feature and the
 file offset: shared object-header messages and the shared-message
 table, soft and external links, virtual and external storage, the
 filters scale-offset, n-bit and szip, fractal heaps with I/O filters,
 datatypes outside the list above.  Nothing is read wrong silently.  A
-contiguous slice reads exactly its bytes; a chunked slice inflates only
-the chunks that overlap it, from a chunk index walked once per dataset.
+contiguous slice reads exactly its bytes; a chunked slice decodes only
+the chunks that overlap it, from a chunk index walked once per dataset,
+each straight into its rows of the output (those of a deflate or
+shuffle + deflate pipeline in one native call on ``THREADS``
+threads).
 
 The writer makes new files (``write``: superblock v0, symbol-table
-groups, contiguous datasets, attributes of integers, floats and
-variable-length UTF-8 strings) and adds, replaces or removes a link of an
+groups with attributes, contiguous datasets or chunked ones in cooler's
+layout, attributes of integers, floats and variable-length UTF-8
+strings) and adds, replaces or removes a link of an
 existing file (``File(path, "r+").write_dataset`` and ``unlink``): the
 data and its version-1 object header go at the end of the file; in a
 symbol-table group the node and its B-tree key and the local heap are
@@ -67,6 +73,7 @@ more than one level or a full B-tree node raise ``NotImplementedError``.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import os
 import struct
 import zlib
@@ -98,6 +105,9 @@ LEAF_K, INTERNAL_K = 4, 16
 OFFSET_SIZE = LENGTH_SIZE = 8
 UNDEF = (1 << 64) - 1
 GLOBAL_HEAP_MIN = 4096
+# the threads that decode the chunks of a slice (native.inflate_chunks's)
+# and compress those that ``write`` writes
+THREADS = min(8, os.cpu_count() or 1)
 
 
 def _align8(n):
@@ -1278,45 +1288,103 @@ class Dataset:
         for dim, extent in zip(chunk[1:], self.shape[1:]):
             expected *= -(-extent // dim)
         out = self._fill_array(shape) if len(sel) < expected else np.empty(shape, self.dtype)
+        lzf = [i for i, (fid, _) in enumerate(self._filters) if fid == LZF]
+        if lzf:
+            self.file.walked["LZF chunk"] += int(np.sum(masks[sel] & (1 << lzf[0]) == 0))
+        if self._type.vlen or tuple(chunk[1:]) != tuple(self.shape[1:]):
+            for i in sel:
+                raw = self._decode(int(addrs[i]), int(sizes[i]), int(masks[i]), i)
+                data = self.file._values(self._type, raw, chunk, decode=False)
+                dst, src = [], []
+                for axis, (start, dim) in enumerate(zip(offsets[i], chunk)):
+                    a, b = (lo, hi) if axis == 0 else (0, self.shape[axis])
+                    top = min(start + dim, b)
+                    begin = max(start, a)
+                    dst.append(slice(begin - a, top - a))
+                    src.append(slice(begin - start, top - start))
+                out[tuple(dst)] = data[tuple(src)]
+            return out
+        # chunks of whole rows: each chunk's rows are a run of ``out``'s
+        # bytes, which a chunk inside [lo, hi) is decoded straight into,
+        # natively on threads where the pipeline allows
+        # (``_inflate_native``), the others here one by one
+        row = self._type.size * int(np.prod(chunk[1:], dtype=np.int64))
+        flat = out.reshape(-1).view(np.uint8)
+        whole = (offsets[sel, 0] >= lo) & (offsets[sel, 0] + chunk[0] <= hi) & (masks[sel] == 0)
+        if self._inflate_native(flat, (offsets[sel[whole], 0] - lo) * row, addrs[sel[whole]],
+                                sizes[sel[whole]]):
+            sel = sel[~whole]
+
         for i in sel:
-            raw = self._unfilter(self.file._read(int(addrs[i]), int(sizes[i])), int(masks[i]), i)
-            data = self.file._values(self._type, raw, chunk, decode=False)
-            dst, src = [], []
-            for axis, (start, dim) in enumerate(zip(offsets[i], chunk)):
-                a, b = (lo, hi) if axis == 0 else (0, self.shape[axis])
-                top = min(start + dim, b)
-                begin = max(start, a)
-                dst.append(slice(begin - a, top - a))
-                src.append(slice(begin - start, top - start))
-            out[tuple(dst)] = data[tuple(src)]
+            start = int(offsets[i, 0])
+            begin, top = max(start, lo), min(start + chunk[0], hi)
+            dst = flat[(begin - lo) * row : (top - lo) * row]
+            if top - begin == chunk[0]:
+                self._decode(int(addrs[i]), int(sizes[i]), int(masks[i]), i, dst)
+            else:
+                raw = self._decode(int(addrs[i]), int(sizes[i]), int(masks[i]), i)
+                dst[:] = np.frombuffer(raw, np.uint8, len(dst), (begin - start) * row)
         return out
 
-    def _unfilter(self, raw, mask, index):
-        for i in reversed(range(len(self._filters))):
-            if mask & (1 << i):
-                continue
+    def _inflate_native(self, flat, starts, addrs, sizes):
+        """The chunks stored at ``addrs`` (``sizes`` bytes, every filter
+        on) of a deflate or shuffle + deflate pipeline, read in runs of
+        nearby chunks and decoded by ``native.inflate_chunks`` into
+        ``flat`` at ``starts``: whether it decoded them (False for another
+        pipeline, without the native library, or on a chunk it could not
+        decode, which the caller's decoding then reports)."""
+        kinds = [fid for fid, _ in self._filters]
+        if kinds not in ([DEFLATE], [SHUFFLE, DEFLATE]) or not len(addrs):
+            return False
+        element = 1
+        if kinds[0] == SHUFFLE:
+            element = self._filters[0][1][0] if self._filters[0][1] else self._type.size
+        order = np.argsort(addrs)
+        addrs, sizes, starts = addrs[order].astype(np.int64), sizes[order], starts[order]
+        # a new run where the next chunk starts past a gap of 64 KiB
+        ends = addrs + sizes
+        breaks = np.flatnonzero(addrs[1:] - ends[:-1] > 1 << 16) + 1
+        firsts, lasts = np.r_[0, breaks], np.r_[breaks, len(addrs)] - 1
+        spans = ends[lasts] - addrs[firsts]
+        buf = np.empty(int(spans.sum()), np.uint8)
+        bases = np.r_[0, np.cumsum(spans)[:-1]]
+        in_off = np.empty(len(addrs), np.int64)
+        for first, last, base, span in zip(firsts, lasts, bases, spans):
+            self.file._read_into(int(addrs[first]), buf[base : base + span])
+            in_off[first : last + 1] = base + addrs[first : last + 1] - addrs[first]
+        return native.inflate_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
+                                     element, THREADS)
+
+    def _decode(self, addr, size, mask, index, into=None):
+        """The bytes of the chunk ``index`` (``size`` bytes stored at
+        ``addr``) through the filters that ``mask`` leaves on, in reverse
+        pipeline order; written into ``into`` (a uint8 array of the
+        chunk's bytes) when given."""
+        on = [i for i in range(len(self._filters)) if not mask & (1 << i)]
+        if not on and into is not None and size == len(into):
+            self.file._read_into(addr, into)
+            return into
+        raw = self.file._read(addr, size)
+        for i in reversed(on):
             fid, values = self._filters[i]
             if fid == DEFLATE:
-                raw = zlib.decompress(raw)
+                raw = zlib.decompress(raw, bufsize=self._chunk_bytes)
             elif fid == LZF:
-                size = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
-                raw = native.lzf_decompress(raw, size)
-                self.file.walked["LZF chunk"] += 1
+                n_out = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
+                raw = native.lzf_decompress(raw, n_out)
             elif fid == SHUFFLE:
-                raw = _unshuffle(raw, values[0] if values else self._type.size)
+                element = values[0] if values else self._type.size
+                if i == on[0] and into is not None and len(raw) == len(into):
+                    return native.unshuffle(raw, element, into)
+                raw = native.unshuffle(raw, element)
             else:
                 raw = _fletcher32_checked(raw, f"{self.file.filename}:{self.name} chunk {index}")
+        if into is not None:
+            if len(raw) < len(into):
+                raise OSError(f"{self.file.filename}:{self.name} chunk {index}: {len(raw)} "
+                              f"bytes decoded, {len(into)} expected")
+            into[:] = np.frombuffer(raw, np.uint8, len(into))
         return raw
-
-
-def _unshuffle(raw, size):
-    """Undo HDF5's shuffle filter: a byte transpose by the element size
-    (trailing bytes that fill no element stay as they are)."""
-    n = len(raw) // size
-    if size <= 1 or n == 0:
-        return raw
-    body = np.frombuffer(raw, np.uint8, n * size).reshape(size, n).T.tobytes()
-    return body + raw[n * size :]
 
 
 def _fletcher32_checked(raw, what):
@@ -1341,13 +1409,32 @@ def _fletcher32_checked(raw, what):
 # Files are written with 8-byte offsets and lengths, as h5py writes them.
 
 
+def enum_dtype(mapping, basetype=np.int32):
+    """The numpy dtype of an HDF5 enum ({name: value} over the integer
+    ``basetype``), as h5py's ``enum_dtype`` makes it: arrays of it are
+    written as an enum (``bins/chrom`` in cooler's layout)."""
+    return np.dtype(np.dtype(basetype).str, metadata={"enum": dict(mapping)})
+
+
 def _type_message(dtype):
     """The version-1 datatype of a numpy dtype (integers, IEEE floats,
-    fixed strings), or of a variable-length UTF-8 string (``str``)."""
+    fixed strings, enums of ``enum_dtype``), or of a variable-length UTF-8
+    string (``str``)."""
     if dtype is str:
         char = struct.pack("<BBBBIHH", 0x10, 0, 0, 0, 1, 0, 8)
         return struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 16) + char
     dtype = np.dtype(dtype)
+    if dtype.metadata and "enum" in dtype.metadata:
+        # an enum (``enum_dtype``): its integer base type, then the
+        # members' names (null-terminated, 8-byte aligned) and values, in
+        # the order of their values
+        base = np.dtype(dtype.str)
+        members = sorted(dtype.metadata["enum"].items(), key=lambda item: item[1])
+        names = b"".join(_pad8(name.encode("utf-8") + b"\0") for name, _ in members)
+        values = np.array([value for _, value in members], base).tobytes()
+        count = struct.pack("<H", len(members))
+        return (struct.pack("<BccBI", 0x18, count[:1], count[1:], 0, base.itemsize)
+                + _type_message(base) + names + values)
     order, size = int(dtype.byteorder == ">"), dtype.itemsize
     if dtype.kind in "iu" and size in (1, 2, 4, 8):
         signed = 8 if dtype.kind == "i" else 0
@@ -1364,9 +1451,14 @@ def _type_message(dtype):
     raise TypeError(f"no HDF5 type is written for numpy dtype {dtype}")
 
 
-def _space_message(shape):
+def _space_message(shape, unlimited=False):
+    """A version-1 dataspace of ``shape``; its maximum the shape, or
+    unlimited along the first axis."""
     dims = b"".join(struct.pack("<Q", n) for n in shape)
-    return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + dims + dims
+    top = dims
+    if unlimited:
+        top = struct.pack("<Q", UNDEF) + dims[8:]
+    return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + dims + top
 
 
 def _message(kind, body):
@@ -1444,19 +1536,114 @@ def _attribute_messages(attrs, out):
     return messages
 
 
-def _dataset_header(array, out, attrs):
-    """Write ``array`` contiguous, then its object header; the header's
-    address."""
-    data = out.put(array) if array.size else UNDEF
+def _dataset_header(array, out, attrs, chunk=None, pool=None):
+    """Write ``array``, then its object header; the header's address.  The
+    array is contiguous, or with ``chunk`` (rows) chunked as cooler writes
+    (see ``_chunked_data``)."""
+    if chunk is None:
+        data = out.put(array) if array.size else UNDEF
+        layout = [_message(LAYOUT, struct.pack("<BBQQ", 3, 1, data, array.nbytes))]
+        # fill value version 2: allocated late, written if set, default
+        fill = bytes([2, 2, 2, 1, 0, 0, 0, 0])
+    else:
+        layout = _chunked_data(array, int(chunk), out, pool)
+        fill = bytes([2, 3, 2, 1, 0, 0, 0, 0])  # allocated incrementally
     attributes = _attribute_messages(attrs or {}, out)
     return out.put(_object_header([
-        _message(DATASPACE, _space_message(array.shape)),
+        _message(DATASPACE, _space_message(array.shape, unlimited=chunk is not None)),
         _message(DATATYPE, _type_message(array.dtype)),
-        # fill value version 2: allocated late, written if set, default
-        _message(FILL, bytes([2, 2, 2, 1, 0, 0, 0, 0])),
-        _message(LAYOUT, struct.pack("<BBQQ", 3, 1, data, array.nbytes)),
+        _message(FILL, fill),
+        *layout,
         *attributes,
     ]))
+
+
+# chunk B-trees of the files this module writes: HDF5's default K for
+# chunked datasets (a node holds up to 2K entries; superblock version 0
+# stores no K for them)
+CHUNK_K = 32
+DEFLATE_LEVEL = 6
+
+
+def _chunked_data(array, rows, out, pool):
+    """Write ``array`` as chunks of ``rows`` rows (the trailing axes whole;
+    the last chunk padded with zeros), each through HDF5's shuffle and then
+    deflate at level 6, and a version-1 chunk B-tree of type 1 over them
+    with as many levels as their count needs; the filter pipeline and
+    layout (version 3, class 2) messages.  The chunks are compressed on
+    ``pool`` when given; the bytes written do not depend on it."""
+    tail, element = array.shape[1:], array.dtype.itemsize
+    row = element * int(np.prod(tail, dtype=np.int64))
+    flat = array.reshape(-1).view(np.uint8) if array.size else np.zeros(0, np.uint8)
+    n_chunks = -(-array.shape[0] // rows) if array.shape and array.shape[0] else 0
+    size = rows * row
+
+    def compress(batch):
+        done = []
+        for k in batch:
+            raw = flat[k * size : (k + 1) * size]
+            if len(raw) < size:
+                raw = np.concatenate([raw, np.zeros(size - len(raw), np.uint8)])
+            shuffled = np.empty(size, np.uint8)
+            native.shuffle(raw, element, shuffled)
+            done.append(zlib.compress(shuffled, DEFLATE_LEVEL))
+        return done
+
+    batches = [range(k, min(k + 16, n_chunks)) for k in range(0, n_chunks, 16)]
+    results = pool.map(compress, batches) if pool is not None else map(compress, batches)
+    rank = len(array.shape)
+    keys, children = [], []
+    for batch, done in zip(batches, results):
+        for k, data in zip(batch, done):
+            children.append(out.put(data))
+            keys.append(struct.pack(f"<II{rank + 1}Q", len(data), 0, k * rows, *[0] * rank))
+    # the key after the last chunk: the end of its rows, and 1 in the
+    # element dimension (as HDF5 writes it)
+    keys.append(struct.pack(f"<II{rank + 1}Q", 0, 0, n_chunks * rows, *[0] * (rank - 1),
+                            element))
+    btree = _chunk_btree(keys, children, rank, out) if children else UNDEF
+    pipeline = struct.pack("<BB6x", 1, 2)
+    for fid, name, value in ((SHUFFLE, b"shuffle", element), (DEFLATE, b"deflate",
+                                                                 DEFLATE_LEVEL)):
+        # id, name length, flags (optional), one value, name, value, pad
+        pipeline += struct.pack("<HHHH", fid, 8, 1, 1) + name + b"\0" + struct.pack(
+            "<I4x", value)
+    dims = struct.pack(f"<{rank + 1}I", rows, *tail, element)
+    layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree) + dims
+    return [_message(FILTERS, pipeline), _message(LAYOUT, layout)]
+
+
+def _chunk_btree(keys, children, rank, out):
+    """Write a version-1 B-tree of type 1 (chunks) over ``children`` (chunk
+    addresses, in order) and ``keys`` (one per chunk and one past the
+    last): leaves of up to 2 * CHUNK_K chunks, then levels of nodes over
+    them until one node holds the rest, each level's nodes adjacent and
+    linked to their siblings, each node at its full size; the root's
+    address."""
+    per_node = 2 * CHUNK_K
+    key_size = 8 + 8 * (rank + 1)
+    node_size = 24 + per_node * 8 + (per_node + 1) * key_size
+    level = 0
+    while True:
+        starts = range(0, len(children), per_node)
+        base = _align8(out.eof)
+        addrs = [base + i * node_size for i in range(len(starts))]
+        up_keys = []
+        for i, start in enumerate(starts):
+            stop = min(start + per_node, len(children))
+            left = addrs[i - 1] if i else UNDEF
+            right = addrs[i + 1] if i + 1 < len(addrs) else UNDEF
+            node = b"TREE" + struct.pack("<BBHQQ", 1, level, stop - start, left, right)
+            node += b"".join(keys[j] + struct.pack("<Q", children[j]) for j in range(start, stop))
+            node += keys[stop]
+            put = out.put(node + bytes(node_size - len(node)))
+            if put != addrs[i]:
+                raise RuntimeError(f"chunk B-tree node written at {put}, not {addrs[i]}")
+            up_keys.append(keys[start])
+        if len(addrs) == 1:
+            return addrs[0]
+        keys, children = up_keys + [keys[-1]], addrs
+        level += 1
 
 
 def _entry(name_offset, header, cache=None):
@@ -1466,19 +1653,24 @@ def _entry(name_offset, header, cache=None):
     return struct.pack("<QQIIQQ", name_offset, header, 1, 0, *cache)
 
 
-def _write_group(out, tree, attrs):
+def _write_group(out, tree, attrs, path="", chunks=None, group_attrs=None, pool=None):
     """Write the members of ``tree`` ({name: array or subtree}), then the
-    group: its local heap, symbol-table nodes, B-tree and object header;
-    (header, B-tree, heap) addresses."""
+    group at ``path``: its local heap, symbol-table nodes, B-tree and
+    object header; (header, B-tree, heap) addresses.  ``chunks`` and
+    ``group_attrs`` are ``write``'s, by path from the root."""
+    chunks, group_attrs = chunks or {}, group_attrs or {}
     names = sorted(tree, key=lambda n: n.encode("utf-8"))
     entries = []
     for name in names:
-        node = tree[name]
+        node, where = tree[name], f"{path}/{name}".strip("/")
         if isinstance(node, dict):
-            header, btree, heap = _write_group(out, node, {})
+            header, btree, heap = _write_group(out, node, group_attrs.get(where, {}), where,
+                                               chunks, group_attrs, pool)
             entries.append((header, (btree, heap)))
         else:
-            entries.append((_dataset_header(np.ascontiguousarray(node), out, None), None))
+            header = _dataset_header(np.ascontiguousarray(node), out, None, chunks.get(where),
+                                     pool)
+            entries.append((header, None))
     heap_data, offsets = bytearray(8), []
     for name in names:
         offsets.append(len(heap_data))
@@ -1511,12 +1703,18 @@ def _write_group(out, tree, attrs):
     return header, btree, heap
 
 
-def write(path, datasets, attrs=None):
+def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None):
     """Write a new HDF5 file (superblock version 0): ``datasets`` maps
-    paths ("bins/start") to numpy arrays of integers, floats or fixed
-    strings, stored contiguous in symbol-table groups made from the paths;
-    ``attrs`` are the root group's attributes (see
-    ``_attribute_messages``)."""
+    paths ("bins/start", "resolutions/5000/pixels/count") to numpy arrays
+    of integers, floats, fixed strings or enums (``enum_dtype``), in
+    symbol-table groups made from the paths; ``attrs`` are the root
+    group's attributes and ``group_attrs`` {group path: attributes} those
+    of other groups (see ``_attribute_messages``).  A dataset is stored
+    contiguous, or, where ``chunks`` {path: rows} names it, chunked in
+    cooler's layout: chunks of that many rows, shuffle then deflate at
+    level 6, unlimited along the first axis (see ``_chunked_data``),
+    compressed on ``THREADS`` threads; the bytes written do not depend on
+    the thread count."""
     tree = {}
     for name, array in datasets.items():
         *groups, leaf = [p for p in name.split("/") if p]
@@ -1524,10 +1722,14 @@ def write(path, datasets, attrs=None):
         for group in groups:
             node = node.setdefault(group, {})
         node[leaf] = array
+    chunks = {name.strip("/"): rows for name, rows in (chunks or {}).items()}
+    group_attrs = {name.strip("/"): a for name, a in (group_attrs or {}).items()}
+    pool = concurrent.futures.ThreadPoolExecutor(THREADS) if chunks and THREADS > 1 else None
     fd = os.open(str(path), os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o666)
     try:
         out = _Appender(fd, 96)
-        header, btree, heap = _write_group(out, tree, dict(attrs or {}))
+        header, btree, heap = _write_group(out, tree, dict(attrs or {}), "", chunks,
+                                           group_attrs, pool)
         eof = out.finish()
         superblock = (
             SIGNATURE + bytes([0, 0, 0, 0, 0, OFFSET_SIZE, LENGTH_SIZE, 0])
@@ -1538,4 +1740,6 @@ def write(path, datasets, attrs=None):
         os.pwrite(fd, superblock, 0)
     finally:
         os.close(fd)
+        if pool is not None:
+            pool.shutdown()
     return str(path)

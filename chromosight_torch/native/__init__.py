@@ -15,6 +15,14 @@ edited source rebuilds, and nothing is written beside the source.  Every
 entry returns None when the library cannot be built or loaded, and its
 callers then take their numpy versions.  Set CHROMOSIGHT_TPU_NO_NATIVE=1
 to disable it, as for the JAX package.
+
+The HDF5 reader's and writer's filters are built the same way from
+``lzf.cpp`` (LZF decoding), ``shuffle.cpp`` (the shuffle filter) and
+``inflate.cpp`` (deflate-filtered chunks of a slice on threads, with
+``shuffle.cpp`` and zlib), each into a library of its own;
+``lzf_decompress``, ``unshuffle`` and ``shuffle`` take their Python and
+numpy versions under the same rule, and ``inflate_chunks`` leaves its
+chunks to the caller's Python decoding.
 """
 
 from __future__ import annotations
@@ -31,27 +39,33 @@ import numpy as np
 
 _SRC = pathlib.Path(__file__).parent / "kernels.cpp"
 _LZF_SRC = pathlib.Path(__file__).parent / "lzf.cpp"
+_SHUFFLE_SRC = pathlib.Path(__file__).parent / "shuffle.cpp"
+_INFLATE_SRC = pathlib.Path(__file__).parent / "inflate.cpp"
 BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LIB = None
 _TRIED = False
-_LZF = None
+_FILTER_LIBS = {}  # the filters' libraries (None: not built), by source stem
 _LOCK = threading.Lock()
 
 
-def _build(openmp=True, src=_SRC, name="libchromosight_native.so"):
-    """Compile ``src`` (``kernels.cpp``) unless this source and command
-    line were built before; returns the library's path."""
+def _build(openmp=True, src=_SRC, name="libchromosight_native.so", more=(), libs=()):
+    """Compile ``src`` (``kernels.cpp``), with the sources ``more`` and
+    the libraries ``libs`` ("-lz"), unless these sources and command line
+    were built before; returns the library's path."""
     flags = [*_FLAGS, "-fopenmp"] if openmp else list(_FLAGS)
-    digest = hashlib.sha256(" ".join(flags).encode())
-    digest.update(src.read_bytes())
+    srcs = [src, *more]
+    digest = hashlib.sha256(" ".join([*flags, *libs]).encode())
+    for path in srcs:
+        digest.update(path.read_bytes())
     out = BUILD_DIR / digest.hexdigest()[:16] / name
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f"tmp{os.getpid()}.so"
     subprocess.run(
-        ["g++", *flags, str(src), "-o", str(tmp)], check=True, capture_output=True
+        ["g++", *flags, *map(str, srcs), "-o", str(tmp), *libs], check=True,
+        capture_output=True,
     )
     os.replace(tmp, out)
     return out
@@ -985,26 +999,195 @@ def marginal_sums(b1, b2, counts, bias, n_bins):
     return marg
 
 
+def _filter_lib(src):
+    """The library built from ``src`` (``lzf.cpp``, ``shuffle.cpp``, or
+    ``inflate.cpp`` with ``shuffle.cpp`` and zlib: the HDF5 reader's
+    filters) with g++ at first use, beside ``kernels.cpp``'s, or None under
+    CHROMOSIGHT_TPU_NO_NATIVE or when it cannot be built or loaded (as
+    ``get_lib``); tried once per process."""
+    name = src.stem
+    if name not in _FILTER_LIBS:
+        with _LOCK:
+            if name not in _FILTER_LIBS:
+                lib = None
+                more, libs = ((_SHUFFLE_SRC,), ("-lz",)) if name == "inflate" else ((), ())
+                if not os.environ.get("CHROMOSIGHT_TPU_NO_NATIVE"):
+                    try:
+                        lib = ctypes.CDLL(str(_build(openmp=False, src=src, name=f"lib{name}.so",
+                                                     more=more, libs=libs)))
+                    except (OSError, subprocess.CalledProcessError):
+                        lib = None
+                if lib is not None and name == "lzf":
+                    lib.lzf_decompress.restype = ctypes.c_int64
+                    lib.lzf_decompress.argtypes = [
+                        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                    ]
+                elif lib is not None and name == "inflate":
+                    lib.hdf5_inflate_chunks.restype = ctypes.c_int64
+                    lib.hdf5_inflate_chunks.argtypes = [
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int64,
+                    ]
+                elif lib is not None:
+                    for fn in (lib.hdf5_unshuffle, lib.hdf5_shuffle):
+                        fn.restype = None
+                        fn.argtypes = [
+                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                        ]
+                _FILTER_LIBS[name] = lib
+    return _FILTER_LIBS[name]
+
+
+def filters_native():
+    """Whether the HDF5 filters run natively (``lzf.cpp``, ``shuffle.cpp``
+    and ``inflate.cpp`` built and loaded)."""
+    return all(_filter_lib(src) is not None for src in (_LZF_SRC, _SHUFFLE_SRC, _INFLATE_SRC))
+
+
+def inflate_chunks(buf, in_off, in_len, out, out_off, chunk_bytes, element, threads):
+    """Inflate the deflate-filtered chunks ``buf[in_off[i]:][:in_len[i]]``
+    (and unshuffle them by elements of ``element`` bytes, when above 1)
+    into ``out`` (a writable uint8 array) at ``out_off[i]``, each exactly
+    ``chunk_bytes`` bytes, on ``threads`` threads of ``inflate.cpp``'s own:
+    True when every chunk decoded; False when one did not, or without the
+    library (CHROMOSIGHT_TPU_NO_NATIVE, no compiler or no zlib headers),
+    and then the caller decodes them in Python."""
+    lib = _filter_lib(_INFLATE_SRC)
+    if lib is None or not len(in_off):
+        return lib is not None
+    buf = np.ascontiguousarray(buf, np.uint8)
+    in_off, in_len, out_off = (np.ascontiguousarray(a, np.int64) for a in (in_off, in_len,
+                                                                          out_off))
+    if (in_off.min() < 0 or (in_off + in_len).max() > len(buf) or out_off.min() < 0
+            or out_off.max() + chunk_bytes > out.nbytes):
+        raise ValueError("chunks outside their buffers")
+    failed = lib.hdf5_inflate_chunks(
+        buf.ctypes.data, in_off.ctypes.data, in_len.ctypes.data, len(in_off), out.ctypes.data,
+        out_off.ctypes.data, int(chunk_bytes), int(element), int(threads))
+    return failed < 0
+
+
 def lzf_decompress(data, size):
     """The ``size`` bytes LZF-compressed in ``data`` (one chunk of h5py's
-    LZF filter), decoded by ``lzf.cpp``, which is built with g++ at first
-    use beside ``kernels.cpp``'s library.  Raises OSError when the block
-    does not decode to exactly ``size`` bytes; the library not building
-    raises too (there is no Python decoder)."""
-    global _LZF
-    if _LZF is None:
-        with _LOCK:
-            if _LZF is None:
-                lib = ctypes.CDLL(str(_build(openmp=False, src=_LZF_SRC, name="liblzf.so")))
-                lib.lzf_decompress.restype = ctypes.c_int64
-                lib.lzf_decompress.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ]
-                _LZF = lib
+    LZF filter), decoded by ``lzf.cpp`` (built with g++ at first use), or
+    by ``lzf_decompress_py`` under CHROMOSIGHT_TPU_NO_NATIVE or without a
+    compiler.  Raises OSError when the block does not decode to exactly
+    ``size`` bytes."""
+    lib = _filter_lib(_LZF_SRC)
+    if lib is None:
+        return lzf_decompress_py(data, size)
     out = np.empty(int(size), dtype=np.uint8)
-    got = _LZF.lzf_decompress(bytes(data), len(data), out.ctypes.data, out.size)
-    if got != out.size:
-        why = {-1: "more than the chunk's bytes", -2: "not a valid LZF block"}
-        raise OSError(f"LZF block of {len(data)} bytes: {why.get(got, f'{got} bytes')}, "
-                      f"{size} expected")
+    got = lib.lzf_decompress(bytes(data), len(data), out.ctypes.data, out.size)
+    _lzf_check(got, len(data), size)
     return out.tobytes()
+
+
+def lzf_decompress_py(data, size):
+    """``lzf.cpp``'s decoder in Python, the fallback of ``lzf_decompress``
+    (the same bytes, the same OSError): a control byte below 32 starts a
+    run of ctrl + 1 literal bytes; above, its top three bits (7: plus the
+    next byte) give a back reference of length + 2 bytes at a distance of
+    ((ctrl & 31) << 8) + next byte + 1, which may overlap what it
+    writes."""
+    src = bytes(data)
+    n_in, size = len(src), int(size)
+    out = bytearray(size)
+    ip = op = 0
+    got = None
+    while ip < n_in:
+        ctrl = src[ip]
+        ip += 1
+        if ctrl < 32:
+            ctrl += 1
+            if op + ctrl > size:
+                got = -1
+                break
+            if ip + ctrl > n_in:
+                got = -2
+                break
+            out[op : op + ctrl] = src[ip : ip + ctrl]
+            ip += ctrl
+            op += ctrl
+            continue
+        length = ctrl >> 5
+        if length == 7:
+            if ip >= n_in:
+                got = -2
+                break
+            length += src[ip]
+            ip += 1
+        if ip >= n_in:
+            got = -2
+            break
+        back = ((ctrl & 0x1F) << 8) + src[ip] + 1
+        ip += 1
+        length += 2
+        if op + length > size:
+            got = -1
+            break
+        if back > op:
+            got = -2
+            break
+        ref = op - back
+        if back >= length:
+            out[op : op + length] = out[ref : ref + length]
+        else:
+            # the reference overlaps what it writes: its bytes repeat
+            out[op : op + length] = (out[ref:op] * -(-length // back))[:length]
+        op += length
+    _lzf_check(op if got is None else got, n_in, size)
+    return bytes(out)
+
+
+def _lzf_check(got, n_in, size):
+    if got != size:
+        why = {-1: "more than the chunk's bytes", -2: "not a valid LZF block"}
+        raise OSError(f"LZF block of {n_in} bytes: {why.get(got, f'{got} bytes')}, "
+                      f"{size} expected")
+
+
+def unshuffle(raw, size, out=None):
+    """Undo HDF5's shuffle filter on the bytes ``raw`` (elements of
+    ``size`` bytes; trailing bytes that fill no element stay as they are),
+    by ``shuffle.cpp`` or, under CHROMOSIGHT_TPU_NO_NATIVE or without a
+    compiler, by ``unshuffle_numpy``: into ``out`` (a writable buffer of
+    ``len(raw)`` bytes) when given, else into new bytes."""
+    return _shuffled(raw, size, out, "hdf5_unshuffle", unshuffle_numpy)
+
+
+def shuffle(raw, size, out=None):
+    """HDF5's shuffle filter, the inverse of ``unshuffle`` (the writer's)."""
+    return _shuffled(raw, size, out, "hdf5_shuffle", shuffle_numpy)
+
+
+def _shuffled(raw, size, out, entry, fallback):
+    lib = _filter_lib(_SHUFFLE_SRC)
+    src = np.frombuffer(raw, np.uint8)
+    dst = np.empty(len(src), np.uint8) if out is None else np.frombuffer(out, np.uint8)
+    if len(dst) != len(src):
+        raise ValueError(f"{len(src)} shuffled bytes into a buffer of {len(dst)}")
+    if lib is None:
+        dst[:] = np.frombuffer(fallback(src.tobytes(), size), np.uint8)
+    else:
+        getattr(lib, entry)(src.ctypes.data, len(src), int(size), dst.ctypes.data)
+    return dst.tobytes() if out is None else out
+
+
+def unshuffle_numpy(raw, size):
+    """The numpy version of ``unshuffle``: a byte transpose by the element
+    size."""
+    n = len(raw) // size
+    if size <= 1 or n == 0:
+        return bytes(raw)
+    body = np.frombuffer(raw, np.uint8, n * size).reshape(size, n).T.tobytes()
+    return body + bytes(raw[n * size :])
+
+
+def shuffle_numpy(raw, size):
+    """The numpy version of ``shuffle``."""
+    n = len(raw) // size
+    if size <= 1 or n == 0:
+        return bytes(raw)
+    body = np.frombuffer(raw, np.uint8, n * size).reshape(n, size).T.tobytes()
+    return body + bytes(raw[n * size :])
