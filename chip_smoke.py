@@ -50,7 +50,14 @@ Phases, one line or block each; any failure raises (non-zero exit):
             map; ``--norm force`` on a copy of the .cool with its weights
             dropped (``File.unlink``) stores the weights that ``--norm
             force`` stores into a copy of example.cool, bit for bit, and
-            gives its table byte for byte;
+            gives its table byte for byte; then the example through one
+            HDF5 feature each (tests/data/example_{soft,scaleoffset,nbit,
+            external_storage,shared,dense_bins}.cool and
+            example_external.mcool, written by
+            tests/test_torch_hdf5_features.py): the feature's structure
+            walked, loops, borders and quantify byte for byte the tables
+            from example.cool, ``--norm force`` on a copy storing its 637
+            weights bit for bit (a fixture missing fails the phase);
 5. genome   on a synthetic 13 x 48,000-bin genome at 5 kb (the bench.py
             shape): ``detect`` with loops (recall of the planted loops) and
             with borders (13 fused launches), and ``quantify`` of the planted
@@ -118,6 +125,18 @@ Phases, one line or block each; any failure raises (non-zero exit):
             byte phase 5's, 13 single launches for loops, ``io:
             fetch+scatter``, ``io: upload``, walls and bytes read per column
             beside the contiguous ``.cool``'s runs of 8b; the file deleted.
+8d. latest-genome  phase 5's genome (not cut) written by the port
+            without weights in HDF5's newest layout (superblock 3,
+            extensible-array pixel columns, int64 ids, shuffle + gzip 6, an
+            enum ``bins/chrom``) with five more bins columns (KR, VC,
+            VC_SQRT, GW_KR, GW_VC: 8 links): the write's seconds and size;
+            (a) ``detect`` loops at ``--norm auto``, ICE on the host storing
+            the weights (the ninth link turns bins dense), (b) loops again
+            from the stored weights, (c) ``--norm force`` replacing the
+            weight link in the dense group, (d) ``quantify`` of the planted
+            loops: weights bit for bit the genome's, tables and windows
+            byte for byte phase 5's, 13 single launches a loops run, the
+            structures walked, stages beside 8c's; the file deleted.
 9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
             card by default: TUTORIAL's block and detect_example.ipynb's loop
             on the example map (each map's calls those of the command line's
@@ -252,6 +271,23 @@ COOLER_LAYOUT = "tests/data/example_cooler_layout.cool"
 # writes them): libver "latest", and a libver "v110" .mcool with LZF
 LATEST_COOL = "tests/data/example_latest.cool"
 LATEST_MCOOL = "tests/data/example_latest.mcool"
+# the example through one HDF5 feature each (tests/test_torch_hdf5_features.py
+# writes them): (feature, URI, the files it reads besides, what the reader
+# must walk)
+FEATURE_FIXTURES = (
+    ("soft links", "tests/data/example_soft.cool", (), "soft link"),
+    ("external link", "tests/data/example_external.mcool::/resolutions/1000",
+     (LATEST_COOL,), "external file"),
+    ("scale-offset", "tests/data/example_scaleoffset.cool", (), "scale-offset chunk"),
+    ("n-bit", "tests/data/example_nbit.cool", (), "n-bit chunk"),
+    ("external storage", "tests/data/example_external_storage.cool",
+     ("tests/data/example_external_storage.raw",), "external storage"),
+    ("shared messages", "tests/data/example_shared.cool", (), "shared message in a heap"),
+    ("dense bins", "tests/data/example_dense_bins.cool", (), "BTHD type 5"),
+)
+# latest-genome: more bins columns, named as normalisation vectors are
+# (with chrom, start and end, the eight links of a compact group)
+NORM_COLUMNS = ("KR", "VC", "VC_SQRT", "GW_KR", "GW_VC")
 # genome-golden: the genome of tests/data/golden_genome_meta.json
 GOLDEN_CHROMS, GOLDEN_BINS = 3, 50_000
 # the windows of tests/test_fp32_boundaries.py
@@ -1108,29 +1144,31 @@ def phase_formats(workdir):
                                     "LZF chunk")}
     for path, signatures in expect_walked.items():
         (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
-        print(f"[formats] {path}: open + headers {t_open:.6f} s, index walk {t_index:.6f} s, "
-              f"read {t_read:.6f} s ({n} datasets, {n_bytes} bytes) on the host of {card}; "
+        print(f"[formats] {short_path(path)}: open + headers {t_open:.6f} s, index walk "
+              f"{t_index:.6f} s, read {t_read:.6f} s ({n} datasets, {n_bytes} bytes) on the "
+              f"host of {card}; "
               f"walked {json.dumps({sig: walked.get(sig, 0) for sig in signatures})}")
         missing = [sig for sig in signatures if not walked.get(sig)]
         check(not missing, f"{path}: structures not walked: {missing}")
     loops = ("golden_detect_loops", [], {"single": 3, "multi": 0}, 1e-6)
     borders = ("golden_detect_borders", ["--pattern", "borders"], {"single": 0, "multi": 3}, 1e-5)
+    same_tables = []
     for (golden, flags, expect, tol), path in ((loops, LATEST_COOL), (borders, LATEST_COOL),
                                               (loops, f"{LATEST_MCOOL}::/resolutions/1000")):
         old = golden_detect(workdir, golden, flags, expect, tol, tag="_v0", show=False)
         new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest",
                             show=False)
         same = pathlib.Path(new + ".tsv").read_bytes() == pathlib.Path(old + ".tsv").read_bytes()
-        print(f"[formats] {golden} from {path}: table byte for byte the one from "
-              f"{EXAMPLE_COOL}: {same}")
+        same_tables.append(f"{golden[len('golden_detect_'):]} from {short_path(path)} {same}")
         check(same, f"{golden} from {path}: table differs from {EXAMPLE_COOL}'s")
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0", show=False)
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest",
                     show=False)
     same = (pathlib.Path(f"{workdir}/golden_quantify_loops_latest.tsv").read_bytes()
             == pathlib.Path(f"{workdir}/golden_quantify_loops_v0.tsv").read_bytes())
-    print(f"[formats] quantify from {LATEST_COOL}: table byte for byte the one from "
-          f"{EXAMPLE_COOL}: {same}")
+    same_tables.append(f"quantify from {short_path(LATEST_COOL)} {same}")
+    print(f"[formats] tables byte for byte those from {EXAMPLE_COOL}: "
+          + ", ".join(same_tables))
     check(same, "quantify table differs")
 
     # --norm force on a weightless newer-format copy and on a copy of
@@ -1159,13 +1197,67 @@ def phase_formats(workdir):
         bins = f["bins"]
         grew = len(f._v2_chunks(bins.addr)[1]) > chunks
         where = "a new OCHK chunk" if grew else "a NIL message"
-    print(f"[formats] --norm force on {LATEST_COOL} without its weights: "
-          f"{np.isfinite(weights).sum()} finite weights stored through {where} of the bins "
-          f"group, bit for bit those stored into a copy of {EXAMPLE_COOL}: {same_w}; tables "
-          f"byte for byte: {same_t}; walls {runs[new][0]:.3f} / {runs[old][0]:.3f} s "
-          f"({card}); launches {runs[new][1]}")
+    print(f"[formats] --norm force on {short_path(LATEST_COOL)} without its weights: "
+          f"{np.isfinite(weights).sum()} weights stored through {where} of bins, bit for bit "
+          f"as into a copy of example.cool: {same_w}; tables alike: {same_t}; walls "
+          f"{runs[new][0]:.3f} / {runs[old][0]:.3f} s ({card}); launches {runs[new][1]}")
     check(same_w and same_t, "--norm force on the newer-format copy differs")
     check(runs[new][1] == {"single": 3, "multi": 0}, f"--norm force launches {runs[new][1]}")
+    feature_fixtures(workdir, CoolFile(old).weights, runs[old][2])
+
+
+def feature_fixtures(workdir, forced, forced_table):
+    """Each of ``FEATURE_FIXTURES`` read by the port (the structure of its
+    feature walked), its loops, borders and quantify tables byte for byte
+    those from data_test/example.cool (the ``_v0`` tables of
+    ``phase_formats``), 3 single launches for loops, and ``--norm force``
+    on a copy (with the files it reads) storing ``forced``, the weights
+    forced into a copy of example.cool, bit for bit, and giving that run's
+    table, ``forced_table``, byte for byte."""
+    example = {run: pathlib.Path(f"{workdir}/{name}_v0.tsv").read_bytes() for run, name in (
+        ("loops", "golden_detect_loops"), ("borders", "golden_detect_borders"),
+        ("quantify", "golden_quantify_loops"))}
+    check(np.isfinite(forced).sum() == 637, f"{np.isfinite(forced).sum()} forced weights")
+    done = []
+    for feature, uri, extra, walk in FEATURE_FIXTURES:
+        path = uri.partition("::")[0]
+        check(os.path.exists(path), f"{path}: the {feature} fixture is missing")
+        source = CoolFile(uri)
+        source._pixels(0, source.nnz)
+        walked = source._file.walked[walk]
+        check(walked > 0, f"{uri}: {walk!r} not walked")
+        seen = {}
+        for run in ("loops", "borders", "quantify"):
+            prefix = f"{workdir}/feature_{len(done)}_{run}"
+            if run == "quantify":
+                argv = ["quantify", "--no-plotting", "data_test/example.bed2", uri, prefix]
+            else:
+                argv = ["detect", "--no-plotting", *(["--pattern", "borders"] if run ==
+                                                      "borders" else []), uri, prefix]
+            reset_launches()
+            quiet = io.StringIO()
+            with contextlib.redirect_stdout(quiet), contextlib.redirect_stderr(quiet):
+                check(main(argv, device=DEVICE) == 0, f"{run} from {uri} failed")
+            seen[run] = launches()
+            check(pathlib.Path(prefix + ".tsv").read_bytes() == example[run],
+                  f"{run} from {uri}: table differs from {EXAMPLE_COOL}'s")
+        check(seen["loops"] == {"single": 3, "multi": 0}, f"{uri}: loops launches {seen}")
+        copies = f"{workdir}/feature_{len(done)}"
+        os.makedirs(copies)
+        for name in (path, *extra):
+            shutil.copy(name, copies)
+        copy = f"{copies}/{os.path.basename(path)}" + uri[len(path):]
+        quiet = io.StringIO()
+        with contextlib.redirect_stdout(quiet), contextlib.redirect_stderr(quiet):
+            check(main(["detect", "--no-plotting", "--norm", "force", copy, f"{copies}/out"],
+                       device=DEVICE) == 0, f"--norm force on {copy} failed")
+        check(CoolFile(copy).weights.tobytes() == forced.tobytes(),
+              f"--norm force on {copy}: weights differ from example.cool's")
+        check(pathlib.Path(f"{copies}/out.tsv").read_bytes() == forced_table,
+              f"--norm force on {copy}: table differs")
+        done.append(f"{feature} ({walk} {walked})")
+    print("[formats] feature fixtures, loops, borders, quantify and --norm force (637 weights) "
+          "as from example.cool: " + "; ".join(done))
 
 
 def run_genome(name, fn, tag="genome", show="short"):
@@ -1489,11 +1581,11 @@ def phase_surface_genome(source, workdir):
         _, seen, out = genome_run(source, workdir, tag, flags, device)
         walls[tag] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        lines.append(f"{tag} {walls[tag]:.2f} s, {peak:.3f} GiB, {out == stored}, {seen}")
+        lines.append(f"{tag} {walls[tag]:.2f} s {peak:.3f} GiB")
         check(out == stored, f"{tag}: table differs from the serial run")
         check(seen == {"single": n_chroms, "multi": 0}, f"{tag}: launches {seen}")
-    print("[surface] wall, peak device memory, table byte for byte the serial one, launches: "
-          + "; ".join(lines))
+    print(f"[surface] tables byte for byte the serial one, {n_chroms} single launches each; "
+          "wall, peak device memory: " + "; ".join(lines))
     # why the scheduler's producer is the caller's thread
     for counts, what in ((False, "float32 band scatter"), (True, "count scatter")):
         times = [(scatter_seconds(source, counts), on_new_thread(scatter_seconds, source, counts))
@@ -1884,12 +1976,14 @@ def phase_cool_genome(source, workdir):
         os.unlink(path)
     print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run, {n_chroms} "
           f"single launches a loops run, none a quantify run; {nvidia_smi('name,power.limit')}")
+    shown = ""
     for tag, name in runs.items():
         got = bytes_read(read.get(name, {}))
         print(f"[cool-genome] {tag}: io: fetch+scatter "
               f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, io: upload "
               f"{STAGES[name].get('io: upload', 0.0):.3f} s, wall {WALLS[name]:.2f} s"
-              + (f"; bytes read {got}" if got else ""))
+              + (f"; bytes read {got}" if got and got != shown else ""))
+        shown = got or shown
     return read
 
 
@@ -1940,8 +2034,8 @@ def phase_cooler_genome(source, workdir, contiguous_read):
                 columns[col] = (str(d.dtype), d._chunk_shape[0], len(d._chunk_index()[1]), level)
             enum = f["resolutions/5000/bins/chrom"].dtype
         size = os.path.getsize(path)
-        print(f"[{tag}] write_cooler_layout wrote {uri}: {source.nnz} pixels, {size} bytes in "
-              f"{seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of pixel columns, "
+        print(f"[{tag}] write_cooler_layout, {short_path(uri)}: {source.nnz} pixels, {size} "
+              f"bytes in {seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of pixel columns, "
               f"{hdf5.THREADS} threads) on the host of {card}; pixel columns (dtype, chunk "
               f"rows, chunks, chunk B-tree depth): " + "; ".join(
                   f"{col} {' '.join(map(str, v))}" for col, v in columns.items()))
@@ -1987,13 +2081,113 @@ def phase_cooler_genome(source, workdir, contiguous_read):
           f"launches a loops run, none a quantify run; {card}; each run beside the contiguous "
           f".cool's of cool-genome, which read "
           f"{bytes_read(contiguous_read[next(iter(runs.values()))])}:")
+    shown = None
     for name, contiguous in runs.items():
         a, b = STAGES[name], STAGES[contiguous]
+        got = bytes_read(read[name])
         print(f"[{tag}] {name}: " + ", ".join(
             f"{stage} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f}) s"
             for stage in ("io: fetch+scatter", "io: upload"))
-            + f", wall {WALLS[name]:.2f} ({WALLS[contiguous]:.2f}) s; read "
-              f"{bytes_read(read[name])}")
+            + f", wall {WALLS[name]:.2f} ({WALLS[contiguous]:.2f}) s"
+            + ("" if got == shown else f"; read {got}"))
+        shown = got
+
+
+def phase_latest_genome(source, workdir):
+    """Phase 5's genome (not cut) written by the port without weights in
+    HDF5's newest layout (``write_cooler_layout(..., libver="latest")``:
+    superblock 3, extensible-array pixel columns, int64 ids, shuffle +
+    gzip 6, ``bins/chrom`` an enum) with five more bins columns named as
+    normalisation vectors, so that bins holds 8 links; the free space
+    checked first, the write's seconds, the file's size and the structures
+    walked printed.  Then (a) ``detect`` loops at ``--norm auto``: ICE on
+    the host, its weights stored (the ninth link turns bins dense); (b)
+    ``detect`` loops again, the weights read back; (c) ``--norm force``,
+    the weight link replaced in the dense group; (d) ``quantify`` of the
+    planted loops.  Weights bit for bit the genome's (phase
+    ``surface-genome``'s weightless run holds them), tables and windows
+    byte for byte phase 5's, 13 single launches a loops run; ``io:
+    fetch+scatter``, ``io: upload`` and the wall beside ``cooler-genome``'s.
+    The file is deleted afterwards."""
+    tag = "latest-genome"
+    os.makedirs(f"{workdir}/latest", exist_ok=True)
+    path = f"{workdir}/latest/genome.cool"
+    raw = source.nnz * (8 + 8 + source.count.itemsize)
+    need = raw + 64 * source.n_bins + (1 << 20)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    check(free > need, f"{tag}: {free} bytes free, the file may need {need}")
+    card = nvidia_smi("name,power.limit")
+    n_chroms = len(source.chromnames)
+    phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
+    rng = np.random.RandomState(0)
+    norms = {name: rng.rand(source.n_bins) for name in NORM_COLUMNS}
+    bins = bins_frame(source).drop(columns="weight")
+    try:
+        t0 = time.perf_counter()
+        write_cooler_layout(path, bins, {"bin1_id": source.bin1, "bin2_id": source.bin2,
+                                         "count": source.count.astype(np.int32, copy=False)},
+                            pixel_rows=COOLER_PIXEL_ROWS, columns=norms, libver="latest")
+        seconds = time.perf_counter() - t0
+        with hdf5.File(path) as f:
+            kinds = {c: f[f"pixels/{c}"]._index_type for c in ("bin1_id", "bin2_id", "count")}
+            links, dense = len(f["bins"].keys()), f["bins"].dense
+            superblock = f._version
+        print(f"[{tag}] write_cooler_layout(libver=\"latest\"): {source.nnz} "
+              f"pixels, {os.path.getsize(path)} bytes in {seconds:.2f} s on the host of {card}; "
+              f"superblock {superblock}, pixel chunk indexes {sorted(set(kinds.values()))}, "
+              f"bins {links} links (dense {dense})")
+        check(superblock == 3 and set(kinds.values()) == {hdf5.EXTENSIBLE_ARRAY}
+              and links == 8 and not dense, f"{tag}: the file's layout")
+        runs, weights = {}, {}
+        for run, argv_head, stored in (
+                ("a", ["detect", "--no-plotting"], "genome"),
+                ("b", ["detect", "--no-plotting"], "genome"),
+                ("c", ["detect", "--no-plotting", "--norm", "force"], "genome"),
+                ("d", ["quantify", "--no-plotting", f"{workdir}/planted.bed2"], "quantify")):
+            prefix = f"{workdir}/latest_{run}"
+            args = parse_args([*argv_head, path, prefix], "")
+            opened = []
+
+            def run_main():
+                opened.append(open_contacts(path))
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return (quantify if run == "d" else detect)(opened[0], args, DEVICE)
+
+            name = f"({run}) {'quantify' if run == 'd' else 'loops'} from the newest layout"
+            _, seen = run_genome(name, run_main, tag=tag, show=None)
+            runs[run] = (name, seen, dict(opened[0]._file.walked))
+            check(outputs(prefix) == phase5[stored] and phase5[stored],
+                  f"{tag}: run ({run}) tables or windows differ from phase 5's")
+            check(seen == {"single": 0 if run == "d" else n_chroms, "multi": 0},
+                  f"{tag}: run ({run}) launches {seen}")
+            ice = STAGES[name].get("balance: ICE")
+            check((ice is not None) == (run in "ac"), f"{tag}: run ({run}) ICE {ice}")
+            weights[run] = CoolFile(path).weights
+            check(weights[run].tobytes() == source.weights.tobytes(),
+                  f"{tag}: run ({run}) weights differ from the genome's")
+            with hdf5.File(path) as f:
+                check(f["bins"].dense and len(f["bins"].keys()) == 9,
+                      f"{tag}: bins after run ({run})")
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    walked = runs["b"][2]
+    print(f"[{tag}] (a) ICE at --norm auto, (b) loops, (c) --norm force, (d) quantify: "
+          f"weights bit for bit the genome's, tables byte for byte phase 5's, {n_chroms} "
+          f"single launches a loops run; (b) walked " + ", ".join(
+              f"{k} {walked.get(k, 0)}" for k in ("FRHP", "BTHD type 5", "EAHD", "EASB",
+                                                   "EADB")))
+    lines = []
+    for run, (name, _, _) in runs.items():
+        other = f"{'quantify' if run == 'd' else 'loops'} from .mcool, page cache"
+        a, b = STAGES[name], STAGES.get(other, {})
+        lines.append(f"({run}) " + ", ".join(
+            f"{stage.split(' ')[-1]} {a.get(stage, 0.0):.3f}" + (
+                "" if stage.endswith("ICE") else f" ({b.get(stage, 0.0):.3f})")
+            for stage in ("balance: ICE", "io: fetch+scatter", "io: upload"))
+            + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f})")
+    print(f"[{tag}] s, in brackets cooler-genome's page-cache run in this call: "
+          + "; ".join(lines))
 
 
 def phase_instruments(source, workdir):
@@ -2078,7 +2272,7 @@ def phase_instruments(source, workdir):
         del os.environ["CHROMOSIGHT_TPU_PROFILE"]
     traces = sorted(trace_dir.glob("*.pt.trace.json"))
     check(len(traces) == 1, "instruments: no trace of the genome's detect passes")
-    busy, span, kernels = device_busy(traces[0])
+    busy, span, kernels = device_busy(traces[0], top=3)
     print(f"[instruments] genome loops detect under the profiler: wall {wall:.2f} s; the "
           f"traced detect passes span {span:.3f} s, the card busy {busy:.4f} s of it "
           f"({100 * busy / span:.2f}%, idle {100 - 100 * busy / span:.2f}%); device time "
@@ -2093,8 +2287,11 @@ def phase_instruments(source, workdir):
     check(res.returncode == 0, f"instruments: CLI failed: {res.stderr[-2000:]}")
     head = "-- chromosight-torch stage timings --"
     report = res.stderr[res.stderr.find(head):] if head in res.stderr else ""
-    print("[instruments] CLI exit report (CHROMOSIGHT_TPU_TIMINGS=1), its lines joined: "
-          + " | ".join(" ".join(line.split()) for line in report.strip().splitlines()))
+    lines = report.strip().splitlines()
+    sys.stderr.write("[instruments] CLI exit report (CHROMOSIGHT_TPU_TIMINGS=1):\n"
+                     + "\n".join(lines) + "\n")
+    print(f"[instruments] CLI exit report (CHROMOSIGHT_TPU_TIMINGS=1): {len(lines)} lines "
+          "(on stderr), band_normxcorr's 3 dispatches in it")
     check("band_normxcorr " in report and "(3 dispatches)" in report,
           "instruments: no exit report")
 
@@ -2317,6 +2514,7 @@ def run(quick):
         phase_surface_genome(source, workdir)
         contiguous_read = phase_cool_genome(source, workdir)
         phase_cooler_genome(source, workdir, contiguous_read)
+        phase_latest_genome(source, workdir)
         phase_api(source)
         del source
         phase_golden_inter(workdir)

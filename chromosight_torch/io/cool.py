@@ -219,21 +219,30 @@ def chunk_rows(rows, itemsize):
     return int(chunks)
 
 
-def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None):
+def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=None,
+                        libver="earliest"):
     """Write ``bins`` and ``pixels`` (as ``create_cool`` takes them) in
     cooler's own layout: int64 pixel ids (``minimal_dtypes=False``),
     ``bins/chrom`` an enum of the chromosome names, every dataset chunked
-    with shuffle and gzip 6, unlimited along its axis, in the chunks h5py
-    picks (``chunk_rows``; for the pixel columns from ``pixel_rows``, the
-    rows cooler created them with, by default their length).  ``group``
-    "/resolutions/5000" writes an ``.mcool`` resolution (its attributes on
-    the group, the root's those of cooler's ``.mcool``), read back as
-    ``path::/resolutions/5000``.  The port's own chunked files, for the tests and the card's smoke run; the
-    JAX package writes contiguous ones (``create_cool``)."""
+    with shuffle and gzip 6 in the chunks h5py picks (``chunk_rows``; for
+    the pixel columns from ``pixel_rows``, the rows cooler created them
+    with, by default their length).  ``columns`` {name: float64 array}
+    are more bins columns (normalisation vectors: "KR", "VC", ...).
+    ``group`` "/resolutions/5000" writes an ``.mcool`` resolution (its
+    attributes on the group, the root's those of cooler's ``.mcool``),
+    read back as ``path::/resolutions/5000``.  ``libver`` is ``hdf5.write``'s:
+    at "earliest" every dataset is unlimited along its axis; at "latest"
+    only the pixel columns are (extensible-array chunk indexes), the
+    others of fixed size as cooler creates them (fixed-array or
+    single-chunk indexes).  The port's own chunked files, for the tests
+    and the card's smoke run; the JAX package writes contiguous ones
+    (``create_cool``)."""
     datasets, attrs = cool_tables(bins, pixels, minimal_dtypes=False)
     names = [n.decode() for n in datasets["chroms/name"]]
     enum = hdf5.enum_dtype({name: i for i, name in enumerate(names)}, np.int32)
     datasets["bins/chrom"] = datasets["bins/chrom"].view(enum)
+    for name, column in (columns or {}).items():
+        datasets[f"bins/{name}"] = np.asarray(column, np.float64)
     prefix = group.strip("/")
     chunks = {}
     for name, array in datasets.items():
@@ -246,5 +255,8 @@ def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None):
         root, group_attrs = {"format": "HDF5::MCOOL", "format-version": 2}, {prefix: attrs}
     else:
         root, group_attrs = attrs, {}
-    hdf5.write(path, datasets, root, chunks=chunks, group_attrs=group_attrs)
+    fixed = [name for name in datasets if "/pixels/" not in f"/{name}"] if libver == "latest" \
+        else ()
+    hdf5.write(path, datasets, root, chunks=chunks, group_attrs=group_attrs, fixed=fixed,
+               libver=libver)
     return path

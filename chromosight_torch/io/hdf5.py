@@ -1,6 +1,7 @@
 """A reader and writer of the HDF5 subset that ``.cool`` and ``.mcool``
 files use, in numpy and the standard library (``os.pread``, ``struct``,
-``zlib``); the newer formats' shared structures are in ``hdf5_index``.
+``zlib``); the newer formats' shared structures are read in
+``hdf5_index`` and written in ``hdf5_write``.
 
 The port reads and writes cooler files without h5py.  The surface is a
 small part of h5py's: ``File(path)``, ``f["pixels/count"]``, ``name in
@@ -14,60 +15,73 @@ reads as its base integer type.  ``File.walked`` counts the structures
 read, by signature.
 
 What it reads is what h5py writes at every library-version bound
-("earliest" to "latest", with default property lists), which covers what
-cooler writes:
+("earliest" to "latest", with default property lists and the others
+below), which covers what cooler writes:
 
 * superblock versions 0 and 1, and 2 and 3 (lookup3 checksum; the
-  superblock extension's B-tree K values), a user block before it;
+  superblock extension's B-tree K values and shared-message table), a
+  user block before it;
 * version-1 object headers with continuation blocks, and version-2
   object headers (``OHDR``, continuation chunks ``OCHK``, each chunk's
-  checksum checked, creation order of messages);
+  checksum checked, creation order of messages); shared messages (in
+  another object's header, or in the fractal heap of the shared-message
+  table ``SMTB``), committed datatypes;
 * symbol-table groups (the v1 B-tree of type 0, ``SNOD`` nodes, the local
   heap) and new-style groups: link messages in the header (compact) or
-  in a fractal heap under a v2 B-tree name index (dense); hard links;
+  in a fractal heap under a v2 B-tree name index (dense); hard links,
+  soft links (followed as h5py follows them) and external links (the
+  file opened from the linking file's directory, else the working
+  directory, with this file's mode, and closed with it; a missing file is
+  a ``KeyError``, more than ``LINK_DEPTH`` links a ``RuntimeError``, as
+  in h5py);
 * attribute messages of versions 1 to 3, in the header or dense (the
   attribute info message: a fractal heap under a v2 B-tree of record
-  type 8, managed, tiny and huge heap objects);
+  type 8, managed, tiny and huge heap objects), shared or not;
 * dataspaces of versions 1 and 2 with their maximum dimensions,
-  datatypes of class 0 (integers, either byte order), 1 (IEEE floats),
-  3 (fixed strings), 8 (enums) and 9 (variable-length strings, from the
-  global heap);
-* data layout versions 3 and 4: compact, contiguous, and chunked through
+  datatypes of class 0 (integers, either byte order, fewer significant
+  bits converted as h5py converts them), 1 (IEEE floats; n-bit floats of
+  a shorter mantissa), 3 (fixed strings), 8 (enums) and 9
+  (variable-length strings, from the global heap);
+* data layout versions 3 and 4: compact, contiguous (in the file or in
+  external raw files, found as external links are), and chunked through
   a v1 B-tree of type 1 of any depth, or the chunk indexes of version 4
   (single chunk, implicit, fixed array, extensible array, v2 B-tree of
   record types 10 and 11, partial edge chunks left unfiltered); the
-  filters deflate, shuffle, fletcher32 (checked) and LZF (h5py's filter
-  32000), honouring each chunk's filter mask; storage not allocated reads
-  as the fill value.  The filters run natively where g++ builds them
-  (``native/lzf.cpp``, ``shuffle.cpp``, ``inflate.cpp``), else in Python
-  and numpy.
+  filters deflate, shuffle, fletcher32 (checked), n-bit, scale-offset and
+  LZF (h5py's filter 32000), honouring each chunk's filter mask; storage
+  not allocated reads as the fill value.  The filters run natively where
+  g++ builds them (``native/lzf.cpp``, ``shuffle.cpp``, ``inflate.cpp``,
+  ``bits.cpp``), else in Python and numpy.
 
 Anything else raises ``NotImplementedError`` naming the feature and the
-file offset: shared object-header messages and the shared-message
-table, soft and external links, virtual and external storage, the
-filters scale-offset, n-bit and szip, fractal heaps with I/O filters,
-datatypes outside the list above.  Nothing is read wrong silently.  A
-contiguous slice reads exactly its bytes; a chunked slice decodes only
-the chunks that overlap it, from a chunk index walked once per dataset,
-each straight into its rows of the output (those of a deflate or
-shuffle + deflate pipeline in one native call on ``THREADS``
-threads).
+file offset: the szip filter, virtual datasets, fractal heaps with I/O
+filters, n-bit of compound or array types, datatypes outside the list
+above.  Nothing is read wrong silently.  A contiguous slice reads exactly
+its bytes; a chunked slice decodes only the chunks that overlap it, from
+a chunk index walked once per dataset, each straight into its rows of
+the output (those of a deflate or shuffle + deflate pipeline in one
+native call on ``THREADS`` threads).
 
-The writer makes new files (``write``: superblock v0, symbol-table
-groups with attributes, contiguous datasets or chunked ones in cooler's
-layout, attributes of integers, floats and variable-length UTF-8
-strings) and adds, replaces or removes a link of an
-existing file (``File(path, "r+").write_dataset`` and ``unlink``): the
-data and its version-1 object header go at the end of the file; in a
-symbol-table group the node and its B-tree key and the local heap are
-updated in place (the heap's data segment moves to the end of the file
-when it has no room, and a full node splits in two under a one-level
-B-tree); in a compact new-style group a link message goes into a NIL
-message of the group's version-2 header, or into a new ``OCHK`` chunk at
-the end of the file; the superblock's end-of-file address (and, in
-versions 2 and 3, its checksum) follows.  A group with dense link
-storage, a link past a group's compact limit, and a group B-tree of
-more than one level or a full B-tree node raise ``NotImplementedError``.
+The writer makes new files (``write``: at ``libver="earliest"``
+superblock 0, symbol-table groups, data layout 3; at ``libver="latest"``
+what h5py writes at that bound: superblock 3, version-2 object headers,
+new-style groups of compact or dense links, version-3 attribute
+messages, compact or dense, layout 4 with the chunk index HDF5 picks;
+attributes of integers, floats and variable-length UTF-8 strings,
+contiguous datasets or chunked ones in cooler's layout) and adds,
+replaces or removes a link in any group of an existing file
+(``File(path, "r+").write_dataset`` and ``unlink``, what ``--norm
+force`` and ICE's ``store_weights`` call): the data and its version-1
+object header go at the end of the file; a symbol-table group gets new
+nodes and a new B-tree of any depth (its cached address follows); a
+new-style group keeps its link messages in its header (version 1 or 2)
+up to its compact limit, a NIL message made or filled, or a new
+continuation block; past the limit, or already dense, its links are
+stored anew in a new fractal heap and v2 B-tree indexes, as HDF5 stores
+them; replaced structures stay as dead space, as h5py's ``del`` leaves
+them; the superblock's end-of-file address (and, in versions 2 and 3,
+its checksum) follows.  Files with a user block or offsets narrower
+than 8 bytes are not written to.
 """
 
 from __future__ import annotations
@@ -82,19 +96,22 @@ import numpy as np
 
 from chromosight_torch import native
 from chromosight_torch.io import hdf5_index as index
+from chromosight_torch.io import hdf5_write as hw
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 # object header message types
 NIL, DATASPACE, LINK_INFO, DATATYPE, FILL_OLD, FILL, LINK = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5, 0x6
-LAYOUT, GROUP_INFO, FILTERS, ATTRIBUTE = 0x8, 0xA, 0xB, 0xC
+EXTERNAL, LAYOUT, GROUP_INFO, FILTERS, ATTRIBUTE = 0x7, 0x8, 0xA, 0xB, 0xC
 SHARED_TABLE, CONTINUATION, SYMBOL_TABLE, BTREE_K, ATTRIBUTE_INFO = 0xF, 0x10, 0x11, 0x13, 0x15
 # messages that say nothing about the data read here (comment, times,
 # reference count, file space info)
 IGNORED = {NIL, 0x0D, 0x0E, 0x12, 0x16, 0x17}
 # messages whose body this module interprets: a shared one lives elsewhere
 INTERPRETED = {DATASPACE, DATATYPE, FILL_OLD, FILL, LAYOUT, FILTERS, ATTRIBUTE, LINK_INFO,
-               LINK, GROUP_INFO, ATTRIBUTE_INFO, SYMBOL_TABLE, BTREE_K}
-DEFLATE, SHUFFLE, FLETCHER32, LZF = 1, 2, 3, 32000
+               LINK, GROUP_INFO, ATTRIBUTE_INFO, SYMBOL_TABLE, BTREE_K, EXTERNAL, SHARED_TABLE}
+DEFLATE, SHUFFLE, FLETCHER32, NBIT, SCALEOFFSET, LZF = 1, 2, 3, 5, 6, 32000
+# HDF5's default limit of soft and external links followed in one lookup
+LINK_DEPTH = 16
 # chunk indexes of data layout version 4
 SINGLE_CHUNK, IMPLICIT, FIXED_ARRAY, EXTENSIBLE_ARRAY, BTREE2 = 1, 2, 3, 4, 5
 UNLIMITED = (1 << 64) - 1
@@ -110,8 +127,7 @@ GLOBAL_HEAP_MIN = 4096
 THREADS = min(8, os.cpu_count() or 1)
 
 
-def _align8(n):
-    return (n + 7) & ~7
+_align8 = hw.align8
 
 
 def _pad8(data):
@@ -127,15 +143,22 @@ class File:
     datasets (``"r+"``).  ``f[path]`` gives a ``Group`` or a ``Dataset``;
     ``f.attrs`` are the root group's attributes."""
 
-    def __init__(self, path, mode="r"):
+    def __init__(self, path, mode="r", _externals=None):
         if mode not in ("r", "r+"):
             raise ValueError(f"mode must be 'r' or 'r+', not {mode!r}")
         self.filename = str(path)
         self.mode = mode
         self._fd = None
+        # the files external links open, by real path: opened with this
+        # file's mode, shared by every file reached from it, closed with it
+        self._owner = _externals is None
+        self._externals = {} if _externals is None else _externals
         self._fd = os.open(self.filename, os.O_RDONLY if mode == "r" else os.O_RDWR)
+        self._externals.setdefault(os.path.realpath(self.filename), self)
         self._objects = {}
         self._global_heaps = {}
+        self._sohm = {}  # the shared-message heap of each message type
+        self._sohm_heaps = {}
         # signatures and structures read, by name (see hdf5_index)
         self.walked = collections.Counter()
         try:
@@ -150,6 +173,27 @@ class File:
         if self._fd is not None:
             os.close(self._fd)
             self._fd = None
+        if getattr(self, "_owner", False):
+            for other in self._externals.values():
+                if other is not self:
+                    other.close()
+            self._externals.clear()
+
+    def _external(self, name, where):
+        """The file an external link names: an absolute path as it is, a
+        relative one in this file's directory, else from the working
+        directory (HDF5's default lookup); KeyError when there is none."""
+        tries = [name] if os.path.isabs(name) else [
+            os.path.join(os.path.dirname(os.path.abspath(self.filename)), name), name]
+        path = next((t for t in tries if os.path.isfile(t)), None)
+        if path is None:
+            raise KeyError(f"{self.filename}: the external link at file offset {where} names "
+                           f"{name!r}, which is not found")
+        key = os.path.realpath(path)
+        if key not in self._externals:
+            self._externals[key] = File(path, self.mode, _externals=self._externals)
+        self.walked["external file"] += 1
+        return self._externals[key]
 
     def __enter__(self):
         return self
@@ -235,6 +279,7 @@ class File:
             self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
             pos = 24 if version == 0 else 28
             self._eof_pos = base + pos + 2 * so
+            self._root_entry = base + pos + 4 * so
             self._eof = _uint(head, pos + 2 * so, so)
             self._root_addr = _uint(head, pos + 5 * so, so)
             return
@@ -252,183 +297,297 @@ class File:
                 if kind == BTREE_K:
                     # version 0: chunk internal K, group internal K, group leaf K
                     self._internal_k, self._leaf_k = struct.unpack_from("<HH", body, 3)
+                elif kind == SHARED_TABLE:
+                    self._shared_table(body, where)
+
+    def _shared_table(self, body, where):
+        """The superblock extension's shared-message table (``SMTB``): the
+        fractal heap that holds the shared messages of each type."""
+        if body[0] != 0:
+            raise self._unsupported(f"shared message table message version {body[0]}", where)
+        addr, count = self._addr(body, 1), body[1 + self._so]
+        so, size = self._so, 1 + 1 + 2 + 4 + 2 + 2 + 2 + 2 * self._so
+        data = index.checked(self, self._read(addr, 4 + count * size + 4), addr, "SMTB")
+        if data[:4] != b"SMTB":
+            raise OSError(f"{self.filename}: no SMTB at file offset {addr}")
+        self.walked["SMTB"] += 1
+        for i in range(count):
+            pos = 4 + i * size
+            flags = struct.unpack_from("<H", data, pos + 2)[0]
+            heap = self._addr(data, pos + 14 + so)
+            for kind in range(16):
+                if flags & (1 << kind):
+                    self._sohm[kind] = heap
+
+    def _sohm_get(self, kind, heap_id, where):
+        """The message of type ``kind`` stored at ``heap_id`` in the fractal
+        heap of the shared-message table."""
+        heap = self._sohm.get(kind)
+        if heap is None:
+            raise OSError(f"{self.filename}: a shared message of type 0x{kind:04x} at file "
+                          f"offset {where} and no shared-message heap for it")
+        self.walked["shared message in a heap"] += 1
+        if heap not in self._sohm_heaps:
+            self._sohm_heaps[heap] = index.FractalHeap(self, heap)
+        return self._sohm_heaps[heap].get(heap_id, where)
+
+    def _shared(self, kind, body, where):
+        """The body of the message of type ``kind`` that the shared message
+        ``body`` stands for: in another object's header (versions 1 to 3)
+        or, version 3, in the fractal heap of the shared-message table."""
+        version, stored = body[0], body[1]
+        self.walked["shared message"] += 1
+        if version == 3 and stored == 1:
+            return self._sohm_get(kind, body[2:10], where)
+        if version in (1, 2) or (version == 3 and stored == 2):
+            addr = self._addr(body, 8 if version == 1 else 2)
+            found = next((b for k, b, _ in self._messages(addr) if k == kind), None)
+            if found is None:
+                raise OSError(f"{self.filename}: the shared message at file offset {where} "
+                              f"points to an object header without a message of type {kind}")
+            return found
+        raise self._unsupported(f"a shared message of version {version}, type {stored}", where)
 
     # -- adding a dataset --------------------------------------------- #
     def write_dataset(self, path, data, attrs=None):
         """Add the dataset ``path`` ("bins/weight"), or replace it, in a
         file opened with ``"r+"``: the array contiguous and its (version 1)
         object header at the end of the file, ``attrs`` its attributes (see
-        ``_attribute_messages``).  In a symbol-table group the entry goes
-        into its node in name order (a full node is split in two); in a
-        new-style group with compact links a link message goes into the
-        group's header (see ``_add_link``).  A replaced link points to the
-        new header and the old object stays as dead space, as h5py's
-        ``del`` leaves it.  The superblock's end-of-file address follows
-        (and its checksum, in versions 2 and 3).  A group B-tree of more
-        than one level, a full B-tree node and a group with dense link
-        storage raise ``NotImplementedError``."""
+        ``_attribute_messages``), the link stored by ``_store_link``.  A
+        replaced link points to the new header and the old object stays as
+        dead space, as h5py's ``del`` leaves it.  The superblock's
+        end-of-file address follows (and its checksum, in versions 2 and
+        3).  A group reached through an external link is written in its
+        own file."""
+        group, name = self._parent(path)
+        f = group.file
+        out = hw.Appender(f._fd, f._eof)
+        header = _dataset_header(np.ascontiguousarray(data), out, attrs)
+        f._store_link(group, name, header, out)
+
+    def unlink(self, path):
+        """Remove the link ``path`` from its group, as h5py's ``del`` does
+        (the object it pointed to stays as dead space; see
+        ``_store_link``)."""
+        group, name = self._parent(path)
+        if name not in group._members():
+            raise KeyError(f"no link {name!r} in {group.name}")
+        f = group.file
+        f._store_link(group, name, None, hw.Appender(f._fd, f._eof))
+
+    def _parent(self, path):
+        """(group, link name) of ``path`` in a file open for writing."""
         if self.mode != "r+":
             raise ValueError(f"{self.filename} is open read-only")
-        if self._base or (self._so, self._sl) != (OFFSET_SIZE, LENGTH_SIZE):
-            raise self._unsupported("writing to a file with a user block or small offsets", 0)
         parent, _, name = str(path).strip("/").rpartition("/")
         group = self.root[parent]
         if not isinstance(group, Group):
             raise KeyError(f"{parent} is not a group")
-        if group.dense:
-            raise self._unsupported("adding a link to a group with dense link storage",
-                                    group.addr)
-        out = _Appender(self._fd, self._eof)
-        header = _dataset_header(np.ascontiguousarray(data), out, attrs)
+        if group.file.mode != "r+":
+            raise ValueError(f"{group.file.filename} is open read-only")
+        if group.file._base or (group.file._so, group.file._sl) != (OFFSET_SIZE, LENGTH_SIZE):
+            raise group.file._unsupported("writing to a file with a user block or small offsets",
+                                          0)
+        return group, name
+
+    def _store_link(self, group, name, header, out):
+        """Point the link ``name`` of ``group`` at the object header
+        ``header`` (None: remove the link).  A symbol-table group gets new
+        nodes and a new B-tree of as many levels as its entries need (the
+        name goes into its local heap, see ``_heap_insert``); a new-style
+        group keeps its link messages in its header while they stay within
+        its compact limit (``_store_compact``), else its links are stored
+        dense anew (``_store_dense``).  The new structures go at the end of
+        the file and the old ones stay as dead space; the superblock's
+        end-of-file address (and checksum) follows."""
         if group.link_info is None:
-            self._link(group, name.encode("utf-8"), header, out)
+            self._store_symbol_table(group, name, header, out)
         else:
-            self._add_link(group, name, header, out)
-            group.__init__(self, group.addr, group.name, self._messages(group.addr))
+            count = len(group._members()) - (name in group._members()) + (header is not None)
+            if not group.dense and count <= group.max_compact:
+                self._store_compact(group, name, header, out)
+            else:
+                self._store_dense(group, name, header, out)
+        if self._read(group.addr, 4) == b"OHDR":
+            self._tidy(group.addr)
         self._eof = out.finish()
         self._write(self._eof_pos, self._eof.to_bytes(self._so, "little"))
         if self._version >= 2:
             head = self._read(0, self._sb_size - 4)
             self._write(self._sb_size - 4, struct.pack("<I", index.lookup3(head)))
-        group._links = None
+        group.__init__(self, group.addr, group.name, self._messages(group.addr))
 
-    def unlink(self, path):
-        """Remove the link ``path`` from its group, as h5py's ``del`` does
-        (the object it pointed to stays as dead space): a link message of
-        a compact new-style group becomes a NIL message; a symbol-table
-        entry leaves its node (its name stays in the local heap).  A group
-        with dense link storage raises ``NotImplementedError``."""
-        if self.mode != "r+":
-            raise ValueError(f"{self.filename} is open read-only")
-        parent, _, name = str(path).strip("/").rpartition("/")
-        group = self.root[parent]
-        if not isinstance(group, Group) or name not in group._members():
-            raise KeyError(f"no link {name!r} in {group.name}")
-        if group.dense:
-            raise self._unsupported("removing a link from a group with dense link storage",
-                                    group.addr)
-        if group.link_info is not None:
-            if self._read(group.addr, 4) != b"OHDR":
-                raise self._unsupported("removing a link from a version-1 object header",
-                                        group.addr)
-            where = next(where for kind, body, where in group.messages
-                         if kind == LINK and self._link_message(body, where)[0] == name)
-            self._patch_header(group.addr, where - _v2_hsize(group.messages.flags), bytes([NIL]))
-            group.__init__(self, group.addr, group.name, self._messages(group.addr))
-        else:
-            size, _, heap_data = self._local_heap(group.heap)
-            names = self._read(heap_data, size)
-            encoded, width = name.encode("utf-8"), self._entry_size
-            for _, node in self._btree_leaves(group.btree, self._sl):
-                count, raw = self._snod(node)
-                rows = [raw[i * width : (i + 1) * width] for i in range(count)]
-                keep = [row for row in rows
-                        if names[_uint(row, 0, self._so) :].split(b"\0", 1)[0] != encoded]
-                if len(keep) < count:
-                    if not keep:
-                        raise self._unsupported("removing the last entry of a symbol-table node",
-                                                node)
-                    self._write(node + 6, struct.pack("<H", len(keep)) + b"".join(keep)
-                                + bytes(width))
-                    break
-        group._links = None
-
-    def _link(self, group, name, header, out):
-        so, sl, size = self._so, self._sl, self._entry_size
-        level, items, last = self._btree(group.btree, sl)
-        if level != 0 or not items:
-            raise self._unsupported("adding to a group whose B-tree is not one leaf node",
-                                    group.btree)
+    # -- symbol-table groups ------------------------------------------- #
+    def _store_symbol_table(self, group, name, header, out):
+        """The entries of a symbol-table group with ``name`` added,
+        replaced or removed, in new nodes under a new B-tree (see
+        ``hdf5_write.symbol_table``); the group's symbol-table message and
+        the B-tree address cached in its entry (in its parent's node, or
+        the superblock's root entry) point to it."""
+        so = self._so
         heap_size, _, heap_data = self._local_heap(group.heap)
         names = self._read(heap_data, heap_size)
-
-        def name_at(offset):
-            return names[offset : names.index(b"\0", offset)]
-
-        keys = [_uint(key, 0, sl) for key, _ in items] + [_uint(last, 0, sl)]
-        children = [child for _, child in items]
-        child = next((i for i in range(len(items)) if name <= name_at(keys[i + 1])), None)
-        if child is None:
-            child = len(items) - 1
-        node = children[child]
-        count, raw = self._snod(node)
-        rows = [raw[i * size : (i + 1) * size] for i in range(count)]
-        row_names = [name_at(_uint(row, 0, so)) for row in rows]
-        if name in row_names:
-            i = row_names.index(name)
-            rows[i] = _entry(_uint(rows[i], 0, so), header)
-            self._write(node + 6, struct.pack("<H", len(rows)) + b"".join(rows))
-            return
-        if count >= 2 * self._leaf_k and len(items) >= 2 * self._internal_k:
-            raise self._unsupported("adding to a full group B-tree node", group.btree)
-        offset = self._heap_insert(group.heap, name, out)
-        rows.insert(sum(n < name for n in row_names), _entry(offset, header))
-        if name > name_at(keys[child + 1]):
-            keys[child + 1] = offset
-        if count < 2 * self._leaf_k:
-            self._write(node + 6, struct.pack("<H", len(rows)) + b"".join(rows))
-        else:
-            # a full node: the first half stays, the rest goes to a new
-            # node after it in the B-tree, keyed by the first half's last
-            # name (H5G__node_insert splits the same way)
-            half = (len(rows) + 1) // 2
-            self._write(node + 6, struct.pack("<H", half) + b"".join(rows[:half]))
-            empty = bytes(8 + 2 * self._leaf_k * size)
-            right = b"SNOD" + struct.pack("<BBH", 1, 0, len(rows) - half) + b"".join(rows[half:])
-            children.insert(child + 1, out.put(right + empty[len(right):]))
-            keys.insert(child + 1, _uint(rows[half - 1], 0, so))
-        body = b"".join(k.to_bytes(sl, "little") + c.to_bytes(so, "little")
-                        for k, c in zip(keys, children)) + keys[-1].to_bytes(sl, "little")
-        self._write(group.btree + 6, struct.pack("<H", len(children)))
-        self._write(group.btree + 8 + 2 * so, body)
-
-    # -- links in a version-2 object header ------------------------------ #
-    def _add_link(self, group, name, header, out):
-        """Point the link ``name`` of a compact new-style group at
-        ``header``: its address rewritten in place, or a new link message
-        in the group's header (creation order from the link info message,
-        whose maximum creation index goes up by one; a replaced link of a
-        group that tracks creation order is made anew, as h5py's ``del``
-        and create make it).  Past the group info's compact limit the
-        group would turn dense: that raises."""
-        so = self._so
-        if self._read(group.addr, 4) != b"OHDR":
-            raise self._unsupported("adding a link to a version-1 object header", group.addr)
-        where, flags = group.link_info[:2]
-        links = sum(kind == LINK for kind, _, _ in group.messages)
-        for kind, body, at in group.messages:
-            if kind == LINK and self._link_message(body, at)[0] == name:
-                target = self._link_message(body, at)[1]
-                if isinstance(target, _Soft):
-                    raise self._unsupported(f"replacing a {target.kind} link", at)
-                if not flags & 0x1:
-                    self._patch_header(group.addr, at + len(body) - so,
-                                       header.to_bytes(so, "little"))
-                    return
-                # creation order tracked: the link is made anew, last, as
-                # h5py's del and create order it
-                self._patch_header(group.addr, at - _v2_hsize(group.messages.flags),
-                                   bytes([NIL]))
-                links -= 1
-        if links + 1 > group.max_compact:
-            raise self._unsupported(
-                f"adding a link past the compact limit of {group.max_compact} (dense link storage)",
-                group.addr)
         encoded = name.encode("utf-8")
-        width = 0 if len(encoded) < 256 else 1
-        # version 1, flags: name length width, creation order, UTF-8
-        body = bytearray([1, width])
+        _, items, _ = self._btree(group.btree, self._sl)
+        first_key = _uint(items[0][0], 0, self._sl) if items else 0
+        rows = []
+        for _, node in self._btree_leaves(group.btree, self._sl):
+            count, raw = self._snod(node)
+            for i in range(count):
+                row = raw[i * self._entry_size : (i + 1) * self._entry_size]
+                offset = _uint(row, 0, so)
+                rows.append((names[offset : names.index(b"\0", offset)], row))
+        old = [row for key, row in rows if key == encoded]
+        rows = [(key, row) for key, row in rows if key != encoded]
+        if header is not None:
+            offset = _uint(old[0], 0, so) if old else self._heap_insert(group.heap, encoded, out)
+            rows.append((encoded, _entry(offset, header)))
+        rows.sort(key=lambda item: item[0])
+        btree = hw.symbol_table(out, [row for _, row in rows],
+                                [_uint(row, 0, so) for _, row in rows], first_key,
+                                self._leaf_k, self._internal_k)
+        where = next(at for kind, _, at in group.messages if kind == SYMBOL_TABLE)
+        self._patch(group.addr, where, btree.to_bytes(so, "little"))
+        self._cache_btree(group, btree)
+
+    def _cache_btree(self, group, btree):
+        """Write ``btree`` into the scratch pad of the symbol-table entries
+        that cache ``group``'s symbol table: the superblock's root entry,
+        or the group's entry in its parent's nodes."""
+        if group.addr == self._root_addr:
+            entry = self._root_entry if self._version < 2 else None
+            if entry is not None and _uint(self._read(entry + 2 * self._so, 4), 0, 4) == 1:
+                self._write(entry + 2 * self._so + 8, btree.to_bytes(self._so, "little"))
+            return
+        parent = self.root[group.name.rsplit("/", 1)[0] or "/"]
+        if parent.file is not self or parent.link_info is not None:
+            return
+        for _, node in self._btree_leaves(parent.btree, self._sl):
+            count, raw = self._snod(node)
+            for i in range(count):
+                pos = i * self._entry_size
+                if (_uint(raw, pos + self._so, self._so) == group.addr
+                        and _uint(raw, pos + 2 * self._so, 4) == 1):
+                    self._write(node + 8 + pos + 2 * self._so + 8,
+                                btree.to_bytes(self._so, "little"))
+
+    # -- new-style groups ---------------------------------------------- #
+    def _link_body(self, group, name, header):
+        """The body of a hard link message from ``name`` to ``header``,
+        with the next creation order of a group that tracks it (the link
+        info message's maximum creation index goes up by one)."""
+        where, flags = group.link_info[:2]
+        order = None
         if flags & 0x1:
             order = struct.unpack_from("<q", self._read(where + 2, 8))[0]
-            self._patch_header(group.addr, where + 2, struct.pack("<q", order + 1))
-            body[1] |= 0x4
-            body += struct.pack("<q", order)
-        if not encoded.isascii():
-            body[1] |= 0x10
-            body.append(1)
-        body += len(encoded).to_bytes(1 << width, "little") + encoded
-        body += header.to_bytes(so, "little")
-        self._add_message(group.addr, LINK, bytes(body), out)
+            self._patch(group.addr, where + 2, struct.pack("<q", order + 1))
+        return _hard_link(name, header, order)
+
+    def _store_compact(self, group, name, header, out):
+        """A link message of a compact new-style group: its address
+        rewritten in place, or the message made NIL and (unless removing)
+        a new link message put into the group's header (see
+        ``_add_message``), last in creation order where the group tracks
+        it, as h5py's ``del`` and create order it."""
+        flags = group.link_info[1]
+        for kind, body, at in group.messages:
+            if kind != LINK:
+                continue
+            link = self._link_message(body, at)
+            if link[0] != name:
+                continue
+            if header is not None and not flags & 0x1 and not isinstance(link[1], _Soft):
+                self._patch(group.addr, at + link[3] - self._so, header.to_bytes(self._so,
+                                                                                "little"))
+                return
+            self._nil(group.addr, at)
+        if header is not None:
+            self._add_message(group.addr, LINK, self._link_body(group, name, header), out)
+
+    def _store_dense(self, group, name, header, out):
+        """The links of a new-style group with ``name`` added, replaced or
+        removed, stored dense anew (``_dense_links``: a creation-order
+        index where the group indexes creation order); the link messages
+        of a compact header made NIL and the link info message pointed at
+        the new structures."""
+        where, flags = group.link_info[:2]
+        links = [(n, order, body) for n, order, body in self._link_bodies(group) if n != name]
+        if header is not None:
+            body = self._link_body(group, name, header)
+            links.append((name, self._link_message(body, 0)[2], body))
+        try:
+            heap, names, orders = _dense_links(out, links, bool(flags & 0x2))
+        except NotImplementedError as err:
+            raise self._unsupported(f"storing the links of {group.name} dense ({err})",
+                                    group.addr) from None
+        info = bytearray(self._read(where, 2 + (8 if flags & 0x1 else 0)))
+        info += struct.pack("<QQ", heap, names)
+        if orders is not None:
+            info += struct.pack("<Q", orders)
+        if not group.dense:
+            for kind, _, at in group.messages:
+                if kind == LINK:
+                    self._nil(group.addr, at)
+        self._patch(group.addr, where, bytes(info))
+
+    def _link_bodies(self, group):
+        """(name, creation order, message body) of each link of a
+        new-style group, in h5py's order, each body cut to its fields."""
+        f = self
+        if group.dense:
+            _, _, heap_addr, names = group.link_info[:4]
+            heap = index.FractalHeap(f, heap_addr)
+            raw = [heap.get(r[4:], heap_addr) for r in index.BTree2(f, names).records()]
+        else:
+            raw = [body for kind, body, _ in group.messages if kind == LINK]
+        found = []
+        for body in raw:
+            name, _, order, end = f._link_message(body, group.addr)
+            found.append((name, order, bytes(body[:end])))
+        if group.link_info[1] & 0x1:
+            found.sort(key=lambda link: link[1])
+        else:
+            found.sort(key=lambda link: link[0].encode("utf-8"))
+        return found
+
+    # -- object header edits ------------------------------------------- #
+    def _patch(self, addr, at, data):
+        """Write ``data`` at file address ``at`` inside the object header at
+        ``addr``: in place in a version-1 header, through ``_patch_header``
+        (its chunk's checksum updated) in a version-2 one."""
+        if self._read(addr, 4) == b"OHDR":
+            self._patch_header(addr, at, data)
+        else:
+            self._write(at, data)
+
+    def _tidy(self, addr):
+        """Rewrite each chunk of the version-2 object header at ``addr``
+        that holds NIL messages and a gap (HDF5 refuses a chunk with both:
+        it merges a gap into a NIL message): its other messages first, in
+        their order, then one NIL message over the rest."""
+        flags, chunks = self._v2_chunks(addr)
+        hsize = _v2_hsize(flags)
+        for caddr, data, start in chunks:
+            slots = _v2_slots(data, start, flags)
+            end = slots[-1][0] + hsize + slots[-1][2] if slots else start
+            if end == len(data) - 4 or not any(kind == NIL for _, kind, _, _ in slots):
+                continue
+            kept = b"".join(data[at : at + hsize + size] for at, kind, size, _ in slots
+                            if kind != NIL)
+            rest = len(data) - 4 - start - len(kept)
+            chunk = bytearray(data[:start] + kept)
+            chunk += struct.pack("<BHB", NIL, rest - hsize, 0) + bytes(rest - 4)
+            chunk += struct.pack("<I", index.lookup3(chunk))
+            self._write(caddr, chunk)
+
+    def _nil(self, addr, at):
+        """Make the message whose body is at ``at`` in the object header at
+        ``addr`` a NIL message."""
+        if self._read(addr, 4) == b"OHDR":
+            flags = self._read(addr, 6)[5]
+            self._patch_header(addr, at - _v2_hsize(flags), bytes([NIL]))
+        else:
+            self._write(at - 8, struct.pack("<H", NIL))
 
     def _patch_header(self, addr, at, data):
         """Write ``data`` at file address ``at``, inside the version-2
@@ -444,11 +603,14 @@ class File:
         raise OSError(f"{self.filename}: offset {at} is not inside the object header at {addr}")
 
     def _add_message(self, addr, kind, body, out):
-        """Put a message into the version-2 object header at ``addr``: into
-        a NIL message that holds it (the rest stays NIL), or else into a new
-        ``OCHK`` chunk at the end of the file, reached through a
-        continuation message that takes the place of a NIL message or of
-        a message moved into the new chunk with it."""
+        """Put a message into the object header at ``addr``: into a NIL
+        message that holds it (the rest stays NIL), or else into a new
+        continuation block (``OCHK`` in a version-2 header) at the end of
+        the file, reached through a continuation message that takes the
+        place of a NIL message or of a message moved into the new block
+        with it."""
+        if self._read(addr, 4) != b"OHDR":
+            return self._add_message_v1(addr, kind, body, out)
         flags, chunks = self._v2_chunks(addr)
         hsize = _v2_hsize(flags)
 
@@ -469,15 +631,18 @@ class File:
                         if k == NIL and fits(size, cont)), None)
             moved = b""
             if nil is None:
-                slot = next((s for s in reversed(slots)
-                             if s[2] not in (NIL, CONTINUATION) and fits(s[3], cont)), None)
-                if slot is None:
+                # the shortest run of messages that ends a chunk and has
+                # room for the continuation goes into the new chunk
+                run = _trailing_run([(c, at, k, hsize + size) for c, at, k, size in slots],
+                                    lambda span: fits(span - hsize, cont))
+                if run is None:
                     raise self._unsupported("an object header with no room for a continuation",
                                             addr)
-                c, at, _, size = slot
-                nil = (c, at, size)
+                c, at, span = run
                 data = chunks[c][1]
-                moved = data[at : at + hsize + size]
+                moved = b"".join(data[a : a + hsize + z] for cc, a, k, z in slots
+                                 if cc == c and at <= a < at + span and k != NIL)
+                nil = (c, at, span - hsize)
             block = b"OCHK" + moved + message(kind, body)
             block += struct.pack("<I", index.lookup3(block))
             target = out.put(block)
@@ -492,6 +657,67 @@ class File:
         data[at : at + len(new)] = new
         data[-4:] = struct.pack("<I", index.lookup3(data[:-4]))
         self._write(caddr, data)
+
+    def _add_message_v1(self, addr, kind, body, out):
+        """``_add_message`` in a version-1 object header: bodies padded to
+        8 bytes, a continuation block of bare messages, and the header's
+        message count kept (HDF5 checks it)."""
+        body = _pad8(body)
+        slots = []  # (block, message header address, type, body size)
+        prefix = self._read(addr, 16)
+        blocks = [(addr + 16, struct.unpack_from("<I", prefix, 8)[0])]
+        while blocks:
+            start, length = blocks.pop(0)
+            block = self._read(start, length)
+            pos = 0
+            while pos + 8 <= length:
+                k, size = struct.unpack_from("<HH", block, pos)
+                slots.append((start, start + pos, k, size))
+                if k == CONTINUATION:
+                    blocks.append((_uint(block, pos + 8, self._so),
+                                   _uint(block, pos + 8 + self._so, self._sl)))
+                pos += 8 + size
+        count = struct.unpack_from("<H", prefix, 2)[0]
+
+        def fits(size, need):
+            return size == need or size - need >= 8
+
+        def put(at, size, kind, data):
+            """A message of ``data`` in the slot of ``size`` bytes at ``at``,
+            the rest a NIL message; the messages added."""
+            new = struct.pack("<HHB3x", kind, len(data), 0) + data
+            if size > len(data):
+                new += struct.pack("<HHB3x", NIL, size - len(data) - 8, 0)
+            self._write(at, new)
+            return int(size > len(data))
+
+        nil = next(((at, size) for _, at, k, size in slots if k == NIL and fits(size, len(body))),
+                   None)
+        if nil is not None:
+            count += put(*nil, kind, body)
+        else:
+            cont = 2 * self._so
+            nil = next(((at, size) for _, at, k, size in slots if k == NIL and fits(size, cont)),
+                       None)
+            # messages added: the continuation, the new message (and a NIL
+            # message left over, counted by ``put``), less the NIL messages
+            # a moved run drops
+            moved, added = b"", 1
+            if nil is None:
+                run = _trailing_run([(b, at, k, 8 + size) for b, at, k, size in slots],
+                                    lambda span: fits(span - 8, cont))
+                if run is None:
+                    raise self._unsupported("an object header with no room for a continuation",
+                                            addr)
+                _, at, span = run
+                inside = [(a, k, z) for _, a, k, z in slots if at <= a < at + span]
+                moved = b"".join(self._read(a, 8 + z) for a, k, z in inside if k != NIL)
+                nil = (at, span - 8)
+                added = 2 - sum(k == NIL for _, k, _ in inside)
+            block = moved + struct.pack("<HHB3x", kind, len(body), 0) + body
+            target = out.put(block)
+            count += added + put(*nil, CONTINUATION, struct.pack("<QQ", target, len(block)))
+        self._write(addr + 2, struct.pack("<H", count))
 
     def _heap_insert(self, heap, name, out):
         """Put ``name`` (null-terminated, 8-byte aligned) in the local heap
@@ -567,10 +793,8 @@ class File:
     def _keep(self, messages, kind, flags, body, where):
         if kind in INTERPRETED:
             if flags & 0x2:
-                raise self._unsupported(f"a shared message of type 0x{kind:04x}", where)
+                body = self._shared(kind, body, where)
             messages.append((kind, body, where))
-        elif kind == SHARED_TABLE:
-            raise self._unsupported("a shared-message table", where)
         elif kind not in IGNORED:
             raise self._unsupported(f"object header message type 0x{kind:04x}", where)
 
@@ -625,6 +849,8 @@ class File:
                 obj = Group(self, addr, name, messages)
             elif LAYOUT in kinds:
                 obj = Dataset(self, addr, name, messages)
+            elif DATATYPE in kinds:
+                obj = Datatype(self, addr, name, messages)
             else:
                 raise self._unsupported("an object that is neither group nor dataset", addr)
             self._objects[addr] = obj
@@ -697,15 +923,38 @@ class File:
         size = struct.unpack_from("<I", data, pos + 4)[0]
         end = pos + 8
         if cls == 0:
-            precision = struct.unpack_from("<HH", data, end)
-            if precision != (0, 8 * size) or size not in (1, 2, 4, 8):
-                raise self._unsupported(f"an integer of {size} bytes at bits {precision}", where)
+            offset, precision = struct.unpack_from("<HH", data, end)
+            if size not in (1, 2, 4, 8) or not precision or offset + precision > 8 * size:
+                raise self._unsupported(f"an integer of {size} bytes at bits "
+                                        f"{(offset, precision)}", where)
             order = ">" if bits & 1 else "<"
-            return _Type(np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}")), end + 4
+            kind = _Type(np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"))
+            if (offset, precision) != (0, 8 * size):
+                # fewer significant bits (an n-bit type): read as h5py
+                # converts them, shifted down and sign-extended
+                kind.convert = _int_bits(offset, precision, bool(bits & 8))
+            return kind, end + 4
         if cls == 1:
             if bits & 0x40 or size not in (2, 4, 8):
                 raise self._unsupported(f"a float of {size} bytes (flags {bits:#x})", where)
-            return _Type(np.dtype(f"{'>' if bits & 1 else '<'}f{size}")), end + 12
+            kind = _Type(np.dtype(f"{'>' if bits & 1 else '<'}f{size}"))
+            offset, precision, epos, esize, mpos, msize, bias = struct.unpack_from(
+                "<HHBBBBI", data, end)
+            native_fields = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127), 8: (52, 11, 52, 1023)}[size]
+            sign = (bits >> 8) & 0xFF
+            if (offset, precision, sign, epos, mpos, msize) != (0, 8 * size, 8 * size - 1,
+                                                              native_fields[0], 0,
+                                                              native_fields[2]):
+                # IEEE's exponent with a shorter mantissa, its fields where
+                # the type puts them (an n-bit float): read as HDF5
+                # converts it, the mantissa's bits the highest of IEEE's
+                if ((esize, bias) != (native_fields[1], native_fields[3])
+                        or msize > native_fields[2]):
+                    raise self._unsupported(f"a float of {size} bytes at bits "
+                                            f"{(offset, precision)}", where)
+                kind.convert = _float_fields(8 * size, sign, epos, esize, mpos, msize,
+                                             native_fields[2])
+            return kind, end + 12
         if cls == 3:
             return _Type(np.dtype(f"S{size}")), end
         if cls == 8:
@@ -752,7 +1001,7 @@ class File:
         else ``bytes``, as h5py gives them for attributes and datasets)."""
         count = int(np.prod(shape, dtype=np.int64))
         if not kind.vlen:
-            return np.frombuffer(raw, kind.dtype, count).reshape(shape).copy()
+            return kind.converted(np.frombuffer(raw, kind.dtype, count).reshape(shape).copy())
         out = np.empty(count, dtype=object)
         so = self._so
         for i in range(count):
@@ -796,8 +1045,11 @@ class File:
         for record in tree.records():
             # heap ID (8), message flags (1), creation order (4), name hash (4)
             if record[8] & 0x2:
-                raise self._unsupported("a shared attribute in dense storage", names)
-            message = heap.get(record[:8], heap_addr)
+                # a shared attribute: the ID is one of the shared-message heap
+                self.walked["shared message"] += 1
+                message = self._sohm_get(ATTRIBUTE, record[:8], names)
+            else:
+                message = heap.get(record[:8], heap_addr)
             order = struct.unpack_from("<I", record, 9)[0]
             found.append((order, *self._attribute(message, heap_addr)))
         return found
@@ -807,23 +1059,30 @@ class File:
         version = body[0]
         if version not in (1, 2, 3):
             raise self._unsupported(f"attribute message version {version}", where)
-        if version > 1 and body[1] & 0x3:
-            raise self._unsupported("an attribute of a shared type or space", where)
+        shared = body[1] if version > 1 else 0
         name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
         pad = _align8 if version == 1 else int
         pos = 8 if version < 3 else 9
         name = body[pos : pos + name_size].split(b"\0", 1)[0].decode("utf-8")
         pos += pad(name_size)
-        kind, _ = self._datatype(body, pos, where)
+        # flags 0x1 and 0x2: the datatype and the dataspace are shared
+        type_body = body[pos : pos + type_size]
+        if shared & 0x1:
+            type_body = self._shared(DATATYPE, type_body, where)
+        kind, _ = self._datatype(type_body, 0, where)
         pos += pad(type_size)
-        shape = self._dataspace(body, pos, where)
+        space_body = body[pos : pos + space_size]
+        if shared & 0x2:
+            space_body = self._shared(DATASPACE, space_body, where)
+        shape = self._dataspace(space_body, 0, where)
         pos += pad(space_size)
         value = self._values(kind, body[pos:], shape, decode=True)
         return name, value[()] if shape == () else value
 
     def _link_message(self, body, where):
-        """(name, target, creation order) of a link message: ``target`` the
-        object header address of a hard link, a ``_Soft`` otherwise."""
+        """(name, target, creation order, end of the fields) of a link
+        message: ``target`` the object header address of a hard link, a
+        ``_Soft`` with the link's value otherwise."""
         if body[0] != 1:
             raise self._unsupported(f"link message version {body[0]}", where)
         flags, pos = body[1], 2
@@ -841,18 +1100,71 @@ class File:
         name = body[pos : pos + length].decode("utf-8")
         pos += length
         if kind == 0:
-            return name, _uint(body, pos, self._so), order
-        return name, _Soft({1: "soft", 64: "external"}.get(kind, f"type {kind}"), where), order
+            return name, _uint(body, pos, self._so), order, pos + self._so
+        size = struct.unpack_from("<H", body, pos)[0]
+        value = bytes(body[pos + 2 : pos + 2 + size])
+        end = pos + 2 + size
+        if kind == 1:
+            return name, _Soft("soft", where, value.split(b"\0", 1)[0].decode("utf-8")), order, end
+        if kind == 64:
+            if value[0] >> 4 != 0:
+                raise self._unsupported(f"external link value version {value[0] >> 4}", where)
+            filename, target = value[1:].split(b"\0")[:2]
+            return name, _Soft("external", where, (filename.decode("utf-8"),
+                                                   target.decode("utf-8"))), order, end
+        return name, _Soft(f"type {kind}", where), order, end
 
 class _Type:
     """A datatype: its numpy dtype (``object`` for variable-length
-    strings), and the stored size of one element."""
+    strings), the stored size of one element, and ``convert`` (None, or a
+    function that turns stored values into h5py's in place)."""
 
-    __slots__ = ("dtype", "vlen", "size")
+    __slots__ = ("dtype", "vlen", "size", "convert")
 
     def __init__(self, dtype, vlen=False, size=None):
         self.dtype, self.vlen = dtype, vlen
         self.size = dtype.itemsize if size is None else size
+        self.convert = None
+
+    def converted(self, array):
+        if self.convert is not None:
+            self.convert(array)
+        return array
+
+
+def _unsigned_view(array):
+    return array.view(array.dtype.str[0] + "u" + array.dtype.str[2:])
+
+
+def _int_bits(offset, precision, signed):
+    """In place: integers of ``precision`` bits at bit ``offset``, shifted
+    down and, when ``signed``, sign-extended (HDF5's integer conversion)."""
+    def convert(array):
+        raw = _unsigned_view(array)
+        mask = np.array((1 << precision) - 1, raw.dtype)
+        value = (raw >> np.array(offset, raw.dtype)) & mask
+        if signed:
+            negative = (value >> np.array(precision - 1, raw.dtype)) & np.array(1, raw.dtype)
+            value = np.where(negative.astype(bool), value | ~mask, value)
+        raw[...] = value
+    return convert
+
+
+def _float_fields(width, sign, epos, esize, mpos, msize, native_msize):
+    """In place: floats of ``width`` bits whose sign, exponent and mantissa
+    are at bits ``sign``, ``epos`` (``esize`` bits, IEEE's) and ``mpos``
+    (``msize`` bits) moved to IEEE's places, the mantissa to its top."""
+    def convert(array):
+        raw = _unsigned_view(array)
+        t = raw.dtype.type
+
+        def field(pos, size):
+            return (raw >> t(pos)) & t((1 << size) - 1)
+
+        value = (field(sign, 1) << t(width - 1)) | (field(epos, esize) << t(native_msize))
+        value |= field(mpos, msize) << t(native_msize - msize)
+        raw[...] = value
+    return convert
 
 
 class _Header(list):
@@ -871,6 +1183,22 @@ def _v2_hsize(flags):
     return 6 if flags & 0x4 else 4
 
 
+def _trailing_run(slots, fits):
+    """(block, offset, span) of the shortest run of messages that ends a
+    block of an object header and whose span ``fits``, the last block
+    first; ``slots`` (block, offset, type, span with the message header)
+    in order.  A continuation message ends a run."""
+    for block in reversed(list(dict.fromkeys(b for b, _, _, _ in slots))):
+        mine = [s for s in slots if s[0] == block]
+        end = mine[-1][1] + mine[-1][3] if mine else 0
+        for _, at, kind, _ in reversed(mine):
+            if kind == CONTINUATION:
+                break
+            if fits(end - at):
+                return block, at, end - at
+    return None
+
+
 def _v2_slots(data, start, flags):
     """(offset, type, body size, message flags) of the messages of a
     version-2 header chunk (``data`` ends in its checksum) from
@@ -887,12 +1215,13 @@ def _v2_slots(data, start, flags):
 
 
 class _Soft:
-    """A soft or external link: what it is and where its message is."""
+    """A soft or external link: what it is, where its message is, and its
+    value (a path; a (file name, object path) pair)."""
 
-    __slots__ = ("kind", "where")
+    __slots__ = ("kind", "where", "value")
 
-    def __init__(self, kind, where):
-        self.kind, self.where = kind, where
+    def __init__(self, kind, where, value=None):
+        self.kind, self.where, self.value = kind, where, value
 
 
 class Group:
@@ -912,9 +1241,11 @@ class Group:
                 if body[0] != 0:
                     raise file._unsupported(f"link info message version {body[0]}", where)
                 pos = 2 + (8 if body[1] & 0x1 else 0)
-                # (offset of the message body, flags, fractal heap, name index)
+                # (offset of the message body, flags, fractal heap, name
+                # index, creation-order index)
                 self.link_info = (where, body[1], file._addr(body, pos),
-                                  file._addr(body, pos + so))
+                                  file._addr(body, pos + so),
+                                  file._addr(body, pos + 2 * so) if body[1] & 0x2 else None)
         self.max_compact = next(
             (struct.unpack_from("<H", body, 2)[0] for kind, body, _ in messages
              if kind == GROUP_INFO and body[1] & 0x1), 8)
@@ -935,7 +1266,7 @@ class Group:
                 self._links = self._symbol_table()
                 return self._links
             if self.dense:
-                _, _, heap_addr, names = self.link_info
+                _, _, heap_addr, names, _ = self.link_info
                 heap, tree = index.FractalHeap(f, heap_addr), index.BTree2(f, names)
                 if tree.type != 5:
                     raise f._unsupported(f"a link name index of record type {tree.type}", names)
@@ -948,7 +1279,7 @@ class Group:
                 found.sort(key=lambda link: link[2])
             else:
                 found.sort(key=lambda link: link[0].encode("utf-8"))
-            self._links = {name: target for name, target, _ in found}
+            self._links = {name: target for name, target, _, _ in found}
         return self._links
 
     def _symbol_table(self):
@@ -964,7 +1295,9 @@ class Group:
                 name = names[offset : names.index(b"\0", offset)].decode("utf-8")
                 if _uint(entries, pos + 2 * f._so, 4) == 2:
                     # cache type 2: a soft link, its value in the local heap
-                    links[name] = _Soft("soft", node + 8 + pos)
+                    at = _uint(entries, pos + 2 * f._so + 8, 4)
+                    value = names[at : names.index(b"\0", at)].decode("utf-8")
+                    links[name] = _Soft("soft", node + 8 + pos, value)
                 else:
                     links[name] = _uint(entries, pos + f._so, f._so)
         return links
@@ -973,25 +1306,53 @@ class Group:
         return list(self._members())
 
     def __getitem__(self, path):
-        obj = self
-        for part in [p for p in str(path).split("/") if p]:
+        return self._lookup(path, 0)
+
+    def _lookup(self, path, depth):
+        """The object at ``path`` (from the root when absolute), soft and
+        external links followed as h5py follows them, ``depth`` of them
+        followed so far."""
+        obj = self.file.root if str(path).startswith("/") else self
+        for part in [p for p in str(path).split("/") if p not in ("", ".")]:
             if not isinstance(obj, Group):
                 raise KeyError(f"{obj.name} is a dataset, not a group")
             members = obj._members()
             if part not in members:
                 raise KeyError(f"no object {part!r} in {obj.name}")
             target = members[part]
-            if isinstance(target, _Soft):
-                raise self.file._unsupported(f"a {target.kind} link {part!r}", target.where)
-            obj = self.file._object(target, f"{obj.name.rstrip('/')}/{part}")
+            if not isinstance(target, _Soft):
+                obj = obj.file._object(target, f"{obj.name.rstrip('/')}/{part}")
+                continue
+            if depth >= LINK_DEPTH:
+                # h5py's error for HDF5's "too many links"
+                raise RuntimeError(f"{obj.file.filename}: more than {LINK_DEPTH} soft or "
+                                   f"external links followed to reach {part!r}")
+            obj.file.walked[f"{target.kind} link"] += 1
+            if target.kind == "soft":
+                obj = obj._lookup(target.value, depth + 1)
+            elif target.kind == "external":
+                name, inside = target.value
+                obj = obj.file._external(name, target.where).root._lookup(inside, depth + 1)
+            else:
+                raise obj.file._unsupported(f"a {target.kind} link {part!r}", target.where)
         return obj
 
     def __contains__(self, path):
         try:
             self[path]
-        except KeyError:
+        except (KeyError, RuntimeError):
             return False
         return True
+
+
+class Datatype:
+    """A committed (named) datatype: ``dtype`` and ``attrs``."""
+
+    def __init__(self, file, addr, name, messages):
+        self.file, self.addr, self.name = file, addr, name
+        body, where = next((b, w) for k, b, w in messages if k == DATATYPE)
+        self.dtype = file._datatype(body, 0, where)[0].dtype
+        self.attrs = file._attributes(messages)
 
 
 class Dataset:
@@ -1000,7 +1361,7 @@ class Dataset:
 
     def __init__(self, file, addr, name, messages):
         self.file, self.addr, self.name = file, addr, name
-        self._filters, fill, self._chunks = [], None, None
+        self._filters, fill, self._chunks, self._external = [], None, None, None
         self._index_type, self._edge_unfiltered = None, False
         for kind, body, where in messages:
             if kind == DATASPACE:
@@ -1015,9 +1376,53 @@ class Dataset:
                 fill = self._fill_value(body, where)
             elif kind == FILL_OLD and fill is None:
                 fill = body[4 : 4 + struct.unpack_from("<I", body, 0)[0]]
+            elif kind == EXTERNAL:
+                self._external = self._external_files(body, where)
         self.dtype = self._type.dtype
         self._fill = fill or b""
         self.attrs = file._attributes(messages)
+
+    def _external_files(self, body, where):
+        """[(path, offset, size)] of the raw files of external storage (the
+        External Data Files message): names in its local heap, relative
+        ones found in the HDF5 file's directory, else from the working
+        directory; the last size may be unlimited."""
+        f = self.file
+        if body[0] != 1:
+            raise f._unsupported(f"external data files message version {body[0]}", where)
+        used = struct.unpack_from("<H", body, 6)[0]
+        size, _, heap_data = f._local_heap(f._addr(body, 8))
+        names = f._read(heap_data, size)
+        slots, pos = [], 8 + f._so
+        here = os.path.dirname(os.path.abspath(f.filename))
+        for _ in range(used):
+            at, offset, length = (_uint(body, pos + i * f._sl, f._sl) for i in range(3))
+            pos += 3 * f._sl
+            name = names[at : names.index(b"\0", at)].decode("utf-8")
+            path = name if os.path.isabs(name) else next(
+                (p for p in (os.path.join(here, name), name) if os.path.isfile(p)),
+                os.path.join(here, name))
+            slots.append((path, offset, length))
+        f.walked["external storage"] += 1
+        return slots
+
+    def _external_bytes(self, start, size):
+        """``size`` bytes from byte ``start`` of the data in external
+        storage, read from each file's slot in turn (zeros past a file's
+        end, as HDF5 reads them)."""
+        out, base = bytearray(), 0
+        for path, offset, length in self._external:
+            lo, hi = max(start, base), min(start + size, base + length)
+            if lo < hi:
+                with open(path, "rb") as raw:
+                    raw.seek(offset + lo - base)
+                    got = raw.read(hi - lo)
+                out += got + bytes(hi - lo - len(got))
+            base += length
+        if len(out) != size:
+            raise OSError(f"{self.file.filename}:{self.name}: external storage holds "
+                          f"{len(out)} of the {size} bytes wanted from byte {start}")
+        return bytes(out)
 
     def _layout(self, body, where):
         f = self.file
@@ -1087,9 +1492,13 @@ class Dataset:
             pos += _align8(name_size) if version == 1 else name_size
             values = struct.unpack_from(f"<{n_values}I", body, pos)
             pos += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
-            if fid not in (DEFLATE, SHUFFLE, FLETCHER32, LZF):
-                name = name or {4: "szip", 5: "nbit", 6: "scaleoffset"}.get(fid, "unnamed")
+            if fid not in (DEFLATE, SHUFFLE, FLETCHER32, NBIT, SCALEOFFSET, LZF):
+                name = name or {4: "szip"}.get(fid, "unnamed")
                 raise self.file._unsupported(f"filter {fid} ({name})", where)
+            if fid == NBIT and (len(values) < 8 or values[3] != 1):
+                # n-bit of compound, array or no-op classes
+                raise self.file._unsupported(f"the n-bit filter of datatype class code "
+                                             f"{values[3] if len(values) > 3 else None}", where)
             filters.append((fid, values))
         return filters
 
@@ -1132,7 +1541,7 @@ class Dataset:
         return self._rows(lo, hi)
 
     def _scalar(self):
-        if self._class == 1 and self._address is None:
+        if self._class == 1 and self._address is None and self._external is None:
             return self._fill_array(())[()]
         raw = self._contiguous_bytes(0, self._type.size)
         return self.file._values(self._type, raw, (), decode=False)[()]
@@ -1140,24 +1549,33 @@ class Dataset:
     def _contiguous_bytes(self, start, size):
         if self._class == 0:
             return self._compact[start : start + size]
+        if self._external is not None:
+            return self._external_bytes(start, size)
         return self.file._read(self._address + start, size)
 
     def _rows(self, lo, hi):
         """Rows [lo, hi) of the first axis as an array."""
+        out = self._stored_rows(lo, hi)
+        return out if self._type.vlen else self._type.converted(out)
+
+    def _stored_rows(self, lo, hi):
+        """Rows [lo, hi) as stored (before ``_Type.convert``)."""
         tail = self.shape[1:]
         shape = (hi - lo, *tail)
         if hi <= lo:
             return self._fill_array(shape)
         if self._class == 2:
             return self._chunked_rows(lo, hi, shape)
-        if self._class == 1 and self._address is None:
+        if self._class == 1 and self._address is None and self._external is None:
             return self._fill_array(shape)
         row = self._type.size * int(np.prod(tail, dtype=np.int64))
-        if self._class == 1 and not self._type.vlen:
+        if self._class == 1 and not self._type.vlen and self._external is None:
             out = np.empty(shape, dtype=self.dtype)
             self.file._read_into(self._address + lo * row, out)
             return out
         raw = self._contiguous_bytes(lo * row, (hi - lo) * row)
+        if not self._type.vlen:
+            return np.frombuffer(raw, self.dtype).reshape(shape).copy()
         return self.file._values(self._type, raw, shape, decode=False)
 
     # -- chunked ------------------------------------------------------- #
@@ -1294,7 +1712,11 @@ class Dataset:
         if self._type.vlen or tuple(chunk[1:]) != tuple(self.shape[1:]):
             for i in sel:
                 raw = self._decode(int(addrs[i]), int(sizes[i]), int(masks[i]), i)
-                data = self.file._values(self._type, raw, chunk, decode=False)
+                if self._type.vlen:
+                    data = self.file._values(self._type, raw, chunk, decode=False)
+                else:
+                    count = int(np.prod(chunk, dtype=np.int64))
+                    data = np.frombuffer(raw, self.dtype, count).reshape(chunk)
                 dst, src = [], []
                 for axis, (start, dim) in enumerate(zip(offsets[i], chunk)):
                     a, b = (lo, hi) if axis == 0 else (0, self.shape[axis])
@@ -1372,6 +1794,12 @@ class Dataset:
             elif fid == LZF:
                 n_out = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
                 raw = native.lzf_decompress(raw, n_out)
+            elif fid == NBIT:
+                self.file.walked["n-bit chunk"] += 1
+                raw = native.nbit_decode(raw, values)
+            elif fid == SCALEOFFSET:
+                self.file.walked["scale-offset chunk"] += 1
+                raw = native.scaleoffset_decode(raw, values)
             elif fid == SHUFFLE:
                 element = values[0] if values else self._type.size
                 if i == on[0] and into is not None and len(raw) == len(into):
@@ -1451,7 +1879,7 @@ def _type_message(dtype):
     raise TypeError(f"no HDF5 type is written for numpy dtype {dtype}")
 
 
-def _space_message(shape, unlimited=False):
+def _space_message(shape, unlimited=False, maxshape=None):
     """A version-1 dataspace of ``shape``; its maximum the shape, or
     unlimited along the first axis."""
     dims = b"".join(struct.pack("<Q", n) for n in shape)
@@ -1459,6 +1887,19 @@ def _space_message(shape, unlimited=False):
     if unlimited:
         top = struct.pack("<Q", UNDEF) + dims[8:]
     return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + dims + top
+
+
+def _space_v2(shape, unlimited=False, keep_max=True):
+    """A version-2 dataspace of ``shape`` (scalar when empty), its maximum
+    stored when ``keep_max`` (unlimited along the first axis, or the
+    shape)."""
+    if not shape:
+        return bytes([2, 0, 0, 0])
+    dims = b"".join(struct.pack("<Q", n) for n in shape)
+    if not keep_max:
+        return bytes([2, len(shape), 0, 1]) + dims
+    top = struct.pack("<Q", UNDEF) + dims[8:] if unlimited else dims
+    return bytes([2, len(shape), 1, 1]) + dims + top
 
 
 def _message(kind, body):
@@ -1485,47 +1926,31 @@ def _global_heap(items):
     )
 
 
-class _Appender:
-    """Writes blocks at the end of a file, each at an 8-byte boundary."""
-
-    def __init__(self, fd, eof):
-        self.fd, self.eof = fd, _align8(eof)
-
-    def put(self, data):
-        """Write ``data`` (bytes or a contiguous array) at the end; its
-        address."""
-        view = memoryview(data).cast("B")
-        addr, done = self.eof, 0
-        while done < len(view):
-            done += os.pwrite(self.fd, view[done:], addr + done)
-        self.eof = _align8(addr + len(view))
-        return addr
-
-    def finish(self):
-        """Extend the file to the end address (the last block's padding)."""
-        if os.fstat(self.fd).st_size < self.eof:
-            os.ftruncate(self.fd, self.eof)
-        return self.eof
-
-
-def _attribute_messages(attrs, out):
-    """Version-1 attribute messages of ``attrs`` (str, ints, floats,
-    ``np.bytes_``, numeric arrays; Python ints and floats as int64 and
-    float64, as h5py stores them); the strings go into a new global heap
-    collection written by ``out``."""
+def _attribute_parts(attrs, out):
+    """(name, datatype, shape, data) of each attribute of ``attrs`` (str,
+    ints, floats, ``np.bytes_``, numeric arrays; Python ints and floats as
+    int64 and float64, as h5py stores them); the strings go into a new
+    global heap collection written by ``out``."""
     strings = [v.encode("utf-8") for v in attrs.values() if isinstance(v, str)]
     heap = out.put(_global_heap(strings)) if strings else None
-    messages, index = [], 0
+    parts, index = [], 0
     for name, value in attrs.items():
         if isinstance(value, str):
             index += 1
-            kind, shape = _type_message(str), ()
-            data = struct.pack("<IQI", len(strings[index - 1]), heap, index)
-        else:
-            array = np.asarray(value)
-            if array.dtype.kind not in "iufS":
-                raise TypeError(f"attribute {name!r}: no HDF5 type for {type(value).__name__}")
-            kind, shape, data = _type_message(array.dtype), array.shape, array.tobytes()
+            parts.append((name, _type_message(str), (),
+                          struct.pack("<IQI", len(strings[index - 1]), heap, index)))
+            continue
+        array = np.asarray(value)
+        if array.dtype.kind not in "iufS":
+            raise TypeError(f"attribute {name!r}: no HDF5 type for {type(value).__name__}")
+        parts.append((name, _type_message(array.dtype), array.shape, array.tobytes()))
+    return parts
+
+
+def _attribute_messages(attrs, out):
+    """Version-1 attribute messages of ``attrs`` (see ``_attribute_parts``)."""
+    messages = []
+    for name, kind, shape, data in _attribute_parts(attrs, out):
         space = _space_message(shape)
         encoded = name.encode("utf-8") + b"\0"
         body = (
@@ -1536,21 +1961,78 @@ def _attribute_messages(attrs, out):
     return messages
 
 
-def _dataset_header(array, out, attrs, chunk=None, pool=None):
+# HDF5's default phase change of attributes and links: compact up to 8
+MAX_COMPACT = 8
+
+
+def _attribute_messages_v3(attrs, out):
+    """(type, body) messages of ``attrs`` in a version-2 object header, as
+    HDF5's newest format stores them: an attribute info message, then
+    version-3 attribute messages up to ``MAX_COMPACT``, or past it every
+    attribute message in a fractal heap (``hdf5_write.ATTRIBUTE_HEAP``)
+    under a v2 B-tree name index of records of type 8 (heap ID, message
+    flags, creation order 0xFFFF as HDF5 writes it untracked, the name's
+    lookup3 hash; by hash, then name)."""
+    if not attrs:
+        return []
+    bodies = []
+    for name, kind, shape, data in _attribute_parts(attrs, out):
+        encoded = name.encode("utf-8")
+        space = _space_v2(shape, keep_max=False) if shape else _space_v2(())
+        bodies.append((encoded, struct.pack("<BBHHHB", 3, 0, len(encoded) + 1, len(kind),
+                                            len(space), 0 if encoded.isascii() else 1)
+                       + encoded + b"\0" + kind + space + data))
+    if len(bodies) <= MAX_COMPACT:
+        info = bytes([0, 0]) + struct.pack("<QQ", UNDEF, UNDEF)
+        return [(ATTRIBUTE_INFO, info)] + [(ATTRIBUTE, body) for _, body in bodies]
+    heap, ids = hw.fractal_heap(out, [body for _, body in bodies], hw.ATTRIBUTE_HEAP)
+    records = sorted((index.lookup3(name), name, heap_id)
+                     for (name, _), heap_id in zip(bodies, ids))
+    names = hw.btree2(out, 8, [heap_id + struct.pack("<BII", 0, 0xFFFF, h)
+                               for h, _, heap_id in records],
+                      hw.ATTRIBUTE_HEAP.id_len + 9)
+    return [(ATTRIBUTE_INFO, bytes([0, 0]) + struct.pack("<QQ", heap, names))]
+
+
+def _fill_latest(chunked):
+    """A version-3 fill value message: allocated late (contiguous) or
+    incrementally (chunked), written if set, no value set."""
+    return bytes([3, 0x0B if chunked else 0x0A])
+
+
+def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixed=False):
     """Write ``array``, then its object header; the header's address.  The
     array is contiguous, or with ``chunk`` (rows) chunked as cooler writes
-    (see ``_chunked_data``)."""
+    (see ``_chunked_data``), unlimited along its first axis unless
+    ``fixed``.  ``latest``: HDF5's newest format (a version-2 object
+    header, version-2 dataspace, version-3 fill value and attributes,
+    data layout version 4)."""
+    if latest:
+        if chunk is None:
+            data = out.put(array) if array.size else UNDEF
+            layout = [(LAYOUT, struct.pack("<BBQQ", 4, 1, data, array.nbytes))]
+        else:
+            layout = _chunked_data(array, int(chunk), out, pool, latest=True, fixed=fixed)
+        return out.put(hw.object_header([
+            (DATASPACE, _space_v2(array.shape, unlimited=chunk is not None and not fixed)),
+            (DATATYPE, _type_message(array.dtype)),
+            (FILL, _fill_latest(chunk is not None)),
+            *layout,
+            *_attribute_messages_v3(attrs or {}, out),
+        ]))
     if chunk is None:
         data = out.put(array) if array.size else UNDEF
         layout = [_message(LAYOUT, struct.pack("<BBQQ", 3, 1, data, array.nbytes))]
         # fill value version 2: allocated late, written if set, default
         fill = bytes([2, 2, 2, 1, 0, 0, 0, 0])
     else:
-        layout = _chunked_data(array, int(chunk), out, pool)
+        layout = [_message(kind, body) for kind, body in
+                  _chunked_data(array, int(chunk), out, pool, fixed=fixed)]
         fill = bytes([2, 3, 2, 1, 0, 0, 0, 0])  # allocated incrementally
     attributes = _attribute_messages(attrs or {}, out)
     return out.put(_object_header([
-        _message(DATASPACE, _space_message(array.shape, unlimited=chunk is not None)),
+        _message(DATASPACE, _space_message(array.shape, unlimited=chunk is not None
+                                           and not fixed)),
         _message(DATATYPE, _type_message(array.dtype)),
         _message(FILL, fill),
         *layout,
@@ -1565,13 +2047,17 @@ CHUNK_K = 32
 DEFLATE_LEVEL = 6
 
 
-def _chunked_data(array, rows, out, pool):
+def _chunked_data(array, rows, out, pool, latest=False, fixed=False):
     """Write ``array`` as chunks of ``rows`` rows (the trailing axes whole;
     the last chunk padded with zeros), each through HDF5's shuffle and then
-    deflate at level 6, and a version-1 chunk B-tree of type 1 over them
-    with as many levels as their count needs; the filter pipeline and
-    layout (version 3, class 2) messages.  The chunks are compressed on
-    ``pool`` when given; the bytes written do not depend on it."""
+    deflate at level 6, and the chunk index over them; the (type, body)
+    of the filter pipeline and layout messages.  The index is a
+    version-1 chunk B-tree of type 1 with as many levels as the chunks
+    need (layout version 3), or with ``latest`` that of layout version 4
+    HDF5 picks: an extensible array along an unlimited first axis, a
+    single chunk or a fixed array when the shape is ``fixed``.  The
+    chunks are compressed on ``pool`` when given; the bytes written do not
+    depend on it."""
     tail, element = array.shape[1:], array.dtype.itemsize
     row = element * int(np.prod(tail, dtype=np.int64))
     flat = array.reshape(-1).view(np.uint8) if array.size else np.zeros(0, np.uint8)
@@ -1592,58 +2078,52 @@ def _chunked_data(array, rows, out, pool):
     batches = [range(k, min(k + 16, n_chunks)) for k in range(0, n_chunks, 16)]
     results = pool.map(compress, batches) if pool is not None else map(compress, batches)
     rank = len(array.shape)
-    keys, children = [], []
-    for batch, done in zip(batches, results):
-        for k, data in zip(batch, done):
+    children, sizes = [], []
+    for done in results:
+        for data in done:
             children.append(out.put(data))
-            keys.append(struct.pack(f"<II{rank + 1}Q", len(data), 0, k * rows, *[0] * rank))
+            sizes.append(len(data))
+    dims = [rows, *tail, element]
+    if latest:
+        pipeline = struct.pack("<BB", 2, 2) + struct.pack("<HHHI", SHUFFLE, 1, 1, element)
+        pipeline += struct.pack("<HHHI", DEFLATE, 1, 1, DEFLATE_LEVEL)
+        width = hw.enc_size(max(dims))
+        head = struct.pack("<BBBBB", 4, 2, 0, rank + 1, width) + b"".join(
+            int(d).to_bytes(width, "little") for d in dims)
+        size_len = index.chunk_size_len(size)
+        elements = [(a, n, 0) for a, n in zip(children, sizes)]
+        if fixed and n_chunks == 1 and rows == array.shape[0]:
+            head = bytearray(head)
+            head[2] = 0x2  # a single chunk, filtered: its size and mask follow
+            layout = bytes(head) + bytes([SINGLE_CHUNK]) + struct.pack("<QIQ", sizes[0], 0,
+                                                                       children[0])
+        elif fixed:
+            addr = hw.fixed_array(out, elements, size_len) if n_chunks else UNDEF
+            layout = head + bytes([FIXED_ARRAY, hw.PAGE_BITS]) + struct.pack("<Q", addr)
+        else:
+            addr = hw.extensible_array(out, elements, size_len) if n_chunks else UNDEF
+            layout = head + bytes([EXTENSIBLE_ARRAY, hw.EA_MAX_BITS, hw.EA_IBLOCK,
+                                   hw.EA_SBLK_MIN, hw.EA_DBLK_MIN, hw.PAGE_BITS])
+            layout += struct.pack("<Q", addr)
+        return [(FILTERS, pipeline), (LAYOUT, layout)]
+    keys = [struct.pack(f"<II{rank + 1}Q", n, 0, k * rows, *[0] * rank)
+            for k, n in enumerate(sizes)]
     # the key after the last chunk: the end of its rows, and 1 in the
     # element dimension (as HDF5 writes it)
     keys.append(struct.pack(f"<II{rank + 1}Q", 0, 0, n_chunks * rows, *[0] * (rank - 1),
                             element))
-    btree = _chunk_btree(keys, children, rank, out) if children else UNDEF
+    per_node = 2 * CHUNK_K
+    key_size = 8 + 8 * (rank + 1)
+    btree = hw.btree1(out, 1, keys, children, per_node, key_size,
+                      24 + per_node * 8 + (per_node + 1) * key_size) if children else UNDEF
     pipeline = struct.pack("<BB6x", 1, 2)
     for fid, name, value in ((SHUFFLE, b"shuffle", element), (DEFLATE, b"deflate",
                                                                  DEFLATE_LEVEL)):
         # id, name length, flags (optional), one value, name, value, pad
         pipeline += struct.pack("<HHHH", fid, 8, 1, 1) + name + b"\0" + struct.pack(
             "<I4x", value)
-    dims = struct.pack(f"<{rank + 1}I", rows, *tail, element)
-    layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree) + dims
-    return [_message(FILTERS, pipeline), _message(LAYOUT, layout)]
-
-
-def _chunk_btree(keys, children, rank, out):
-    """Write a version-1 B-tree of type 1 (chunks) over ``children`` (chunk
-    addresses, in order) and ``keys`` (one per chunk and one past the
-    last): leaves of up to 2 * CHUNK_K chunks, then levels of nodes over
-    them until one node holds the rest, each level's nodes adjacent and
-    linked to their siblings, each node at its full size; the root's
-    address."""
-    per_node = 2 * CHUNK_K
-    key_size = 8 + 8 * (rank + 1)
-    node_size = 24 + per_node * 8 + (per_node + 1) * key_size
-    level = 0
-    while True:
-        starts = range(0, len(children), per_node)
-        base = _align8(out.eof)
-        addrs = [base + i * node_size for i in range(len(starts))]
-        up_keys = []
-        for i, start in enumerate(starts):
-            stop = min(start + per_node, len(children))
-            left = addrs[i - 1] if i else UNDEF
-            right = addrs[i + 1] if i + 1 < len(addrs) else UNDEF
-            node = b"TREE" + struct.pack("<BBHQQ", 1, level, stop - start, left, right)
-            node += b"".join(keys[j] + struct.pack("<Q", children[j]) for j in range(start, stop))
-            node += keys[stop]
-            put = out.put(node + bytes(node_size - len(node)))
-            if put != addrs[i]:
-                raise RuntimeError(f"chunk B-tree node written at {put}, not {addrs[i]}")
-            up_keys.append(keys[start])
-        if len(addrs) == 1:
-            return addrs[0]
-        keys, children = up_keys + [keys[-1]], addrs
-        level += 1
+    layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree) + struct.pack(f"<{rank + 1}I", *dims)
+    return [(FILTERS, pipeline), (LAYOUT, layout)]
 
 
 def _entry(name_offset, header, cache=None):
@@ -1653,68 +2133,130 @@ def _entry(name_offset, header, cache=None):
     return struct.pack("<QQIIQQ", name_offset, header, 1, 0, *cache)
 
 
-def _write_group(out, tree, attrs, path="", chunks=None, group_attrs=None, pool=None):
-    """Write the members of ``tree`` ({name: array or subtree}), then the
-    group at ``path``: its local heap, symbol-table nodes, B-tree and
-    object header; (header, B-tree, heap) addresses.  ``chunks`` and
-    ``group_attrs`` are ``write``'s, by path from the root."""
-    chunks, group_attrs = chunks or {}, group_attrs or {}
-    names = sorted(tree, key=lambda n: n.encode("utf-8"))
-    entries = []
-    for name in names:
+def _write_members(out, tree, path, options):
+    """Write the members of the group ``tree`` ({name: array or subtree})
+    at ``path``, in name order; [(name, header address, (B-tree, heap)
+    of a symbol-table subgroup or None)]."""
+    chunks, group_attrs, fixed, pool, latest = options
+    members = []
+    for name in sorted(tree, key=lambda n: n.encode("utf-8")):
         node, where = tree[name], f"{path}/{name}".strip("/")
         if isinstance(node, dict):
-            header, btree, heap = _write_group(out, node, group_attrs.get(where, {}), where,
-                                               chunks, group_attrs, pool)
-            entries.append((header, (btree, heap)))
+            writer = _write_group_latest if latest else _write_group
+            header, cache = writer(out, node, group_attrs.get(where, {}), where, options)
+            members.append((name, header, cache))
         else:
             header = _dataset_header(np.ascontiguousarray(node), out, None, chunks.get(where),
-                                     pool)
-            entries.append((header, None))
+                                     pool, latest, where in fixed)
+            members.append((name, header, None))
+    return members
+
+
+def _write_group(out, tree, attrs, path, options):
+    """Write the members of ``tree``, then the symbol-table group at
+    ``path``: its local heap, symbol-table nodes, B-tree and object
+    header; (header, (B-tree, heap)) addresses."""
+    members = _write_members(out, tree, path, options)
     heap_data, offsets = bytearray(8), []
-    for name in names:
+    for name, _, _ in members:
         offsets.append(len(heap_data))
         heap_data += _pad8(name.encode("utf-8") + b"\0")
     free = len(heap_data)
     heap_data += struct.pack("<QQ", FREE_NULL, 64) + bytes(48)
     heap = out.eof
     out.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(heap_data), free, heap + 32) + heap_data)
-    per_node = 2 * LEAF_K
-    if len(names) > per_node * 2 * INTERNAL_K:
-        raise NotImplementedError(f"a group of more than {per_node * 2 * INTERNAL_K} members")
-    children, keys = [], [0]
-    for start in range(0, len(names), per_node):
-        rows = [
-            _entry(offsets[i], header, cache)
-            for i, (header, cache) in zip(range(start, start + per_node), entries[start:])
-        ]
-        node = b"SNOD" + struct.pack("<BBH", 1, 0, len(rows)) + b"".join(rows)
-        children.append(out.put(node + bytes(8 + per_node * 40 - len(node))))
-        keys.append(offsets[min(start + per_node, len(names)) - 1])
-    node = b"TREE" + struct.pack("<BBHQQ", 0, 0, len(children), UNDEF, UNDEF)
-    for key, child in zip(keys, children):
-        node += struct.pack("<QQ", key, child)
-    node += struct.pack("<Q", keys[-1])
-    btree = out.put(node + bytes(24 + (4 * INTERNAL_K + 1) * 8 - len(node)))
-    table = struct.pack("<QQ", btree, heap)
+    entries = [_entry(offset, header, cache)
+               for offset, (_, header, cache) in zip(offsets, members)]
+    btree = hw.symbol_table(out, entries, offsets, 0, LEAF_K, INTERNAL_K)
     header = out.put(_object_header(
-        [_message(SYMBOL_TABLE, table), *_attribute_messages(attrs, out)]
+        [_message(SYMBOL_TABLE, struct.pack("<QQ", btree, heap)),
+         *_attribute_messages(attrs, out)]
     ))
-    return header, btree, heap
+    return header, (btree, heap)
 
 
-def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None):
-    """Write a new HDF5 file (superblock version 0): ``datasets`` maps
-    paths ("bins/start", "resolutions/5000/pixels/count") to numpy arrays
-    of integers, floats, fixed strings or enums (``enum_dtype``), in
-    symbol-table groups made from the paths; ``attrs`` are the root
-    group's attributes and ``group_attrs`` {group path: attributes} those
-    of other groups (see ``_attribute_messages``).  A dataset is stored
-    contiguous, or, where ``chunks`` {path: rows} names it, chunked in
-    cooler's layout: chunks of that many rows, shuffle then deflate at
-    level 6, unlimited along the first axis (see ``_chunked_data``),
-    compressed on ``THREADS`` threads; the bytes written do not depend on
-    the thread count."""
+def _hard_link(name, header, order=None):
+    """The body of a hard link message (version 1) from ``name`` to the
+    object header ``header``, with its creation ``order`` when given."""
+    encoded = name.encode("utf-8")
+    width = 0 if len(encoded) < 256 else 1
+    # flags: name length width, creation order, UTF-8
+    body = bytearray([1, width])
+    if order is not None:
+        body[1] |= 0x4
+        body += struct.pack("<q", order)
+    if not encoded.isascii():
+        body[1] |= 0x10
+        body.append(1)
+    body += len(encoded).to_bytes(1 << width, "little") + encoded
+    return bytes(body + struct.pack("<Q", header))
+
+
+def _dense_links(out, links, by_order):
+    """Write the link messages of ``links`` ([(name, creation order,
+    body)]) as HDF5's dense link storage: a fractal heap
+    (``hdf5_write.LINK_HEAP``), a v2 B-tree name index of records of type
+    5 (the name's lookup3 hash, the heap ID; by hash, then name) and, with
+    ``by_order``, a creation-order index of type 6 (the creation order,
+    the heap ID); (heap, name index, creation-order index or None)."""
+    heap, ids = hw.fractal_heap(out, [body for _, _, body in links], hw.LINK_HEAP)
+    id_len = hw.LINK_HEAP.id_len
+    by_name = sorted((index.lookup3(n.encode("utf-8")), n.encode("utf-8"), heap_id)
+                     for (n, _, _), heap_id in zip(links, ids))
+    names = hw.btree2(out, 5, [struct.pack("<I", h) + i for h, _, i in by_name], 4 + id_len)
+    orders = None
+    if by_order:
+        by_creation = sorted((order, heap_id) for (_, order, _), heap_id in zip(links, ids))
+        orders = hw.btree2(out, 6, [struct.pack("<q", o) + i for o, i in by_creation],
+                           8 + id_len)
+    return heap, names, orders
+
+
+def _write_group_latest(out, tree, attrs, path, options):
+    """Write the members of ``tree``, then the new-style group at ``path``
+    in HDF5's newest format: link messages in its version-2 header up to
+    ``MAX_COMPACT``, past it dense (a fractal heap under a v2 B-tree
+    name index, as ``File._store_dense`` stores them); (header, None)."""
+    members = _write_members(out, tree, path, options)
+    links = [(name, None, _hard_link(name, header)) for name, header, _ in members]
+    heap = names = UNDEF
+    messages = []
+    if len(links) > MAX_COMPACT:
+        heap, names, _ = _dense_links(out, links, False)
+    else:
+        messages = [(LINK, body) for _, _, body in links]
+    return out.put(hw.object_header([
+        (LINK_INFO, bytes([0, 0]) + struct.pack("<QQ", heap, names)),
+        (GROUP_INFO, bytes([0, 0])),
+        *_attribute_messages_v3(attrs, out),
+        *messages,
+    ])), None
+
+
+def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=(),
+          libver="earliest"):
+    """Write a new HDF5 file: ``datasets`` maps paths ("bins/start",
+    "resolutions/5000/pixels/count") to numpy arrays of integers, floats,
+    fixed strings or enums (``enum_dtype``), in groups made from the
+    paths; ``attrs`` are the root group's attributes and ``group_attrs``
+    {group path: attributes} those of other groups (see
+    ``_attribute_parts``).  A dataset is stored contiguous, or, where
+    ``chunks`` {path: rows} names it, chunked in cooler's layout: chunks
+    of that many rows, shuffle then deflate at level 6, unlimited along
+    the first axis unless ``fixed`` names its path (see
+    ``_chunked_data``), compressed on ``THREADS`` threads; the bytes
+    written do not depend on the thread count.
+
+    ``libver``: "earliest" (superblock version 0, version-1 object
+    headers, symbol-table groups, data layout version 3) or "latest",
+    what h5py writes at ``libver="latest"``: superblock version 3,
+    version-2 object headers, new-style groups (compact up to 8 links,
+    dense past them), version-3 attribute messages (dense past 8), data
+    layout version 4 with the chunk index HDF5 picks (extensible array,
+    fixed array or single chunk)."""
+    if libver not in ("earliest", "latest"):
+        raise ValueError(f"libver must be 'earliest' or 'latest', not {libver!r}")
+    latest = libver == "latest"
     tree = {}
     for name, array in datasets.items():
         *groups, leaf = [p for p in name.split("/") if p]
@@ -1724,19 +2266,27 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None):
         node[leaf] = array
     chunks = {name.strip("/"): rows for name, rows in (chunks or {}).items()}
     group_attrs = {name.strip("/"): a for name, a in (group_attrs or {}).items()}
+    fixed = {name.strip("/") for name in fixed}
     pool = concurrent.futures.ThreadPoolExecutor(THREADS) if chunks and THREADS > 1 else None
     fd = os.open(str(path), os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o666)
     try:
-        out = _Appender(fd, 96)
-        header, btree, heap = _write_group(out, tree, dict(attrs or {}), "", chunks,
-                                           group_attrs, pool)
-        eof = out.finish()
-        superblock = (
-            SIGNATURE + bytes([0, 0, 0, 0, 0, OFFSET_SIZE, LENGTH_SIZE, 0])
-            + struct.pack("<HHI", LEAF_K, INTERNAL_K, 0)
-            + struct.pack("<QQQQ", 0, UNDEF, eof, UNDEF)
-            + _entry(0, header, (btree, heap))
-        )
+        options = (chunks, group_attrs, fixed, pool, latest)
+        if latest:
+            out = hw.Appender(fd, 48)
+            header, _ = _write_group_latest(out, tree, dict(attrs or {}), "", options)
+            eof = out.finish()
+            superblock = hw.signed(SIGNATURE + bytes([3, OFFSET_SIZE, LENGTH_SIZE, 0])
+                                      + struct.pack("<QQQQ", 0, UNDEF, eof, header))
+        else:
+            out = hw.Appender(fd, 96)
+            header, cache = _write_group(out, tree, dict(attrs or {}), "", options)
+            eof = out.finish()
+            superblock = (
+                SIGNATURE + bytes([0, 0, 0, 0, 0, OFFSET_SIZE, LENGTH_SIZE, 0])
+                + struct.pack("<HHI", LEAF_K, INTERNAL_K, 0)
+                + struct.pack("<QQQQ", 0, UNDEF, eof, UNDEF)
+                + _entry(0, header, cache)
+            )
         os.pwrite(fd, superblock, 0)
     finally:
         os.close(fd)

@@ -17,12 +17,13 @@ callers then take their numpy versions.  Set CHROMOSIGHT_TPU_NO_NATIVE=1
 to disable it, as for the JAX package.
 
 The HDF5 reader's and writer's filters are built the same way from
-``lzf.cpp`` (LZF decoding), ``shuffle.cpp`` (the shuffle filter) and
+``lzf.cpp`` (LZF decoding), ``shuffle.cpp`` (the shuffle filter),
 ``inflate.cpp`` (deflate-filtered chunks of a slice on threads, with
-``shuffle.cpp`` and zlib), each into a library of its own;
-``lzf_decompress``, ``unshuffle`` and ``shuffle`` take their Python and
-numpy versions under the same rule, and ``inflate_chunks`` leaves its
-chunks to the caller's Python decoding.
+``shuffle.cpp`` and zlib) and ``bits.cpp`` (the n-bit and scale-offset
+filters), each into a library of its own; ``lzf_decompress``,
+``unshuffle``, ``shuffle``, ``nbit_decode`` and ``scaleoffset_decode``
+take their Python and numpy versions under the same rule, and
+``inflate_chunks`` leaves its chunks to the caller's Python decoding.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ _SRC = pathlib.Path(__file__).parent / "kernels.cpp"
 _LZF_SRC = pathlib.Path(__file__).parent / "lzf.cpp"
 _SHUFFLE_SRC = pathlib.Path(__file__).parent / "shuffle.cpp"
 _INFLATE_SRC = pathlib.Path(__file__).parent / "inflate.cpp"
+_BITS_SRC = pathlib.Path(__file__).parent / "bits.cpp"
 BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LIB = None
@@ -1022,6 +1024,18 @@ def _filter_lib(src):
                     lib.lzf_decompress.argtypes = [
                         ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                     ]
+                elif lib is not None and name == "bits":
+                    lib.hdf5_nbit_decode.restype = ctypes.c_int64
+                    lib.hdf5_nbit_decode.argtypes = [
+                        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ]
+                    lib.hdf5_scaleoffset_decode.restype = ctypes.c_int64
+                    lib.hdf5_scaleoffset_decode.argtypes = [
+                        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_char_p, ctypes.c_void_p,
+                    ]
                 elif lib is not None and name == "inflate":
                     lib.hdf5_inflate_chunks.restype = ctypes.c_int64
                     lib.hdf5_inflate_chunks.argtypes = [
@@ -1040,9 +1054,10 @@ def _filter_lib(src):
 
 
 def filters_native():
-    """Whether the HDF5 filters run natively (``lzf.cpp``, ``shuffle.cpp``
-    and ``inflate.cpp`` built and loaded)."""
-    return all(_filter_lib(src) is not None for src in (_LZF_SRC, _SHUFFLE_SRC, _INFLATE_SRC))
+    """Whether the HDF5 filters run natively (``lzf.cpp``, ``shuffle.cpp``,
+    ``inflate.cpp`` and ``bits.cpp`` built and loaded)."""
+    return all(_filter_lib(src) is not None
+               for src in (_LZF_SRC, _SHUFFLE_SRC, _INFLATE_SRC, _BITS_SRC))
 
 
 def inflate_chunks(buf, in_off, in_len, out, out_off, chunk_bytes, element, threads):
@@ -1191,3 +1206,121 @@ def shuffle_numpy(raw, size):
         return bytes(raw)
     body = np.frombuffer(raw, np.uint8, n * size).reshape(n, size).T.tobytes()
     return body + bytes(raw[n * size :])
+
+
+# -- the n-bit and scale-offset filters ------------------------------------ #
+
+def _bits_check(got, what, n_in):
+    if got != 0:
+        raise OSError(f"{what}: a chunk of {n_in} bytes ends before its elements")
+
+
+def nbit_decode(data, values):
+    """One chunk of HDF5's n-bit filter (``values`` its client data:
+    parameter count, whether the data went uncompressed, elements, class
+    code 1, element size, byte order, precision, bit offset) decoded by
+    ``bits.cpp``, or by ``nbit_decode_numpy`` under
+    CHROMOSIGHT_TPU_NO_NATIVE or without a compiler: each element's
+    precision bits at its bit offset, its other bits 0.  Raises OSError
+    when the chunk ends early."""
+    _, raw_copy, n, _, size, order, precision, offset = values[:8]
+    if raw_copy:
+        return bytes(data)
+    lib = _filter_lib(_BITS_SRC)
+    if lib is None:
+        return nbit_decode_numpy(data, values)
+    out = np.empty(n * size, np.uint8)
+    _bits_check(lib.hdf5_nbit_decode(bytes(data), len(data), n, size, order, precision, offset,
+                                     out.ctypes.data), "n-bit", len(data))
+    return out.tobytes()
+
+
+def scaleoffset_decode(data, values):
+    """One chunk of HDF5's scale-offset filter (``values`` its client
+    data: scale type, scale factor, elements, class (0 integer, 1 float),
+    element size, sign, byte order, whether a fill value is set, the fill
+    value's bytes) decoded by ``bits.cpp``, or by
+    ``scaleoffset_decode_numpy`` under CHROMOSIGHT_TPU_NO_NATIVE or
+    without a compiler.  Raises OSError when the chunk ends early."""
+    lib = _filter_lib(_BITS_SRC)
+    if lib is None:
+        return scaleoffset_decode_numpy(data, values)
+    scale_type, scale, n, cls, size, _, order, filavail = values[:8]
+    if cls == 1 and scale_type != 0:
+        raise OSError(f"scale-offset: float scale type {scale_type} (HDF5 decodes D-scaling only)")
+    fill = np.asarray(values[8:], "<u4").tobytes() + bytes(8)
+    out = np.empty(n * size, np.uint8)
+    _bits_check(lib.hdf5_scaleoffset_decode(bytes(data), len(data), n, cls, size, order,
+                                            np.int32(np.uint32(scale)), filavail, fill,
+                                            out.ctypes.data), "scale-offset", len(data))
+    return out.tobytes()
+
+
+def unpack_bits_numpy(data, n, bits):
+    """``n`` values of ``bits`` bits each (at most 64) from the start of
+    ``data``, most significant bit first, as uint64; None when ``data``
+    ends first."""
+    if bits == 0:
+        return np.zeros(n, np.uint64)
+    if len(data) * 8 < n * bits:
+        return None
+    stream = np.unpackbits(np.frombuffer(data, np.uint8))[: n * bits].reshape(n, bits)
+    out = np.zeros(n, np.uint64)
+    for column in range(bits):
+        out = (out << np.uint64(1)) | stream[:, column].astype(np.uint64)
+    return out
+
+
+def _ordered(values, size, order):
+    """uint64 ``values`` as elements of ``size`` bytes in byte order
+    ``order`` (0: little endian)."""
+    kind = np.dtype(f"{'>' if order else '<'}u{size}")
+    return values.astype(kind.newbyteorder("=")).astype(kind).tobytes()
+
+
+def nbit_decode_numpy(data, values):
+    """The numpy version of ``nbit_decode``."""
+    _, raw_copy, n, _, size, order, precision, offset = values[:8]
+    if raw_copy:
+        return bytes(data)
+    v = unpack_bits_numpy(bytes(data), n, precision)
+    _bits_check(0 if v is not None else -1, "n-bit", len(data))
+    return _ordered(v << np.uint64(offset) if offset < 64 else v * np.uint64(0), size, order)
+
+
+def scaleoffset_decode_numpy(data, values):
+    """The numpy version of ``scaleoffset_decode``: the same arithmetic,
+    in the element's own type (float32 for 4-byte floats)."""
+    scale_type, scale, n, cls, size, _, order, filavail = values[:8]
+    if cls == 1 and scale_type != 0:
+        raise OSError(f"scale-offset: float scale type {scale_type} (HDF5 decodes D-scaling only)")
+    data = bytes(data)
+    _bits_check(0 if len(data) >= 21 else -1, "scale-offset", len(data))
+    minbits = int.from_bytes(data[:4], "little")
+    minval = int.from_bytes(data[5 : 5 + min(data[4], 8)], "little")
+    body = data[21:]
+    if minbits == size * 8:
+        _bits_check(0 if len(body) >= n * size else -1, "scale-offset", len(data))
+        raw = np.frombuffer(body, f"<u{size}", n).astype(np.uint64)
+        return _ordered(raw, size, order)
+    v = unpack_bits_numpy(body, n, minbits)
+    _bits_check(0 if v is not None else -1, "scale-offset", len(data))
+    mask = np.uint64((1 << (8 * size)) - 1) if size < 8 else np.uint64(~0 & (2**64 - 1))
+    if cls == 0:
+        value = (v + np.uint64(minval & int(mask))) & mask
+    elif size == 4:
+        low = np.array([minval & 0xFFFFFFFF], np.uint32).view(np.float32)[0]
+        scale = int(np.int32(np.uint32(scale)))
+        x = (v.astype(np.uint32).view(np.int32).astype(np.float32)
+             / np.float32(np.power(np.float32(10.0), np.float32(scale))) + low)
+        value = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    else:
+        low = np.array([minval], np.uint64).view(np.float64)[0]
+        scale = int(np.int32(np.uint32(scale)))
+        x = v.view(np.int64).astype(np.float64) / np.power(10.0, float(scale)) + low
+        value = x.view(np.uint64)
+    if filavail:
+        fill = np.asarray(values[8:], "<u4").tobytes() + bytes(8)
+        all_ones = np.uint64((1 << minbits) - 1) if minbits < 64 else np.uint64(2**64 - 1)
+        value = np.where(v == all_ones, np.uint64(int.from_bytes(fill[:size], "little")), value)
+    return _ordered(value.astype(np.uint64), size, order)
