@@ -52,8 +52,8 @@ Phases, one line or block each; any failure raises (non-zero exit):
             force`` stores into a copy of example.cool, bit for bit, and
             gives its table byte for byte; then the example through one
             HDF5 feature each (tests/data/example_{soft,scaleoffset,nbit,
-            external_storage,shared,dense_bins}.cool and
-            example_external.mcool, written by
+            external_storage,shared,dense_bins,szip,szip_shuffle_ec,
+            virtual}.cool and example_external.mcool, written by
             tests/test_torch_hdf5_features.py): the feature's structure
             walked, loops, borders and quantify byte for byte the tables
             from example.cool, ``--norm force`` on a copy storing its 637
@@ -137,6 +137,18 @@ Phases, one line or block each; any failure raises (non-zero exit):
             loops: weights bit for bit the genome's, tables and windows
             byte for byte phase 5's, 13 single launches a loops run, the
             structures walked, stages beside 8c's; the file deleted.
+8e. szip-genome  phase 5's genome (not cut) written by the port in
+            cooler's layout with szip (``write_cooler_layout(...,
+            compression="szip")``: shuffle + szip ('nn', 8) on every
+            column HDF5 takes szip for, int64 ids, an enum ``bins/chrom``;
+            the free space checked first) as
+            ``genome.mcool::/resolutions/5000``: the write's seconds and
+            bytes; ``detect`` loops with its pages dropped and from the
+            page cache, and ``quantify`` of the planted loops: tables and
+            windows byte for byte phase 5's, 13 single launches a loops
+            run, szip chunks walked, ``io: fetch+scatter``, ``io: upload``
+            and the wall beside 8c's runs of the same call; the file
+            deleted.
 9. api      the Python API of docs/TUTORIAL.md and the notebooks, on the
             card by default: TUTORIAL's block and detect_example.ipynb's loop
             on the example map (each map's calls those of the command line's
@@ -284,6 +296,10 @@ FEATURE_FIXTURES = (
      ("tests/data/example_external_storage.raw",), "external storage"),
     ("shared messages", "tests/data/example_shared.cool", (), "shared message in a heap"),
     ("dense bins", "tests/data/example_dense_bins.cool", (), "BTHD type 5"),
+    ("szip NN", "tests/data/example_szip.cool", (), "szip chunk"),
+    ("shuffle + szip EC", "tests/data/example_szip_shuffle_ec.cool", (), "szip chunk"),
+    ("virtual", "tests/data/example_virtual.cool",
+     ("tests/data/example_virtual_a.h5", "tests/data/example_virtual_b.h5"), "virtual mapping"),
 )
 # latest-genome: more bins columns, named as normalisation vectors are
 # (with chrom, start and end, the eight links of a compact group)
@@ -517,6 +533,7 @@ def compare(name, ref, got, n, max_dist, pearson=PEARSON):
 
 
 REPORTS = []  # the kernel-against-twin results of a phase, printed by flush_reports
+COLUMNS_SHOWN = []  # whether flush_reports named its columns yet
 
 
 def report(name, results):
@@ -534,9 +551,11 @@ def flush_reports(what):
     max|d|, its float32 ulps, candidate flips, their largest gap to the
     threshold, candidates (per kernel of a K-kernel launch, each slice
     bit-identical to its single launch)."""
-    print(f"[kernels] {what} against the plain twin (corr max|d|, log10p max|d|, ulps, cand "
-          f"flips, max gap, candidates): " + "; ".join(REPORTS))
+    columns = ("columns as above" if COLUMNS_SHOWN else
+               "corr max|d|, log10p max|d|, ulps, cand flips, max gap, candidates")
+    print(f"[kernels] {what} against the plain twin ({columns}): " + "; ".join(REPORTS))
     REPORTS.clear()
+    COLUMNS_SHOWN.append(True)
 
 
 def random_case(kernel_shape, n, n_pad, rng):
@@ -1145,8 +1164,7 @@ def phase_formats(workdir):
     for path, signatures in expect_walked.items():
         (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
         print(f"[formats] {short_path(path)}: open + headers {t_open:.6f} s, index walk "
-              f"{t_index:.6f} s, read {t_read:.6f} s ({n} datasets, {n_bytes} bytes) on the "
-              f"host of {card}; "
+              f"{t_index:.6f} s, read {t_read:.6f} s ({n} datasets, {n_bytes} bytes); "
               f"walked {json.dumps({sig: walked.get(sig, 0) for sig in signatures})}")
         missing = [sig for sig in signatures if not walked.get(sig)]
         check(not missing, f"{path}: structures not walked: {missing}")
@@ -1159,17 +1177,16 @@ def phase_formats(workdir):
         new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest",
                             show=False)
         same = pathlib.Path(new + ".tsv").read_bytes() == pathlib.Path(old + ".tsv").read_bytes()
-        same_tables.append(f"{golden[len('golden_detect_'):]} from {short_path(path)} {same}")
+        same_tables.append(f"{golden[len('golden_detect_'):]} from {short_path(path)}")
         check(same, f"{golden} from {path}: table differs from {EXAMPLE_COOL}'s")
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0", show=False)
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest",
                     show=False)
     same = (pathlib.Path(f"{workdir}/golden_quantify_loops_latest.tsv").read_bytes()
             == pathlib.Path(f"{workdir}/golden_quantify_loops_v0.tsv").read_bytes())
-    same_tables.append(f"quantify from {short_path(LATEST_COOL)} {same}")
-    print(f"[formats] tables byte for byte those from {EXAMPLE_COOL}: "
-          + ", ".join(same_tables))
     check(same, "quantify table differs")
+    same_tables.append(f"quantify from {short_path(LATEST_COOL)}")
+    print(f"[formats] byte for byte the tables from {EXAMPLE_COOL}: " + ", ".join(same_tables))
 
     # --norm force on a weightless newer-format copy and on a copy of
     # example.cool: ICE on the host, the weights stored by the port's writer
@@ -1463,9 +1480,9 @@ def phase_surface_example(workdir):
     with contextlib.redirect_stdout(out):
         check(main(["list-kernels", "--long", "--mat"]) == 0, "list-kernels failed")
     names = [ln for ln in out.getvalue().splitlines() if ln and ln[0].isalpha()]
-    print(f"[surface] list-kernels --long --mat: {len(names)} presets {names}, "
-          f"{len(out.getvalue().splitlines())} lines")
     check(names == cli.kernel_names and len(names) == 7, "list-kernels presets")
+    print(f"[surface] list-kernels --long --mat: the {len(names)} presets of kernel_names, "
+          f"{len(out.getvalue().splitlines())} lines")
 
     cfg = f"{workdir}/borders_cfg"
     check(main(["generate-config", "--preset", "borders", cfg]) == 0, "generate-config")
@@ -1610,13 +1627,14 @@ def phase_surface_genome(source, workdir):
             cut, workdir, f"subsample{threads}",
             ["--subsample", "0.5", "--perc-zero", "100", "--threads", threads],
             rng=np.random.RandomState(0))
+        same = "" if threads == "1" else "; byte for byte --threads 1's (one seed)"
+        if same:
+            check(outs["1"] == outs["4"], "--subsample: --threads 4 differs from --threads 1")
         print(f"[surface] --subsample 0.5 --threads {threads} on {first} x {GENOME_BINS}: "
               f"{len(table['bin1'])} calls, recall {planted_recall(cut, table):.4f}, wall "
-              f"{time.perf_counter() - t0:.2f} s, launches {seen}")
+              f"{time.perf_counter() - t0:.2f} s, launches {seen}{same}")
         check(seen == {"single": first, "multi": 0}, f"--subsample launches {seen}")
         check(len(table["bin1"]) > 0, "--subsample: no call")
-    check(outs["1"] == outs["4"], "--subsample: --threads 4 differs from --threads 1")
-    print("[surface] --subsample: --threads 4 byte-identical to --threads 1 (one seed)")
 
 
 def inter_quantify(workdir, tag):
@@ -1644,10 +1662,11 @@ def phase_golden_inter(workdir):
         try:
             tiled.TILES.update(scanned=0, skipped=0, scattered=0)
             golden_detect(workdir, "golden_detect_loops_inter", ["--inter"],
-                          {"single": 3, "multi": 0})
+                          {"single": 3, "multi": 0}, show=tag == "dense")
             scanned = tiled.TILES["scanned"]
             check((scanned > 0) == (tag == "tiled"), f"{tag}: {scanned} tiles scanned")
-            print(f"[golden-inter] {tag} engine: {scanned} tiles scanned")
+            print(f"[golden-inter] {tag} engine: {scanned} tiles scanned"
+                  + ("; the golden within its bounds again" if tag == "tiled" else ""))
             rows[tag] = inter_quantify(workdir, tag)
         finally:
             contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = limit, tile
@@ -1897,8 +1916,6 @@ def write_cool(source, path, tag):
     need = source.nnz * (source.bin1.itemsize + source.bin2.itemsize + source.count.itemsize)
     need += 64 * source.n_bins + (1 << 20)
     free = shutil.disk_usage(os.path.dirname(path)).free
-    print(f"[{tag}] {os.path.dirname(path)}: {free / 1e9:.2f} GB free, the file needs "
-          f"{need / 1e9:.2f} GB")
     check(free > need, f"{tag}: {free} bytes free, the .cool file needs {need}")
     t0 = time.perf_counter()
     pixels = {"bin1_id": source.bin1, "bin2_id": source.bin2, "count": source.count}
@@ -1906,7 +1923,7 @@ def write_cool(source, path, tag):
     seconds = time.perf_counter() - t0
     size = os.path.getsize(path)
     print(f"[{tag}] create_cool wrote {path}: {source.nnz} pixels, {size} bytes in "
-          f"{seconds:.2f} s ({size / seconds / 1e9:.2f} GB/s)")
+          f"{seconds:.2f} s ({size / seconds / 1e9:.2f} GB/s; {free / 1e9:.2f} GB were free)")
     return path
 
 
@@ -2014,8 +2031,6 @@ def phase_cooler_genome(source, workdir, contiguous_read):
     raw = source.nnz * (8 + 8 + source.count.itemsize)
     need = raw + 64 * source.n_bins + (1 << 20)
     free = shutil.disk_usage(os.path.dirname(path)).free
-    print(f"[{tag}] {free / 1e9:.2f} GB free, the columns hold {raw / 1e9:.2f} GB raw "
-          f"(the file less)")
     check(free > need, f"{tag}: {free} bytes free, the .mcool file may need {need}")
     card = nvidia_smi("name,power.limit")
     n_chroms = len(source.chromnames)
@@ -2035,9 +2050,9 @@ def phase_cooler_genome(source, workdir, contiguous_read):
             enum = f["resolutions/5000/bins/chrom"].dtype
         size = os.path.getsize(path)
         print(f"[{tag}] write_cooler_layout, {short_path(uri)}: {source.nnz} pixels, {size} "
-              f"bytes in {seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of pixel columns, "
-              f"{hdf5.THREADS} threads) on the host of {card}; pixel columns (dtype, chunk "
-              f"rows, chunks, chunk B-tree depth): " + "; ".join(
+              f"bytes in {seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of {raw / 1e9:.2f} GB "
+              f"of pixel columns, {hdf5.THREADS} threads, {free / 1e9:.2f} GB free); pixel "
+              f"columns (dtype, chunk rows, chunks, chunk B-tree depth): " + "; ".join(
                   f"{col} {' '.join(map(str, v))}" for col, v in columns.items()))
         check([v[:2] for v in columns.values()] == [("int64", 6094), ("int64", 6094),
                                                      ("int32", 12188)],
@@ -2116,7 +2131,6 @@ def phase_latest_genome(source, workdir):
     need = raw + 64 * source.n_bins + (1 << 20)
     free = shutil.disk_usage(os.path.dirname(path)).free
     check(free > need, f"{tag}: {free} bytes free, the file may need {need}")
-    card = nvidia_smi("name,power.limit")
     n_chroms = len(source.chromnames)
     phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
     rng = np.random.RandomState(0)
@@ -2133,7 +2147,7 @@ def phase_latest_genome(source, workdir):
             links, dense = len(f["bins"].keys()), f["bins"].dense
             superblock = f._version
         print(f"[{tag}] write_cooler_layout(libver=\"latest\"): {source.nnz} "
-              f"pixels, {os.path.getsize(path)} bytes in {seconds:.2f} s on the host of {card}; "
+              f"pixels, {os.path.getsize(path)} bytes in {seconds:.2f} s; "
               f"superblock {superblock}, pixel chunk indexes {sorted(set(kinds.values()))}, "
               f"bins {links} links (dense {dense})")
         check(superblock == 3 and set(kinds.values()) == {hdf5.EXTENSIBLE_ARRAY}
@@ -2188,6 +2202,86 @@ def phase_latest_genome(source, workdir):
             + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f})")
     print(f"[{tag}] s, in brackets cooler-genome's page-cache run in this call: "
           + "; ".join(lines))
+
+
+def phase_szip_genome(source, workdir):
+    """Phase 5's genome (not cut) written by the port in cooler's layout
+    with szip (``write_cooler_layout(..., compression="szip")``: shuffle
+    + szip ('nn', 8) on every column HDF5 takes szip for, int64 ids,
+    ``bins/chrom`` an enum) as ``genome.mcool::/resolutions/5000``; the
+    free space checked first, the write's seconds and bytes printed.  Then
+    ``detect`` loops with the file's pages dropped and from the page
+    cache, and ``quantify`` of the planted loops: tables and windows byte
+    for byte phase 5's, 13 single launches a loops run and none a
+    quantify run, szip chunks walked; ``io: fetch+scatter``, ``io:
+    upload`` and the wall beside ``cooler-genome``'s runs, one line a run.
+    The file is deleted afterwards."""
+    tag = "szip-genome"
+    os.makedirs(f"{workdir}/szip", exist_ok=True)
+    path = f"{workdir}/szip/genome.mcool"
+    uri = f"{path}::/resolutions/5000"
+    # a chunk szip does not shrink is stored as it is: the raw bytes at most
+    raw = source.nnz * (8 + 8 + 4)
+    need = raw + 64 * source.n_bins + (1 << 20)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    check(free > need, f"{tag}: {free} bytes free, the file may need {need}")
+    card = nvidia_smi("name,power.limit")
+    n_chroms = len(source.chromnames)
+    phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
+    try:
+        t0 = time.perf_counter()
+        write_cooler_layout(path, bins_frame(source), {"bin1_id": source.bin1, "bin2_id":
+                            source.bin2, "count": source.count.astype(np.int32, copy=False)},
+                            group="/resolutions/5000", pixel_rows=COOLER_PIXEL_ROWS,
+                            compression="szip")
+        seconds = time.perf_counter() - t0
+        with hdf5.File(path) as f:
+            filters = {c: f[f"resolutions/5000/pixels/{c}"]._filters
+                       for c in ("bin1_id", "bin2_id", "count")}
+        size = os.path.getsize(path)
+        print(f"[{tag}] wrote {size} bytes in {seconds:.2f} s ({hdf5.THREADS} threads, "
+              f"{free / 1e9:.2f} GB free; {card}); pixel filters (ids, count) "
+              f"{filters['bin2_id']}, {filters['count']}; in brackets below cooler-genome's "
+              "run in this call")
+        check(filters["bin2_id"] == [(hdf5.SHUFFLE, (8,)), (hdf5.SZIP, (169, 8, 64, 1024))]
+              and filters["count"] == [(hdf5.SHUFFLE, (4,)), (hdf5.SZIP, (169, 8, 32, 1024))],
+              f"{tag}: pixel filters {filters}")
+        for kind, cache in (("loops", "pages dropped"), ("loops", "page cache"),
+                            ("quantify", "page cache")):
+            if cache == "pages dropped":
+                evict(path)
+            name = f"{kind} from szip .mcool, {cache}"
+            prefix = f"{workdir}/szip_{kind}_{cache.split()[0]}"
+            if kind == "loops":
+                argv = ["detect", "--no-plotting", uri, prefix]
+            else:
+                argv = ["quantify", "--no-plotting", f"{workdir}/planted.bed2", uri, prefix]
+            args = parse_args(argv, "")
+            opened = []
+
+            def run_main():
+                opened.append(open_contacts(uri))
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return (detect if kind == "loops" else quantify)(opened[0], args, DEVICE)
+
+            _, seen = run_genome(name, run_main, tag=tag, show=None)
+            band_uploads(source, tag)
+            walked = opened[0]._file.walked["szip chunk"]
+            stored = phase5["genome" if kind == "loops" else "quantify"]
+            check(outputs(prefix) == stored and stored,
+                  f"{tag}: the {name} table or windows differ from phase 5's")
+            check(seen == {"single": n_chroms if kind == "loops" else 0, "multi": 0},
+                  f"{tag}: {name} launches {seen}")
+            check(walked > 0, f"{tag}: {name} decoded no szip chunk")
+            other = f"{kind} from .mcool, {cache}"
+            a, b = STAGES[name], STAGES.get(other, {})
+            print(f"[{tag}] {kind}, {cache}: phase 5's tables, {seen}, {walked} szip chunks; "
+                  + ", ".join(f"{stage[4:]} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
+                              for stage in ("io: fetch+scatter", "io: upload"))
+                  + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f}) s")
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
 
 
 def phase_instruments(source, workdir):
@@ -2463,10 +2557,6 @@ def phase_api(source):
     wall = time.perf_counter() - t0
     seen = launches()
     n_calls = sum(len(c) for c, _ in per_map if c is not None)
-    print(f"[api] notebook loop on {len(per_map)} x {GENOME_BINS} bins with kernels.loops: "
-          f"{n_calls} calls, API wall {wall:.2f} s (phase 5's detect wall "
-          f"{WALLS['detect loops']:.2f} s, this run's cards {nvidia_smi('name,power.limit')}); "
-          f"launches {seen}")
     check(seen == {"single": len(per_map), "multi": 0}, f"API genome launches {seen}")
     for cm, (calls, wins) in zip(genome.sub_mats.contact_map, per_map):
         quietly(cm.create_mat)
@@ -2474,7 +2564,9 @@ def phase_api(source):
         cm.destroy_mat()
         check(calls.equals(pd.DataFrame(cli_calls)) and np.array_equal(
             wins, cli_wins, equal_nan=True), f"{cm.name}: API calls differ from detect_multi")
-    print(f"[api] genome: every map's calls identical to detect_multi's on the same map")
+    print(f"[api] notebook loop on {len(per_map)} x {GENOME_BINS} bins with kernels.loops: "
+          f"{n_calls} calls, each map's detect_multi's, API wall {wall:.2f} s (phase 5's detect "
+          f"wall {WALLS['detect loops']:.2f} s); launches {seen}")
 
     # full=False on chr1 of the genome, card against CPU
     valid = {}
@@ -2515,6 +2607,7 @@ def run(quick):
         contiguous_read = phase_cool_genome(source, workdir)
         phase_cooler_genome(source, workdir, contiguous_read)
         phase_latest_genome(source, workdir)
+        phase_szip_genome(source, workdir)
         phase_api(source)
         del source
         phase_golden_inter(workdir)

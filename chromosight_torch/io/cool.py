@@ -220,7 +220,7 @@ def chunk_rows(rows, itemsize):
 
 
 def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=None,
-                        libver="earliest"):
+                        libver="earliest", compression="gzip"):
     """Write ``bins`` and ``pixels`` (as ``create_cool`` takes them) in
     cooler's own layout: int64 pixel ids (``minimal_dtypes=False``),
     ``bins/chrom`` an enum of the chromosome names, every dataset chunked
@@ -234,9 +234,11 @@ def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=
     at "earliest" every dataset is unlimited along its axis; at "latest"
     only the pixel columns are (extensible-array chunk indexes), the
     others of fixed size as cooler creates them (fixed-array or
-    single-chunk indexes).  The port's own chunked files, for the tests
-    and the card's smoke run; the JAX package writes contiguous ones
-    (``create_cool``)."""
+    single-chunk indexes).  ``compression="szip"`` stores every column
+    HDF5 takes szip for through shuffle and szip with h5py's default
+    options instead of gzip (``hdf5.write``'s).  The port's own chunked
+    files, for the tests and the card's smoke run; the JAX package writes
+    contiguous ones (``create_cool``)."""
     datasets, attrs = cool_tables(bins, pixels, minimal_dtypes=False)
     names = [n.decode() for n in datasets["chroms/name"]]
     enum = hdf5.enum_dtype({name: i for i, name in enumerate(names)}, np.int32)
@@ -258,5 +260,5 @@ def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=
     fixed = [name for name in datasets if "/pixels/" not in f"/{name}"] if libver == "latest" \
         else ()
     hdf5.write(path, datasets, root, chunks=chunks, group_attrs=group_attrs, fixed=fixed,
-               libver=libver)
+               libver=libver, compression=compression)
     return path

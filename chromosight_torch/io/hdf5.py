@@ -47,20 +47,30 @@ below), which covers what cooler writes:
   a v1 B-tree of type 1 of any depth, or the chunk indexes of version 4
   (single chunk, implicit, fixed array, extensible array, v2 B-tree of
   record types 10 and 11, partial edge chunks left unfiltered); the
-  filters deflate, shuffle, fletcher32 (checked), n-bit, scale-offset and
-  LZF (h5py's filter 32000), honouring each chunk's filter mask; storage
-  not allocated reads as the fill value.  The filters run natively where
-  g++ builds them (``native/lzf.cpp``, ``shuffle.cpp``, ``inflate.cpp``,
-  ``bits.cpp``), else in Python and numpy.
+  filters deflate, shuffle, fletcher32 (checked), szip (CCSDS 121.0-B as
+  libaec's szlib layer codes it), n-bit, scale-offset and LZF (h5py's
+  filter 32000), honouring each chunk's filter mask; storage not
+  allocated reads as the fill value.  The filters run natively where g++
+  builds them (``native/lzf.cpp``, ``shuffle.cpp``, ``inflate.cpp``,
+  ``bits.cpp``, ``aec.cpp``), else in Python and numpy;
+* virtual datasets (layout class 3): the mappings in their global heap
+  object (checksum checked), selections "all" and hyperslabs of rows
+  whose other axes are whole, sources in this file (".") or in files
+  found as external links' are (opened with this file's mode, closed with
+  it); a missing source file or dataset, and rows no mapping covers, read
+  as the fill value, as in h5py.
 
 Anything else raises ``NotImplementedError`` naming the feature and the
-file offset: the szip filter, virtual datasets, fractal heaps with I/O
-filters, n-bit of compound or array types, datatypes outside the list
-above.  Nothing is read wrong silently.  A contiguous slice reads exactly
-its bytes; a chunked slice decodes only the chunks that overlap it, from
-a chunk index walked once per dataset, each straight into its rows of
-the output (those of a deflate or shuffle + deflate pipeline in one
-native call on ``THREADS`` threads).
+file offset: fractal heaps with I/O filters, n-bit of compound or array
+types, datatypes outside the list above, virtual datasets with unlimited
+or point selections, printf-style source names, selections of part of
+an inner axis or mappings deeper than ``LINK_DEPTH``.  Nothing is read
+wrong silently.  A contiguous slice reads exactly its bytes; a chunked
+slice decodes only the chunks that overlap it, from a chunk index walked
+once per dataset, each straight into its rows of the output (those of a
+deflate or szip pipeline, shuffled first or not, in one native call on
+``THREADS`` threads); a virtual slice reads only the mappings that
+overlap it, each through its source's own slicing.
 
 The writer makes new files (``write``: at ``libver="earliest"``
 superblock 0, symbol-table groups, data layout 3; at ``libver="latest"``
@@ -68,7 +78,8 @@ what h5py writes at that bound: superblock 3, version-2 object headers,
 new-style groups of compact or dense links, version-3 attribute
 messages, compact or dense, layout 4 with the chunk index HDF5 picks;
 attributes of integers, floats and variable-length UTF-8 strings,
-contiguous datasets or chunked ones in cooler's layout) and adds,
+contiguous datasets or chunked ones in cooler's layout, shuffle + gzip
+or shuffle + szip) and adds,
 replaces or removes a link in any group of an existing file
 (``File(path, "r+").write_dataset`` and ``unlink``, what ``--norm
 force`` and ICE's ``store_weights`` call): the data and its version-1
@@ -109,7 +120,7 @@ IGNORED = {NIL, 0x0D, 0x0E, 0x12, 0x16, 0x17}
 # messages whose body this module interprets: a shared one lives elsewhere
 INTERPRETED = {DATASPACE, DATATYPE, FILL_OLD, FILL, LAYOUT, FILTERS, ATTRIBUTE, LINK_INFO,
                LINK, GROUP_INFO, ATTRIBUTE_INFO, SYMBOL_TABLE, BTREE_K, EXTERNAL, SHARED_TABLE}
-DEFLATE, SHUFFLE, FLETCHER32, NBIT, SCALEOFFSET, LZF = 1, 2, 3, 5, 6, 32000
+DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET, LZF = 1, 2, 3, 4, 5, 6, 32000
 # HDF5's default limit of soft and external links followed in one lookup
 LINK_DEPTH = 16
 # chunk indexes of data layout version 4
@@ -122,8 +133,8 @@ LEAF_K, INTERNAL_K = 4, 16
 OFFSET_SIZE = LENGTH_SIZE = 8
 UNDEF = (1 << 64) - 1
 GLOBAL_HEAP_MIN = 4096
-# the threads that decode the chunks of a slice (native.inflate_chunks's)
-# and compress those that ``write`` writes
+# the threads that decode the chunks of a slice (native.inflate_chunks's
+# and szip_chunks's) and compress those that ``write`` writes
 THREADS = min(8, os.cpu_count() or 1)
 
 
@@ -179,14 +190,17 @@ class File:
                     other.close()
             self._externals.clear()
 
-    def _external(self, name, where):
-        """The file an external link names: an absolute path as it is, a
-        relative one in this file's directory, else from the working
-        directory (HDF5's default lookup); KeyError when there is none."""
+    def _external(self, name, where, missing_ok=False):
+        """The file an external link (or a virtual dataset's mapping) names:
+        an absolute path as it is, a relative one in this file's directory,
+        else from the working directory (HDF5's default lookup); when there
+        is none, None if ``missing_ok``, else KeyError."""
         tries = [name] if os.path.isabs(name) else [
             os.path.join(os.path.dirname(os.path.abspath(self.filename)), name), name]
         path = next((t for t in tries if os.path.isfile(t)), None)
         if path is None:
+            if missing_ok:
+                return None
             raise KeyError(f"{self.filename}: the external link at file offset {where} names "
                            f"{name!r}, which is not found")
         key = os.path.realpath(path)
@@ -1363,6 +1377,7 @@ class Dataset:
         self.file, self.addr, self.name = file, addr, name
         self._filters, fill, self._chunks, self._external = [], None, None, None
         self._index_type, self._edge_unfiltered = None, False
+        self._mappings = None  # a virtual dataset's, parsed at its first read
         for kind, body, where in messages:
             if kind == DATASPACE:
                 self.shape, self.maxshape = file._dataspace_dims(body, 0, where)
@@ -1441,6 +1456,10 @@ class Dataset:
             self._chunk_shape = struct.unpack_from(f"<{rank}I", body, pos)
         elif self._class == 2:
             self._layout_v4(body, where)
+        elif self._class == 3 and version == 4:
+            # the global heap object holding the mappings
+            self._vds = (f._addr(body, 2), struct.unpack_from("<I", body, 2 + f._so)[0])
+            self._layout_where = where
         else:
             name = {3: " (virtual)"}.get(self._class, "")
             raise f._unsupported(f"data layout class {self._class}{name}", where)
@@ -1492,9 +1511,11 @@ class Dataset:
             pos += _align8(name_size) if version == 1 else name_size
             values = struct.unpack_from(f"<{n_values}I", body, pos)
             pos += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
-            if fid not in (DEFLATE, SHUFFLE, FLETCHER32, NBIT, SCALEOFFSET, LZF):
-                name = name or {4: "szip"}.get(fid, "unnamed")
-                raise self.file._unsupported(f"filter {fid} ({name})", where)
+            if fid not in (DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET, LZF):
+                raise self.file._unsupported(f"filter {fid} ({name or 'unnamed'})", where)
+            if fid == SZIP and not native.szip_options_valid(values):
+                raise self.file._unsupported(f"the szip filter with client values {values}",
+                                             where)
             if fid == NBIT and (len(values) < 8 or values[3] != 1):
                 # n-bit of compound, array or no-op classes
                 raise self.file._unsupported(f"the n-bit filter of datatype class code "
@@ -1541,6 +1562,8 @@ class Dataset:
         return self._rows(lo, hi)
 
     def _scalar(self):
+        if self._class == 3:
+            raise self.file._unsupported("a scalar virtual dataset", self._layout_where)
         if self._class == 1 and self._address is None and self._external is None:
             return self._fill_array(())[()]
         raw = self._contiguous_bytes(0, self._type.size)
@@ -1555,6 +1578,8 @@ class Dataset:
 
     def _rows(self, lo, hi):
         """Rows [lo, hi) of the first axis as an array."""
+        if self._class == 3:
+            return self._virtual_rows(lo, hi, 0)
         out = self._stored_rows(lo, hi)
         return out if self._type.vlen else self._type.converted(out)
 
@@ -1577,6 +1602,167 @@ class Dataset:
         if not self._type.vlen:
             return np.frombuffer(raw, self.dtype).reshape(shape).copy()
         return self.file._values(self._type, raw, shape, decode=False)
+
+    # -- virtual --------------------------------------------------------- #
+    def _virtual_mappings(self):
+        """[(source file, source dataset, source selection, virtual
+        selection)] of a virtual dataset, from the heap object its layout
+        names (version 0: the count, then each mapping's two names and two
+        selections, then the lookup3 checksum, checked); parsed once."""
+        if self._mappings is not None:
+            return self._mappings
+        f, where = self.file, self._layout_where
+        addr, at = self._vds
+        block = f._global_heap(addr).get(at) if addr is not None else None
+        if block is None or len(block) < 5 + f._sl:
+            raise OSError(f"{f.filename}:{self.name}: no virtual dataset mappings in global "
+                          f"heap object {at} at offset {addr}")
+        if block[0] != 0:
+            raise f._unsupported(f"virtual dataset mappings of version {block[0]}", where)
+        if index.lookup3(block[:-4]) != struct.unpack_from("<I", block, len(block) - 4)[0]:
+            raise OSError(f"{f.filename}:{self.name}: virtual dataset mappings fail their "
+                          "checksum")
+        count, pos, maps = _uint(block, 1, f._sl), 1 + f._sl, []
+        for _ in range(count):
+            names = []
+            for _ in range(2):
+                end = block.index(b"\0", pos)
+                # "%%" is a "%"; "%b" numbers the blocks of an unlimited
+                # mapping's source files or datasets
+                parts = block[pos:end].decode("utf-8").split("%%")
+                if any("%b" in part for part in parts):
+                    raise f._unsupported(f"a printf-style source name {'%%'.join(parts)!r}",
+                                         where)
+                names.append("%".join(parts))
+                pos = end + 1
+            source, pos = self._selection(block, pos, where)
+            virtual, pos = self._selection(block, pos, where)
+            maps.append((*names, source, virtual))
+        self._mappings = maps
+        return maps
+
+    def _selection(self, data, pos, where):
+        """(selection, end) of the serialized dataspace selection at
+        ``pos``: None for "all", else rows [(start, stop)] along the first
+        axis of a hyperslab whose other axes are whole, with those axes'
+        (start, extent) pairs to check against the dataspace; "none" is no
+        rows.  Point selections, unlimited counts and blocks that cut the
+        other axes raise NotImplementedError."""
+        f = self.file
+        kind, version = struct.unpack_from("<II", data, pos)
+        if kind in (0, 3):  # none, all: version 1, 8 bytes reserved and length
+            return (None if kind == 3 else ([], ())), pos + 16
+        if kind != 2:
+            raise f._unsupported(f"a virtual dataset selection of type {kind} (points)", where)
+        if version == 1:
+            rank, n = struct.unpack_from("<II", data, pos + 16)
+            pos, width, regular = pos + 24, 4, False
+        elif version in (2, 3):
+            flags = data[pos + 8]
+            regular = bool(flags & 1)
+            if version == 2:
+                width, pos = 8, pos + 13
+            else:
+                width, pos = data[pos + 9], pos + 10
+            rank = struct.unpack_from("<I", data, pos)[0]
+            pos += 4
+            if not regular:
+                n = _uint(data, pos, width)
+                pos += width
+        else:
+            raise f._unsupported(f"a hyperslab selection of version {version}", where)
+        values = [_uint(data, pos + i * width, width)
+                  for i in range(4 * rank if regular else 2 * rank * n)]
+        pos += len(values) * width
+        if any(v == (1 << 8 * width) - 1 for v in values):
+            raise f._unsupported("an unlimited virtual dataset selection", where)
+        if regular:
+            start, stride, count, block = (values[i::4] for i in range(4))
+            boxes = [[(start[0] + i * stride[0], start[0] + i * stride[0] + block[0])
+                      for i in range(count[0])]]
+            for d in range(1, rank):
+                if count[d] != 1 and stride[d] != block[d]:
+                    raise f._unsupported("a virtual dataset selection of blocks across "
+                                         "an inner axis", where)
+                boxes.append((start[d], start[d] + count[d] * block[d]))
+            rows, inner = boxes[0], tuple(boxes[1:])
+        else:
+            corners = [values[2 * rank * b : 2 * rank * (b + 1)] for b in range(n)]
+            inner = {tuple((c[d], c[rank + d] + 1) for d in range(1, rank)) for c in corners}
+            if len(inner) > 1:
+                raise f._unsupported("an irregular virtual dataset selection", where)
+            rows = sorted((c[0], c[rank] + 1) for c in corners)
+            inner = inner.pop() if inner else ()
+        return (rows, inner), pos
+
+    @staticmethod
+    def _rows_of(selection, shape):
+        """(starts, stops) of the rows ``selection`` picks in a dataspace of
+        ``shape`` (None when its inner axes are not whole)."""
+        if selection is None:
+            return np.array([0], np.int64), np.array([shape[0]], np.int64)
+        rows, inner = selection
+        if inner and tuple(inner) != tuple((0, extent) for extent in shape[1:]):
+            return None
+        rows = np.array(rows, np.int64).reshape(-1, 2)
+        return rows[:, 0], rows[:, 1]
+
+    def _source(self, file_name, dataset_name, where):
+        """The source dataset of a mapping: ``"."`` this file, another name
+        found as an external link's file is (opened with this file's mode,
+        closed with it); None for a file or dataset that is not there,
+        which reads as the fill value, as HDF5 reads it."""
+        f = self.file
+        source = f if file_name == "." else f._external(file_name, where, missing_ok=True)
+        if source is None:
+            return None
+        try:
+            obj = source[dataset_name]
+        except KeyError:
+            return None
+        return obj if isinstance(obj, Dataset) else None
+
+    def _virtual_rows(self, lo, hi, depth):
+        """Rows [lo, hi) of a virtual dataset: the fill value, then each
+        mapping that overlaps them read through its source's own slicing
+        (a mapping whose source is virtual counts one level deeper than
+        ``depth``; past ``LINK_DEPTH`` levels it raises), converted to this
+        dataset's type; rows past a source's end stay the fill value."""
+        f, where = self.file, self._layout_where
+        if depth > LINK_DEPTH:
+            raise f._unsupported(f"virtual dataset mappings deeper than {LINK_DEPTH} "
+                                 "levels", where)
+        if self._type.vlen:
+            raise f._unsupported("a virtual dataset of variable-length strings", where)
+        shape = (max(hi - lo, 0), *self.shape[1:])
+        out = self._type.converted(self._fill_array(shape))
+        for file_name, dataset_name, source_sel, virtual_sel in self._virtual_mappings():
+            virtual = self._rows_of(virtual_sel, self.shape)
+            if virtual is None:
+                raise f._unsupported("a virtual dataset selection of part of an inner axis",
+                                     where)
+            v_start, v_stop = virtual
+            if not np.any((v_start < hi) & (v_stop > lo)):
+                continue
+            f.walked["virtual mapping"] += 1
+            source = self._source(file_name, dataset_name, where)
+            if source is None:
+                continue
+            if source.shape[1:] != self.shape[1:]:
+                raise f._unsupported("a virtual dataset mapping between inner axes of "
+                                     "other shapes", where)
+            picked = self._rows_of(source_sel, source.shape)
+            if picked is None:
+                raise f._unsupported("a virtual dataset source selection of part of an "
+                                     "inner axis", where)
+            for v0, s0, n in _matched_runs(virtual, picked, lo, hi):
+                s1 = min(s0 + n, source.shape[0])
+                if s1 <= s0:
+                    continue
+                data = (source._virtual_rows(s0, s1, depth + 1) if source._class == 3
+                        else source._rows(s0, s1))
+                out[v0 - lo : v0 - lo + s1 - s0] = data.astype(out.dtype, copy=False)
+        return out
 
     # -- chunked ------------------------------------------------------- #
     @property
@@ -1706,9 +1892,10 @@ class Dataset:
         for dim, extent in zip(chunk[1:], self.shape[1:]):
             expected *= -(-extent // dim)
         out = self._fill_array(shape) if len(sel) < expected else np.empty(shape, self.dtype)
-        lzf = [i for i, (fid, _) in enumerate(self._filters) if fid == LZF]
-        if lzf:
-            self.file.walked["LZF chunk"] += int(np.sum(masks[sel] & (1 << lzf[0]) == 0))
+        for fid, what in ((LZF, "LZF chunk"), (SZIP, "szip chunk")):
+            at = [i for i, (kind, _) in enumerate(self._filters) if kind == fid]
+            if at:
+                self.file.walked[what] += int(np.sum(masks[sel] & (1 << at[0]) == 0))
         if self._type.vlen or tuple(chunk[1:]) != tuple(self.shape[1:]):
             for i in sel:
                 raw = self._decode(int(addrs[i]), int(sizes[i]), int(masks[i]), i)
@@ -1729,12 +1916,12 @@ class Dataset:
         # chunks of whole rows: each chunk's rows are a run of ``out``'s
         # bytes, which a chunk inside [lo, hi) is decoded straight into,
         # natively on threads where the pipeline allows
-        # (``_inflate_native``), the others here one by one
+        # (``_decode_native``), the others here one by one
         row = self._type.size * int(np.prod(chunk[1:], dtype=np.int64))
         flat = out.reshape(-1).view(np.uint8)
         whole = (offsets[sel, 0] >= lo) & (offsets[sel, 0] + chunk[0] <= hi) & (masks[sel] == 0)
-        if self._inflate_native(flat, (offsets[sel[whole], 0] - lo) * row, addrs[sel[whole]],
-                                sizes[sel[whole]]):
+        if self._decode_native(flat, (offsets[sel[whole], 0] - lo) * row, addrs[sel[whole]],
+                               sizes[sel[whole]]):
             sel = sel[~whole]
 
         for i in sel:
@@ -1748,15 +1935,17 @@ class Dataset:
                 dst[:] = np.frombuffer(raw, np.uint8, len(dst), (begin - start) * row)
         return out
 
-    def _inflate_native(self, flat, starts, addrs, sizes):
+    def _decode_native(self, flat, starts, addrs, sizes):
         """The chunks stored at ``addrs`` (``sizes`` bytes, every filter
-        on) of a deflate or shuffle + deflate pipeline, read in runs of
-        nearby chunks and decoded by ``native.inflate_chunks`` into
-        ``flat`` at ``starts``: whether it decoded them (False for another
-        pipeline, without the native library, or on a chunk it could not
-        decode, which the caller's decoding then reports)."""
+        on) of a deflate, szip, shuffle + deflate or shuffle + szip
+        pipeline, read in runs of nearby chunks and decoded by
+        ``native.inflate_chunks`` or ``native.szip_chunks`` into ``flat`` at
+        ``starts``: whether it decoded them (False for another pipeline,
+        without the native library, or on a chunk it could not decode,
+        which the caller's decoding then reports)."""
         kinds = [fid for fid, _ in self._filters]
-        if kinds not in ([DEFLATE], [SHUFFLE, DEFLATE]) or not len(addrs):
+        if kinds[-1:] not in ([DEFLATE], [SZIP]) or kinds[:-1] not in ([], [SHUFFLE]) \
+                or not len(addrs):
             return False
         element = 1
         if kinds[0] == SHUFFLE:
@@ -1774,6 +1963,9 @@ class Dataset:
         for first, last, base, span in zip(firsts, lasts, bases, spans):
             self.file._read_into(int(addrs[first]), buf[base : base + span])
             in_off[first : last + 1] = base + addrs[first : last + 1] - addrs[first]
+        if kinds[-1] == SZIP:
+            return native.szip_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
+                                      self._filters[-1][1], element, THREADS)
         return native.inflate_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
                                      element, THREADS)
 
@@ -1794,6 +1986,10 @@ class Dataset:
             elif fid == LZF:
                 n_out = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
                 raw = native.lzf_decompress(raw, n_out)
+            elif fid == SZIP:
+                # the size it stores: the chunk's, or a little more before
+                # fletcher32 or another coder
+                raw = native.szip_decode(raw, values, 2 * self._chunk_bytes + 64)
             elif fid == NBIT:
                 self.file.walked["n-bit chunk"] += 1
                 raw = native.nbit_decode(raw, values)
@@ -1813,6 +2009,26 @@ class Dataset:
                               f"bytes decoded, {len(into)} expected")
             into[:] = np.frombuffer(raw, np.uint8, len(into))
         return raw
+
+
+def _matched_runs(virtual, source, lo, hi):
+    """(virtual row, source row, rows) of each run in which the rows of a
+    virtual selection (``(starts, stops)``) inside [lo, hi) meet the
+    source selection's rows of the same rank (the k-th row picked maps to
+    the k-th)."""
+    (v_start, v_stop), (s_start, s_stop) = virtual, source
+    v_rank = np.concatenate([[0], np.cumsum(v_stop - v_start)])
+    s_rank = np.concatenate([[0], np.cumsum(s_stop - s_start)])
+    runs = []
+    for i in np.flatnonzero((v_start < hi) & (v_stop > lo)):
+        a, b = max(int(v_start[i]), lo), min(int(v_stop[i]), hi)
+        r0, r1 = int(v_rank[i]) + a - int(v_start[i]), int(v_rank[i]) + b - int(v_start[i])
+        j = int(np.searchsorted(s_rank, r0, side="right")) - 1
+        while r0 < r1 and j < len(s_start):
+            n = min(r1, int(s_rank[j + 1])) - r0
+            runs.append((a, int(s_start[j]) + r0 - int(s_rank[j]), n))
+            a, r0, j = a + n, r0 + n, j + 1
+    return runs
 
 
 def _fletcher32_checked(raw, what):
@@ -2000,11 +2216,12 @@ def _fill_latest(chunked):
     return bytes([3, 0x0B if chunked else 0x0A])
 
 
-def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixed=False):
+def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixed=False,
+                    compression="gzip"):
     """Write ``array``, then its object header; the header's address.  The
     array is contiguous, or with ``chunk`` (rows) chunked as cooler writes
-    (see ``_chunked_data``), unlimited along its first axis unless
-    ``fixed``.  ``latest``: HDF5's newest format (a version-2 object
+    (see ``_chunked_data``, which ``compression`` goes to), unlimited
+    along its first axis unless ``fixed``.  ``latest``: HDF5's newest format (a version-2 object
     header, version-2 dataspace, version-3 fill value and attributes,
     data layout version 4)."""
     if latest:
@@ -2012,7 +2229,8 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
             data = out.put(array) if array.size else UNDEF
             layout = [(LAYOUT, struct.pack("<BBQQ", 4, 1, data, array.nbytes))]
         else:
-            layout = _chunked_data(array, int(chunk), out, pool, latest=True, fixed=fixed)
+            layout = _chunked_data(array, int(chunk), out, pool, latest=True, fixed=fixed,
+                                   compression=compression)
         return out.put(hw.object_header([
             (DATASPACE, _space_v2(array.shape, unlimited=chunk is not None and not fixed)),
             (DATATYPE, _type_message(array.dtype)),
@@ -2027,7 +2245,8 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
         fill = bytes([2, 2, 2, 1, 0, 0, 0, 0])
     else:
         layout = [_message(kind, body) for kind, body in
-                  _chunked_data(array, int(chunk), out, pool, fixed=fixed)]
+                  _chunked_data(array, int(chunk), out, pool, fixed=fixed,
+                                compression=compression)]
         fill = bytes([2, 3, 2, 1, 0, 0, 0, 0])  # allocated incrementally
     attributes = _attribute_messages(attrs or {}, out)
     return out.put(_object_header([
@@ -2045,24 +2264,71 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
 # stores no K for them)
 CHUNK_K = 32
 DEFLATE_LEVEL = 6
+# szip as h5py's compression="szip" sets it: ('nn', 8), HDF5's largest
+# scanline of 128 blocks and of 4,096 pixels
+SZIP_BLOCK, SZIP_SCANLINE_BLOCKS, SZIP_MAX_SCANLINE = 8, 128, 4096
+# the pixels a batch of chunks of the szip writer holds at most
+SZIP_BATCH_BYTES = 64 << 20
 
 
-def _chunked_data(array, rows, out, pool, latest=False, fixed=False):
+def szip_values(dtype, chunk):
+    """The szip client values HDF5 stores for h5py's ``compression="szip"``
+    (options 'nn', 8 pixels a block) on a chunk of shape ``chunk`` of
+    ``dtype``, as its set-local callback completes them: options K13, RAW,
+    NN and the byte order; bits per pixel from the size; pixels per
+    scanline from the chunk's last axis.  None where HDF5 refuses szip:
+    types other than integers and floats of 1, 2, 4 or 8 bytes (fixed
+    strings), chunks of fewer than 8 elements."""
+    dtype = np.dtype(dtype)
+    points = int(np.prod(chunk, dtype=np.int64))
+    if dtype.kind not in "iuf" or dtype.itemsize not in (1, 2, 4, 8) or points < SZIP_BLOCK:
+        return None
+    scanline, most = int(chunk[-1]), SZIP_BLOCK * SZIP_SCANLINE_BLOCKS
+    if scanline < SZIP_BLOCK:
+        scanline = min(most, points)
+    else:
+        scanline = min(most, scanline) if scanline <= SZIP_MAX_SCANLINE else most
+    order = native.SZIP_MSB if dtype.byteorder == ">" else native.SZIP_LSB
+    return (native.SZIP_ALWAYS | native.SZIP_NN | order, SZIP_BLOCK, 8 * dtype.itemsize,
+            scanline)
+
+
+def _szip_chunks(flat, n_chunks, size, element, values):
+    """[(stored bytes, filter mask)] of ``n_chunks`` chunks of ``size``
+    bytes of ``flat`` (the last padded with zeros) through shuffle and
+    szip (``native.szip_encode_chunks``, in batches on ``THREADS``
+    threads); a chunk szip does not shrink skips it (mask bit 1)."""
+    done = []
+    step = max(1, SZIP_BATCH_BYTES // max(size, 1))
+    for k in range(0, n_chunks, step):
+        raw = flat[k * size : (k + step) * size]
+        whole = min(step, n_chunks - k) * size
+        if len(raw) < whole:
+            raw = np.concatenate([raw, np.zeros(whole - len(raw), np.uint8)])
+        done += [(data, 0 if coded else 1 << 1) for data, coded in
+                 native.szip_encode_chunks(raw, size, values, element, THREADS)]
+    return done
+
+
+def _chunked_data(array, rows, out, pool, latest=False, fixed=False, compression="gzip"):
     """Write ``array`` as chunks of ``rows`` rows (the trailing axes whole;
     the last chunk padded with zeros), each through HDF5's shuffle and then
-    deflate at level 6, and the chunk index over them; the (type, body)
-    of the filter pipeline and layout messages.  The index is a
-    version-1 chunk B-tree of type 1 with as many levels as the chunks
-    need (layout version 3), or with ``latest`` that of layout version 4
-    HDF5 picks: an extensible array along an unlimited first axis, a
-    single chunk or a fixed array when the shape is ``fixed``.  The
-    chunks are compressed on ``pool`` when given; the bytes written do not
-    depend on it."""
+    deflate at level 6 (``compression="gzip"``) or szip with h5py's
+    default options (``"szip"``, where HDF5 takes szip: see
+    ``szip_values``; deflate elsewhere), and the chunk index over them;
+    the (type, body) of the filter pipeline and layout messages.  The
+    index is a version-1 chunk B-tree of type 1 with as many levels as
+    the chunks need (layout version 3), or with ``latest`` that of layout
+    version 4 HDF5 picks: an extensible array along an unlimited first
+    axis, a single chunk or a fixed array when the shape is ``fixed``.
+    Deflate compresses the chunks on ``pool`` when given, szip on
+    ``THREADS`` threads; the bytes written do not depend on either."""
     tail, element = array.shape[1:], array.dtype.itemsize
     row = element * int(np.prod(tail, dtype=np.int64))
     flat = array.reshape(-1).view(np.uint8) if array.size else np.zeros(0, np.uint8)
     n_chunks = -(-array.shape[0] // rows) if array.shape and array.shape[0] else 0
     size = rows * row
+    szip = szip_values(array.dtype, (rows, *tail)) if compression == "szip" else None
 
     def compress(batch):
         done = []
@@ -2072,31 +2338,37 @@ def _chunked_data(array, rows, out, pool, latest=False, fixed=False):
                 raw = np.concatenate([raw, np.zeros(size - len(raw), np.uint8)])
             shuffled = np.empty(size, np.uint8)
             native.shuffle(raw, element, shuffled)
-            done.append(zlib.compress(shuffled, DEFLATE_LEVEL))
+            done.append((zlib.compress(shuffled, DEFLATE_LEVEL), 0))
         return done
 
-    batches = [range(k, min(k + 16, n_chunks)) for k in range(0, n_chunks, 16)]
-    results = pool.map(compress, batches) if pool is not None else map(compress, batches)
+    if szip is not None:
+        results = [_szip_chunks(flat, n_chunks, size, element, szip)]
+    else:
+        batches = [range(k, min(k + 16, n_chunks)) for k in range(0, n_chunks, 16)]
+        results = pool.map(compress, batches) if pool is not None else map(compress, batches)
     rank = len(array.shape)
-    children, sizes = [], []
+    children, sizes, masks = [], [], []
     for done in results:
-        for data in done:
+        for data, mask in done:
             children.append(out.put(data))
             sizes.append(len(data))
+            masks.append(mask)
     dims = [rows, *tail, element]
+    coder = (SZIP, b"szip", szip) if szip is not None else (DEFLATE, b"deflate",
+                                                           (DEFLATE_LEVEL,))
     if latest:
         pipeline = struct.pack("<BB", 2, 2) + struct.pack("<HHHI", SHUFFLE, 1, 1, element)
-        pipeline += struct.pack("<HHHI", DEFLATE, 1, 1, DEFLATE_LEVEL)
+        pipeline += struct.pack(f"<HHH{len(coder[2])}I", coder[0], 1, len(coder[2]), *coder[2])
         width = hw.enc_size(max(dims))
         head = struct.pack("<BBBBB", 4, 2, 0, rank + 1, width) + b"".join(
             int(d).to_bytes(width, "little") for d in dims)
         size_len = index.chunk_size_len(size)
-        elements = [(a, n, 0) for a, n in zip(children, sizes)]
+        elements = list(zip(children, sizes, masks))
         if fixed and n_chunks == 1 and rows == array.shape[0]:
             head = bytearray(head)
             head[2] = 0x2  # a single chunk, filtered: its size and mask follow
-            layout = bytes(head) + bytes([SINGLE_CHUNK]) + struct.pack("<QIQ", sizes[0], 0,
-                                                                       children[0])
+            layout = bytes(head) + bytes([SINGLE_CHUNK]) + struct.pack("<QIQ", sizes[0],
+                                                                       masks[0], children[0])
         elif fixed:
             addr = hw.fixed_array(out, elements, size_len) if n_chunks else UNDEF
             layout = head + bytes([FIXED_ARRAY, hw.PAGE_BITS]) + struct.pack("<Q", addr)
@@ -2106,8 +2378,8 @@ def _chunked_data(array, rows, out, pool, latest=False, fixed=False):
                                    hw.EA_SBLK_MIN, hw.EA_DBLK_MIN, hw.PAGE_BITS])
             layout += struct.pack("<Q", addr)
         return [(FILTERS, pipeline), (LAYOUT, layout)]
-    keys = [struct.pack(f"<II{rank + 1}Q", n, 0, k * rows, *[0] * rank)
-            for k, n in enumerate(sizes)]
+    keys = [struct.pack(f"<II{rank + 1}Q", n, mask, k * rows, *[0] * rank)
+            for k, (n, mask) in enumerate(zip(sizes, masks))]
     # the key after the last chunk: the end of its rows, and 1 in the
     # element dimension (as HDF5 writes it)
     keys.append(struct.pack(f"<II{rank + 1}Q", 0, 0, n_chunks * rows, *[0] * (rank - 1),
@@ -2117,11 +2389,11 @@ def _chunked_data(array, rows, out, pool, latest=False, fixed=False):
     btree = hw.btree1(out, 1, keys, children, per_node, key_size,
                       24 + per_node * 8 + (per_node + 1) * key_size) if children else UNDEF
     pipeline = struct.pack("<BB6x", 1, 2)
-    for fid, name, value in ((SHUFFLE, b"shuffle", element), (DEFLATE, b"deflate",
-                                                                 DEFLATE_LEVEL)):
-        # id, name length, flags (optional), one value, name, value, pad
-        pipeline += struct.pack("<HHHH", fid, 8, 1, 1) + name + b"\0" + struct.pack(
-            "<I4x", value)
+    for fid, name, values in ((SHUFFLE, b"shuffle", (element,)), coder):
+        # id, name length, flags (optional), values, name, values (padded
+        # to an even count)
+        pipeline += struct.pack("<HHHH", fid, 8, 1, len(values)) + name.ljust(8, b"\0")
+        pipeline += struct.pack(f"<{len(values)}I", *values) + bytes(4 * (len(values) % 2))
     layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree) + struct.pack(f"<{rank + 1}I", *dims)
     return [(FILTERS, pipeline), (LAYOUT, layout)]
 
@@ -2137,7 +2409,7 @@ def _write_members(out, tree, path, options):
     """Write the members of the group ``tree`` ({name: array or subtree})
     at ``path``, in name order; [(name, header address, (B-tree, heap)
     of a symbol-table subgroup or None)]."""
-    chunks, group_attrs, fixed, pool, latest = options
+    chunks, group_attrs, fixed, pool, latest, compression = options
     members = []
     for name in sorted(tree, key=lambda n: n.encode("utf-8")):
         node, where = tree[name], f"{path}/{name}".strip("/")
@@ -2147,7 +2419,7 @@ def _write_members(out, tree, path, options):
             members.append((name, header, cache))
         else:
             header = _dataset_header(np.ascontiguousarray(node), out, None, chunks.get(where),
-                                     pool, latest, where in fixed)
+                                     pool, latest, where in fixed, compression)
             members.append((name, header, None))
     return members
 
@@ -2234,7 +2506,7 @@ def _write_group_latest(out, tree, attrs, path, options):
 
 
 def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=(),
-          libver="earliest"):
+          libver="earliest", compression="gzip"):
     """Write a new HDF5 file: ``datasets`` maps paths ("bins/start",
     "resolutions/5000/pixels/count") to numpy arrays of integers, floats,
     fixed strings or enums (``enum_dtype``), in groups made from the
@@ -2245,7 +2517,11 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=()
     of that many rows, shuffle then deflate at level 6, unlimited along
     the first axis unless ``fixed`` names its path (see
     ``_chunked_data``), compressed on ``THREADS`` threads; the bytes
-    written do not depend on the thread count.
+    written do not depend on the thread count.  ``compression="szip"``
+    writes those chunks through shuffle and szip instead of deflate, with
+    the options h5py's ``compression="szip"`` sets, wherever HDF5 takes
+    szip (``szip_values``; fixed strings and chunks of fewer than 8
+    elements keep deflate); it needs the native library.
 
     ``libver``: "earliest" (superblock version 0, version-1 object
     headers, symbol-table groups, data layout version 3) or "latest",
@@ -2256,6 +2532,8 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=()
     fixed array or single chunk)."""
     if libver not in ("earliest", "latest"):
         raise ValueError(f"libver must be 'earliest' or 'latest', not {libver!r}")
+    if compression not in ("gzip", "szip"):
+        raise ValueError(f"compression must be 'gzip' or 'szip', not {compression!r}")
     latest = libver == "latest"
     tree = {}
     for name, array in datasets.items():
@@ -2270,7 +2548,7 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=()
     pool = concurrent.futures.ThreadPoolExecutor(THREADS) if chunks and THREADS > 1 else None
     fd = os.open(str(path), os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o666)
     try:
-        options = (chunks, group_attrs, fixed, pool, latest)
+        options = (chunks, group_attrs, fixed, pool, latest, compression)
         if latest:
             out = hw.Appender(fd, 48)
             header, _ = _write_group_latest(out, tree, dict(attrs or {}), "", options)

@@ -306,13 +306,22 @@ class CoolSource(_PixelSource):
 
     @property
     def _count_dtype(self):
-        return self._columns[2].dtype
+        return self._columns[2].dtype.newbyteorder("=")
 
     def _pixels(self, lo, hi):
-        return tuple(column[lo:hi] for column in self._columns)
+        return tuple(_native_order(column[lo:hi]) for column in self._columns)
 
     def _pixels_b2_ct(self, lo, hi):
-        return self._columns[1][lo:hi], self._columns[2][lo:hi]
+        return _native_order(self._columns[1][lo:hi]), _native_order(self._columns[2][lo:hi])
+
+
+def _native_order(column):
+    """A pixel column in the host's byte order (h5py and the reader give a
+    big-endian column as stored; the native scatters and ICE read the
+    host's order)."""
+    if column.dtype.isnative:
+        return column
+    return column.astype(column.dtype.newbyteorder("="))
 
 
 class ArraySource(_PixelSource):

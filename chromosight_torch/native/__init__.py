@@ -19,11 +19,13 @@ to disable it, as for the JAX package.
 The HDF5 reader's and writer's filters are built the same way from
 ``lzf.cpp`` (LZF decoding), ``shuffle.cpp`` (the shuffle filter),
 ``inflate.cpp`` (deflate-filtered chunks of a slice on threads, with
-``shuffle.cpp`` and zlib) and ``bits.cpp`` (the n-bit and scale-offset
-filters), each into a library of its own; ``lzf_decompress``,
-``unshuffle``, ``shuffle``, ``nbit_decode`` and ``scaleoffset_decode``
-take their Python and numpy versions under the same rule, and
-``inflate_chunks`` leaves its chunks to the caller's Python decoding.
+``shuffle.cpp`` and zlib), ``bits.cpp`` (the n-bit and scale-offset
+filters) and ``aec.cpp`` (the szip filter's decoder and encoder, with
+``shuffle.cpp``), each into a library of its own; ``lzf_decompress``,
+``unshuffle``, ``shuffle``, ``nbit_decode``, ``scaleoffset_decode`` and
+``aec_decode`` take their Python and numpy versions under the same rule,
+``inflate_chunks`` and ``szip_chunks`` leave their chunks to the caller's
+Python decoding, and ``szip_encode_chunks`` (the writer's) raises.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ _LZF_SRC = pathlib.Path(__file__).parent / "lzf.cpp"
 _SHUFFLE_SRC = pathlib.Path(__file__).parent / "shuffle.cpp"
 _INFLATE_SRC = pathlib.Path(__file__).parent / "inflate.cpp"
 _BITS_SRC = pathlib.Path(__file__).parent / "bits.cpp"
+_AEC_SRC = pathlib.Path(__file__).parent / "aec.cpp"
 BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LIB = None
@@ -1002,9 +1005,10 @@ def marginal_sums(b1, b2, counts, bias, n_bins):
 
 
 def _filter_lib(src):
-    """The library built from ``src`` (``lzf.cpp``, ``shuffle.cpp``, or
-    ``inflate.cpp`` with ``shuffle.cpp`` and zlib: the HDF5 reader's
-    filters) with g++ at first use, beside ``kernels.cpp``'s, or None under
+    """The library built from ``src`` (``lzf.cpp``, ``shuffle.cpp``,
+    ``bits.cpp``, ``inflate.cpp`` with ``shuffle.cpp`` and zlib, or
+    ``aec.cpp`` with ``shuffle.cpp``: the HDF5 reader's filters) with g++
+    at first use, beside ``kernels.cpp``'s, or None under
     CHROMOSIGHT_TPU_NO_NATIVE or when it cannot be built or loaded (as
     ``get_lib``); tried once per process."""
     name = src.stem
@@ -1012,7 +1016,8 @@ def _filter_lib(src):
         with _LOCK:
             if name not in _FILTER_LIBS:
                 lib = None
-                more, libs = ((_SHUFFLE_SRC,), ("-lz",)) if name == "inflate" else ((), ())
+                more = (_SHUFFLE_SRC,) if name in ("inflate", "aec") else ()
+                libs = ("-lz",) if name == "inflate" else ()
                 if not os.environ.get("CHROMOSIGHT_TPU_NO_NATIVE"):
                     try:
                         lib = ctypes.CDLL(str(_build(openmp=False, src=src, name=f"lib{name}.so",
@@ -1036,6 +1041,23 @@ def _filter_lib(src):
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_char_p, ctypes.c_void_p,
                     ]
+                elif lib is not None and name == "aec":
+                    lib.hdf5_aec_decode.restype = ctypes.c_int64
+                    lib.hdf5_aec_decode.argtypes = [
+                        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                        *[ctypes.c_int] * 4,
+                    ]
+                    lib.hdf5_szip_chunks.restype = ctypes.c_int64
+                    lib.hdf5_szip_chunks.argtypes = [
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, *[ctypes.c_int] * 4,
+                        ctypes.c_int64, ctypes.c_int64,
+                    ]
+                    lib.hdf5_szip_encode_chunks.restype = ctypes.c_int64
+                    lib.hdf5_szip_encode_chunks.argtypes = [
+                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                        *[ctypes.c_int] * 4, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ]
                 elif lib is not None and name == "inflate":
                     lib.hdf5_inflate_chunks.restype = ctypes.c_int64
                     lib.hdf5_inflate_chunks.argtypes = [
@@ -1055,9 +1077,23 @@ def _filter_lib(src):
 
 def filters_native():
     """Whether the HDF5 filters run natively (``lzf.cpp``, ``shuffle.cpp``,
-    ``inflate.cpp`` and ``bits.cpp`` built and loaded)."""
+    ``inflate.cpp``, ``bits.cpp`` and ``aec.cpp`` built and loaded)."""
     return all(_filter_lib(src) is not None
-               for src in (_LZF_SRC, _SHUFFLE_SRC, _INFLATE_SRC, _BITS_SRC))
+               for src in (_LZF_SRC, _SHUFFLE_SRC, _INFLATE_SRC, _BITS_SRC, _AEC_SRC))
+
+
+def _chunk_batch(buf, in_off, in_len, out, out_off, chunk_bytes):
+    """The arguments of a native batch of chunks, checked to lie inside
+    their buffers."""
+    buf = np.ascontiguousarray(buf, np.uint8)
+    in_off, in_len, out_off = (np.ascontiguousarray(a, np.int64) for a in (in_off, in_len,
+                                                                          out_off))
+    if (in_off.min() < 0 or (in_off + in_len).max() > len(buf) or out_off.min() < 0
+            or out_off.max() + chunk_bytes > out.nbytes):
+        raise ValueError("chunks outside their buffers")
+    return (buf.ctypes.data, in_off.ctypes.data, in_len.ctypes.data, len(in_off),
+            out.ctypes.data, out_off.ctypes.data, int(chunk_bytes)), (buf, in_off, in_len,
+                                                                      out_off)
 
 
 def inflate_chunks(buf, in_off, in_len, out, out_off, chunk_bytes, element, threads):
@@ -1071,16 +1107,8 @@ def inflate_chunks(buf, in_off, in_len, out, out_off, chunk_bytes, element, thre
     lib = _filter_lib(_INFLATE_SRC)
     if lib is None or not len(in_off):
         return lib is not None
-    buf = np.ascontiguousarray(buf, np.uint8)
-    in_off, in_len, out_off = (np.ascontiguousarray(a, np.int64) for a in (in_off, in_len,
-                                                                          out_off))
-    if (in_off.min() < 0 or (in_off + in_len).max() > len(buf) or out_off.min() < 0
-            or out_off.max() + chunk_bytes > out.nbytes):
-        raise ValueError("chunks outside their buffers")
-    failed = lib.hdf5_inflate_chunks(
-        buf.ctypes.data, in_off.ctypes.data, in_len.ctypes.data, len(in_off), out.ctypes.data,
-        out_off.ctypes.data, int(chunk_bytes), int(element), int(threads))
-    return failed < 0
+    args, _keep = _chunk_batch(buf, in_off, in_len, out, out_off, chunk_bytes)
+    return lib.hdf5_inflate_chunks(*args, int(element), int(threads)) < 0
 
 
 def lzf_decompress(data, size):
@@ -1324,3 +1352,239 @@ def scaleoffset_decode_numpy(data, values):
         all_ones = np.uint64((1 << minbits) - 1) if minbits < 64 else np.uint64(2**64 - 1)
         value = np.where(v == all_ones, np.uint64(int.from_bytes(fill[:size], "little")), value)
     return _ordered(value.astype(np.uint64), size, order)
+
+
+# -- the szip filter --------------------------------------------------------- #
+# HDF5's filter 4: CCSDS 121.0-B adaptive entropy coding through libaec's
+# szlib layer (see aec.cpp).  Client values: options mask, pixels per
+# block, bits per pixel, pixels per scanline.
+
+SZIP_EC, SZIP_LSB, SZIP_MSB, SZIP_NN = 4, 8, 16, 32
+# HDF5 also sets K13 and RAW, which the szlib layer ignores
+SZIP_ALWAYS = 1 | 128
+_AEC_ERRORS = {
+    -1: "the stream ends before its samples",
+    -2: "a code outside CCSDS 121.0-B's options",
+    -4: "options outside HDF5's szip (8, 16, 32 or 64 bits per pixel, an even block of "
+        "2 to 32 pixels)",
+    -5: "not a whole number of samples",
+}
+_BITS01 = bytes.maketrans(b"\0\1", b"01")
+
+
+def szip_options_valid(values):
+    """Whether szip client ``values`` are ones ``aec.cpp`` decodes: 8,
+    16, 32 or 64 bits per pixel, an even block of 2 to 32 pixels, a
+    scanline of at least one."""
+    if len(values) < 4:
+        return False
+    _, ppb, bpp, pps = values[:4]
+    return bpp in (8, 16, 32, 64) and 2 <= ppb <= 32 and ppb % 2 == 0 and pps >= 1
+
+
+def _aec_check(got, n_in, size):
+    if got != 0:
+        raise OSError(f"szip stream of {n_in} bytes: {_AEC_ERRORS.get(got, got)}, {size} "
+                      "bytes expected")
+
+
+def szip_decode(data, values, limit):
+    """One chunk of HDF5's szip filter (``values`` its client values): the
+    4-byte little-endian size it decodes to, then the stream, decoded by
+    ``aec_decode``.  Raises OSError when the size passes ``limit`` or the
+    stream does not decode to it."""
+    data = bytes(data)
+    size = int.from_bytes(data[:4], "little") if len(data) >= 4 else None
+    if size is None or size > limit:
+        raise OSError(f"szip chunk of {len(data)} bytes: size {size}, at most {limit} "
+                      "expected")
+    return aec_decode(data[4:], values, size)
+
+
+def aec_decode(body, values, size):
+    """The szip stream ``body`` (a chunk past its size) decoded to ``size``
+    bytes by ``aec.cpp`` (built with g++ at first use), or by
+    ``aec_decode_py`` under CHROMOSIGHT_TPU_NO_NATIVE or without a
+    compiler: the same bytes, the same OSError."""
+    lib = _filter_lib(_AEC_SRC)
+    if lib is None:
+        return aec_decode_py(body, values, size)
+    body = bytes(body)
+    out = np.empty(int(size), np.uint8)
+    _aec_check(lib.hdf5_aec_decode(body, len(body), out.ctypes.data, out.size,
+                                   *map(int, values[:4])), len(body), size)
+    return out.tobytes()
+
+
+def aec_decode_py(body, values, size):
+    """``aec.cpp``'s decoder in Python and numpy, the fallback of
+    ``aec_decode``: the samples (8 bits, or 16 in the byte order of the
+    options; 32- and 64-bit pixels split into bytes interleaved by words)
+    decoded RSI by RSI, each scanline's blocks until its samples are out,
+    with the same checks in the same order."""
+    mask, ppb, bpp, pps = (int(v) for v in values[:4])
+    body, size = bytes(body), int(size)
+    if not szip_options_valid(values):
+        _aec_check(-4, len(body), size)
+    word = bpp // 8 if bpp > 16 else 1
+    n = 8 if bpp > 16 else bpp
+    width = n // 8
+    if size % width or size % word:
+        _aec_check(-5, len(body), size)
+    out = np.empty(size // width, np.uint32)
+    _aec_check(_aec_samples(body, out, n, ppb, pps, bool(mask & SZIP_NN)), len(body), size)
+    if width == 1:
+        raw = out.astype(np.uint8).tobytes()
+    else:
+        raw = out.astype(">u2" if mask & SZIP_MSB else "<u2").tobytes()
+    return unshuffle_numpy(raw, word) if word > 1 else raw
+
+
+def _aec_samples(body, out, n, block, pps, pp):
+    """Decode the samples of ``body`` into ``out`` (uint32): 0, or the
+    error code of ``aec.cpp``'s ``decode_samples``."""
+    bits = np.unpackbits(np.frombuffer(body, np.uint8)).tobytes().translate(_BITS01)
+    total, pos = len(bits), 0
+    rsi = -(-pps // block)
+    rsi_size = rsi * block
+    id_len = 4 if n > 8 else 3
+    xmax, uncompressed = (1 << n) - 1, (1 << id_len) - 1
+    need, done = len(out), 0
+    while done < need:
+        line = min(pps, need - done)
+        buf = []
+        while len(buf) < line:
+            ref = pp and not buf
+            if pos + id_len > total:
+                return -1
+            ident = int(bits[pos : pos + id_len], 2)
+            pos += id_len
+            if ident == 0:
+                if pos + 1 > total:
+                    return -1
+                second = bits[pos] == 49
+                pos += 1
+                if ref:
+                    if pos + n > total:
+                        return -1
+                    buf.append(int(bits[pos : pos + n], 2))
+                    pos += n
+                if not second:
+                    end = bits.find(b"1", pos)
+                    if end < 0:
+                        return -1
+                    blocks, pos = end - pos + 1, end + 1
+                    b = len(buf) // block
+                    if blocks == 5:
+                        blocks = min(rsi - b, 64 - b % 64)
+                    elif blocks > 5:
+                        blocks -= 1
+                    zeros = blocks * block - ref
+                    if blocks > rsi_size or zeros > rsi_size - len(buf):
+                        return -2
+                    buf.extend([0] * zeros)
+                    continue
+                i = 1 if ref else 0
+                while i < block:
+                    end = bits.find(b"1", pos)
+                    if end < 0:
+                        return -1
+                    m, pos = end - pos, end + 1
+                    if m > 90:
+                        return -2
+                    beta = int(((8 * m + 1) ** 0.5 - 1) / 2)
+                    while beta * (beta + 1) // 2 > m:
+                        beta -= 1
+                    d1 = m - beta * (beta + 1) // 2
+                    if i % 2 == 0:
+                        buf.append(beta - d1)
+                        i += 1
+                    buf.append(d1)
+                    i += 1
+            elif ident == uncompressed:
+                if pos + block * n > total:
+                    return -1
+                buf.extend(int(bits[pos + j * n : pos + (j + 1) * n], 2) for j in range(block))
+                pos += block * n
+            else:
+                k = ident - 1
+                if ref:
+                    if pos + n > total:
+                        return -1
+                    buf.append(int(bits[pos : pos + n], 2))
+                    pos += n
+                high, top = [], xmax >> k
+                for _ in range(block - ref):
+                    end = bits.find(b"1", pos)
+                    if end < 0:
+                        return -1
+                    if end - pos > top:
+                        return -2
+                    high.append((end - pos) << k)
+                    pos = end + 1
+                if k:
+                    if pos + k * len(high) > total:
+                        return -1
+                    high = [h | int(bits[pos + j * k : pos + (j + 1) * k], 2)
+                            for j, h in enumerate(high)]
+                    pos += k * len(high)
+                buf.extend(high)
+        out[done : done + line] = _unmapped(buf[:line], xmax) if pp else buf[:line]
+        done += line
+    return 0
+
+
+def _unmapped(deltas, xmax):
+    """The samples of an RSI from its reference and mapped differences
+    (CCSDS's unit-delay predictor and mapping, inverted)."""
+    x = deltas[0]
+    if not any(deltas[1:]):
+        return [x] * len(deltas)
+    samples = [x]
+    for d in deltas[1:]:
+        theta = min(x, xmax - x)
+        if d <= 2 * theta:
+            x = x - ((d + 1) >> 1) if d & 1 else x + (d >> 1)
+        else:
+            x = d if theta == x else xmax - d
+        samples.append(x)
+    return samples
+
+
+def szip_chunks(buf, in_off, in_len, out, out_off, chunk_bytes, values, element, threads):
+    """Decode the szip chunks ``buf[in_off[i]:][:in_len[i]]`` (each its size
+    and stream, exactly ``chunk_bytes`` bytes; unshuffled by elements of
+    ``element`` bytes when above 1) into ``out`` at ``out_off[i]`` on
+    ``threads`` threads of ``aec.cpp``'s own: True when every chunk
+    decoded; False when one did not, or without the library, and then the
+    caller decodes them in Python."""
+    lib = _filter_lib(_AEC_SRC)
+    if lib is None or not len(in_off):
+        return lib is not None
+    args, _keep = _chunk_batch(buf, in_off, in_len, out, out_off, chunk_bytes)
+    return lib.hdf5_szip_chunks(*args, *map(int, values[:4]), int(element), int(threads)) < 0
+
+
+def szip_encode_chunks(flat, chunk_bytes, values, element, threads):
+    """The chunks of ``chunk_bytes`` bytes of ``flat`` (a uint8 array of
+    whole chunks), shuffled by elements of ``element`` bytes when above 1,
+    then szip-coded with client ``values`` by ``aec.cpp`` on ``threads``
+    threads: [(bytes stored, whether szip coded it)]; a chunk szip would
+    not shrink below its size is stored shuffled only, as HDF5 stores it.
+    The bytes do not depend on ``threads``.  Raises RuntimeError without
+    the native library (there is no Python encoder)."""
+    lib = _filter_lib(_AEC_SRC)
+    if lib is None:
+        raise RuntimeError("writing szip needs aec.cpp built (g++; not under "
+                           "CHROMOSIGHT_TPU_NO_NATIVE)")
+    flat = np.ascontiguousarray(flat, np.uint8)
+    n = len(flat) // chunk_bytes if chunk_bytes else 0
+    slots = np.empty((n, chunk_bytes + 4), np.uint8)
+    lengths = np.zeros(n, np.int64)
+    if n:
+        got = lib.hdf5_szip_encode_chunks(flat.ctypes.data, n, int(chunk_bytes), int(element),
+                                          *map(int, values[:4]), slots.ctypes.data,
+                                          lengths.ctypes.data, int(threads))
+        _aec_check(got, len(flat), len(flat))
+    return [(slots[k, : lengths[k]].tobytes(), True) if lengths[k] else
+            (slots[k, :chunk_bytes].tobytes(), False) for k in range(n)]

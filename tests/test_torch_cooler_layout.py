@@ -337,17 +337,15 @@ RUNS = {"loops": ["detect", "--no-plotting"],
         "quantify": ["quantify", "--no-plotting", str(ROOT / "data_test" / "example.bed2")]}
 
 
-@pytest.mark.parametrize("run", sorted(RUNS))
-def test_jax_calls_from_the_cooler_mcool(tmp_path, cooler_mcool, run):
-    """The JAX package's CLI (h5py reading the file) and the port's
-    (``device="cpu"``, its own reader) from the port-written .mcool: the
-    same rows and coordinates, scores within 5e-5 and p-values within
-    1e-5 (tests/test_golden_outputs.py's bounds)."""
+def assert_jax_calls(tmp_path, uri, run):
+    """The JAX package's CLI (h5py reading ``uri``) and the port's
+    (``device="cpu"``, its own reader) from ``uri``: the same rows and
+    coordinates, scores within 5e-5 and p-values within 1e-5
+    (tests/test_golden_outputs.py's bounds)."""
     from chromosight_tpu.cli.main import main as jax_main
 
-    assert _quiet(jax_main, [*RUNS[run], cooler_mcool, str(tmp_path / "jax")]) in (0, None)
-    assert _quiet(lambda a: main(a, device="cpu"),
-                  [*RUNS[run], cooler_mcool, str(tmp_path / "port")]) == 0
+    assert _quiet(jax_main, [*RUNS[run], uri, str(tmp_path / "jax")]) in (0, None)
+    assert _quiet(lambda a: main(a, device="cpu"), [*RUNS[run], uri, str(tmp_path / "port")]) == 0
     ref = pd.read_csv(tmp_path / "jax.tsv", sep="\t")
     ours = pd.read_csv(tmp_path / "port.tsv", sep="\t")
     assert list(ours.columns) == list(ref.columns) and len(ours) == len(ref) > 0
@@ -358,6 +356,13 @@ def test_jax_calls_from_the_cooler_mcool(tmp_path, cooler_mcool, run):
     for col, tol in (("score", 5e-5), ("pvalue", 1e-5)):
         assert (ours[col].isna() == ref[col].isna()).all(), col
         assert np.nanmax(np.abs(ours[col] - ref[col])) < tol, col
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_jax_calls_from_the_cooler_mcool(tmp_path, cooler_mcool, run):
+    """The JAX package's CLI and the port's from the port-written .mcool
+    (``assert_jax_calls``)."""
+    assert_jax_calls(tmp_path, cooler_mcool, run)
 
 PORT_READ = """
 import sys, time

@@ -336,14 +336,35 @@ def _virtual(path):
     return "x"
 
 
-@pytest.mark.parametrize("make", [_latest, _lzf, _link_group, _scaleoffset, _nbit, _soft_link],
+def _virtual_unlimited(path):
+    source = path.parent / "source.h5"
+    with h5py.File(source, "w") as f:
+        f.create_dataset("x", data=np.arange(4), maxshape=(None,), chunks=(2,))
+    layout = h5py.VirtualLayout(shape=(4,), maxshape=(None,), dtype="i8")
+    layout[0:h5py.h5s.UNLIMITED] = h5py.VirtualSource(
+        str(source), "x", shape=(4,), maxshape=(None,))[0:h5py.h5s.UNLIMITED]
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_virtual_dataset("x", layout)
+    return "x"
+
+
+def _compound(path):
+    with h5py.File(path, "w") as f:
+        f["x"] = np.zeros(3, dtype=[("a", "<i4"), ("b", "<f8")])
+    return "x"
+
+
+@pytest.mark.parametrize("make", [_latest, _lzf, _link_group, _scaleoffset, _nbit, _soft_link,
+                                  _szip, _virtual],
                          ids=["superblock_v3", "lzf", "link_group", "scaleoffset", "nbit",
-                              "soft_link"])
+                              "soft_link", "szip", "virtual"])
 def test_newer_formats_read_like_h5py(tmp_path, make):
     """What this reader once refused (a superblock-v3 file, LZF, a group
-    of link messages, the scale-offset and n-bit filters, a soft link)
-    reads as h5py reads it (tests/test_torch_hdf5_formats.py and
-    test_torch_hdf5_features.py hold every newer structure)."""
+    of link messages, the scale-offset, n-bit and szip filters, a soft
+    link, a virtual dataset) reads as h5py reads it
+    (tests/test_torch_hdf5_formats.py, test_torch_hdf5_features.py,
+    test_torch_hdf5_szip.py and test_torch_hdf5_virtual.py hold every
+    newer structure)."""
     path = tmp_path / "x.h5"
     name = make(path)
     with h5py.File(path, "r") as ref, hdf5.File(path) as f:
@@ -352,7 +373,8 @@ def test_newer_formats_read_like_h5py(tmp_path, make):
         assert name in assert_reads_like_h5py(path)
 
 
-@pytest.mark.parametrize("make", [_szip, _virtual], ids=["szip", "virtual"])
+@pytest.mark.parametrize("make", [_virtual_unlimited, _compound],
+                         ids=["virtual_unlimited", "compound"])
 def test_outside_the_subset_raises(tmp_path, make):
     """A feature outside the subset raises NotImplementedError naming it
     and its file offset, never a wrong read."""

@@ -199,6 +199,80 @@ def _dense_bins(dst):
             d.create_dataset(f"bins/{name}", data=rng.rand(720), **COOLER_OPTS)
 
 
+# szip with h5py's options ('nn' or 'ec', pixels per block) on every
+# dataset HDF5 takes szip for; the rest (fixed strings, columns of fewer
+# rows than a block) with cooler's gzip 6 + shuffle
+SZIP_NN = dict(compression="szip", compression_opts=("nn", 16))
+SZIP_SHUFFLE_EC = dict(compression="szip", compression_opts=("ec", 8), shuffle=True)
+SZIP_SHUFFLE_NN = dict(compression="szip", compression_opts=("nn", 8), shuffle=True)
+PIXEL_CHUNK = 20_000
+
+
+def _szip_example(dst, opts, ids=None, big_endian=()):
+    """The example's tables chunked (pixel columns by ``PIXEL_CHUNK``
+    rows, the others whole) with szip ``opts`` (the pixel ids with
+    ``ids`` when given) where HDF5 takes them, the columns named in
+    ``big_endian`` stored big-endian."""
+    columns, attrs = example_columns(EXAMPLE_COOL)
+    with h5py.File(dst, "w") as d:
+        for key, value in attrs.items():
+            d.attrs[key] = value
+        for name, value in columns.items():
+            if name in big_endian:
+                value = value.astype(value.dtype.newbyteorder(">"))
+            chunk = (min(PIXEL_CHUNK, len(value)),)
+            szip = (ids if ids and name in ("pixels/bin1_id", "pixels/bin2_id") else opts)
+            if value.dtype.kind not in "iuf" or chunk[0] < szip["compression_opts"][1]:
+                szip = COOLER_OPTS
+            d.create_dataset(name, data=value, chunks=chunk, **szip)
+
+
+def _szip(dst):
+    """szip NN in blocks of 16 pixels (the int64 ids as 64-bit pixels)."""
+    _szip_example(dst, SZIP_NN)
+
+
+def _szip_shuffle_ec(dst):
+    """shuffle + szip: EC in blocks of 8 pixels, the counts big-endian;
+    the pixel ids h5py's default NN in blocks of 8 (EC would double
+    them)."""
+    _szip_example(dst, SZIP_SHUFFLE_EC, ids=SZIP_SHUFFLE_NN, big_endian=("pixels/count",))
+
+
+def _virtual(dst):
+    """The pixel columns virtual datasets over two files beside it,
+    example_virtual_a.h5 (the first chromosome's pixel rows) and
+    example_virtual_b.h5 (the rest), and bins/end one over
+    /sources/bins_end of the same file ("."); libver "latest"."""
+    columns, attrs = example_columns(EXAMPLE_COOL)
+    first = int(np.sum(columns["bins/chrom"] == 0))
+    split = int(columns["indexes/bin1_offset"][first])
+    nnz = len(columns["pixels/count"])
+    parts = {"a": (0, split), "b": (split, nnz)}
+    for part, (lo, hi) in parts.items():
+        with h5py.File(dst.parent / f"example_virtual_{part}.h5", "w") as s:
+            for col in ("bin1_id", "bin2_id", "count"):
+                s.create_dataset(f"pixels/{col}", data=columns[f"pixels/{col}"][lo:hi],
+                                 chunks=(min(PIXEL_CHUNK, hi - lo),), **COOLER_OPTS)
+    with h5py.File(dst, "w", libver="latest") as d:
+        for key, value in attrs.items():
+            d.attrs[key] = value
+        for name, value in columns.items():
+            if name.startswith("pixels/"):
+                layout = h5py.VirtualLayout(shape=value.shape, dtype=value.dtype)
+                for part, (lo, hi) in parts.items():
+                    layout[lo:hi] = h5py.VirtualSource(f"example_virtual_{part}.h5", name,
+                                                       shape=(hi - lo,))
+                d.create_virtual_dataset(name, layout)
+            elif name == "bins/end":
+                d.create_dataset("sources/bins_end", data=value)
+                layout = h5py.VirtualLayout(shape=value.shape, dtype=value.dtype)
+                layout[:] = h5py.VirtualSource(".", "sources/bins_end", shape=value.shape)
+                d.create_virtual_dataset(name, layout)
+            else:
+                d.create_dataset(name, data=value)
+
+
 FIXTURES = {
     "soft": (_soft, "example_soft.cool", ""),
     "external": (_external, "example_external.mcool", "::/resolutions/1000"),
@@ -207,7 +281,19 @@ FIXTURES = {
     "external_storage": (_external_storage, "example_external_storage.cool", ""),
     "shared": (_shared, "example_shared.cool", ""),
     "dense_bins": (_dense_bins, "example_dense_bins.cool", ""),
+    "szip": (_szip, "example_szip.cool", ""),
+    "szip_shuffle_ec": (_szip_shuffle_ec, "example_szip_shuffle_ec.cool", ""),
+    "virtual": (_virtual, "example_virtual.cool", ""),
 }
+# the files a fixture reads besides itself
+FIXTURE_FILES = {
+    "external": (LATEST_COOL.name,),
+    "external_storage": ("example_external_storage.raw",),
+    "virtual": ("example_virtual_a.h5", "example_virtual_b.h5"),
+}
+# columns a fixture stores big-endian (read as h5py reads them: in that
+# byte order)
+BIG_ENDIAN = {"szip_shuffle_ec": ("pixels/count",)}
 
 
 def write_fixture(name, directory=DATA):
@@ -219,6 +305,14 @@ def write_fixture(name, directory=DATA):
     return dst
 
 
+def stored_columns(name):
+    """{path: array} of example.cool's datasets as fixture ``name`` stores
+    them (``BIG_ENDIAN`` columns big-endian)."""
+    columns, _ = example_columns(EXAMPLE_COOL)
+    return {key: value.astype(value.dtype.newbyteorder(">"))
+            if key in BIG_ENDIAN.get(name, ()) else value for key, value in columns.items()}
+
+
 def fixture_uri(name, directory=DATA):
     _, filename, group = FIXTURES[name]
     return f"{pathlib.Path(directory) / filename}{group}"
@@ -228,11 +322,8 @@ def copy_fixture(name, directory):
     """The fixture with the files it reads (an external link's target,
     external storage's raw file) copied into ``directory``; its URI."""
     _, filename, _ = FIXTURES[name]
-    shutil.copy(DATA / filename, directory)
-    if name == "external":
-        shutil.copy(LATEST_COOL, directory)
-    if name == "external_storage":
-        shutil.copy((DATA / filename).with_suffix(".raw"), directory)
+    for other in (filename, *FIXTURE_FILES.get(name, ())):
+        shutil.copy(DATA / other, directory)
     return fixture_uri(name, directory)
 
 
@@ -457,13 +548,14 @@ def test_fixtures_hold_the_example(tmp_path, monkeypatch):
     """Each fixture holds data_test/example.cool's tables and attributes
     through h5py, and its writer writes it again with the same contents."""
     monkeypatch.chdir(DATA)  # h5py opens external storage from here
-    columns, attrs = example_columns(EXAMPLE_COOL)
+    _, attrs = example_columns(EXAMPLE_COOL)
     for name in sorted(FIXTURES):
         path, _, group = fixture_uri(name).partition("::")
+        stored = stored_columns(name)
         with h5py.File(path, "r") as f:
             g = f[group or "/"]
             assert_same(dict(g.attrs), attrs, name)
-            for key, value in columns.items():
+            for key, value in stored.items():
                 assert g[key][()].tobytes() == value.tobytes(), (name, key)
                 assert g[key].dtype == value.dtype, (name, key)
         assert os.path.getsize(path) < 400_000, name
@@ -471,7 +563,7 @@ def test_fixtures_hold_the_example(tmp_path, monkeypatch):
         write_fixture(name, tmp_path)
         with h5py.File(again.partition("::")[0], "r") as f:
             g = f[group or "/"]
-            for key, value in columns.items():
+            for key, value in stored.items():
                 assert g[key][()].tobytes() == value.tobytes(), (name, key)
     with h5py.File(fixture_uri("dense_bins"), "r") as f:
         assert len(f["bins"]) == 9
@@ -531,10 +623,9 @@ def test_norm_force_on_fixtures(tmp_path, name):
     assert np.isfinite(weights).sum() == 637
     assert CoolSource(uri).weights.tobytes() == weights.tobytes()
     path, _, group = uri.partition("::")
-    columns, _ = example_columns(EXAMPLE_COOL)
     with contextlib.chdir(tmp_path / "copy"), h5py.File(path, "r") as f:
         g = f[group or "/"]
         assert g["bins/weight"][()].tobytes() == weights.tobytes()
-        for key, value in columns.items():
+        for key, value in stored_columns(name).items():
             if key != "bins/weight":
                 assert g[key][()].tobytes() == value.tobytes(), key
