@@ -53,7 +53,7 @@ Phases, one line or block each; any failure raises (non-zero exit):
             gives its table byte for byte; then the example through one
             HDF5 feature each (tests/data/example_{soft,scaleoffset,nbit,
             external_storage,shared,dense_bins,szip,szip_shuffle_ec,
-            virtual}.cool and example_external.mcool, written by
+            virtual,virtual_printf}.cool and example_external.mcool, written by
             tests/test_torch_hdf5_features.py): the feature's structure
             walked, loops, borders and quantify byte for byte the tables
             from example.cool, ``--norm force`` on a copy storing its 637
@@ -137,7 +137,18 @@ Phases, one line or block each; any failure raises (non-zero exit):
             loops: weights bit for bit the genome's, tables and windows
             byte for byte phase 5's, 13 single launches a loops run, the
             structures walked, stages beside 8c's; the file deleted.
-8e. szip-genome  phase 5's genome (not cut) written by the port in
+8e. userblock-genome  phase 5's genome (not cut) written by the port
+            without weights in cooler's layout (superblock 0, int64 ids,
+            shuffle + gzip 6) after a 512-byte user block holding a text
+            header, with 4-byte offsets and lengths: the write's seconds and
+            size; through ``cmd_detect`` / ``cmd_quantify``, (a) loops at
+            ``--norm auto`` (ICE storing the weights into the file), (b)
+            loops again, (c) ``--norm force``, (d) quantify: weights bit for
+            bit the genome's, tables and windows byte for byte phase 5's, 13
+            single launches a loops run, the user block unchanged; ICE,
+            ``io: fetch+scatter`` and the wall of each run beside 8d's; the
+            file deleted.
+8f. szip-genome  phase 5's genome (not cut) written by the port in
             cooler's layout with szip (``write_cooler_layout(...,
             compression="szip")``: shuffle + szip ('nn', 8) on every
             column HDF5 takes szip for, int64 ids, an enum ``bins/chrom``;
@@ -300,6 +311,8 @@ FEATURE_FIXTURES = (
     ("shuffle + szip EC", "tests/data/example_szip_shuffle_ec.cool", (), "szip chunk"),
     ("virtual", "tests/data/example_virtual.cool",
      ("tests/data/example_virtual_a.h5", "tests/data/example_virtual_b.h5"), "virtual mapping"),
+    ("virtual %b", "tests/data/example_virtual_printf.cool",
+     tuple(f"tests/data/example_virtual_printf_{k}.h5" for k in range(3)), "virtual mapping"),
 )
 # latest-genome: more bins columns, named as normalisation vectors are
 # (with chrom, start and end, the eight links of a compact group)
@@ -468,7 +481,7 @@ def phase_env():
 def phase_build():
     _build.load()
     info = _build.BUILD_INFO
-    print(f"[build] {info['path']} in {info['seconds']:.2f} s")
+    print(f"[build] {os.path.relpath(info['path'])} in {info['seconds']:.2f} s")
     # ptxas per instance (side x side, or "any" shape / diagonals per
     # thread): registers, stack frame bytes, spill stores / loads bytes
     instances, name, entry, own = {}, None, None, False
@@ -678,9 +691,9 @@ def bound_ms(sig_p, mask_p, kernels, rate):
     ops = fmas + 3 * (mk + nk) * pixels
     nbytes = 2 * 4 * sig_p.numel() + pixels * n_k * 9 + n_k * (3 * mk * nk * 8 + 8)
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): taps over a non-zero x "
-          f"{x_taps / (pixels * mk * nk):.4f}, a set mask bit {m_taps / (pixels * mk * nk):.4f}; "
-          f"{fmas:.6g} of {dense:.6g} dense FMAs")
+    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): taps on a non-zero x "
+          f"{x_taps / (pixels * mk * nk):.4f}, on a mask bit {m_taps / (pixels * mk * nk):.4f}; "
+          f"{fmas:.6g} of {dense:.6g} FMAs")
     return (t_ops, "operations", fmas, dense) if t_ops >= t_bytes else (
         t_bytes, "bytes", fmas, dense)
 
@@ -713,7 +726,7 @@ def phase_kernels_small():
                         for name in ("stripes_left", "stripes_right", "stripes_left")])
     case = random_case(stripes.shape[1:], 300, 512, np.random.RandomState(4))
     run_multi("three 31x31 (2 + 1 launches)", *case[:2], stripes, 300, case[2])
-    flush_reports("random bands, single- and K-kernel launches")
+    flush_reports("random bands, single and K kernels")
     two_streams()
     fp32_boundaries()
 
@@ -902,7 +915,7 @@ def phase_kernels_chromosome(source):
     rate = fp64_rate()
     cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "loops")
     n, max_dist = cm.shape[0], cm.max_dist
-    shape = tuple(cm.band.shape)
+    shape = tuple(cm.band_dev.shape)
     run_both(f"loops {cm.name} {shape}", sig_p, mask_p, kernels[0], n, max_dist)
     run_both(f"loops --tsvd {cm.name} {shape}", sig_p, mask_p, kernels[0], n, max_dist,
              tsvd=TSVD)
@@ -923,14 +936,14 @@ def phase_kernels_chromosome(source):
     cm.destroy_mat()
     del sig_p, mask_p
     cm, cfg, kernels, sig_p, mask_p = chromosome_case(source, "borders")
-    bshape = tuple(cm.band.shape)
+    bshape = tuple(cm.band_dev.shape)
     bargs = (cm.shape[0], cm.max_dist, cfg["max_perc_undetected"] / 100, cfg["pearson"])
     run_multi(f"borders {cm.name} {bshape}", sig_p, mask_p, kernels, *bargs[:2],
               bargs[3])
     times["borders"] = fused_times(sig_p, mask_p, kernels, bargs)
     bounds["borders"] = bound_ms(sig_p, mask_p, kernels, rate)
     cm.destroy_mat()
-    flush_reports(f"chr1 of the genome, loops {shape} and borders {bshape}")
+    flush_reports("chr1 of the genome")
     print("[kernels] ms a call, kernel-only (profiler) / CUDA events, median of 5; bound, its "
           "share (of events); float64 FMAs per second (T) needed / dense; plain twin")
     timed = {"loops": times["loops"][:2], "tsvd": times["tsvd"][:2],
@@ -1156,16 +1169,16 @@ def phase_formats(workdir):
     """The example's goldens from the newer-format fixtures, through the
     command line on the card: tables byte for byte those from
     data_test/example.cool, the band kernel launched on every map."""
-    card = nvidia_smi("name,power.limit")
     expect_walked = {LATEST_COOL: ("superblock v3", "OHDR", "BTHD type 8", "FHDB", "EAHD", "EAIB",
                                    "EADB", "FAHD", "FADB", "chunk index 1"),
                      LATEST_MCOOL: ("superblock v3", "BTHD type 5", "FHDB", "EAHD", "FAHD",
                                     "LZF chunk")}
     for path, signatures in expect_walked.items():
         (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
-        print(f"[formats] {short_path(path)}: open + headers {t_open:.6f} s, index walk "
+        print(f"[formats] {short_path(path)}: open {t_open:.6f} s, index walk "
               f"{t_index:.6f} s, read {t_read:.6f} s ({n} datasets, {n_bytes} bytes); "
-              f"walked {json.dumps({sig: walked.get(sig, 0) for sig in signatures})}")
+              f"walked " + " ".join(f"{sig} {walked.get(sig, 0)}" for sig in signatures[:4])
+              + ", ...")
         missing = [sig for sig in signatures if not walked.get(sig)]
         check(not missing, f"{path}: structures not walked: {missing}")
     loops = ("golden_detect_loops", [], {"single": 3, "multi": 0}, 1e-6)
@@ -1177,7 +1190,7 @@ def phase_formats(workdir):
         new = golden_detect(workdir, golden, flags, expect, tol, path=path, tag="_latest",
                             show=False)
         same = pathlib.Path(new + ".tsv").read_bytes() == pathlib.Path(old + ".tsv").read_bytes()
-        same_tables.append(f"{golden[len('golden_detect_'):]} from {short_path(path)}")
+        same_tables.append(f"{golden[len('golden_detect_'):]} {short_path(path)}")
         check(same, f"{golden} from {path}: table differs from {EXAMPLE_COOL}'s")
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, tag="_v0", show=False)
     golden_quantify(workdir, "golden_quantify_loops", [], 1e-6, path=LATEST_COOL, tag="_latest",
@@ -1185,8 +1198,8 @@ def phase_formats(workdir):
     same = (pathlib.Path(f"{workdir}/golden_quantify_loops_latest.tsv").read_bytes()
             == pathlib.Path(f"{workdir}/golden_quantify_loops_v0.tsv").read_bytes())
     check(same, "quantify table differs")
-    same_tables.append(f"quantify from {short_path(LATEST_COOL)}")
-    print(f"[formats] byte for byte the tables from {EXAMPLE_COOL}: " + ", ".join(same_tables))
+    same_tables.append(f"quantify {short_path(LATEST_COOL)}")
+    print(f"[formats] {EXAMPLE_COOL}'s tables byte for byte: " + ", ".join(same_tables))
 
     # --norm force on a weightless newer-format copy and on a copy of
     # example.cool: ICE on the host, the weights stored by the port's writer
@@ -1214,10 +1227,10 @@ def phase_formats(workdir):
         bins = f["bins"]
         grew = len(f._v2_chunks(bins.addr)[1]) > chunks
         where = "a new OCHK chunk" if grew else "a NIL message"
-    print(f"[formats] --norm force on {short_path(LATEST_COOL)} without its weights: "
-          f"{np.isfinite(weights).sum()} weights stored through {where} of bins, bit for bit "
-          f"as into a copy of example.cool: {same_w}; tables alike: {same_t}; walls "
-          f"{runs[new][0]:.3f} / {runs[old][0]:.3f} s ({card}); launches {runs[new][1]}")
+    print(f"[formats] --norm force on {short_path(LATEST_COOL)} without weights: "
+          f"{np.isfinite(weights).sum()} stored through {where} of bins, example.cool's: "
+          f"{same_w}, tables {same_t}; walls {runs[new][0]:.3f} / {runs[old][0]:.3f} s; "
+          f"{runs[new][1]}")
     check(same_w and same_t, "--norm force on the newer-format copy differs")
     check(runs[new][1] == {"single": 3, "multi": 0}, f"--norm force launches {runs[new][1]}")
     feature_fixtures(workdir, CoolFile(old).weights, runs[old][2])
@@ -1272,9 +1285,9 @@ def feature_fixtures(workdir, forced, forced_table):
               f"--norm force on {copy}: weights differ from example.cool's")
         check(pathlib.Path(f"{copies}/out.tsv").read_bytes() == forced_table,
               f"--norm force on {copy}: table differs")
-        done.append(f"{feature} ({walk} {walked})")
-    print("[formats] feature fixtures, loops, borders, quantify and --norm force (637 weights) "
-          "as from example.cool: " + "; ".join(done))
+        done.append(f"{feature} {walked}")
+    print("[formats] feature fixtures (structures walked), loops, borders, quantify and --norm "
+          "force (637 weights) as from example.cool: " + "; ".join(done))
 
 
 def run_genome(name, fn, tag="genome", show="short"):
@@ -1329,7 +1342,7 @@ def check_quantify_against_sweep(source, table):
     ok = ~np.isnan(at["score"])
     err = float(np.abs(at["score"][ok] - swept[ok]).max())
     print(f"[genome] quantify chr1: {int(ok.sum())}/{len(ok)} scored pixels within "
-          f"{err:.3g} of the sweep kernel's corr on {tuple(cm.band.shape)}")
+          f"{err:.3g} of the sweep kernel's corr on {tuple(cm.band_dev.shape)}")
     check(err < 2e-5, f"quantify differs from the sweep by {err}")
     check(np.allclose(at["score"], table["score"][sel], equal_nan=True),
           "chr1 quantify differs from the genome run")
@@ -1408,7 +1421,7 @@ def check_count_modes(source):
                 cm.create_mat()
             got = observability.band_uploads()[cm.name]["mode"]
             check(got == mode, f"count modes: {mode} asked, {got} taken")
-            bands[mode] = cm.band.cpu().numpy().tobytes()
+            bands[mode] = cm.band_dev.cpu().numpy().tobytes()
             cm.destroy_mat()
         shape = observability.band_uploads()[cm.name]["shape"]
         check(all(band == bands["f32"] for band in bands.values()),
@@ -1469,7 +1482,8 @@ def phase_surface_example(workdir):
     log = err.getvalue()
     lines = {u.strip("\x1b[K") for u in set(log.split("\n")) if "\r" not in u}
     n_calls = len(read_tsv(f"{workdir}/chromosight_test.tsv"))
-    print(f"[surface] test: {n_calls} patterns from {cli.example_dataset()}, log lines "
+    print(f"[surface] test: {n_calls} patterns from {os.path.relpath(cli.example_dataset())}, "
+          "log lines "
           f"{'equal' if lines == set(cli.TEST_LOG.split(chr(10))) else 'differ from'} "
           f"TEST_LOG; launches {seen}")
     check(n_calls == 89 and lines == set(cli.TEST_LOG.split("\n")), "test log differs")
@@ -1520,12 +1534,10 @@ def phase_surface_example(workdir):
     reopened = pathlib.Path(f"{workdir}/force_card_reopened.tsv").read_bytes()
     forced = pathlib.Path(f"{workdir}/force_card.tsv").read_bytes()
     print(f"[surface] --norm force: the copy reopened holds {np.isfinite(stored.weights).sum()} "
-          f"finite weights, bit for bit the CPU run's copy: "
-          f"{stored.weights.tobytes() == cpu_weights.tobytes()}, max|d| from the example's own "
-          f"{np.nanmax(np.abs(stored.weights - original)):.3g}, stats "
-          f"{json.dumps({k: float(v) for k, v in stored._file['bins/weight'].attrs.items()})}; "
-          f"--norm auto on the reopened copy gives the forced run's table byte for byte: "
-          f"{reopened == forced}")
+          f"weights, the CPU run's bit for bit: "
+          f"{stored.weights.tobytes() == cpu_weights.tobytes()} (max|d| from the example's own "
+          f"{np.nanmax(np.abs(stored.weights - original)):.3g}); --norm auto on it gives the "
+          f"forced run's table: {reopened == forced}")
     check(stored.weights.tobytes() == cpu_weights.tobytes(), "stored weights differ")
     check(reopened == forced, "the stored weights are not the ones the run used")
 
@@ -1604,12 +1616,13 @@ def phase_surface_genome(source, workdir):
     print(f"[surface] tables byte for byte the serial one, {n_chroms} single launches each; "
           "wall, peak device memory: " + "; ".join(lines))
     # why the scheduler's producer is the caller's thread
-    for counts, what in ((False, "float32 band scatter"), (True, "count scatter")):
+    shown = []
+    for counts, what in ((False, "f32"), (True, "count")):
         times = [(scatter_seconds(source, counts), on_new_thread(scatter_seconds, source, counts))
                  for _ in range(2)]
-        print(f"[surface] native {what} of the genome's chromosomes (s), on the main "
-              "thread / on a thread of its own: "
-              + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in times))
+        shown.append(f"{what} " + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in times))
+    print("[surface] native scatter of the genome (s), main thread / a thread of its own: "
+          + "; ".join(shown))
 
     first = SUBSAMPLE_CHROMS
     end = int(source._chrom_offset[first])
@@ -1735,10 +1748,10 @@ def check_inter_cut(source):
     del dense, mask, ref, got
     maps = {}
     for form in ("dense", "sparse"):
-        cm = ContactMap(None, [(0, INTER_CUT), (0, INTER_CUT)], DEVICE, name="cut",
+        cm = ContactMap(None, [(0, INTER_CUT), (0, INTER_CUT)], device=DEVICE, name="cut",
                         detectable_bins=det, inter=True)
         if form == "dense":
-            cm.dense = torch.from_numpy(cut.toarray().astype(np.float64)).to(DEVICE)
+            cm.dense_dev = torch.from_numpy(cut.toarray().astype(np.float64)).to(DEVICE)
         else:
             cm.sparse = cut
         maps[form] = cm
@@ -1899,12 +1912,11 @@ def phase_genome_golden(workdir):
                 return detect(open_contacts(path), args, DEVICE)
 
         (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden")
-        n_calls, d_score, d_text, row, d_logp = compare_genome_golden(
+        n_calls, d_score, d_text, _, d_logp = compare_genome_golden(
             f"tests/data/golden_genome_{name}.tsv", prefix, table)
         print(f"[genome-golden] {name}: {n_calls}/{n_calls} reference calls identical; score "
               f"max|d| {d_score:.3g} (5e-5); log10 p max|d| {d_logp:.3g} (1e-3) unrounded, "
-              f"{d_text:.3g} written ({'within' if d_text <= 1e-3 else 'above'} 1e-3; {row}); "
-              f"{seen}")
+              f"{d_text:.3g} written; {seen}")
         check(d_score < 5e-5 and d_logp < 1e-3, f"genome-golden {name}: outside the bounds")
         check(seen == expect, f"genome-golden {name}: launches {seen}")
 
@@ -1922,7 +1934,7 @@ def write_cool(source, path, tag):
     create_cool(path, bins_frame(source), pixels)
     seconds = time.perf_counter() - t0
     size = os.path.getsize(path)
-    print(f"[{tag}] create_cool wrote {path}: {source.nnz} pixels, {size} bytes in "
+    print(f"[{tag}] create_cool wrote {os.path.basename(path)}: {source.nnz} pixels, {size} bytes in "
           f"{seconds:.2f} s ({size / seconds / 1e9:.2f} GB/s; {free / 1e9:.2f} GB were free)")
     return path
 
@@ -1991,8 +2003,8 @@ def phase_cool_genome(source, workdir):
                       f"cool-genome: {name} read {sorted(read[name])}")
     finally:
         os.unlink(path)
-    print(f"[cool-genome] tables and windows byte for byte phase 5's in-memory run, {n_chroms} "
-          f"single launches a loops run, none a quantify run; {nvidia_smi('name,power.limit')}")
+    print(f"[cool-genome] phase 5's tables and windows, {n_chroms} single launches a loops run; "
+          f"{nvidia_smi('name,power.limit')}")
     shown = ""
     for tag, name in runs.items():
         got = bytes_read(read.get(name, {}))
@@ -2050,8 +2062,7 @@ def phase_cooler_genome(source, workdir, contiguous_read):
             enum = f["resolutions/5000/bins/chrom"].dtype
         size = os.path.getsize(path)
         print(f"[{tag}] write_cooler_layout, {short_path(uri)}: {source.nnz} pixels, {size} "
-              f"bytes in {seconds:.2f} s ({raw / seconds / 1e9:.2f} GB/s of {raw / 1e9:.2f} GB "
-              f"of pixel columns, {hdf5.THREADS} threads, {free / 1e9:.2f} GB free); pixel "
+              f"bytes in {seconds:.2f} s ({hdf5.THREADS} threads); pixel "
               f"columns (dtype, chunk rows, chunks, chunk B-tree depth): " + "; ".join(
                   f"{col} {' '.join(map(str, v))}" for col, v in columns.items()))
         check([v[:2] for v in columns.values()] == [("int64", 6094), ("int64", 6094),
@@ -2092,9 +2103,8 @@ def phase_cooler_genome(source, workdir, contiguous_read):
     finally:
         if os.path.exists(path):
             os.unlink(path)
-    print(f"[{tag}] tables and windows byte for byte phase 5's in-memory run, {n_chroms} single "
-          f"launches a loops run, none a quantify run; {card}; each run beside the contiguous "
-          f".cool's of cool-genome, which read "
+    print(f"[{tag}] phase 5's tables and windows, {n_chroms} single launches a loops run; "
+          f"{card}; beside cool-genome's runs, which read "
           f"{bytes_read(contiguous_read[next(iter(runs.values()))])}:")
     shown = None
     for name, contiguous in runs.items():
@@ -2198,10 +2208,93 @@ def phase_latest_genome(source, workdir):
         lines.append(f"({run}) " + ", ".join(
             f"{stage.split(' ')[-1]} {a.get(stage, 0.0):.3f}" + (
                 "" if stage.endswith("ICE") else f" ({b.get(stage, 0.0):.3f})")
-            for stage in ("balance: ICE", "io: fetch+scatter", "io: upload"))
+            for stage in ("balance: ICE", "io: fetch+scatter"))
             + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f})")
-    print(f"[{tag}] s, in brackets cooler-genome's page-cache run in this call: "
-          + "; ".join(lines))
+    print(f"[{tag}] s, in brackets cooler-genome's page-cache run: " + "; ".join(lines))
+
+
+def phase_userblock_genome(source, workdir):
+    """Phase 5's genome (not cut) written by the port without weights in
+    cooler's layout (superblock 0, int64 ids, shuffle + gzip 6, an enum
+    ``bins/chrom``) after a 512-byte user block that a text header fills,
+    with 4-byte offsets and lengths (``write_cooler_layout(...,
+    userblock=512, sizes=(4, 4))``); the free space checked first, the
+    write's seconds and the file's size printed.  Then, through
+    ``cmd_detect`` and ``cmd_quantify``: (a) ``detect`` loops at ``--norm
+    auto``, ICE on the host storing the weights into the file; (b) loops
+    again, the weights read back; (c) ``--norm force``, the weight link
+    replaced; (d) ``quantify`` of the planted loops.  Weights bit for bit
+    the genome's (phase ``surface-genome``'s weightless run holds them),
+    tables and windows byte for byte phase 5's, 13 single launches a loops
+    run, the user block's bytes unchanged at the end; ``balance: ICE``,
+    ``io: fetch+scatter`` and the wall of each run beside
+    ``latest-genome``'s.  The file is deleted afterwards."""
+    tag = "userblock-genome"
+    os.makedirs(f"{workdir}/userblock", exist_ok=True)
+    path = f"{workdir}/userblock/genome.cool"
+    raw = source.nnz * (8 + 8 + source.count.itemsize)
+    need = raw + 64 * source.n_bins + (1 << 20)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    check(free > need, f"{tag}: {free} bytes free, the file may need {need}")
+    card = nvidia_smi("name,power.limit")
+    n_chroms = len(source.chromnames)
+    phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
+    header = b"# chromosight chip_smoke: the 13 x 48,000 synthetic genome at 5 kb\n"
+    try:
+        t0 = time.perf_counter()
+        write_cooler_layout(path, bins_frame(source).drop(columns="weight"),
+                            {"bin1_id": source.bin1, "bin2_id": source.bin2,
+                             "count": source.count.astype(np.int32, copy=False)},
+                            pixel_rows=COOLER_PIXEL_ROWS, userblock=512, sizes=(4, 4))
+        seconds = time.perf_counter() - t0
+        with open(path, "r+b") as handle:
+            handle.write(header)
+        block = pathlib.Path(path).read_bytes()[:512]
+        with hdf5.File(path) as f:
+            layout = (f._version, f._base, f._so, f._sl, "weight" in f["bins"])
+        check(layout == (0, 512, 4, 4, False), f"{tag}: superblock, base, sizes {layout}")
+        print(f"[{tag}] write_cooler_layout(userblock=512, sizes=(4, 4)): {source.nnz} pixels, "
+              f"{os.path.getsize(path)} bytes in {seconds:.2f} s; superblock 0, no weights; "
+              f"{card}")
+        lines = []
+        for run, head, stored in (
+                ("a", ["detect", "--no-plotting"], "genome"),
+                ("b", ["detect", "--no-plotting"], "genome"),
+                ("c", ["detect", "--no-plotting", "--norm", "force"], "genome"),
+                ("d", ["quantify", "--no-plotting", f"{workdir}/planted.bed2"], "quantify")):
+            prefix = f"{workdir}/userblock_{run}"
+            args = parse_args([*head, path, prefix], "")
+            command = cli.cmd_quantify if run == "d" else cli.cmd_detect
+
+            def run_main():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return command(args, DEVICE)
+
+            kind = "quantify" if run == "d" else "loops"
+            name = f"({run}) {kind} from the user-block file"
+            _, seen = run_genome(name, run_main, tag=tag, show=None)
+            check(outputs(prefix) == phase5[stored] and phase5[stored],
+                  f"{tag}: run ({run}) tables or windows differ from phase 5's")
+            check(seen == {"single": 0 if run == "d" else n_chroms, "multi": 0},
+                  f"{tag}: run ({run}) launches {seen}")
+            ice = STAGES[name].get("balance: ICE")
+            check((ice is not None) == (run in "ac"), f"{tag}: run ({run}) ICE {ice}")
+            check(CoolFile(path).weights.tobytes() == source.weights.tobytes(),
+                  f"{tag}: run ({run}) weights differ from the genome's")
+            other = f"({run}) {kind} from the newest layout"
+            a, b = STAGES[name], STAGES.get(other, {})
+            lines.append(f"[{tag}] ({run}) {kind}: " + ", ".join(
+                f"{stage.split(' ')[-1]} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
+                for stage in ("balance: ICE", "io: fetch+scatter") if stage in a)
+                + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f}) s")
+        check(pathlib.Path(path).read_bytes()[:512] == block, f"{tag}: the user block changed")
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    print(f"[{tag}] the genome's weights, phase 5's tables, {n_chroms} launches a loops run, "
+          "the user block unchanged; s, in brackets latest-genome's:")
+    for line in lines:
+        print(line)
 
 
 def phase_szip_genome(source, workdir):
@@ -2239,10 +2332,9 @@ def phase_szip_genome(source, workdir):
             filters = {c: f[f"resolutions/5000/pixels/{c}"]._filters
                        for c in ("bin1_id", "bin2_id", "count")}
         size = os.path.getsize(path)
-        print(f"[{tag}] wrote {size} bytes in {seconds:.2f} s ({hdf5.THREADS} threads, "
-              f"{free / 1e9:.2f} GB free; {card}); pixel filters (ids, count) "
-              f"{filters['bin2_id']}, {filters['count']}; in brackets below cooler-genome's "
-              "run in this call")
+        print(f"[{tag}] wrote {size} bytes in {seconds:.2f} s ({hdf5.THREADS} threads; {card}); "
+              "shuffle + szip (169, 8, 64 / 32, 1024) pixel columns; in brackets below "
+              "cooler-genome's run in this call")
         check(filters["bin2_id"] == [(hdf5.SHUFFLE, (8,)), (hdf5.SZIP, (169, 8, 64, 1024))]
               and filters["count"] == [(hdf5.SHUFFLE, (4,)), (hdf5.SZIP, (169, 8, 32, 1024))],
               f"{tag}: pixel filters {filters}")
@@ -2311,7 +2403,8 @@ def phase_instruments(source, workdir):
         seconds = stages.get(family_stage.get(name, ""), 0.0)
         rate = rec["flops"] / seconds if seconds else None
         share = "not measured" if rate is None or not peak_flops else f"{100 * rate / peak_flops:.2f}%"
-        print(f"[instruments] {name}: {json.dumps(rec)}; stage "
+        print(f"[instruments] {name}: {rec['flops']:.4g} FLOP, {rec['hbm_min_bytes']:.4g} / "
+              f"{rec['hbm_unfused_bytes']:.4g} bytes, {rec['dispatches']} dispatches; "
               f"{family_stage.get(name)} {seconds:.4f} s, "
               f"{'not measured' if rate is None else f'{rate:.4g}'} FLOP/s, {share} of the "
               f"peak")
@@ -2351,8 +2444,7 @@ def phase_instruments(source, workdir):
     text = traces[0].read_text() if traces else ""
     symbols = sorted(set(re.findall(r'"name":\s*"([^"]*band_pearson_tiled[^"]*)"', text)))
     print(f"[instruments] maybe_trace over {cm.name}: {len(traces)} trace file(s), "
-          f"{sum(t.stat().st_size for t in traces)} bytes; band kernel symbols "
-          f"{symbols[:2]}")
+          f"{sum(t.stat().st_size for t in traces)} bytes, {len(symbols)} band kernel symbol(s)")
     check(len(traces) == 1 and symbols, "instruments: the trace names no band kernel")
 
     # the card's busy share over the genome's detect passes, from a trace
@@ -2369,8 +2461,8 @@ def phase_instruments(source, workdir):
     busy, span, kernels = device_busy(traces[0], top=3)
     print(f"[instruments] genome loops detect under the profiler: wall {wall:.2f} s; the "
           f"traced detect passes span {span:.3f} s, the card busy {busy:.4f} s of it "
-          f"({100 * busy / span:.2f}%, idle {100 - 100 * busy / span:.2f}%); device time "
-          f"by kernel (s): {json.dumps(kernels)}")
+          f"({100 * busy / span:.2f}%, idle {100 - 100 * busy / span:.2f}%); device s by "
+          "kernel: " + ", ".join(f"{k.split('::')[-1][:24]} {v:.4f}" for k, v in kernels.items()))
 
     # the exit report of a command-line process
     code = ("from chromosight_torch.cli.main import main; "
@@ -2503,7 +2595,25 @@ def phase_api(source):
           f"{windows.shape}; launches {seen}")
     check(seen == {"single": 1, "multi": 0} and len(patterns) == len(windows) > 0,
           "TUTORIAL block")
+    # the JAX package's views: a host float64 band, the device tensor
+    band, band_dev = cm.band, cm.band_dev
+    check(isinstance(band, np.ndarray) and band.dtype == np.float64 and band_dev.is_cuda
+          and np.array_equal(band, band_dev.cpu().numpy().astype(np.float64))
+          and band.shape == (cm.shape[0], cm.keep_distance + 1), "cm.band against band_dev")
     cm.destroy_mat()
+    same = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for command, argv in (("detect", ["detect", "--no-plotting", EXAMPLE_COOL]),
+                              ("quantify", ["quantify", "--no-plotting",
+                                            "data_test/example.bed2", EXAMPLE_COOL])):
+            quietly(main, [*argv, f"{tmp}/main"], device=DEVICE)
+            run = cli.cmd_detect if command == "detect" else cli.cmd_quantify
+            quietly(run, parse_args([*argv, f"{tmp}/cmd"], ""), DEVICE)
+            check(outputs(f"{tmp}/cmd") == outputs(f"{tmp}/main") and outputs(f"{tmp}/main"),
+                  f"cmd_{command}'s files differ from main's")
+            same.append(f"cmd_{command}")
+    print(f"[api] {' and '.join(same)}: main's files byte for byte; cm.band {band.shape} "
+          "float64 on the host, band_dev's values")
 
     # detect_example.ipynb's loop against the command line's per-map path
     results, n_maps = [], 0
@@ -2607,6 +2717,7 @@ def run(quick):
         contiguous_read = phase_cool_genome(source, workdir)
         phase_cooler_genome(source, workdir, contiguous_read)
         phase_latest_genome(source, workdir)
+        phase_userblock_genome(source, workdir)
         phase_szip_genome(source, workdir)
         phase_api(source)
         del source

@@ -179,11 +179,18 @@ QUANTIFY_COLUMNS = [
     "bin1", "bin2", "score", "pvalue", "qvalue",
 ]
 
+LOGO = np.loadtxt(pathlib.Path(__file__).parent / "logo.txt")
 URL_EXAMPLE_DATASET = (
     "https://raw.githubusercontent.com/koszullab/"
     "chromosight/master/data_test/example.cool"
 )
 REPO_ROOT = pathlib.Path(__file__).parents[2]
+# the self-test's fallback when the download fails: the example map in
+# the repository, or the file CHROMOSIGHT_TPU_TEST_COOL names (the JAX
+# package's variable, chromosight_tpu/cli/main.py:177-182)
+LOCAL_EXAMPLE_DATASET = os.environ.get(
+    "CHROMOSIGHT_TPU_TEST_COOL", str(REPO_ROOT / "data_test" / "example.cool")
+)
 
 # Golden log of the self-test: the lines of chromosight_tpu/cli/main.py
 # TEST_LOG (the reference's, cli/chromosight.py:185-199).
@@ -452,7 +459,7 @@ def detect(source, args, device=None, rng=None):
         smooth=bool(args["--smooth-trend"]),
     )
     device = genome.device
-    genome.normalize(args["--norm"], float(args["--n-mads"]))
+    genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
     genome.make_sub_matrices()
     sys.stderr.write("Detecting patterns...\n")
     with maybe_trace():  # a torch.profiler trace with CHROMOSIGHT_TPU_PROFILE=<dir>
@@ -561,7 +568,7 @@ def quantify(source, args, device=None, rng=None):
     cfg["max_dist"] = min(furthest, genome.clr.n_bins * genome.clr.binsize)
     cfg["min_dist"] = 0
     cfg["tsvd"] = TSVD_ENERGY if args["--tsvd"] else None
-    genome.normalize(args["--norm"], float(args["--n-mads"]))
+    genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
     km, kn = cfg["kernels"][0].shape
     if args["--win-size"] != "auto":
         km = kn = _resize_config_kernels(cfg, args["--win-size"])
@@ -646,7 +653,7 @@ def _capture_click_windows(args, cfg, win_size, device):
         open_contacts(args["--click"]), inter=bool(args["--inter"]), kernel_config=cfg,
         device=device,
     )
-    genome.normalize(args["--norm"], float(args["--n-mads"]))
+    genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
     # scan the whole map: a distance beyond any chromosome
     genome.max_dist = genome.clr.n_bins * genome.clr.binsize
     genome.make_sub_matrices()
@@ -691,6 +698,19 @@ def _json_default(obj):
     if isinstance(obj, (np.floating,)):
         return float(obj)
     raise TypeError(f"not JSON serializable: {type(obj)}")
+
+
+def cmd_detect(args, device=None, rng=None):
+    """``detect`` with the parsed options ``args``, its map opened from
+    ``<contact_map>`` (the JAX package's ``cmd_detect``); ``device`` and
+    ``rng`` as for ``detect``."""
+    return detect(open_contacts(args["<contact_map>"]), args, device, rng)
+
+
+def cmd_quantify(args, device=None, rng=None):
+    """``quantify`` with the parsed options ``args``, its map opened from
+    ``<contact_map>`` (the JAX package's ``cmd_quantify``)."""
+    return quantify(open_contacts(args["<contact_map>"]), args, device, rng)
 
 
 def cmd_generate_config(args, device=None):
@@ -738,10 +758,10 @@ def cmd_list_kernels(args):
 
 
 def example_dataset():
-    """The example map in the repository, the self-test's fallback
-    (``chromosight_tpu/cli/main.py:179-182``): ``data_test/example.cool``,
-    read with the port's own HDF5 reader on every machine."""
-    return str(REPO_ROOT / "data_test" / "example.cool")
+    """The self-test's fallback map, ``LOCAL_EXAMPLE_DATASET``: by default
+    ``data_test/example.cool``, read with the port's own HDF5 reader on
+    every machine."""
+    return LOCAL_EXAMPLE_DATASET
 
 
 def cmd_test(args, device=None):
@@ -783,11 +803,11 @@ def capture_output(stderr_to=None):
             pass
 
 
-def logo_version(ver):
-    """The ``--version`` text: the logo as ASCII art, then the version."""
+def logo_version(logo, ver):
+    """The ``--version`` text: ``logo`` (``LOGO``) as ASCII art, then the
+    version."""
     from chromosight_torch.plotting import print_ascii_mat
 
-    logo = np.loadtxt(pathlib.Path(__file__).parent / "logo.txt")
     small_logo = resize_kernel(logo, factor=0.33, quiet=True)
     ascii_logo = print_ascii_mat(small_logo, colored=False, print_str=False)
     return f"{ascii_logo} chromosight-torch version {ver}"
@@ -822,7 +842,7 @@ def main(argv=None, device=None, rng=None):
     ``generate-config`` without ``--click`` use no device."""
     if argv is None:
         argv = sys.argv[1:]
-    version = logo_version(__version__) if "--version" in argv else None
+    version = logo_version(LOGO, __version__) if "--version" in argv else None
     try:
         args = parse_args(argv, __doc__, version=version)
     except CliError as exc:
@@ -830,13 +850,13 @@ def main(argv=None, device=None, rng=None):
     if args["test"]:
         _run_self_test(args, device)
     elif args["detect"]:
-        detect(open_contacts(args["<contact_map>"]), args, device, rng)
+        cmd_detect(args, device, rng)
     elif args["generate-config"]:
         cmd_generate_config(args, device)
     elif args["list-kernels"]:
         cmd_list_kernels(args)
     elif args["quantify"]:
-        quantify(open_contacts(args["<contact_map>"]), args, device, rng)
+        cmd_quantify(args, device, rng)
     return 0
 
 

@@ -318,7 +318,7 @@ def _band_guards(contact_map, kernel_matrix):
     if min(contact_map.shape) <= max(kernel_matrix.shape):
         return True
     if km > kn:
-        n_bad = int(torch.count_nonzero(contact_map.band[:, : km - kn]))
+        n_bad = int(torch.count_nonzero(contact_map.band_dev[:, : km - kn]))
         if n_bad:
             raise ValueError(
                 f"There are {n_bad} non-zero elements reported as missing."
@@ -329,7 +329,7 @@ def _band_guards(contact_map, kernel_matrix):
 def frame_contact_map(contact_map, kernel_shape):
     """The framed ``(sig_p, mask_p)`` that ``band_pearson`` reads for a
     created contact map and a kernel shape."""
-    band = contact_map.band
+    band = contact_map.band_dev
     n = contact_map.shape[0]
     miss = np.zeros(band.shape[0], dtype=bool)
     miss[:n] = missing_flags(contact_map.detectable_bins[0], n)
@@ -414,7 +414,7 @@ def _band_tail(
     (quantify), then the score/window gather and validation; the 03-05
     snapshots in ``dump``.  Returns (table, windows) or (None, None)."""
     km, kn = kernel_matrix.shape
-    band = contact_map.band
+    band = contact_map.band_dev
     device = band.device
     n = contact_map.shape[0]
     width = band.shape[1]
@@ -466,7 +466,7 @@ def quantify_banded(contact_map, kernel_config, kernels, coords, tsvd=None):
     validation)."""
     kernels = np.stack([np.asarray(k) for k in kernels])
     n_k, km, kn = kernels.shape
-    band = contact_map.band
+    band = contact_map.band_dev
     device = band.device
     n = contact_map.shape[0]
     width = band.shape[1]
@@ -538,7 +538,7 @@ def detect_banded_multi(
         return [(None, None)] * len(kernels)
     if coords is not None and dump is None:
         return quantify_banded(contact_map, kernel_config, kernels, coords, tsvd)
-    with stage("correlate", contact_map.band.device):
+    with stage("correlate", contact_map.band_dev.device):
         if len(kernels) == 1:
             maps = _band_correlate(contact_map, kernel_config, kernels[0], tsvd)
             corr, logp, cand = (t[None] for t in maps)
@@ -555,11 +555,11 @@ def detect_banded_multi(
 def _detect_one(contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd):
     """``pattern_detector`` with the table as a dict of numpy columns."""
     kernel_matrix = np.asarray(kernel_matrix)
-    if contact_map.band is not None and full:
+    if contact_map.band_dev is not None and full:
         return detect_banded_multi(
             contact_map, kernel_config, [kernel_matrix], coords, dump, tsvd
         )[0]
-    if contact_map.band is not None or contact_map.sparse is not None:
+    if contact_map.band_dev is not None or contact_map.sparse is not None:
         return _pattern_detector_sparse(
             contact_map, kernel_config, kernel_matrix, coords, dump, full, tsvd
         )
@@ -599,7 +599,7 @@ def detect_multi(contact_map, kernel_config, kernels, coords=None, dump=None, ts
     ``pattern_detector`` pass per kernel otherwise
     (``chromosight_tpu/cli/main.py:455-466, 522-537``).  One (table,
     windows) pair per kernel, the tables as dicts of numpy columns."""
-    if contact_map.band is not None:
+    if contact_map.band_dev is not None:
         return detect_banded_multi(contact_map, kernel_config, kernels, coords, dump, tsvd)
     return [
         _detect_one(contact_map, kernel_config, k, coords, dump, True, tsvd)
@@ -905,7 +905,7 @@ def _pattern_detector_dense(
     diagonal trim of intra maps, then foci and validation on the host
     (full mode: with the windows' kernel-sized zero padding); ``dump``
     snapshots 03-05."""
-    mat_dev = contact_map.dense
+    mat_dev = contact_map.dense_dev
     n1, n2 = mat_dev.shape
     if min(n1, n2) <= max(kernel_matrix.shape):
         return None, None

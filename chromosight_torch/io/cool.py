@@ -220,7 +220,7 @@ def chunk_rows(rows, itemsize):
 
 
 def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=None,
-                        libver="earliest", compression="gzip"):
+                        libver="earliest", compression="gzip", userblock=0, sizes=(8, 8)):
     """Write ``bins`` and ``pixels`` (as ``create_cool`` takes them) in
     cooler's own layout: int64 pixel ids (``minimal_dtypes=False``),
     ``bins/chrom`` an enum of the chromosome names, every dataset chunked
@@ -236,7 +236,10 @@ def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=
     others of fixed size as cooler creates them (fixed-array or
     single-chunk indexes).  ``compression="szip"`` stores every column
     HDF5 takes szip for through shuffle and szip with h5py's default
-    options instead of gzip (``hdf5.write``'s).  The port's own chunked
+    options instead of gzip (``hdf5.write``'s).  ``userblock`` and
+    ``sizes`` are ``hdf5.write``'s: a user block before the superblock
+    (zeros, for the caller's header) and the sizes of offsets and
+    lengths.  The port's own chunked
     files, for the tests and the card's smoke run; the JAX package writes
     contiguous ones (``create_cool``)."""
     datasets, attrs = cool_tables(bins, pixels, minimal_dtypes=False)
@@ -260,5 +263,5 @@ def write_cooler_layout(path, bins, pixels, group="/", pixel_rows=None, columns=
     fixed = [name for name in datasets if "/pixels/" not in f"/{name}"] if libver == "latest" \
         else ()
     hdf5.write(path, datasets, root, chunks=chunks, group_attrs=group_attrs, fixed=fixed,
-               libver=libver, compression=compression)
+               libver=libver, compression=compression, userblock=userblock, sizes=sizes)
     return path

@@ -58,13 +58,20 @@ below), which covers what cooler writes:
   whose other axes are whole, sources in this file (".") or in files
   found as external links' are (opened with this file's mode, closed with
   it); a missing source file or dataset, and rows no mapping covers, read
-  as the fill value, as in h5py.
+  as the fill value, as in h5py.  Unlimited hyperslabs along the first
+  axis resolve as HDF5 resolves them when it opens the dataset
+  (``H5D__virtual_set_extent_unlim``, its default view and printf gap):
+  as many rows as the source's selection holds within its current
+  extent, or, for printf-style names (``%b`` the block number, ``%%`` a
+  ``%``), one source per block up to the first that is missing; the
+  dataset's first dimension follows.
 
 Anything else raises ``NotImplementedError`` naming the feature and the
 file offset: fractal heaps with I/O filters, n-bit of compound or array
-types, datatypes outside the list above, virtual datasets with unlimited
-or point selections, printf-style source names, selections of part of
-an inner axis or mappings deeper than ``LINK_DEPTH``.  Nothing is read
+types, datatypes outside the list above, virtual datasets with point
+selections (HDF5 makes none), unlimited selections along an inner axis
+or of irregular blocks, selections of part of an inner axis or mappings
+deeper than ``LINK_DEPTH``.  Nothing is read
 wrong silently.  A contiguous slice reads exactly its bytes; a chunked
 slice decodes only the chunks that overlap it, from a chunk index walked
 once per dataset, each straight into its rows of the output (those of a
@@ -91,8 +98,10 @@ continuation block; past the limit, or already dense, its links are
 stored anew in a new fractal heap and v2 B-tree indexes, as HDF5 stores
 them; replaced structures stay as dead space, as h5py's ``del`` leaves
 them; the superblock's end-of-file address (and, in versions 2 and 3,
-its checksum) follows.  Files with a user block or offsets narrower
-than 8 bytes are not written to.
+its checksum) follows.  Every address and length is written in the
+file's sizes of offsets and lengths (2, 4 or 8 bytes) and counts from
+its user block's end; a write that would end past what its offsets
+address raises ``OSError`` (EFBIG) before a byte of it is written.
 """
 
 from __future__ import annotations
@@ -287,23 +296,27 @@ class File:
         # addresses count from the signature, wherever the stored base
         # address says it is (HDF5's H5F__super_read does the same)
         self._base = base
-        self._entry_size = 2 * so + 24
+        # a symbol-table entry: name offset (a length), header address,
+        # cache type, reserved, 16 bytes of scratch pad
+        self._entry_size = self._sl + so + 24
         self.walked[f"superblock v{version}"] += 1
         if version < 2:
             self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
             pos = 24 if version == 0 else 28
-            self._eof_pos = base + pos + 2 * so
-            self._root_entry = base + pos + 4 * so
-            self._eof = _uint(head, pos + 2 * so, so)
-            self._root_addr = _uint(head, pos + 5 * so, so)
+            self._eof_pos = pos + 2 * so
+            self._root_entry = pos + 4 * so
+            # the end-of-file address counts from the file's start
+            # (H5F__super_read compares it with the base plus the size)
+            self._eof = _uint(head, pos + 2 * so, so) - base
+            self._root_addr = _uint(head, pos + 4 * so + self._sl, so)
             return
         # versions 2 and 3: base, extension, end-of-file and root header
         # addresses, then a lookup3 checksum of the whole superblock
         self._sb_size = 12 + 4 * so + 4
         index.checked(self, head[: self._sb_size], 0, f"superblock version {version}")
         self._leaf_k, self._internal_k = LEAF_K, INTERNAL_K
-        self._eof_pos = base + 12 + 2 * so
-        self._eof = _uint(head, 12 + 2 * so, so)
+        self._eof_pos = 12 + 2 * so
+        self._eof = _uint(head, 12 + 2 * so, so) - base
         self._root_addr = _uint(head, 12 + 3 * so, so)
         extension = self._addr(head, 12 + so)
         if extension is not None:
@@ -375,7 +388,7 @@ class File:
         own file."""
         group, name = self._parent(path)
         f = group.file
-        out = hw.Appender(f._fd, f._eof)
+        out = f._appender()
         header = _dataset_header(np.ascontiguousarray(data), out, attrs)
         f._store_link(group, name, header, out)
 
@@ -387,7 +400,7 @@ class File:
         if name not in group._members():
             raise KeyError(f"no link {name!r} in {group.name}")
         f = group.file
-        f._store_link(group, name, None, hw.Appender(f._fd, f._eof))
+        f._store_link(group, name, None, f._appender())
 
     def _parent(self, path):
         """(group, link name) of ``path`` in a file open for writing."""
@@ -399,10 +412,12 @@ class File:
             raise KeyError(f"{parent} is not a group")
         if group.file.mode != "r+":
             raise ValueError(f"{group.file.filename} is open read-only")
-        if group.file._base or (group.file._so, group.file._sl) != (OFFSET_SIZE, LENGTH_SIZE):
-            raise group.file._unsupported("writing to a file with a user block or small offsets",
-                                          0)
         return group, name
+
+    def _appender(self):
+        """An ``hdf5_write.Appender`` at the end of this file, in its user
+        block's base and its sizes of offsets and lengths."""
+        return hw.Appender(self._fd, self._eof, self._base, self._so, self._sl)
 
     def _store_link(self, group, name, header, out):
         """Point the link ``name`` of ``group`` at the object header
@@ -425,7 +440,7 @@ class File:
         if self._read(group.addr, 4) == b"OHDR":
             self._tidy(group.addr)
         self._eof = out.finish()
-        self._write(self._eof_pos, self._eof.to_bytes(self._so, "little"))
+        self._write(self._eof_pos, (self._base + self._eof).to_bytes(self._so, "little"))
         if self._version >= 2:
             head = self._read(0, self._sb_size - 4)
             self._write(self._sb_size - 4, struct.pack("<I", index.lookup3(head)))
@@ -449,16 +464,16 @@ class File:
             count, raw = self._snod(node)
             for i in range(count):
                 row = raw[i * self._entry_size : (i + 1) * self._entry_size]
-                offset = _uint(row, 0, so)
+                offset = _uint(row, 0, self._sl)
                 rows.append((names[offset : names.index(b"\0", offset)], row))
         old = [row for key, row in rows if key == encoded]
         rows = [(key, row) for key, row in rows if key != encoded]
         if header is not None:
-            offset = _uint(old[0], 0, so) if old else self._heap_insert(group.heap, encoded, out)
-            rows.append((encoded, _entry(offset, header)))
+            offset = _uint(old[0], 0, self._sl) if old else self._heap_insert(group.heap, encoded, out)
+            rows.append((encoded, _entry(offset, header, so=so, sl=self._sl)))
         rows.sort(key=lambda item: item[0])
         btree = hw.symbol_table(out, [row for _, row in rows],
-                                [_uint(row, 0, so) for _, row in rows], first_key,
+                                [_uint(row, 0, self._sl) for _, row in rows], first_key,
                                 self._leaf_k, self._internal_k)
         where = next(at for kind, _, at in group.messages if kind == SYMBOL_TABLE)
         self._patch(group.addr, where, btree.to_bytes(so, "little"))
@@ -470,8 +485,9 @@ class File:
         or the group's entry in its parent's nodes."""
         if group.addr == self._root_addr:
             entry = self._root_entry if self._version < 2 else None
-            if entry is not None and _uint(self._read(entry + 2 * self._so, 4), 0, 4) == 1:
-                self._write(entry + 2 * self._so + 8, btree.to_bytes(self._so, "little"))
+            cache = self._sl + self._so  # the cache type's place in an entry
+            if entry is not None and _uint(self._read(entry + cache, 4), 0, 4) == 1:
+                self._write(entry + cache + 8, btree.to_bytes(self._so, "little"))
             return
         parent = self.root[group.name.rsplit("/", 1)[0] or "/"]
         if parent.file is not self or parent.link_info is not None:
@@ -480,10 +496,10 @@ class File:
             count, raw = self._snod(node)
             for i in range(count):
                 pos = i * self._entry_size
-                if (_uint(raw, pos + self._so, self._so) == group.addr
-                        and _uint(raw, pos + 2 * self._so, 4) == 1):
-                    self._write(node + 8 + pos + 2 * self._so + 8,
-                                btree.to_bytes(self._so, "little"))
+                cache = pos + self._sl + self._so
+                if (_uint(raw, pos + self._sl, self._so) == group.addr
+                        and _uint(raw, cache, 4) == 1):
+                    self._write(node + 8 + cache + 8, btree.to_bytes(self._so, "little"))
 
     # -- new-style groups ---------------------------------------------- #
     def _link_body(self, group, name, header):
@@ -495,7 +511,7 @@ class File:
         if flags & 0x1:
             order = struct.unpack_from("<q", self._read(where + 2, 8))[0]
             self._patch(group.addr, where + 2, struct.pack("<q", order + 1))
-        return _hard_link(name, header, order)
+        return _hard_link(name, header, order, so=self._so)
 
     def _store_compact(self, group, name, header, out):
         """A link message of a compact new-style group: its address
@@ -535,9 +551,9 @@ class File:
             raise self._unsupported(f"storing the links of {group.name} dense ({err})",
                                     group.addr) from None
         info = bytearray(self._read(where, 2 + (8 if flags & 0x1 else 0)))
-        info += struct.pack("<QQ", heap, names)
+        info += out.o(heap) + out.o(names)
         if orders is not None:
-            info += struct.pack("<Q", orders)
+            info += out.o(orders)
         if not group.dense:
             for kind, _, at in group.messages:
                 if kind == LINK:
@@ -640,7 +656,7 @@ class File:
         nil = next(((c, at, size) for c, at, k, size in slots
                     if k == NIL and fits(size, len(body))), None)
         if nil is None:
-            cont = 2 * self._so
+            cont = self._so + self._sl
             nil = next(((c, at, size) for c, at, k, size in slots
                         if k == NIL and fits(size, cont)), None)
             moved = b""
@@ -661,7 +677,7 @@ class File:
             block += struct.pack("<I", index.lookup3(block))
             target = out.put(block)
             kind = CONTINUATION
-            body = struct.pack("<QQ", target, len(block))
+            body = out.o(target) + out.n(len(block))
         c, at, size = nil
         caddr, data, _ = chunks[c]
         data = bytearray(data)
@@ -710,7 +726,7 @@ class File:
         if nil is not None:
             count += put(*nil, kind, body)
         else:
-            cont = 2 * self._so
+            cont = _align8(self._so + self._sl)
             nil = next(((at, size) for _, at, k, size in slots if k == NIL and fits(size, cont)),
                        None)
             # messages added: the continuation, the new message (and a NIL
@@ -730,7 +746,7 @@ class File:
                 added = 2 - sum(k == NIL for _, k, _ in inside)
             block = moved + struct.pack("<HHB3x", kind, len(body), 0) + body
             target = out.put(block)
-            count += added + put(*nil, CONTINUATION, struct.pack("<QQ", target, len(block)))
+            count += added + put(*nil, CONTINUATION, _pad8(out.o(target) + out.n(len(block))))
         self._write(addr + 2, struct.pack("<H", count))
 
     def _heap_insert(self, heap, name, out):
@@ -767,13 +783,13 @@ class File:
         data[offset : offset + need] = _pad8(name + b"\0")
         for i, (start, length) in enumerate(blocks):
             following = blocks[i + 1][0] if i + 1 < len(blocks) else FREE_NULL
-            data[start : start + 2 * sl] = struct.pack("<QQ", following, length)
+            data[start : start + 2 * sl] = out.n(following) + out.n(length)
         if moved:
             data_addr = out.put(bytes(data))
         else:
             self._write(data_addr, data)
         head = blocks[0][0] if blocks else FREE_NULL
-        self._write(heap + 8, struct.pack("<QQQ", size, head, data_addr))
+        self._write(heap + 8, out.n(size) + out.n(head) + out.o(data_addr))
         return offset
 
     # -- object headers ------------------------------------------------ #
@@ -918,14 +934,17 @@ class File:
                 raise OSError(f"{self.filename}: no global heap at offset {addr}")
             size = _uint(head, 8, self._sl)
             data = self._read(addr, size)
-            objects, pos = {}, 8 + self._sl
-            while pos + 8 + self._sl <= size:
+            # the collection's and each object's header, 8-byte aligned
+            # (H5HG_SIZEOF_HDR, H5HG_SIZEOF_OBJHDR)
+            hdr = _align8(8 + self._sl)
+            objects, pos = {}, hdr
+            while pos + hdr <= size:
                 index = struct.unpack_from("<H", data, pos)[0]
                 length = _uint(data, pos + 8, self._sl)
                 if index == 0:
                     break
-                objects[index] = data[pos + 8 + self._sl : pos + 8 + self._sl + length]
-                pos += 8 + self._sl + _align8(length)
+                objects[index] = data[pos + hdr : pos + hdr + length]
+                pos += hdr + _align8(length)
             self._global_heaps[addr] = objects
         return objects
 
@@ -1305,15 +1324,16 @@ class Group:
             count, entries = f._snod(node)
             for i in range(count):
                 pos = i * f._entry_size
-                offset = _uint(entries, pos, f._so)
+                offset = _uint(entries, pos, f._sl)
                 name = names[offset : names.index(b"\0", offset)].decode("utf-8")
-                if _uint(entries, pos + 2 * f._so, 4) == 2:
+                cache = pos + f._sl + f._so
+                if _uint(entries, cache, 4) == 2:
                     # cache type 2: a soft link, its value in the local heap
-                    at = _uint(entries, pos + 2 * f._so + 8, 4)
+                    at = _uint(entries, cache + 8, 4)
                     value = names[at : names.index(b"\0", at)].decode("utf-8")
                     links[name] = _Soft("soft", node + 8 + pos, value)
                 else:
-                    links[name] = _uint(entries, pos + f._so, f._so)
+                    links[name] = _uint(entries, pos + f._sl, f._so)
         return links
 
     def keys(self):
@@ -1377,10 +1397,12 @@ class Dataset:
         self.file, self.addr, self.name = file, addr, name
         self._filters, fill, self._chunks, self._external = [], None, None, None
         self._index_type, self._edge_unfiltered = None, False
-        self._mappings = None  # a virtual dataset's, parsed at its first read
+        # a virtual dataset's mappings, and the blocks they resolve to
+        # (unlimited ones against their sources' extents), at first use
+        self._mappings = self._blocks = None
         for kind, body, where in messages:
             if kind == DATASPACE:
-                self.shape, self.maxshape = file._dataspace_dims(body, 0, where)
+                self._shape, self.maxshape = file._dataspace_dims(body, 0, where)
             elif kind == DATATYPE:
                 self._type, _ = file._datatype(body, 0, where)
             elif kind == LAYOUT:
@@ -1627,13 +1649,7 @@ class Dataset:
             names = []
             for _ in range(2):
                 end = block.index(b"\0", pos)
-                # "%%" is a "%"; "%b" numbers the blocks of an unlimited
-                # mapping's source files or datasets
-                parts = block[pos:end].decode("utf-8").split("%%")
-                if any("%b" in part for part in parts):
-                    raise f._unsupported(f"a printf-style source name {'%%'.join(parts)!r}",
-                                         where)
-                names.append("%".join(parts))
+                names.append(_printf_parts(block[pos:end].decode("utf-8"), f, where))
                 pos = end + 1
             source, pos = self._selection(block, pos, where)
             virtual, pos = self._selection(block, pos, where)
@@ -1646,8 +1662,10 @@ class Dataset:
         ``pos``: None for "all", else rows [(start, stop)] along the first
         axis of a hyperslab whose other axes are whole, with those axes'
         (start, extent) pairs to check against the dataspace; "none" is no
-        rows.  Point selections, unlimited counts and blocks that cut the
-        other axes raise NotImplementedError."""
+        rows.  A hyperslab unlimited along the first axis gives
+        ``_Unlimited`` rows instead.  Point selections, irregular or
+        inner-axis unlimited ones and blocks that cut the other axes raise
+        NotImplementedError."""
         f = self.file
         kind, version = struct.unpack_from("<II", data, pos)
         if kind in (0, 3):  # none, all: version 1, 8 bytes reserved and length
@@ -1674,12 +1692,18 @@ class Dataset:
         values = [_uint(data, pos + i * width, width)
                   for i in range(4 * rank if regular else 2 * rank * n)]
         pos += len(values) * width
-        if any(v == (1 << 8 * width) - 1 for v in values):
-            raise f._unsupported("an unlimited virtual dataset selection", where)
+        unlimited = [v == (1 << 8 * width) - 1 for v in values]
+        if any(unlimited) and (not regular or any(unlimited[4:])):
+            raise f._unsupported("an unlimited virtual dataset selection along an inner axis "
+                                 "or of irregular blocks", where)
         if regular:
             start, stride, count, block = (values[i::4] for i in range(4))
-            boxes = [[(start[0] + i * stride[0], start[0] + i * stride[0] + block[0])
-                      for i in range(count[0])]]
+            if any(unlimited):
+                boxes = [_Unlimited(start[0], stride[0], None if unlimited[2] else count[0],
+                                    None if unlimited[3] else block[0])]
+            else:
+                boxes = [[(start[0] + i * stride[0], start[0] + i * stride[0] + block[0])
+                          for i in range(count[0])]]
             for d in range(1, rank):
                 if count[d] != 1 and stride[d] != block[d]:
                     raise f._unsupported("a virtual dataset selection of blocks across "
@@ -1722,12 +1746,76 @@ class Dataset:
             return None
         return obj if isinstance(obj, Dataset) else None
 
+    @property
+    def shape(self):
+        """The dataset's dimensions; a virtual dataset with unlimited
+        mappings takes them from its sources' extents (``_virtual_blocks``),
+        as HDF5 sets them when it opens one."""
+        if self._class == 3 and self._blocks is None:
+            self._virtual_blocks()
+        return self._shape
+
+    def _virtual_blocks(self):
+        """[(source file, source dataset, source selection or its ``_Runs``,
+        virtual (starts, stops))] of a virtual dataset, HDF5's resolution of its
+        unlimited mappings done (``H5D__virtual_set_extent_unlim``, the
+        default view H5D_VDS_LAST_AVAILABLE and printf gap 0): an unlimited
+        selection maps as many rows as its source's selection holds within
+        the source's current extent; a printf-style mapping maps block k of
+        its virtual selection to the source its names give with ``%b`` =
+        k, for k from 0 until the first source that is missing.  The first
+        dimension then spans the furthest row any unlimited mapping
+        reaches, and at least the limited mappings' rows."""
+        if self._blocks is not None:
+            return self._blocks
+        f, where = self.file, self._layout_where
+        blocks, reach, least, unlimited = [], [], 0, False
+        for files, dsets, source_sel, virtual_sel in self._virtual_mappings():
+            v_rows = virtual_sel[0] if virtual_sel is not None else None
+            s_rows = source_sel[0] if source_sel is not None else None
+            printf = len(files) > 1 or len(dsets) > 1
+            if not isinstance(v_rows, _Unlimited):
+                if printf or isinstance(s_rows, _Unlimited):
+                    raise f._unsupported("an unlimited or printf-style source of a limited "
+                                         "virtual selection", where)
+                virtual = self._rows_of(virtual_sel, self._shape)
+                if virtual is not None and len(virtual[1]):
+                    least = max(least, int(virtual[1].max()))
+                blocks.append((files[0], dsets[0], source_sel, virtual))
+                continue
+            unlimited = True
+            if printf:
+                if v_rows.count is not None or isinstance(s_rows, _Unlimited):
+                    raise f._unsupported("a printf-style mapping without an unlimited count "
+                                         "of virtual blocks, or of an unlimited source", where)
+                k = 0
+                while self._source(str(k).join(files), str(k).join(dsets), where) is not None:
+                    lo = v_rows.start + k * v_rows.stride
+                    blocks.append((str(k).join(files), str(k).join(dsets), source_sel,
+                                   (np.array([lo]), np.array([lo + v_rows.block]))))
+                    k += 1
+                reach.append(v_rows.start + (k - 1) * v_rows.stride + v_rows.block if k else 0)
+                continue
+            if not isinstance(s_rows, _Unlimited):
+                raise f._unsupported("an unlimited virtual selection of a limited source "
+                                     "selection", where)
+            source = self._source(files[0], dsets[0], where)
+            picked = _Runs(*s_rows.runs(extent=0 if source is None else source.shape[0]))
+            virtual = v_rows.runs(count=int(np.sum(picked.stops - picked.starts)))
+            blocks.append((files[0], dsets[0], picked, virtual))
+            reach.append(int(virtual[1][-1]) if len(virtual[1]) else v_rows.start)
+        if unlimited:
+            self._shape = (max(max(reach), least), *self._shape[1:])
+        self._blocks = blocks
+        return blocks
+
     def _virtual_rows(self, lo, hi, depth):
         """Rows [lo, hi) of a virtual dataset: the fill value, then each
-        mapping that overlaps them read through its source's own slicing
-        (a mapping whose source is virtual counts one level deeper than
-        ``depth``; past ``LINK_DEPTH`` levels it raises), converted to this
-        dataset's type; rows past a source's end stay the fill value."""
+        mapping block (``_virtual_blocks``) that overlaps them read through
+        its source's own slicing (a block whose source is virtual counts one
+        level deeper than ``depth``; past ``LINK_DEPTH`` levels it raises),
+        converted to this dataset's type; rows past a source's end stay the
+        fill value."""
         f, where = self.file, self._layout_where
         if depth > LINK_DEPTH:
             raise f._unsupported(f"virtual dataset mappings deeper than {LINK_DEPTH} "
@@ -1736,8 +1824,7 @@ class Dataset:
             raise f._unsupported("a virtual dataset of variable-length strings", where)
         shape = (max(hi - lo, 0), *self.shape[1:])
         out = self._type.converted(self._fill_array(shape))
-        for file_name, dataset_name, source_sel, virtual_sel in self._virtual_mappings():
-            virtual = self._rows_of(virtual_sel, self.shape)
+        for file_name, dataset_name, source_sel, virtual in self._virtual_blocks():
             if virtual is None:
                 raise f._unsupported("a virtual dataset selection of part of an inner axis",
                                      where)
@@ -1751,7 +1838,8 @@ class Dataset:
             if source.shape[1:] != self.shape[1:]:
                 raise f._unsupported("a virtual dataset mapping between inner axes of "
                                      "other shapes", where)
-            picked = self._rows_of(source_sel, source.shape)
+            picked = (source_sel if isinstance(source_sel, _Runs)
+                      else self._rows_of(source_sel, source.shape))
             if picked is None:
                 raise f._unsupported("a virtual dataset source selection of part of an "
                                      "inner axis", where)
@@ -2011,6 +2099,55 @@ class Dataset:
         return raw
 
 
+_Runs = collections.namedtuple("_Runs", "starts stops")
+
+
+class _Unlimited(collections.namedtuple("_Unlimited", "start stride count block")):
+    """A hyperslab selection along the first axis whose ``count`` or
+    ``block`` is unlimited (None)."""
+
+    def runs(self, extent=None, count=None):
+        """(starts, stops) of the rows it selects below ``extent``, or of
+        its first ``count`` rows: a partial last block included, adjacent
+        blocks merged into one run."""
+        start, stride, block = self.start, self.stride, self.block
+        if block is None or stride == block:
+            stop = extent if extent is not None else start + count
+            return np.array([start], np.int64), np.array([max(start, stop)], np.int64)
+        if extent is not None:
+            starts = start + stride * np.arange(max(0, -(-(extent - start) // stride)),
+                                                 dtype=np.int64)
+            return starts, np.minimum(starts + block, extent)
+        starts = start + stride * np.arange(-(-count // block), dtype=np.int64)
+        stops = starts + block
+        if len(stops):
+            stops[-1] -= len(stops) * block - count
+        return starts, stops
+
+
+def _printf_parts(name, f, where):
+    """A mapping's source file or dataset name as its parts around HDF5's
+    printf-style ``%b`` (the block number; ``%%`` is a ``%``): one part
+    when it has none.  Any other ``%`` specifier raises, as HDF5 refuses
+    it."""
+    parts, text, i = [], "", 0
+    while i < len(name):
+        if name[i] != "%":
+            text += name[i]
+            i += 1
+            continue
+        code = name[i + 1 : i + 2]
+        if code == "%":
+            text += "%"
+        elif code == "b":
+            parts.append(text)
+            text = ""
+        else:
+            raise f._unsupported(f"a source name {name!r} with the specifier %{code}", where)
+        i += 2
+    return [*parts, text]
+
+
 def _matched_runs(virtual, source, lo, hi):
     """(virtual row, source row, rows) of each run in which the rows of a
     virtual selection (``(starts, stops)``) inside [lo, hi) meet the
@@ -2050,7 +2187,9 @@ def _fletcher32_checked(raw, what):
 
 
 # -- writing ----------------------------------------------------------- #
-# Files are written with 8-byte offsets and lengths, as h5py writes them.
+# Addresses and lengths are written in the file's sizes of offsets and
+# lengths (``Appender.o`` and ``.n``; 8 bytes each, as h5py writes them,
+# unless ``write`` is given others).
 
 
 def enum_dtype(mapping, basetype=np.int32):
@@ -2060,13 +2199,14 @@ def enum_dtype(mapping, basetype=np.int32):
     return np.dtype(np.dtype(basetype).str, metadata={"enum": dict(mapping)})
 
 
-def _type_message(dtype):
+def _type_message(dtype, so=8):
     """The version-1 datatype of a numpy dtype (integers, IEEE floats,
     fixed strings, enums of ``enum_dtype``), or of a variable-length UTF-8
-    string (``str``)."""
+    string (``str``: its length, then a global heap ID of an ``so``-byte
+    address and an index)."""
     if dtype is str:
         char = struct.pack("<BBBBIHH", 0x10, 0, 0, 0, 1, 0, 8)
-        return struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 16) + char
+        return struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 4 + so + 4) + char
     dtype = np.dtype(dtype)
     if dtype.metadata and "enum" in dtype.metadata:
         # an enum (``enum_dtype``): its integer base type, then the
@@ -2095,27 +2235,25 @@ def _type_message(dtype):
     raise TypeError(f"no HDF5 type is written for numpy dtype {dtype}")
 
 
-def _space_message(shape, unlimited=False, maxshape=None):
+def _space_message(out, shape, unlimited=False):
     """A version-1 dataspace of ``shape``; its maximum the shape, or
     unlimited along the first axis."""
-    dims = b"".join(struct.pack("<Q", n) for n in shape)
-    top = dims
-    if unlimited:
-        top = struct.pack("<Q", UNDEF) + dims[8:]
-    return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + dims + top
+    dims = [out.n(n) for n in shape]
+    top = [out.n(UNDEF)] + dims[1:] if unlimited else dims
+    return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + b"".join(dims + top)
 
 
-def _space_v2(shape, unlimited=False, keep_max=True):
+def _space_v2(out, shape, unlimited=False, keep_max=True):
     """A version-2 dataspace of ``shape`` (scalar when empty), its maximum
     stored when ``keep_max`` (unlimited along the first axis, or the
     shape)."""
     if not shape:
         return bytes([2, 0, 0, 0])
-    dims = b"".join(struct.pack("<Q", n) for n in shape)
+    dims = [out.n(n) for n in shape]
     if not keep_max:
-        return bytes([2, len(shape), 0, 1]) + dims
-    top = struct.pack("<Q", UNDEF) + dims[8:] if unlimited else dims
-    return bytes([2, len(shape), 1, 1]) + dims + top
+        return bytes([2, len(shape), 0, 1]) + b"".join(dims)
+    top = [out.n(UNDEF)] + dims[1:] if unlimited else dims
+    return bytes([2, len(shape), 1, 1]) + b"".join(dims + top)
 
 
 def _message(kind, body):
@@ -2128,17 +2266,22 @@ def _object_header(messages):
     return struct.pack("<BBHII4x", 1, 0, len(messages), 1, size) + b"".join(messages)
 
 
-def _global_heap(items):
+def _global_heap(out, items):
     """A global heap collection holding ``items`` (bytes) as objects 1..n,
     at least HDF5's 4096 bytes, the rest one free-space object."""
-    body = b"".join(
-        struct.pack("<HH4xQ", i + 1, 0, len(item)) + _pad8(item) for i, item in enumerate(items)
-    )
-    size = max(GLOBAL_HEAP_MIN, _align8(16 + len(body) + 16))
-    free = size - 16 - len(body)
+    # the collection's header and each object's (index, references,
+    # reserved, size), 8-byte aligned (H5HG_SIZEOF_HDR, H5HG_SIZEOF_OBJHDR)
+    head = _align8(8 + out.sl)
+
+    def object_header(index, size):
+        return (struct.pack("<HH4x", index, 0) + out.n(size)).ljust(head, b"\0")
+
+    body = b"".join(object_header(i + 1, len(item)) + _pad8(item) for i, item in enumerate(items))
+    size = max(GLOBAL_HEAP_MIN, head + len(body) + head)
+    free = size - head - len(body)
     return (
-        b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + body
-        + struct.pack("<HH4xQ", 0, 0, free) + bytes(free - 16)
+        (b"GCOL" + bytes([1, 0, 0, 0]) + out.n(size)).ljust(head, b"\0") + body
+        + object_header(0, free) + bytes(free - head)
     )
 
 
@@ -2148,13 +2291,14 @@ def _attribute_parts(attrs, out):
     int64 and float64, as h5py stores them); the strings go into a new
     global heap collection written by ``out``."""
     strings = [v.encode("utf-8") for v in attrs.values() if isinstance(v, str)]
-    heap = out.put(_global_heap(strings)) if strings else None
+    heap = out.put(_global_heap(out, strings)) if strings else None
     parts, index = [], 0
     for name, value in attrs.items():
         if isinstance(value, str):
             index += 1
-            parts.append((name, _type_message(str), (),
-                          struct.pack("<IQI", len(strings[index - 1]), heap, index)))
+            parts.append((name, _type_message(str, out.so), (),
+                          struct.pack("<I", len(strings[index - 1])) + out.o(heap)
+                          + struct.pack("<I", index)))
             continue
         array = np.asarray(value)
         if array.dtype.kind not in "iufS":
@@ -2167,7 +2311,7 @@ def _attribute_messages(attrs, out):
     """Version-1 attribute messages of ``attrs`` (see ``_attribute_parts``)."""
     messages = []
     for name, kind, shape, data in _attribute_parts(attrs, out):
-        space = _space_message(shape)
+        space = _space_message(out, shape)
         encoded = name.encode("utf-8") + b"\0"
         body = (
             struct.pack("<BBHHH", 1, 0, len(encoded), len(kind), len(space))
@@ -2194,12 +2338,12 @@ def _attribute_messages_v3(attrs, out):
     bodies = []
     for name, kind, shape, data in _attribute_parts(attrs, out):
         encoded = name.encode("utf-8")
-        space = _space_v2(shape, keep_max=False) if shape else _space_v2(())
+        space = _space_v2(out, shape, keep_max=False)
         bodies.append((encoded, struct.pack("<BBHHHB", 3, 0, len(encoded) + 1, len(kind),
                                             len(space), 0 if encoded.isascii() else 1)
                        + encoded + b"\0" + kind + space + data))
     if len(bodies) <= MAX_COMPACT:
-        info = bytes([0, 0]) + struct.pack("<QQ", UNDEF, UNDEF)
+        info = bytes([0, 0]) + out.o(UNDEF) + out.o(UNDEF)
         return [(ATTRIBUTE_INFO, info)] + [(ATTRIBUTE, body) for _, body in bodies]
     heap, ids = hw.fractal_heap(out, [body for _, body in bodies], hw.ATTRIBUTE_HEAP)
     records = sorted((index.lookup3(name), name, heap_id)
@@ -2207,7 +2351,7 @@ def _attribute_messages_v3(attrs, out):
     names = hw.btree2(out, 8, [heap_id + struct.pack("<BII", 0, 0xFFFF, h)
                                for h, _, heap_id in records],
                       hw.ATTRIBUTE_HEAP.id_len + 9)
-    return [(ATTRIBUTE_INFO, bytes([0, 0]) + struct.pack("<QQ", heap, names))]
+    return [(ATTRIBUTE_INFO, bytes([0, 0]) + out.o(heap) + out.o(names))]
 
 
 def _fill_latest(chunked):
@@ -2227,12 +2371,12 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
     if latest:
         if chunk is None:
             data = out.put(array) if array.size else UNDEF
-            layout = [(LAYOUT, struct.pack("<BBQQ", 4, 1, data, array.nbytes))]
+            layout = [(LAYOUT, bytes([4, 1]) + out.o(data) + out.n(array.nbytes))]
         else:
             layout = _chunked_data(array, int(chunk), out, pool, latest=True, fixed=fixed,
                                    compression=compression)
         return out.put(hw.object_header([
-            (DATASPACE, _space_v2(array.shape, unlimited=chunk is not None and not fixed)),
+            (DATASPACE, _space_v2(out, array.shape, unlimited=chunk is not None and not fixed)),
             (DATATYPE, _type_message(array.dtype)),
             (FILL, _fill_latest(chunk is not None)),
             *layout,
@@ -2240,7 +2384,7 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
         ]))
     if chunk is None:
         data = out.put(array) if array.size else UNDEF
-        layout = [_message(LAYOUT, struct.pack("<BBQQ", 3, 1, data, array.nbytes))]
+        layout = [_message(LAYOUT, bytes([3, 1]) + out.o(data) + out.n(array.nbytes))]
         # fill value version 2: allocated late, written if set, default
         fill = bytes([2, 2, 2, 1, 0, 0, 0, 0])
     else:
@@ -2250,7 +2394,7 @@ def _dataset_header(array, out, attrs, chunk=None, pool=None, latest=False, fixe
         fill = bytes([2, 3, 2, 1, 0, 0, 0, 0])  # allocated incrementally
     attributes = _attribute_messages(attrs or {}, out)
     return out.put(_object_header([
-        _message(DATASPACE, _space_message(array.shape, unlimited=chunk is not None
+        _message(DATASPACE, _space_message(out, array.shape, unlimited=chunk is not None
                                            and not fixed)),
         _message(DATATYPE, _type_message(array.dtype)),
         _message(FILL, fill),
@@ -2367,16 +2511,16 @@ def _chunked_data(array, rows, out, pool, latest=False, fixed=False, compression
         if fixed and n_chunks == 1 and rows == array.shape[0]:
             head = bytearray(head)
             head[2] = 0x2  # a single chunk, filtered: its size and mask follow
-            layout = bytes(head) + bytes([SINGLE_CHUNK]) + struct.pack("<QIQ", sizes[0],
-                                                                       masks[0], children[0])
+            layout = (bytes(head) + bytes([SINGLE_CHUNK]) + out.n(sizes[0])
+                      + struct.pack("<I", masks[0]) + out.o(children[0]))
         elif fixed:
             addr = hw.fixed_array(out, elements, size_len) if n_chunks else UNDEF
-            layout = head + bytes([FIXED_ARRAY, hw.PAGE_BITS]) + struct.pack("<Q", addr)
+            layout = head + bytes([FIXED_ARRAY, hw.PAGE_BITS]) + out.o(addr)
         else:
             addr = hw.extensible_array(out, elements, size_len) if n_chunks else UNDEF
             layout = head + bytes([EXTENSIBLE_ARRAY, hw.EA_MAX_BITS, hw.EA_IBLOCK,
                                    hw.EA_SBLK_MIN, hw.EA_DBLK_MIN, hw.PAGE_BITS])
-            layout += struct.pack("<Q", addr)
+            layout += out.o(addr)
         return [(FILTERS, pipeline), (LAYOUT, layout)]
     keys = [struct.pack(f"<II{rank + 1}Q", n, mask, k * rows, *[0] * rank)
             for k, (n, mask) in enumerate(zip(sizes, masks))]
@@ -2386,23 +2530,26 @@ def _chunked_data(array, rows, out, pool, latest=False, fixed=False, compression
                             element))
     per_node = 2 * CHUNK_K
     key_size = 8 + 8 * (rank + 1)
-    btree = hw.btree1(out, 1, keys, children, per_node, key_size,
-                      24 + per_node * 8 + (per_node + 1) * key_size) if children else UNDEF
+    btree = hw.btree1(out, 1, keys, children, per_node,
+                      hw.btree1_size(out, per_node, key_size)) if children else UNDEF
     pipeline = struct.pack("<BB6x", 1, 2)
     for fid, name, values in ((SHUFFLE, b"shuffle", (element,)), coder):
         # id, name length, flags (optional), values, name, values (padded
         # to an even count)
         pipeline += struct.pack("<HHHH", fid, 8, 1, len(values)) + name.ljust(8, b"\0")
         pipeline += struct.pack(f"<{len(values)}I", *values) + bytes(4 * (len(values) % 2))
-    layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree) + struct.pack(f"<{rank + 1}I", *dims)
+    layout = bytes([3, 2, rank + 1]) + out.o(btree) + struct.pack(f"<{rank + 1}I", *dims)
     return [(FILTERS, pipeline), (LAYOUT, layout)]
 
 
-def _entry(name_offset, header, cache=None):
-    """A symbol-table entry; ``cache`` the (B-tree, heap) of a group."""
+def _entry(name_offset, header, cache=None, so=8, sl=8):
+    """A symbol-table entry (the name's offset a length of ``sl`` bytes,
+    addresses of ``so``); ``cache`` the (B-tree, heap) of a group."""
     if cache is None:
-        return struct.pack("<QQII16x", name_offset, header, 0, 0)
-    return struct.pack("<QQIIQQ", name_offset, header, 1, 0, *cache)
+        return hw.u(name_offset, sl) + hw.addr(header, so) + bytes(24)
+    scratch = hw.addr(cache[0], so) + hw.addr(cache[1], so)
+    return (hw.u(name_offset, sl) + hw.addr(header, so) + struct.pack("<II", 1, 0)
+            + scratch.ljust(16, b"\0"))
 
 
 def _write_members(out, tree, path, options):
@@ -2434,22 +2581,24 @@ def _write_group(out, tree, attrs, path, options):
         offsets.append(len(heap_data))
         heap_data += _pad8(name.encode("utf-8") + b"\0")
     free = len(heap_data)
-    heap_data += struct.pack("<QQ", FREE_NULL, 64) + bytes(48)
+    heap_data += out.n(FREE_NULL) + out.n(64) + bytes(64 - 2 * out.sl)
     heap = out.eof
-    out.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(heap_data), free, heap + 32) + heap_data)
-    entries = [_entry(offset, header, cache)
+    data = heap + 8 + 2 * out.sl + out.so  # the data segment follows the header
+    out.put(b"HEAP" + bytes(4) + out.n(len(heap_data)) + out.n(free) + out.o(data) + heap_data)
+    entries = [_entry(offset, header, cache, out.so, out.sl)
                for offset, (_, header, cache) in zip(offsets, members)]
     btree = hw.symbol_table(out, entries, offsets, 0, LEAF_K, INTERNAL_K)
     header = out.put(_object_header(
-        [_message(SYMBOL_TABLE, struct.pack("<QQ", btree, heap)),
+        [_message(SYMBOL_TABLE, out.o(btree) + out.o(heap)),
          *_attribute_messages(attrs, out)]
     ))
     return header, (btree, heap)
 
 
-def _hard_link(name, header, order=None):
+def _hard_link(name, header, order=None, so=8):
     """The body of a hard link message (version 1) from ``name`` to the
-    object header ``header``, with its creation ``order`` when given."""
+    object header ``header`` (an address of ``so`` bytes), with its
+    creation ``order`` when given."""
     encoded = name.encode("utf-8")
     width = 0 if len(encoded) < 256 else 1
     # flags: name length width, creation order, UTF-8
@@ -2461,7 +2610,7 @@ def _hard_link(name, header, order=None):
         body[1] |= 0x10
         body.append(1)
     body += len(encoded).to_bytes(1 << width, "little") + encoded
-    return bytes(body + struct.pack("<Q", header))
+    return bytes(body + hw.addr(header, so))
 
 
 def _dense_links(out, links, by_order):
@@ -2490,7 +2639,7 @@ def _write_group_latest(out, tree, attrs, path, options):
     ``MAX_COMPACT``, past it dense (a fractal heap under a v2 B-tree
     name index, as ``File._store_dense`` stores them); (header, None)."""
     members = _write_members(out, tree, path, options)
-    links = [(name, None, _hard_link(name, header)) for name, header, _ in members]
+    links = [(name, None, _hard_link(name, header, so=out.so)) for name, header, _ in members]
     heap = names = UNDEF
     messages = []
     if len(links) > MAX_COMPACT:
@@ -2498,7 +2647,7 @@ def _write_group_latest(out, tree, attrs, path, options):
     else:
         messages = [(LINK, body) for _, _, body in links]
     return out.put(hw.object_header([
-        (LINK_INFO, bytes([0, 0]) + struct.pack("<QQ", heap, names)),
+        (LINK_INFO, bytes([0, 0]) + out.o(heap) + out.o(names)),
         (GROUP_INFO, bytes([0, 0])),
         *_attribute_messages_v3(attrs, out),
         *messages,
@@ -2506,7 +2655,7 @@ def _write_group_latest(out, tree, attrs, path, options):
 
 
 def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=(),
-          libver="earliest", compression="gzip"):
+          libver="earliest", compression="gzip", userblock=0, sizes=(OFFSET_SIZE, LENGTH_SIZE)):
     """Write a new HDF5 file: ``datasets`` maps paths ("bins/start",
     "resolutions/5000/pixels/count") to numpy arrays of integers, floats,
     fixed strings or enums (``enum_dtype``), in groups made from the
@@ -2529,12 +2678,29 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=()
     version-2 object headers, new-style groups (compact up to 8 links,
     dense past them), version-3 attribute messages (dense past 8), data
     layout version 4 with the chunk index HDF5 picks (extensible array,
-    fixed array or single chunk)."""
+    fixed array or single chunk).
+
+    ``userblock``: the bytes of a user block before the superblock (0, or
+    a power of two from 512, as HDF5's ``H5Pset_userblock`` takes it),
+    left zero for the caller to fill; ``sizes``: the sizes of offsets
+    and lengths, each 2, 4 or 8 bytes (``H5Pset_sizes``).  A file that
+    outgrows its offsets raises ``OSError`` (EFBIG) as it is written."""
     if libver not in ("earliest", "latest"):
         raise ValueError(f"libver must be 'earliest' or 'latest', not {libver!r}")
     if compression not in ("gzip", "szip"):
         raise ValueError(f"compression must be 'gzip' or 'szip', not {compression!r}")
+    if userblock and (userblock < 512 or userblock & (userblock - 1)):
+        raise ValueError(f"userblock must be 0 or a power of two from 512, not {userblock}")
+    so, sl = sizes
+    if so not in (2, 4, 8) or sl not in (2, 4, 8):
+        raise ValueError(f"sizes of offsets and lengths must be 2, 4 or 8, not {sizes}")
     latest = libver == "latest"
+    fixed = {name.strip("/") for name in fixed}
+    if latest and sl < 8 and any(name.strip("/") not in fixed for name in chunks or {}):
+        # HDF5 (1.14) decodes no unlimited dimension from lengths of fewer
+        # than 8 bytes, and so opens no such dataset of layout version 4,
+        # even one it wrote itself
+        raise ValueError("an unlimited dataset at libver='latest' needs 8-byte lengths")
     tree = {}
     for name, array in datasets.items():
         *groups, leaf = [p for p in name.split("/") if p]
@@ -2544,28 +2710,27 @@ def write(path, datasets, attrs=None, *, chunks=None, group_attrs=None, fixed=()
         node[leaf] = array
     chunks = {name.strip("/"): rows for name, rows in (chunks or {}).items()}
     group_attrs = {name.strip("/"): a for name, a in (group_attrs or {}).items()}
-    fixed = {name.strip("/") for name in fixed}
     pool = concurrent.futures.ThreadPoolExecutor(THREADS) if chunks and THREADS > 1 else None
     fd = os.open(str(path), os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o666)
     try:
         options = (chunks, group_attrs, fixed, pool, latest, compression)
         if latest:
-            out = hw.Appender(fd, 48)
+            out = hw.Appender(fd, 12 + 4 * so + 4, userblock, so, sl)
             header, _ = _write_group_latest(out, tree, dict(attrs or {}), "", options)
             eof = out.finish()
-            superblock = hw.signed(SIGNATURE + bytes([3, OFFSET_SIZE, LENGTH_SIZE, 0])
-                                      + struct.pack("<QQQQ", 0, UNDEF, eof, header))
+            superblock = hw.signed(SIGNATURE + bytes([3, so, sl, 0]) + out.o(userblock)
+                                   + out.o(UNDEF) + out.o(userblock + eof) + out.o(header))
         else:
-            out = hw.Appender(fd, 96)
+            out = hw.Appender(fd, 24 + 4 * so + so + sl + 24, userblock, so, sl)
             header, cache = _write_group(out, tree, dict(attrs or {}), "", options)
             eof = out.finish()
             superblock = (
-                SIGNATURE + bytes([0, 0, 0, 0, 0, OFFSET_SIZE, LENGTH_SIZE, 0])
+                SIGNATURE + bytes([0, 0, 0, 0, 0, so, sl, 0])
                 + struct.pack("<HHI", LEAF_K, INTERNAL_K, 0)
-                + struct.pack("<QQQQ", 0, UNDEF, eof, UNDEF)
-                + _entry(0, header, cache)
+                + out.o(userblock) + out.o(UNDEF) + out.o(userblock + eof) + out.o(UNDEF)
+                + _entry(0, header, cache, so, sl)
             )
-        os.pwrite(fd, superblock, 0)
+        os.pwrite(fd, superblock, userblock)
     finally:
         os.close(fd)
         if pool is not None:

@@ -19,18 +19,20 @@ B-trees of ``hdf5``.
 
 Every structure is written through an ``Appender`` at the end of the
 file, at an address known before it is written, and carries its lookup3
-checksum.  Files are written with 8-byte offsets and lengths.
+checksum.  Addresses and lengths take the file's sizes of offsets and
+lengths (2, 4 or 8 bytes, the ``Appender``'s ``so`` and ``sl``); an
+address of ``UNDEF`` is written as the file's undefined address.
 """
 
 from __future__ import annotations
 
+import errno
 import os
 import struct
 
 from chromosight_torch.io.hdf5_index import lookup3
 
 UNDEF = (1 << 64) - 1
-SO = SL = 8
 
 
 def align8(n):
@@ -48,14 +50,37 @@ def signed(data):
 
 
 def u(value, size):
-    return int(value).to_bytes(size, "little")
+    """``value`` in ``size`` little-endian bytes (OverflowError when it
+    does not fit)."""
+    try:
+        return int(value).to_bytes(size, "little")
+    except OverflowError:
+        raise OverflowError(f"{value} does not fit a field of {size} bytes") from None
+
+
+def addr(value, so):
+    """An address in ``so`` bytes, ``UNDEF`` as the undefined address."""
+    return b"\xff" * so if value == UNDEF else u(value, so)
 
 
 class Appender:
-    """Writes blocks at the end of a file, each at an 8-byte boundary."""
+    """Writes blocks at the end of a file, each at an 8-byte boundary.
+    Addresses count from ``base`` (the user block's size), in ``so``
+    bytes; lengths take ``sl`` bytes.  A block that would end past what
+    ``so`` bytes address (the file's end, user block included, is stored
+    in them) raises ``OSError`` (EFBIG) before it is written."""
 
-    def __init__(self, fd, eof):
-        self.fd, self.eof = fd, align8(eof)
+    def __init__(self, fd, eof, base=0, so=8, sl=8):
+        self.fd, self.eof, self.base, self.so, self.sl = fd, align8(eof), base, so, sl
+
+    def o(self, value):
+        """An address (``UNDEF``: undefined) in the file's size of offsets."""
+        return addr(value, self.so)
+
+    def n(self, value):
+        """A length in the file's size of lengths (``UNDEF``: all ones, an
+        unlimited dimension)."""
+        return b"\xff" * self.sl if value == UNDEF else u(value, self.sl)
 
     def put(self, data, at=None):
         """Write ``data`` (bytes or a contiguous array) at the end; its
@@ -64,15 +89,18 @@ class Appender:
         addr, done = self.eof, 0
         if at is not None and at != addr:
             raise RuntimeError(f"block written at {addr}, not at {at}")
+        if self.base + align8(addr + len(view)) >= (1 << (8 * self.so)) - 1:
+            raise OSError(errno.EFBIG, f"{len(view)} bytes at address {addr} end past what "
+                          f"{self.so}-byte offsets address")
         while done < len(view):
-            done += os.pwrite(self.fd, view[done:], addr + done)
+            done += os.pwrite(self.fd, view[done:], self.base + addr + done)
         self.eof = align8(addr + len(view))
         return addr
 
     def finish(self):
         """Extend the file to the end address (the last block's padding)."""
-        if os.fstat(self.fd).st_size < self.eof:
-            os.ftruncate(self.fd, self.eof)
+        if os.fstat(self.fd).st_size < self.base + self.eof:
+            os.ftruncate(self.fd, self.base + self.eof)
         return self.eof
 
 
@@ -89,7 +117,10 @@ class HeapParams:
         max_direct_off = (self.max_direct.bit_length() - 1 + 7) // 8
         self.len_size = min(max_direct_off, enc_size(self.max_managed))
         self.id_len = 1 + self.off_size + self.len_size
-        self.block_header = 5 + SO + self.off_size + 4  # checksummed direct blocks
+
+    def block_header(self, so):
+        """Bytes before a (checksummed) direct block's objects."""
+        return 5 + so + self.off_size + 4
 
     def row_size(self, row):
         return self.start_block if row == 0 else self.start_block << (row - 1)
@@ -110,7 +141,8 @@ def fractal_heap(out, objects, params):
     direct blocks are allocated in order as far as needed (the rest
     undefined, the allocation iterator at the next).  The free space each
     block leaves is one section of HDF5's free-space manager."""
-    p = params
+    p, so, sl = params, out.so, out.sl
+    block_header = p.block_header(so)
     blocks, placed = [], []  # [heap offset, size, objects, bytes used]
     start = 0
     for obj in objects:
@@ -118,17 +150,17 @@ def fractal_heap(out, objects, params):
             raise NotImplementedError(f"a fractal heap object of {len(obj)} bytes")
         if not blocks or blocks[-1][3] + len(obj) > blocks[-1][1]:
             size = p.row_size(len(blocks) // p.width)
-            if p.block_header + len(obj) > size:
+            if block_header + len(obj) > size:
                 raise NotImplementedError(f"a fractal heap object of {len(obj)} bytes past "
                                           f"a direct block of {size}")
-            blocks.append([start, size, [], p.block_header])
+            blocks.append([start, size, [], block_header])
             start += size
         block = blocks[-1]
         placed.append(block[0] + block[3])
         block[2].append(obj)
         block[3] += len(obj)
     if not blocks:
-        blocks.append([0, p.start_block, [], p.block_header])
+        blocks.append([0, p.start_block, [], block_header])
     nrows = 0
     if len(blocks) > 1:
         nrows = 1
@@ -138,11 +170,11 @@ def fractal_heap(out, objects, params):
             raise NotImplementedError(f"a fractal heap of {len(blocks)} direct blocks")
     free = [(b[0] + b[3], b[1] - b[3]) for b in blocks if b[1] > b[3]]
     head = align8(out.eof)
-    at = align8(head + 146)
+    at = align8(head + 26 + 12 * sl + 3 * so)  # the header's size
     iblock = None
     if nrows:
         iblock = at
-        at = align8(at + 5 + SO + p.off_size + nrows * p.width * SO + 4)
+        at = align8(at + 5 + so + p.off_size + nrows * p.width * so + 4)
     addrs = []
     for b in blocks:
         addrs.append(at)
@@ -150,7 +182,7 @@ def fractal_heap(out, objects, params):
     fs_head = fs_list = UNDEF
     if free:
         fs_head = at
-        fs_list = align8(at + 6 + 4 * SL + 8 + SL + SO + 2 * SL + 4)
+        fs_list = align8(at + 6 + 4 * sl + 8 + sl + so + 2 * sl + 4)
     # H5FS__sinfo_serialize: the sections grouped by size (their count and
     # size), each section its heap offset and class (0: a single section)
     count_size, len_size = enc_size(len(free)), enc_size(p.max_direct)
@@ -161,34 +193,34 @@ def fractal_heap(out, objects, params):
         u(len(w), count_size) + u(size, len_size)
         + b"".join(u(x, p.off_size) + b"\0" for x in sorted(w))
         for size, w in sorted(by_size.items()))
-    section_list = signed(b"FSSE\0" + u(fs_head, SO) + sections)
+    section_list = signed(b"FSSE\0" + out.o(fs_head) + sections)
     total_free = sum(size for _, size in free)
     man_space = p.width * sum(p.row_size(r) for r in range(nrows)) if nrows else p.start_block
     iterator = blocks[-1][0] + blocks[-1][1] if nrows else 0
     header = (
         b"FRHP\0" + struct.pack("<HHBI", p.id_len, 0, 0x02, p.max_managed)
-        + u(0, SL) + u(UNDEF, SO) + u(total_free, SL) + u(fs_head, SO)
-        + u(man_space, SL) + u(sum(b[1] for b in blocks), SL) + u(iterator, SL)
-        + u(len(objects), SL) + u(0, SL) * 4 + struct.pack("<H", p.width)
-        + u(p.start_block, SL) + u(p.max_direct, SL) + struct.pack("<HH", p.max_index, 1)
-        + u(addrs[0] if iblock is None else iblock, SO) + struct.pack("<H", nrows)
+        + out.n(0) + out.o(UNDEF) + out.n(total_free) + out.o(fs_head)
+        + out.n(man_space) + out.n(sum(b[1] for b in blocks)) + out.n(iterator)
+        + out.n(len(objects)) + out.n(0) * 4 + struct.pack("<H", p.width)
+        + out.n(p.start_block) + out.n(p.max_direct) + struct.pack("<HH", p.max_index, 1)
+        + out.o(addrs[0] if iblock is None else iblock) + struct.pack("<H", nrows)
     )
     out.put(signed(header), head)
     if iblock is not None:
-        children = [u(a, SO) for a in addrs] + [u(UNDEF, SO)] * (nrows * p.width - len(addrs))
-        out.put(signed(b"FHIB\0" + u(head, SO) + u(0, p.off_size) + b"".join(children)), iblock)
+        children = [out.o(a) for a in addrs] + [out.o(UNDEF)] * (nrows * p.width - len(addrs))
+        out.put(signed(b"FHIB\0" + out.o(head) + u(0, p.off_size) + b"".join(children)), iblock)
     for b, addr in zip(blocks, addrs):
-        body = bytearray(b"FHDB\0" + u(head, SO) + u(b[0], p.off_size) + bytes(4))
+        body = bytearray(b"FHDB\0" + out.o(head) + u(b[0], p.off_size) + bytes(4))
         for obj in b[2]:
             body += obj
         body += bytes(b[1] - len(body))
-        body[p.block_header - 4 : p.block_header] = struct.pack("<I", lookup3(bytes(body)))
+        body[block_header - 4 : block_header] = struct.pack("<I", lookup3(bytes(body)))
         out.put(bytes(body), addr)
     if free:
         fs_header = (
-            b"FSHD\0\0" + u(total_free, SL) + u(len(free), SL) + u(len(free), SL) + u(0, SL)
-            + struct.pack("<HHHH", 4, 80, 120, p.max_index) + u(p.max_direct, SL)
-            + u(fs_list, SO) + u(len(section_list), SL) + u(len(section_list), SL)
+            b"FSHD\0\0" + out.n(total_free) + out.n(len(free)) + out.n(len(free)) + out.n(0)
+            + struct.pack("<HHHH", 4, 80, 120, p.max_index) + out.n(p.max_direct)
+            + out.o(fs_list) + out.n(len(section_list)) + out.n(len(section_list))
         )
         out.put(signed(fs_header), fs_head)
         out.put(section_list, fs_list)
@@ -215,7 +247,7 @@ def btree2(out, kind, records, record_size):
     caps, cum_size, pointers = [leaf_max], [0], [0]
     while caps[-1] < len(records):
         d = len(caps)
-        pointer = SO + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        pointer = out.so + nrec_size + (cum_size[d - 1] if d > 1 else 0)
         max_nrec = (node_size - (10 + pointer)) // (record_size + pointer)
         caps.append((max_nrec + 1) * caps[d - 1] + max_nrec)
         cum_size.append(enc_size(caps[d]))
@@ -242,7 +274,7 @@ def btree2(out, kind, records, record_size):
         body = b"BTIN\0" + bytes([kind]) + b"".join(seps)
         for part in parts:
             addr, nrec, total = build(part, d - 1)
-            body += u(addr, SO) + u(nrec, nrec_size)
+            body += out.o(addr) + u(nrec, nrec_size)
             if d > 1:
                 body += u(total, cum_size[d - 1])
         node = signed(body)
@@ -253,19 +285,20 @@ def btree2(out, kind, records, record_size):
         root, root_records, _ = build(list(records), depth)
     header = (b"BTHD\0" + bytes([kind]) + struct.pack("<IHHBB", node_size, record_size, depth,
                                                       SPLIT, MERGE)
-              + u(root, SO) + struct.pack("<H", root_records) + u(len(records), SL))
+              + out.o(root) + struct.pack("<H", root_records) + out.n(len(records)))
     return out.put(signed(header))
 
 
 # -- the version-1 B-tree -------------------------------------------------- #
 
-def btree1(out, kind, keys, children, per_node, key_size, node_size):
+def btree1(out, kind, keys, children, per_node, node_size):
     """Write a version-1 B-tree of type ``kind`` (0: a group's, 1: a
     dataset's chunks) over ``children`` (addresses, in order) and
     ``keys`` (one before each child and one after the last): nodes of up
     to ``per_node`` children, then levels of nodes over them until one
     node holds the rest, each level's nodes adjacent and linked to their
-    siblings, each node ``node_size`` bytes; the root's address."""
+    siblings, each node ``node_size`` bytes (``btree1_size``); the root's
+    address."""
     level = 0
     while True:
         starts = range(0, len(children), per_node)
@@ -276,8 +309,9 @@ def btree1(out, kind, keys, children, per_node, key_size, node_size):
             stop = min(start + per_node, len(children))
             left = addrs[i - 1] if i else UNDEF
             right = addrs[i + 1] if i + 1 < len(addrs) else UNDEF
-            node = b"TREE" + struct.pack("<BBHQQ", kind, level, stop - start, left, right)
-            node += b"".join(keys[j] + u(children[j], SO) for j in range(start, stop))
+            node = b"TREE" + struct.pack("<BBH", kind, level, stop - start)
+            node += out.o(left) + out.o(right)
+            node += b"".join(keys[j] + out.o(children[j]) for j in range(start, stop))
             node += keys[stop]
             out.put(node + bytes(node_size - len(node)), addrs[i])
             up_keys.append(keys[start])
@@ -287,24 +321,30 @@ def btree1(out, kind, keys, children, per_node, key_size, node_size):
         level += 1
 
 
+def btree1_size(out, per_node, key_size):
+    """Bytes of a version-1 B-tree node of ``per_node`` children and keys
+    of ``key_size`` bytes (``H5B__compute_size``)."""
+    return 8 + 2 * out.so + per_node * out.so + (per_node + 1) * key_size
+
+
 def symbol_table(out, entries, name_keys, first_key, leaf_k, internal_k):
     """Write the symbol-table nodes (``SNOD``, up to 2 * ``leaf_k``
-    entries each) of ``entries`` (40-byte entries in name order) and the
+    entries each) of ``entries`` (so + sl + 24-byte entries in name order) and the
     group B-tree over them (type 0, 2 * ``internal_k`` children a node,
     keyed by the heap offset of each node's last name, ``name_keys``, and
     ``first_key`` before the first); the B-tree's address.  A group with
     no entry gets one empty node."""
     per_node = 2 * leaf_k
-    size = 8 + per_node * (2 * SO + 24)
-    children, keys = [], [u(first_key, SL)]
+    size = 8 + per_node * (out.so + out.sl + 24)
+    children, keys = [], [out.n(first_key)]
     for start in range(0, max(len(entries), 1), per_node):
         rows = entries[start : start + per_node]
         node = b"SNOD" + struct.pack("<BBH", 1, 0, len(rows)) + b"".join(rows)
         children.append(out.put(node + bytes(size - len(node))))
         last = name_keys[min(start + per_node, len(entries)) - 1] if entries else first_key
-        keys.append(u(last, SL))
+        keys.append(out.n(last))
     k = 2 * internal_k
-    return btree1(out, 0, keys, children, k, SL, 24 + k * SO + (k + 1) * SL)
+    return btree1(out, 0, keys, children, k, btree1_size(out, k, out.sl))
 
 
 # -- the chunk indexes of data layout version 4 ----------------------------- #
@@ -313,17 +353,17 @@ def symbol_table(out, entries, name_keys, first_key, leaf_k, internal_k):
 EA_MAX_BITS, EA_IBLOCK, EA_SBLK_MIN, EA_DBLK_MIN, PAGE_BITS = 32, 4, 4, 16, 10
 
 
-def _element(addr, size, mask, size_len):
+def _element(out, at, size, mask, size_len):
     if size_len:
-        return u(addr, SO) + u(size, size_len) + struct.pack("<I", mask)
-    return u(addr, SO)
+        return out.o(at) + u(size, size_len) + struct.pack("<I", mask)
+    return out.o(at)
 
 
-def _data_elements(elements, lo, n, size_len):
+def _data_elements(out, elements, lo, n, size_len):
     """The raw elements lo .. lo + n of ``elements`` ((address, size,
     mask) each), undefined past its end."""
-    empty = _element(UNDEF, 0, 0, size_len)
-    return b"".join(_element(*elements[i], size_len) if i < len(elements) else empty
+    empty = _element(out, UNDEF, 0, 0, size_len)
+    return b"".join(_element(out, *elements[i], size_len) if i < len(elements) else empty
                     for i in range(lo, lo + n))
 
 
@@ -340,7 +380,7 @@ def extensible_array(out, elements, size_len):
     block holds the first 4 elements and the data blocks of the first
     super blocks, then super blocks of data blocks; data blocks above
     1,024 elements are paged."""
-    n, elem = len(elements), SO + (size_len + 4 if size_len else 0)
+    n, elem = len(elements), out.so + (size_len + 4 if size_len else 0)
     nsblks = 1 + (EA_MAX_BITS - (EA_DBLK_MIN.bit_length() - 1))
     off_size = (EA_MAX_BITS + 7) // 8
     page = 1 << PAGE_BITS
@@ -353,15 +393,15 @@ def extensible_array(out, elements, size_len):
     ib_sblks = 2 * (EA_SBLK_MIN.bit_length() - 1)
     ib_dblk_addrs, ib_sblk_addrs = 2 * (EA_SBLK_MIN - 1), nsblks - ib_sblks
     head = align8(out.eof)
-    header_size = 12 + 6 * SL + SO + 4
+    header_size = 12 + 6 * out.sl + out.so + 4
     iblock = align8(head + header_size)
-    iblock_size = 6 + SO + EA_IBLOCK * elem + (ib_dblk_addrs + ib_sblk_addrs) * SO + 4
+    iblock_size = 6 + out.so + EA_IBLOCK * elem + (ib_dblk_addrs + ib_sblk_addrs) * out.so + 4
     at = align8(iblock + iblock_size)
     dblk_addrs, sblk_addrs = [UNDEF] * ib_dblk_addrs, [UNDEF] * ib_sblk_addrs
     writes = []  # (address, bytes)
     stats = [0, 0, 0, 0]  # super blocks, their bytes, data blocks, their bytes
     realized = EA_IBLOCK
-    prefix = 6 + SO + off_size
+    prefix = 6 + out.so + off_size
     for s, (ndblks, nelmts, first, first_dblk) in enumerate(info):
         if EA_IBLOCK + first >= n:
             break
@@ -371,7 +411,7 @@ def extensible_array(out, elements, size_len):
         sblock, bitmap, blocks = None, bytearray(init_size), []
         if s >= ib_sblks:
             sblock = at
-            at = align8(at + prefix + init_size + ndblks * SO + 4)
+            at = align8(at + prefix + init_size + ndblks * out.so + 4)
         for k in range(ndblks):
             base = EA_IBLOCK + first + k * nelmts
             if base >= n:
@@ -380,14 +420,14 @@ def extensible_array(out, elements, size_len):
             # H5EA__lookup_elmt: the offset of a data block of the index
             # block counts its index over all data blocks
             offset = first + (first_dblk + k if sblock is None else k) * nelmts
-            head_bytes = b"EADB\0\x01" + u(head, SO) + u(offset, off_size)
+            head_bytes = b"EADB\0\x01" + out.o(head) + u(offset, off_size)
             if not paged:
-                data = signed(head_bytes + _data_elements(elements, base, nelmts, size_len))
+                data = signed(head_bytes + _data_elements(out, elements, base, nelmts, size_len))
             else:
                 pages = []
                 for q in range(npages):
                     lo = base + q * page
-                    pages.append(_data_elements(elements, lo, page, size_len))
+                    pages.append(_data_elements(out, elements, lo, page, size_len))
                     if lo < n:
                         bit = k * npages + q
                         bitmap[bit // 8] |= 0x80 >> (bit % 8)
@@ -401,21 +441,21 @@ def extensible_array(out, elements, size_len):
         if sblock is None:
             dblk_addrs[first_dblk : first_dblk + ndblks] = blocks
         else:
-            body = signed(b"EASB\0\x01" + u(head, SO) + u(first, off_size) + bytes(bitmap)
-                          + b"".join(u(a, SO) for a in blocks))
+            body = signed(b"EASB\0\x01" + out.o(head) + u(first, off_size) + bytes(bitmap)
+                          + b"".join(out.o(a) for a in blocks))
             writes.append((sblock, body))
             sblk_addrs[s - ib_sblks] = sblock
             stats[0] += 1
             stats[1] += len(body)
     header = (b"EAHD\0\x01" + bytes([elem, EA_MAX_BITS, EA_IBLOCK, EA_DBLK_MIN, EA_SBLK_MIN,
                                       PAGE_BITS])
-              + b"".join(u(v, SL) for v in stats) + u(n, SL) + u(realized if n else 0, SL)
-              + u(iblock if n else UNDEF, SO))
+              + b"".join(out.n(v) for v in stats) + out.n(n) + out.n(realized if n else 0)
+              + out.o(iblock if n else UNDEF))
     out.put(signed(header), head)
     if not n:
         return head
-    body = (b"EAIB\0\x01" + u(head, SO) + _data_elements(elements, 0, EA_IBLOCK, size_len)
-            + b"".join(u(a, SO) for a in dblk_addrs) + b"".join(u(a, SO) for a in sblk_addrs))
+    body = (b"EAIB\0\x01" + out.o(head) + _data_elements(out, elements, 0, EA_IBLOCK, size_len)
+            + b"".join(out.o(a) for a in dblk_addrs) + b"".join(out.o(a) for a in sblk_addrs))
     out.put(signed(body), iblock)
     for addr, data in sorted(writes):
         out.put(data, addr)
@@ -426,21 +466,21 @@ def fixed_array(out, elements, size_len):
     """Write the fixed array of a chunked dataset of fixed size: one
     element (address, stored size, filter mask) per chunk, paged by 1,024
     elements past that; the header's address."""
-    n, elem = len(elements), SO + (size_len + 4 if size_len else 0)
+    n, elem = len(elements), out.so + (size_len + 4 if size_len else 0)
     page = 1 << PAGE_BITS
     head = align8(out.eof)
-    dblock = align8(head + 8 + SL + SO + 4)
-    out.put(signed(b"FAHD\0" + bytes([1 if size_len else 0, elem, PAGE_BITS]) + u(n, SL)
-                   + u(dblock, SO)), head)
-    prefix = b"FADB\0" + bytes([1 if size_len else 0]) + u(head, SO)
+    dblock = align8(head + 8 + out.sl + out.so + 4)
+    out.put(signed(b"FAHD\0" + bytes([1 if size_len else 0, elem, PAGE_BITS]) + out.n(n)
+                   + out.o(dblock)), head)
+    prefix = b"FADB\0" + bytes([1 if size_len else 0]) + out.o(head)
     if n <= page:
-        out.put(signed(prefix + _data_elements(elements, 0, n, size_len)), dblock)
+        out.put(signed(prefix + _data_elements(out, elements, 0, n, size_len)), dblock)
     else:
         pages = -(-n // page)
         bitmap = bytearray((pages + 7) // 8)
         for q in range(pages):
             bitmap[q // 8] |= 0x80 >> (q % 8)
-        raw = [_data_elements(elements, q * page, min(page, n - q * page), size_len)
+        raw = [_data_elements(out, elements, q * page, min(page, n - q * page), size_len)
                for q in range(pages)]
         out.put(signed(prefix + bytes(bitmap)) + _paged(raw), dblock)
     return head

@@ -125,8 +125,40 @@ class _PixelSource:
         band[b1 - s, d] = vals
         return band
 
+    def pixels_upper(self, extent, balance=False, dtype=np.float32, max_diag=None):
+        """The stored upper triangle of the intra map ``extent`` = (s, e):
+        (rows, cols, values) in local coordinates, the values ``count *
+        w[bin1] * w[bin2]`` in ``dtype`` when ``balance``, the pixels at a
+        distance of ``max_diag`` or more dropped when given
+        (``chromosight_tpu/io/cool.py:165-198``)."""
+        s, e = extent
+        lo, hi = int(self._bin1_offset[s]), int(self._bin1_offset[e])
+        if hi <= lo:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, np.zeros(0, dtype=dtype)
+        b1, b2, ct = self._pixels(lo, hi)
+        keep = b2 < e
+        if max_diag is not None:
+            keep &= (b2 - b1) < max_diag
+        if not keep.all():
+            b1, b2, ct = b1[keep], b2[keep], ct[keep]
+        vals = ct.astype(dtype)
+        if balance:
+            self._check_balance(balance)
+            w = self._weight.astype(dtype)
+            vals = vals * w[b1] * w[b2]
+        return b1 - s, b2 - s, vals
+
+    def band_upper_counts(self, extent, width, n_rows=None):
+        """The raw counts' upper band (n_rows, width) as uint16, or None
+        where ``band_upper_counts_auto`` finds them no u16 form
+        (``chromosight_tpu/io/cool.py:255-275``)."""
+        out = self.band_upper_counts_auto(extent, width, n_rows=n_rows, allow_u8=False,
+                                          u4_head=0)
+        return None if out is None else out[1]
+
     def band_upper_counts_auto(
-        self, extent, width, n_rows=None, allow_u8=True, allow_u4=True, *, u4_head
+        self, extent, width, n_rows=None, allow_u8=True, allow_u4=True, *, u4_head=64
     ):
         """Upper band of RAW counts in the narrowest exact form
         (``chromosight_tpu/io/cool.py:277-334``):
@@ -134,7 +166,7 @@ class _PixelSource:
         * ``("u4", head, tail, exc_idx, exc_val)``: columns [0, d0) as
           uint8 (n_rows, d0), columns [d0, width) two per byte (even
           column in the low nibble), with d0 = ``u4_head`` (only while
-          0 < d0 <= width // 2);
+          0 < d0 <= width // 2; 64 by default, as in the JAX package);
         * ``("u8", band_u8, exc_idx, exc_val)``;
         * ``("u16", band_u16)``;
         * None: no native library, a count dtype other than int32, int64,

@@ -28,10 +28,11 @@ def _format_column(values, dec):
     return [str(v) for v in values.tolist()]
 
 
-def write_patterns(table, output_prefix, dec=10):
-    """Write a pattern table to ``<prefix>.tsv``."""
-    names = list(table)
-    cols = [_format_column(table[name], dec) for name in names]
+def write_patterns(coords, output_prefix, dec=10):
+    """Write the pattern table ``coords`` (a dict of columns or a
+    DataFrame) to ``<prefix>.tsv``."""
+    names = list(coords)
+    cols = [_format_column(coords[name], dec) for name in names]
     lines = ["\t".join(names)]
     lines += ["\t".join(row) for row in zip(*cols)]
     with open(output_prefix + ".tsv", "w") as handle:

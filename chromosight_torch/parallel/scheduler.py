@@ -60,7 +60,7 @@ def _record(path, worker, device):
 
 
 def _created(cm):
-    return cm.band is not None or cm.dense is not None or cm.sparse is not None
+    return cm.band_dev is not None or cm.dense_dev is not None or cm.sparse is not None
 
 
 def retain_maps(genome, n_passes):

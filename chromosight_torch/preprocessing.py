@@ -506,12 +506,12 @@ def factorise_kernel(kernel, prop_info=0.999):
     return u[:, :rank] * scale, vt[:rank, :] * scale[:, None]
 
 
-def subsample_contacts(M, n_contacts, rng):
+def subsample_contacts(M, n_contacts, rng=None):
     """Bootstrap-subsample ``n_contacts`` contacts, without replacement,
-    from a scipy-sparse map, drawing from the ``RandomState`` ``rng``
-    (``chromosight_tpu/preprocessing.py:290-309``, which draws from
-    numpy's global state: ``RandomState(s).choice`` makes the draws of
-    ``np.random.seed(s); np.random.choice``).  Contacts are enumerated
+    from a scipy-sparse map, drawing from the ``RandomState`` ``rng``, by
+    default from numpy's global state as the original does
+    (``chromosight_tpu/preprocessing.py:290-309``: ``RandomState(s).choice``
+    makes the draws of ``np.random.seed(s); np.random.choice``).  Contacts are enumerated
     through the cumulative counts and a uniform sample of contact indices
     is mapped back to matrix cells.  Returns a COO matrix.
 
@@ -524,7 +524,9 @@ def subsample_contacts(M, n_contacts, rng):
     M = M.tocoo()
     cum_counts = np.cumsum(M.data)
     tot_contacts = int(cum_counts[-1])
-    picked = rng.choice(tot_contacts, size=int(n_contacts), replace=False)
+    picked = (np.random if rng is None else rng).choice(
+        tot_contacts, size=int(n_contacts), replace=False
+    )
     picked.sort()
     counts = np.diff(np.searchsorted(picked, cum_counts, side="left"), prepend=0)
     keep = counts > 0

@@ -3,7 +3,7 @@
 Counterpart of ``chromosight_tpu/runtime/contact_map.py``.  A map takes
 one of three forms:
 
-* ``band``: an intra map with a bounded scan distance, its upper band
+* ``band_dev``: an intra map with a bounded scan distance, its upper band
   (rows, keep_distance + 1) in float32 on the device (the band engine;
   every such map goes there, ``BAND_THRESHOLD = 0`` in the JAX package).
   ``create_mat`` scatters the band on the host, uploads it and
@@ -18,14 +18,15 @@ one of three forms:
   The fused ``band_preprocess`` is the default; ``--smooth-trend``
   (isotonic distance law) and ``--dump`` take the staged ``detrend`` then
   ``remove_diags``, as the JAX package does.
-* ``dense``: an inter map, or an intra map without a bounded scan
+* ``dense_dev``: an inter map, or an intra map without a bounded scan
   distance, of at most ``DENSE_LIMIT`` bins per side: the whole
   rectangle in float64 on the device (the dense engine).
 * ``sparse``: an inter map larger than that, kept as a float32 scipy CSR
   matrix on the host; the tiled engine scans it on the device
   (``ops.tiled``) and never densifies it.
 
-Inter maps are divided by the median of their stored pixels.
+Inter maps are divided by the median of their stored pixels.  The JAX
+package's host views ``band``, ``dense`` and ``matrix`` download the map.
 
 With ``sample`` (``--subsample``) ``create_mat`` first draws that share
 of the map's raw contacts (mirrored triangle included, as the JAX
@@ -64,12 +65,18 @@ from chromosight_torch.preprocessing import (
     subsample_contacts,
     valid_to_missing,
 )
-from chromosight_torch.runtime.dump import (
+from chromosight_torch.runtime.dump import (  # noqa: F401 (DumpMatrix: the JAX module's name)
+    DumpMatrix,
     announce,
     save_band_snapshot,
     save_matrix_snapshot,
     save_snapshot,
 )
+
+# Intra maps with a bounded scan distance and more bins than this take the
+# band engine: every one, as in the JAX package by default (its
+# CHROMOSIGHT_TPU_BAND_THRESHOLD raises it to force the dense engine).
+BAND_THRESHOLD = 0
 
 # Maps larger than this many bins on a side are not densified: inter maps
 # stay sparse and go to the tiled engine.  Tests lower it to force that
@@ -101,33 +108,40 @@ class ContactMap:
     """A contact map on ``device`` (None: the first CUDA card, and a raise
     without one; the CPU only when asked for).
 
-    ``extent`` is [(s1, e1), (s2, e2)] in genome bins; ``detectable_bins``
-    the (rows, cols) local indices of bins with finite weights; ``inter``
-    True for a trans pair; ``max_dist`` the scan distance in bins (None:
-    the whole map); ``largest_kernel`` the widest kernel side;
-    ``use_norm`` False for ``--norm raw``; ``smooth`` for
-    ``--smooth-trend``; ``dump`` the ``--dump`` directory or None;
+    The JAX package's signature, then the port's keywords.  ``extent`` is
+    [(s1, e1), (s2, e2)] in genome bins; ``detectable_bins`` the (rows,
+    cols) local indices of bins with finite weights; ``inter`` True for a
+    trans pair; ``max_dist`` the scan distance in bins (None: the whole
+    map); ``largest_kernel`` the widest kernel side; ``dump`` the
+    ``--dump`` directory or None; ``smooth`` for ``--smooth-trend``;
     ``sample`` the ``--subsample`` share and ``rng`` the ``RandomState``
-    it draws from; ``devices`` the run's devices, over which the tiled
-    engine spreads a sparse map's batches (default: ``device`` alone).
-    After ``create_mat`` one of ``band``, ``dense`` or ``sparse`` holds
+    it draws from; ``use_norm`` False for ``--norm raw``; ``devices`` the
+    run's devices, over which the tiled engine spreads a sparse map's
+    batches (default: ``device`` alone).
+
+    After ``create_mat`` one of ``band_dev`` (a band map's float32 (n, W)
+    tensor on the device), ``dense_dev`` (a dense map's float64 tensor on
+    the device) or ``sparse`` (a large trans map's host CSR matrix) holds
     the preprocessed map (module docstring); all are None before it and
-    after ``destroy_mat``."""
+    after ``destroy_mat``.  The JAX package's host views read them:
+    ``band`` (float64 ndarray (n, W)), ``dense`` (float64 ndarray, a band
+    map expanded to its upper triangle) and ``matrix`` (scipy CSR)."""
 
     def __init__(
         self,
         clr,
         extent,
-        device=None,
         name="",
         detectable_bins=None,
+        inter=False,
         max_dist=None,
         largest_kernel=0,
-        use_norm=True,
-        smooth=False,
         dump=None,
-        inter=False,
+        smooth=False,
         sample=None,
+        use_norm=True,
+        *,
+        device=None,
         rng=None,
         devices=None,
     ):
@@ -145,8 +159,8 @@ class ContactMap:
         self.smooth = smooth
         self.dump = dump
         self.inter = inter
-        self.band = None
-        self.dense = None
+        self.band_dev = None
+        self.dense_dev = None
         self.sparse = None
         self._structure = None
 
@@ -171,36 +185,76 @@ class ContactMap:
         """Detrended values at or above this reset to 1 (balanced maps)."""
         return 10 if self.use_norm else None
 
+    # -- the map and its views ---------------------------------------- #
+    @property
+    def band(self):
+        """A band map as a float64 ndarray (n, W) on the host, or None
+        (``chromosight_tpu/runtime/contact_map.py:158-168``)."""
+        if self.band_dev is None:
+            return None
+        return download(self.band_dev[: self.shape[0]]).astype(np.float64)
+
+    @property
+    def dense(self):
+        """The map as a float64 ndarray on the host: a dense map, or a
+        band map expanded to its upper triangle; None for a sparse map and
+        before ``create_mat`` (``chromosight_tpu/runtime/
+        contact_map.py:144-152``)."""
+        if self.dense_dev is not None:
+            return download(self.dense_dev).astype(np.float64)
+        if self.band_dev is None:
+            return None
+        band = self.band
+        n = band.shape[0]
+        out = np.zeros((n, n))
+        i, d = np.nonzero(band)
+        ok = i + d < n
+        out[i[ok], i[ok] + d[ok]] = band[i[ok], d[ok]]
+        return out
+
     @property
     def matrix(self):
-        """The preprocessed map as a scipy CSR matrix on the host (a band
-        map as its upper triangle), or None before ``create_mat``: the JAX
-        package's ``matrix`` view."""
+        """The map as a scipy CSR matrix on the host (a band map as its
+        upper triangle), or None before ``create_mat``: the JAX package's
+        ``matrix`` view.  Set it to a dense or sparse matrix to make the
+        map a dense one on the device."""
         import scipy.sparse as sp
 
         if self.sparse is not None:
             return self.sparse
-        if self.dense is not None:
-            return sp.csr_matrix(download(self.dense))
-        if self.band is None:
+        if self.dense_dev is not None:
+            return sp.csr_matrix(download(self.dense_dev))
+        if self.band_dev is None:
             return None
-        n = self.shape[0]
-        band = download(self.band[:n]).astype(np.float64)
+        band = self.band
+        n = band.shape[0]
         i, d = np.nonzero(band)
         ok = i + d < n
         i, d = i[ok], d[ok]
         return sp.coo_matrix((band[i, d], (i, i + d)), shape=(n, n)).tocsr()
 
-    def subsample(self):
-        """COO triplets (rows, cols, values) of a draw of ``sample`` of the
-        map's raw contacts, balanced with the stored weights unless
-        ``--norm raw`` (``chromosight_tpu/runtime/contact_map.py:
-        479-504``)."""
+    @matrix.setter
+    def matrix(self, value):
+        import scipy.sparse as sp
+
+        self.band_dev = self.sparse = self._structure = None
+        if value is None:
+            self.dense_dev = None
+            return
+        value = value.toarray() if sp.issparse(value) else value
+        self.dense_dev = upload(np.asarray(value, dtype=np.float64), self.device)
+
+    # -- fetch --------------------------------------------------------- #
+    def _draw(self, sub, balance):
+        """COO triplets (rows, cols, values) of a draw of ``sub`` of the
+        map's raw contacts (a share up to 1), balanced with the stored
+        weights when ``balance`` (``chromosight_tpu/runtime/
+        contact_map.py:479-504``)."""
         import scipy.sparse as sp
 
         (s1, e1), (s2, e2) = self.extent
         rows, cols, vals = self.clr.pixels_coo((s1, e1), (s2, e2), balance=False)
-        subsample = float(self.sample)
+        subsample = float(sub)
         if subsample < 0:
             raise ValueError("Subsample must be strictly positive.")
         elif subsample <= 1:
@@ -212,17 +266,17 @@ class ContactMap:
             coo = sp.coo_matrix((vals, (rows, cols)), shape=self.shape)
             coo = subsample_contacts(coo, subsample, self.rng)
             rows, cols, vals = coo.row, coo.col, coo.data
-        if self.use_norm:
+        if balance:
             w = self.clr.weights
             vals = vals * w[rows + s1] * w[cols + s2]
         return rows, cols, vals
 
-    def _subsampled_band(self, width):
-        """The upper band (n, width) float32 of a ``subsample`` draw, and
-        its ``01_subsampled`` snapshot: the draw's upper triangle on the
-        diagonals the JAX package's band holds (``_jax_band_width``)."""
+    def _subsampled_band(self, width, sub, balance):
+        """The upper band (n, width) float32 of a ``_draw(sub, balance)``,
+        and its ``01_subsampled`` snapshot: the draw's upper triangle on
+        the diagonals the JAX package's band holds (``_jax_band_width``)."""
         n = self.shape[0]
-        rows, cols, vals = self.subsample()
+        rows, cols, vals = self._draw(sub, balance)
         rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
         d = cols - rows
         band = native.coo_to_band(rows, cols, vals, n, width, dtype=np.float32)
@@ -241,22 +295,57 @@ class ContactMap:
                           cols[keep][nz], v[nz], n)
         return band
 
+    def subsample(self, sub, balance=True):
+        """Replace the map by a draw of ``sub`` of its raw contacts (a
+        share up to 1), balanced with the stored weights when ``balance``,
+        not preprocessed: a band map's float32 band on the device, else
+        the dense or sparse map (``chromosight_tpu/runtime/
+        contact_map.py:479-504``); snapshot ``01_subsampled`` with
+        ``--dump``.  Each call draws anew from ``rng``."""
+        if self.is_banded:
+            self._fetch_band((sub, balance))
+            self.dense_dev = self.sparse = self._structure = None
+            return
+        self._materialize(*self._draw(sub, balance))
+        self._dump("01_subsampled", "subsample")
+
     def create_mat(self):
         """Fetch the map (a fresh ``subsample`` draw with ``sample``),
-        upload it and preprocess it."""
-        if not self.is_banded:
-            self._create_unbanded()
-            return
+        upload it and preprocess it: ``preprocess_intra_matrix``, or a
+        trans map's ``preprocess_inter_matrix`` and its NaN (balanced) or
+        missing-bin (raw) zeroing."""
+        (s1, e1), (s2, e2) = self.extent
+        if self.is_banded and self.sample is None:
+            self._fetch_band()
+        elif self.is_banded:
+            self.subsample(self.sample, balance=self.use_norm)
+        else:
+            with stage("io: trans fetch" if self.inter else "io: fetch", self.device):
+                if self.sample is not None:
+                    self.subsample(self.sample, balance=self.use_norm)
+                else:
+                    fetch = self.clr.trans_coo_raw if self.inter else self.clr.pixels_coo
+                    self._materialize(*fetch((s1, e1), (s2, e2), balance=self.use_norm))
+        with stage("preprocess", self.device):
+            if self.inter:
+                self.preprocess_inter_matrix()
+                self._zero_missing()
+            else:
+                self.preprocess_intra_matrix()
+
+    def _fetch_band(self, draw=None):
+        """Fetch a band map and upload it: its raw counts packed
+        (``band_upper_counts_auto``) and finalized on the device
+        (``_finalize_counts``), or the float32 band, that of a
+        ``_subsampled_band(width, *draw)`` with ``draw`` = (sub, balance);
+        recorded in ``observability.band_uploads()``."""
         (s1, e1), _ = self.extent
-        n = e1 - s1
         width = self.keep_distance + 1
-        pack = None
+        pack = band_host = None
         with stage("io: fetch+scatter", self.device):
-            if (
-                self.sample is None
-                and COUNT_PACKING is not None
-                and (not self.use_norm or self.clr.weights is not None)
-            ):
+            if draw is not None:
+                band_host = self._subsampled_band(width, *draw)
+            elif COUNT_PACKING is not None and (not self.use_norm or self.clr.weights is not None):
                 pack = self.clr.band_upper_counts_auto(
                     (s1, e1),
                     width,
@@ -264,44 +353,16 @@ class ContactMap:
                     allow_u4=COUNT_PACKING == "u4",
                     u4_head=U4_HEAD,
                 )
-            if pack is None and self.sample is None:
+            if pack is None and band_host is None:
                 band_host = self.clr.band_upper((s1, e1), width, balance=self.use_norm)
-            elif pack is None:
-                band_host = self._subsampled_band(width)
         with stage("io: upload", self.device):
             if pack is None:
-                band = band_finalize_upload(upload(band_host, self.device), width)
+                self.band_dev = band_finalize_upload(upload(band_host, self.device), width)
             else:
-                band = self._finalize_counts(pack, width)
+                self.band_dev = self._finalize_counts(pack, width)
         mode = "f32" if pack is None else pack[0]
         exceptions = len(pack[-1]) if mode in ("u4", "u8") else 0
-        observability.record_band_upload(self.name, mode, exceptions, (n, width))
-        with stage("preprocess", self.device):
-            detect = np.zeros(n, dtype=bool)
-            detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
-            detect = torch.from_numpy(detect).to(self.device)
-            if self.smooth or self.dump is not None:
-                self.detrend(band, detect)
-                self.remove_diags()
-                if self.use_norm:
-                    self.band = torch.where(torch.isnan(self.band), 0.0, self.band)
-            else:
-                pre_args = (
-                    band,
-                    detect,
-                    self._max_val,
-                    self.keep_distance,
-                    min(self.keep_distance + 1, n),
-                )
-                observability.account_dispatch(
-                    "band_preprocess", preprocess_cost, *pre_args, zero_nan=self.use_norm
-                )
-                self.band = band_preprocess(*pre_args, zero_nan=self.use_norm)
-            if not self.use_norm:
-                missing = missing_flags(self.detectable_bins[1], n)
-                self.band = band_zero_missing(
-                    self.band, torch.from_numpy(missing).to(self.device)
-                )
+        observability.record_band_upload(self.name, mode, exceptions, (e1 - s1, width))
 
     def _finalize_counts(self, pack, width):
         """The float32 (n, width) band on the device from a
@@ -319,11 +380,110 @@ class ContactMap:
         (s1, e1), _ = self.extent
         return band_weighted(band, upload(self.clr.weights[s1:e1], self.device))
 
-    def detrend(self, band, detect):
-        """Detrend by the distance law, with its isotonic (non-increasing)
-        fit when ``smooth``; the law is reduced on the device and fitted on
-        the host (``chromosight_tpu/runtime/contact_map.py:564-618``).
+    def _materialize(self, rows, cols, vals):
+        """Fetched COO triplets as a float64 dense map on the device (with
+        the mask of stored pixels), or above ``DENSE_LIMIT`` bins a side as
+        a sparse CSR matrix on the host (inter maps only; the JAX package
+        has no engine for such intra maps either)."""
+        n1, n2 = self.shape
+        self.band_dev = self.dense_dev = self.sparse = self._structure = None
+        if max(n1, n2) > DENSE_LIMIT:
+            if not self.inter:
+                raise ValueError(
+                    f"{self.name}: intra maps above DENSE_LIMIT={DENSE_LIMIT} bins "
+                    "need a bounded max_dist (the band engine)"
+                )
+            import scipy.sparse as sp
+
+            self.sparse = sp.coo_matrix((vals, (rows, cols)), shape=(n1, n2)).tocsr()
+            return
+        at = tuple(upload(np.asarray(a, np.int64), self.device) for a in (rows, cols))
+        values = upload(np.asarray(vals, np.float64), self.device)
+        self.dense_dev = torch.zeros((n1, n2), dtype=torch.float64, device=self.device)
+        self.dense_dev.index_put_(at, values)
+        self._structure = torch.zeros((n1, n2), dtype=torch.bool, device=self.device)
+        self._structure.index_put_(at, torch.ones_like(values, dtype=torch.bool))
+
+    # -- preprocessing ------------------------------------------------- #
+    def _detectable_rows(self):
+        """The (n,) bool mask of detectable rows on the device."""
+        detect = np.zeros(self.shape[0], dtype=bool)
+        detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
+        return torch.from_numpy(detect).to(self.device)
+
+    def preprocess_intra_matrix(self):
+        """Preprocess a fetched intra map as ``create_mat`` does
+        (``chromosight_tpu/runtime/contact_map.py:527-562``, with the NaN
+        or missing-bin zeroing its ``create_mat`` does after it): a band
+        map through the fused ``band_preprocess``, or with
+        ``--smooth-trend`` or ``--dump`` through ``detrend`` and
+        ``remove_diags``; a dense map through ``detrend`` and
+        ``remove_diags``."""
+        n = self.shape[0]
+        if self.band_dev is None:
+            self.detrend()
+            self.remove_diags()
+        elif self.smooth or self.dump is not None:
+            self.detrend()
+            self.remove_diags()
+            if self.use_norm:
+                self.band_dev = torch.where(torch.isnan(self.band_dev), 0.0, self.band_dev)
+        else:
+            pre_args = (
+                self.band_dev,
+                self._detectable_rows(),
+                self._max_val,
+                self.keep_distance,
+                min(self.keep_distance + 1, n),
+            )
+            observability.account_dispatch(
+                "band_preprocess", preprocess_cost, *pre_args, zero_nan=self.use_norm
+            )
+            self.band_dev = band_preprocess(*pre_args, zero_nan=self.use_norm)
+        self._zero_missing()
+
+    def _zero_missing(self):
+        """Zero NaN pixels (balanced maps; a band map's preprocess has
+        zeroed them) or the pixels of missing bins (``--norm raw``)."""
+        n1, n2 = self.shape
+        if self.band_dev is not None:
+            if not self.use_norm:
+                missing = missing_flags(self.detectable_bins[1], n1)
+                self.band_dev = band_zero_missing(
+                    self.band_dev, torch.from_numpy(missing).to(self.device)
+                )
+        elif self.sparse is not None:
+            coo = self.sparse.tocoo()
+            if self.use_norm:
+                coo.data[np.isnan(coo.data)] = 0
+            else:
+                mr = missing_flags(self.detectable_bins[0], n1)
+                mc = missing_flags(self.detectable_bins[1], n2)
+                coo.data[mr[coo.row] | mc[coo.col]] = 0
+            coo.eliminate_zeros()
+            self.sparse = coo.tocsr()
+        elif self.use_norm:
+            self.dense_dev = torch.where(torch.isnan(self.dense_dev), 0.0, self.dense_dev)
+        else:
+            for axis in (0, 1):
+                missing = valid_to_missing(self.detectable_bins[axis], self.shape[axis])
+                self.dense_dev.index_fill_(axis, torch.from_numpy(missing).to(self.device), 0.0)
+
+    def detrend(self):
+        """Detrend the map by its distance law, in place
+        (``chromosight_tpu/runtime/contact_map.py:564-618``): a band map
+        through ``detrend_band``, a dense one through ``detrend_dense``.
         Snapshot ``01_detrended`` with ``--dump``."""
+        if self.band_dev is not None:
+            self.detrend_band(self.band_dev, self._detectable_rows())
+        else:
+            self.detrend_dense()
+
+    def detrend_band(self, band, detect):
+        """Detrend ``band`` by its distance law over the ``detect`` rows
+        into the map's band, with the isotonic (non-increasing) fit when
+        ``smooth``; the law is reduced on the device and fitted on the
+        host.  Snapshot ``01_detrended`` with ``--dump``."""
         n = self.shape[0]
         n_diags = min(self.keep_distance + 1, n)
         sums, counts = band_diag_stats(band, detect)
@@ -338,98 +498,53 @@ class ContactMap:
             law[~np.isfinite(law)] = 0
             law = pava_decreasing(law)
         law[np.isnan(law)] = 0.0
-        self.band = band_detrend_trim(
+        self.band_dev = band_detrend_trim(
             band,
             torch.from_numpy(law.astype(np.float32)),
             self._max_val,
             band.shape[1],
         )
         if self.dump is not None:
-            save_band_snapshot(self.dump, self.name, "01_detrended", self.band, n, "detrend")
+            save_band_snapshot(self.dump, self.name, "01_detrended", self.band_dev, n, "detrend")
+
+    def detrend_dense(self):
+        """Detrend a dense intra map by its distance law in float32, as
+        the JAX package does on its device (``chromosight_tpu/runtime/
+        contact_map.py:602-618``); snapshot ``01_detrended``."""
+        n = self.shape[0]
+        mat = self.dense_dev.float()
+        law = distance_law_dense(
+            mat, self._detectable_rows(), n_diags=min(self.keep_distance + 1, n),
+            smooth=self.smooth,
+        )
+        law[np.isnan(law)] = 0.0
+        self.dense_dev = detrend_dense(
+            mat, torch.from_numpy(law.astype(np.float32)), self._max_val
+        ).double()
+        self._structure = None
+        self._dump("01_detrended", "detrend")
 
     def remove_diags(self):
         """Zero the diagonals beyond ``keep_distance`` (and, on a dense
         map, below the main one).  Snapshot ``02_remove_diags`` with
         ``--dump``."""
-        if self.dense is not None:
-            self.dense = diag_trim_dense(self.dense.float(), self.keep_distance).double()
+        if self.dense_dev is not None:
+            self.dense_dev = diag_trim_dense(self.dense_dev.float(), self.keep_distance).double()
             self._dump("02_remove_diags", "remove_diags")
             return
-        d = torch.arange(self.band.shape[1], device=self.band.device)
-        self.band = torch.where((d <= self.keep_distance)[None, :], self.band, 0.0)
+        d = torch.arange(self.band_dev.shape[1], device=self.band_dev.device)
+        self.band_dev = torch.where((d <= self.keep_distance)[None, :], self.band_dev, 0.0)
         if self.dump is not None:
             save_band_snapshot(
-                self.dump, self.name, "02_remove_diags", self.band, self.shape[0],
+                self.dump, self.name, "02_remove_diags", self.band_dev, self.shape[0],
                 "remove_diags",
             )
-
-    def _create_unbanded(self):
-        """Dense or sparse map: fetch the rectangle's pixels, keep them
-        (``_materialize``), preprocess them (median scale, or detrend and
-        trim for intra maps), then zero NaN pixels (balanced) or missing
-        bins (raw) (``chromosight_tpu/runtime/contact_map.py:355-412``)."""
-        (s1, e1), (s2, e2) = self.extent
-        n1, n2 = e1 - s1, e2 - s2
-        with stage("io: trans fetch" if self.inter else "io: fetch", self.device):
-            if self.sample is None:
-                fetch = self.clr.trans_coo_raw if self.inter else self.clr.pixels_coo
-                rows, cols, vals = fetch((s1, e1), (s2, e2), balance=self.use_norm)
-            else:
-                rows, cols, vals = self.subsample()
-            self._materialize(rows, cols, vals)
-            if self.sample is not None:
-                self._dump("01_subsampled", "subsample")
-        with stage("preprocess", self.device):
-            if self.inter:
-                self.preprocess_inter_matrix()
-            else:
-                self.detrend_dense()
-                self.remove_diags()
-            if self.sparse is not None:
-                coo = self.sparse.tocoo()
-                if self.use_norm:
-                    coo.data[np.isnan(coo.data)] = 0
-                else:
-                    mr = missing_flags(self.detectable_bins[0], n1)
-                    mc = missing_flags(self.detectable_bins[1], n2)
-                    coo.data[mr[coo.row] | mc[coo.col]] = 0
-                coo.eliminate_zeros()
-                self.sparse = coo.tocsr()
-            elif self.use_norm:
-                self.dense = torch.where(torch.isnan(self.dense), 0.0, self.dense)
-            else:
-                for axis in (0, 1):
-                    missing = valid_to_missing(self.detectable_bins[axis], self.shape[axis])
-                    self.dense.index_fill_(axis, torch.from_numpy(missing).to(self.device), 0.0)
-
-    def _materialize(self, rows, cols, vals):
-        """Fetched COO triplets as a float64 dense map on the device (with
-        the mask of stored pixels), or above ``DENSE_LIMIT`` bins a side as
-        a sparse CSR matrix on the host (inter maps only; the JAX package
-        has no engine for such intra maps either)."""
-        n1, n2 = self.shape
-        if max(n1, n2) > DENSE_LIMIT:
-            if not self.inter:
-                raise ValueError(
-                    f"{self.name}: intra maps above DENSE_LIMIT={DENSE_LIMIT} bins "
-                    "need a bounded max_dist (the band engine)"
-                )
-            import scipy.sparse as sp
-
-            self.sparse = sp.coo_matrix((vals, (rows, cols)), shape=(n1, n2)).tocsr()
-            return
-        at = tuple(upload(np.asarray(a, np.int64), self.device) for a in (rows, cols))
-        values = upload(np.asarray(vals, np.float64), self.device)
-        self.dense = torch.zeros((n1, n2), dtype=torch.float64, device=self.device)
-        self.dense.index_put_(at, values)
-        self._structure = torch.zeros((n1, n2), dtype=torch.bool, device=self.device)
-        self._structure.index_put_(at, torch.ones_like(values, dtype=torch.bool))
 
     def _dump(self, stage_name, after):
         """The ``--dump`` snapshot of the dense or sparse map."""
         if self.dump is None:
             return
-        mat = self.sparse if self.sparse is not None else download(self.dense)
+        mat = self.sparse if self.sparse is not None else download(self.dense_dev)
         save_matrix_snapshot(self.dump, self.name, stage_name, mat, after)
 
     def preprocess_inter_matrix(self):
@@ -442,30 +557,13 @@ class ContactMap:
             # in the stored float32, as the JAX package divides
             data /= data.dtype.type(np.nanmedian(data))
         else:
-            self.dense = inter_median_scale(self.dense, self._structure)
+            self.dense_dev = inter_median_scale(self.dense_dev, self._structure)
         self._structure = None
         self._dump("01_process_inter", "preprocess_inter_matrix")
 
-    def detrend_dense(self):
-        """Detrend a dense intra map by its distance law in float32, as
-        the JAX package does on its device (``chromosight_tpu/runtime/
-        contact_map.py:602-618``); snapshot ``01_detrended``."""
-        n = self.shape[0]
-        detect = np.zeros(n, dtype=bool)
-        detect[np.asarray(self.detectable_bins[0], dtype=np.int64)] = True
-        detect = torch.from_numpy(detect).to(self.device)
-        mat = self.dense.float()
-        law = distance_law_dense(
-            mat, detect, n_diags=min(self.keep_distance + 1, n), smooth=self.smooth
-        )
-        law[np.isnan(law)] = 0.0
-        self.dense = detrend_dense(mat, torch.from_numpy(law.astype(np.float32)), self._max_val).double()
-        self._structure = None
-        self._dump("01_detrended", "detrend")
-
     def destroy_mat(self):
         """Free the map."""
-        self.band = None
-        self.dense = None
+        self.band_dev = None
+        self.dense_dev = None
         self.sparse = None
         self._structure = None

@@ -1,4 +1,4 @@
-"""Stage snapshots of ``detect --dump DIR``.
+"""Stage snapshots of ``detect --dump DIR``, and ``DumpMatrix``.
 
 Counterpart of ``chromosight_tpu/runtime/dump.py`` and of the snapshots of
 ``chromosight_tpu/detection.py:1058-1150, 1504-1519, 1895-1908``: each
@@ -16,6 +16,7 @@ from __future__ import annotations
 import pathlib
 import threading
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 
@@ -80,3 +81,42 @@ def save_matrix_snapshot(dump_dir, name, stage, mat, after=None):
     if after is not None:
         announce(f"Dumping matrix to {path} after executing {after}")
     sp.save_npz(path, mat.tocsr() if sp.issparse(mat) else sp.csr_matrix(np.asarray(mat)))
+
+
+class DumpMatrix:
+    """Method decorator that snapshots ``inst.matrix`` after the call: the
+    JAX package's ``DumpMatrix`` (``chromosight_tpu/runtime/dump.py:17-53``,
+    the reference ``contacts_map.py:23-76``).
+
+    The dump path is ``inst.dump / f"{inst.name}_{dump_name}"`` (or just
+    ``dump_name`` when the instance has no name), a scipy-sparse npz of
+    the matrix (a CSR copy of a dense one).  Instances with ``dump=None``
+    skip dumping entirely.  The line that says so goes through
+    ``announce``."""
+
+    def __init__(self, dump_name):
+        self.dump_name = dump_name
+
+    def __call__(self, fn, *args, **kwargs):
+        def decorated_fn(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            inst = args[0]
+            if (
+                hasattr(inst, "matrix")
+                and getattr(inst, "dump", None) is not None
+                and self.dump_name is not None
+            ):
+                import scipy.sparse as sp
+
+                if getattr(inst, "name", None):
+                    dump_path = Path(inst.dump) / f"{inst.name}_{self.dump_name}"
+                else:
+                    dump_path = Path(inst.dump) / f"{self.dump_name}"
+                announce(f"Dumping matrix to {dump_path} after executing {fn.__name__}")
+                mat = inst.matrix
+                if not sp.issparse(mat):
+                    mat = sp.csr_matrix(np.asarray(mat))
+                sp.save_npz(dump_path, mat)
+            return res
+
+        return decorated_fn

@@ -104,13 +104,15 @@ class HicGenome:
             self.max_dist = None
             self.largest_kernel = 3
 
-    def normalize(self, norm="auto", n_mads=5):
+    def normalize(self, norm="auto", n_mads=5, threads=1):
         """Reuse the stored balancing weights, or, with ``force`` or on a
         map without weights, compute them by ICE on the host and store them
         in the source (``chromosight_tpu/runtime/genome.py:92-124``): bins
         whose log contact sum lies more than ``n_mads`` median absolute
         deviations below the median get no weight.  ``raw`` scans the raw
-        counts and keeps the weights only to tell the detectable bins."""
+        counts and keeps the weights only to tell the detectable bins.
+        ``threads`` is accepted for CLI compatibility, as the JAX package
+        accepts it: ICE's pool of chromosome blocks has its own size."""
         if norm not in ["auto", "raw", "force"]:
             raise ValueError("norm must be one of: auto, raw, force")
         if "weight" in self.bins.columns and norm != "force":
@@ -167,7 +169,7 @@ class HicGenome:
             cm = ContactMap(
                 self.clr,
                 [(s1, e1), (s2, e2)],
-                self.devices[idx % len(self.devices)],
+                device=self.devices[idx % len(self.devices)],
                 name=f"{chr1}-{chr2}",
                 detectable_bins=detectable,
                 use_norm=self.use_norm,

@@ -39,7 +39,7 @@ def contact_map_from_jax(cm, device):
     port = ContactMap(
         None,
         [tuple(e) for e in cm.extent],
-        torch.device(device),
+        device=torch.device(device),
         name=cm.name,
         detectable_bins=cm.detectable_bins,
         max_dist=cm.max_dist,
@@ -51,9 +51,9 @@ def contact_map_from_jax(cm, device):
     if cm.band_dev is not None:
         band = np.asarray(cm.band_dev, dtype=np.float32)
         band = band[: port.shape[0], : port.keep_distance + 1].copy()
-        port.band = torch.from_numpy(band).to(port.device)
+        port.band_dev = torch.from_numpy(band).to(port.device)
     elif cm.sparse is not None:
         port.sparse = cm.sparse.copy()
     else:
-        port.dense = torch.from_numpy(np.asarray(cm.dense, dtype=np.float64)).to(port.device)
+        port.dense_dev = torch.from_numpy(np.asarray(cm.dense, dtype=np.float64)).to(port.device)
     return port

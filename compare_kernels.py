@@ -59,7 +59,7 @@ def frame_inputs(path):
         sig_p, mask_p = frame_contact_map(cm, np.shape(cfg["kernels"][0]))
         cases[preset] = {"sig_p": sig_p.cpu(), "mask_p": mask_p.cpu(),
                          "n": cm.shape[0], "max_dist": int(cm.max_dist),
-                         "band": tuple(cm.band.shape)}
+                         "band": tuple(cm.band_dev.shape)}
         cm.destroy_mat()
     torch.save(cases, path)
 

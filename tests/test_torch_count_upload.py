@@ -393,7 +393,7 @@ def band_maps(path, norm, device="cpu"):
     bands = {}
     for cm in genome.sub_mats.contact_map:
         cm.create_mat()
-        bands[cm.name] = cm.band.numpy()
+        bands[cm.name] = cm.band_dev.numpy()
         cm.destroy_mat()
     return bands
 
@@ -497,10 +497,10 @@ def test_subsampled_band_native_matches_numpy(monkeypatch):
     cm = genome.sub_mats.contact_map[1]
     width = cm.keep_distance + 1
     cm.rng = np.random.RandomState(3)
-    ours = cm._subsampled_band(width)
+    ours = cm._subsampled_band(width, cm.sample, cm.use_norm)
     monkeypatch.setattr(t_native, "coo_to_band", lambda *args, **kwargs: None)
     cm.rng = np.random.RandomState(3)
-    fallback = cm._subsampled_band(width)
+    fallback = cm._subsampled_band(width, cm.sample, cm.use_norm)
     assert ours.dtype == np.float32 and ours.shape == (cm.shape[0], width)
     assert ours.any() and np.array_equal(ours, fallback, equal_nan=True)
 

@@ -217,10 +217,10 @@ class _JaxDenseMap:
 
 def _port_dense_map(matrix, max_dist, detectable_bins, inter):
     cm = ContactMap(
-        None, [(0, matrix.shape[0]), (0, matrix.shape[1])], torch.device("cpu"),
+        None, [(0, matrix.shape[0]), (0, matrix.shape[1])], device=torch.device("cpu"),
         detectable_bins=detectable_bins, max_dist=max_dist, inter=inter,
     )
-    cm.dense = torch.from_numpy(np.asarray(matrix, dtype=np.float64))
+    cm.dense_dev = torch.from_numpy(np.asarray(matrix, dtype=np.float64))
     return cm
 
 
@@ -304,14 +304,14 @@ def test_dense_intra_map_matches_jax(tmp_path, mode):
     kw = dict(name="chr2-chr2", detectable_bins=(valid, valid), largest_kernel=17,
               use_norm=mode != "raw", smooth=mode == "smooth")
     jcm = JaxContactMap(clr, [(s, e), (s, e)], **kw, dump=str(tmp_path / "jax"))
-    cm = ContactMap(src, [(s, e), (s, e)], torch.device("cpu"), **kw, dump=str(tmp_path / "port"))
+    cm = ContactMap(src, [(s, e), (s, e)], device=torch.device("cpu"), **kw, dump=str(tmp_path / "port"))
     for d in ("jax", "port"):
         (tmp_path / d).mkdir()
     with contextlib.redirect_stdout(io.StringIO()):
         jcm.create_mat()
         cm.create_mat()
     assert cm.band is None and cm.sparse is None
-    ref, got = np.asarray(jcm.dense), cm.dense.numpy()
+    ref, got = np.asarray(jcm.dense), cm.dense_dev.numpy()
     assert np.array_equal(ref == 0, got == 0) and (got != 0).sum() > 1000
     assert np.allclose(got, ref, rtol=1e-6, atol=0)
     names = sorted(p.name for p in (tmp_path / "jax").iterdir())
@@ -325,5 +325,5 @@ def test_dense_intra_map_matches_jax(tmp_path, mode):
     mask = np.array(jnx.make_missing_mask_dense(ref.shape, miss, miss, None, True))
     args = dict(full=True, sym_upper=True, pval=True, missing_tol=0.5)
     corr_ref = jnx.normxcorr2_dense(ref, kernel, missing_mask=mask, **args)
-    corr_got = tnx.normxcorr2_dense(cm.dense, kernel, missing_mask=torch.from_numpy(mask), **args)
+    corr_got = tnx.normxcorr2_dense(cm.dense_dev, kernel, missing_mask=torch.from_numpy(mask), **args)
     assert_corr_logp(corr_ref, corr_got, corr_tol=5e-5)

@@ -170,7 +170,7 @@ def test_state_carried_from_jax_gives_same_pearson(tmp_path):
         cm.create_mat()
         port_cm = contact_map_from_jax(cm, "cpu")
         got = _band_correlate(port_cm, port_cfg, kernel)
-        rows, width = port_cm.band.shape
+        rows, width = port_cm.band_dev.shape
         ref = [np.asarray(a) for a in jax_band_correlate(cm, cfg, kernel, None)]
         # outside the port's layout the JAX maps hold bucket padding only
         assert not ref[0][rows:].any() and not ref[0][:, width:].any()
@@ -213,7 +213,7 @@ def test_preprocessed_band_matches_jax(tmp_path, mode):
             port_cm.create_mat()
             carried = contact_map_from_jax(cm, "cpu")
             assert (carried.use_norm, carried.smooth) == (mode != "raw", mode == "smooth")
-            ref, got = carried.band.numpy(), port_cm.band.numpy()
+            ref, got = carried.band_dev.numpy(), port_cm.band_dev.numpy()
             assert ref.shape == got.shape
             assert np.array_equal(ref == 0, got == 0)
             assert np.allclose(got, ref, rtol=1e-6, atol=1e-7)

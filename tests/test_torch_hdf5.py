@@ -348,6 +348,21 @@ def _virtual_unlimited(path):
     return "x"
 
 
+def _virtual_unlimited_inner(path):
+    """A 2-D virtual dataset unlimited along its second axis, mapped by an
+    unlimited selection there."""
+    source = path.parent / "source.h5"
+    with h5py.File(source, "w") as f:
+        f.create_dataset("x", data=np.arange(8).reshape(2, 4), maxshape=(2, None), chunks=(2, 2))
+    unlimited = h5py.h5s.UNLIMITED
+    layout = h5py.VirtualLayout(shape=(2, 4), maxshape=(2, None), dtype="i8")
+    layout[:, 0:unlimited] = h5py.VirtualSource(
+        str(source), "x", shape=(2, 4), maxshape=(2, None))[:, 0:unlimited]
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_virtual_dataset("x", layout)
+    return "x"
+
+
 def _compound(path):
     with h5py.File(path, "w") as f:
         f["x"] = np.zeros(3, dtype=[("a", "<i4"), ("b", "<f8")])
@@ -355,13 +370,13 @@ def _compound(path):
 
 
 @pytest.mark.parametrize("make", [_latest, _lzf, _link_group, _scaleoffset, _nbit, _soft_link,
-                                  _szip, _virtual],
+                                  _szip, _virtual, _virtual_unlimited],
                          ids=["superblock_v3", "lzf", "link_group", "scaleoffset", "nbit",
-                              "soft_link", "szip", "virtual"])
+                              "soft_link", "szip", "virtual", "virtual_unlimited"])
 def test_newer_formats_read_like_h5py(tmp_path, make):
     """What this reader once refused (a superblock-v3 file, LZF, a group
     of link messages, the scale-offset, n-bit and szip filters, a soft
-    link, a virtual dataset) reads as h5py reads it
+    link, a virtual dataset, an unlimited one) reads as h5py reads it
     (tests/test_torch_hdf5_formats.py, test_torch_hdf5_features.py,
     test_torch_hdf5_szip.py and test_torch_hdf5_virtual.py hold every
     newer structure)."""
@@ -373,7 +388,7 @@ def test_newer_formats_read_like_h5py(tmp_path, make):
         assert name in assert_reads_like_h5py(path)
 
 
-@pytest.mark.parametrize("make", [_virtual_unlimited, _compound],
+@pytest.mark.parametrize("make", [_virtual_unlimited_inner, _compound],
                          ids=["virtual_unlimited", "compound"])
 def test_outside_the_subset_raises(tmp_path, make):
     """A feature outside the subset raises NotImplementedError naming it

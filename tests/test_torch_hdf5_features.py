@@ -273,7 +273,90 @@ def _virtual(dst):
                 d.create_dataset(name, data=value)
 
 
+# the example's pixel rows in each source file of the printf-style
+# virtual fixture: three blocks, the last two rows short (read as the
+# fill value, 0, past the third file's end)
+PRINTF_BLOCK = 36_659
+
+
+def _virtual_printf(dst):
+    """The pixel columns virtual datasets of one unlimited printf-style
+    mapping each (``%b``, the block number): blocks of ``PRINTF_BLOCK``
+    rows from example_virtual_printf_0.h5 .. _2.h5 beside it, their
+    extent set by the files there are; the other datasets in the file;
+    libver "latest"."""
+    columns, attrs = example_columns(EXAMPLE_COOL)
+    nnz = len(columns["pixels/count"])
+    for k in range(-(-nnz // PRINTF_BLOCK)):
+        rows = slice(k * PRINTF_BLOCK, (k + 1) * PRINTF_BLOCK)
+        with h5py.File(dst.parent / f"example_virtual_printf_{k}.h5", "w") as s:
+            for col in ("bin1_id", "bin2_id", "count"):
+                value = columns[f"pixels/{col}"][rows]
+                s.create_dataset(f"pixels/{col}", data=value, chunks=(min(PIXEL_CHUNK,
+                                                                          len(value)),),
+                                 **COOLER_OPTS)
+    unlimited = h5py.h5s.UNLIMITED
+    with h5py.File(dst, "w", libver="latest") as d:
+        for key, value in attrs.items():
+            d.attrs[key] = value
+        for name, value in columns.items():
+            if not name.startswith("pixels/"):
+                d.create_dataset(name, data=value)
+                continue
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            virtual = h5py.h5s.create_simple((0,), (unlimited,))
+            virtual.select_hyperslab((0,), (unlimited,), stride=(PRINTF_BLOCK,),
+                                     block=(PRINTF_BLOCK,))
+            dcpl.set_virtual(virtual, b"example_virtual_printf_%b.h5", name.encode(),
+                             h5py.h5s.create_simple((PRINTF_BLOCK,)))
+            d.require_group("pixels")
+            h5py.h5d.create(d.id, name.encode(), h5py.h5t.py_create(value.dtype),
+                            h5py.h5s.create_simple((0,), (unlimited,)), dcpl=dcpl)
+
+
+# the text a tool that prepends a header to a .cool puts in its user block
+USERBLOCK_TEXT = b"# data_test/example.cool, with this header in an HDF5 user block\n"
+
+
+def _userblock(dst, userblock, sizes, libver):
+    """The example in cooler's layout (``write_cooler_group``) after a user
+    block of ``userblock`` bytes that starts with ``USERBLOCK_TEXT``, with
+    offsets and lengths of ``sizes`` bytes, at h5py's ``libver``
+    ("earliest": superblock 0, symbol-table groups; "latest": superblock
+    3, new-style groups, layout 4)."""
+    columns, attrs = example_columns(EXAMPLE_COOL)
+    fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+    fcpl.set_userblock(userblock)
+    fcpl.set_sizes(*sizes)
+    fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
+    low = h5py.h5f.LIBVER_LATEST if libver == "latest" else h5py.h5f.LIBVER_EARLIEST
+    fapl.set_libver_bounds(low, h5py.h5f.LIBVER_LATEST)
+    fid = h5py.h5f.create(str(dst).encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl)
+    with h5py.File(fid) as f:
+        write_cooler_group(f, columns, attrs, COOLER_OPTS)
+    with open(dst, "r+b") as handle:
+        handle.write(USERBLOCK_TEXT)
+
+
+def userblock_fixture(userblock, sizes, libver):
+    return lambda dst: _userblock(dst, userblock, sizes, libver)
+
+
+# (user block, sizes of offsets and lengths, libver) of the user-block
+# fixtures.  HDF5 1.14 opens no unlimited dataset of layout 4 with
+# lengths of fewer than 8 bytes, so the 4-byte ones are at "earliest";
+# 2-byte offsets address 64 KiB, less than the example takes.
+USERBLOCKS = {
+    "userblock_512_44": (512, (4, 4), "earliest"),
+    "userblock_4096_44": (4096, (4, 4), "earliest"),
+    "userblock_512_88": (512, (8, 8), "latest"),
+    "userblock_4096_88": (4096, (8, 8), "earliest"),
+    "userblock_4096_48": (4096, (4, 8), "latest"),
+}
+
 FIXTURES = {
+    **{name: (userblock_fixture(*how), f"example_{name}.cool", "")
+       for name, how in USERBLOCKS.items()},
     "soft": (_soft, "example_soft.cool", ""),
     "external": (_external, "example_external.mcool", "::/resolutions/1000"),
     "scaleoffset": (_scaleoffset, "example_scaleoffset.cool", ""),
@@ -284,12 +367,14 @@ FIXTURES = {
     "szip": (_szip, "example_szip.cool", ""),
     "szip_shuffle_ec": (_szip_shuffle_ec, "example_szip_shuffle_ec.cool", ""),
     "virtual": (_virtual, "example_virtual.cool", ""),
+    "virtual_printf": (_virtual_printf, "example_virtual_printf.cool", ""),
 }
 # the files a fixture reads besides itself
 FIXTURE_FILES = {
     "external": (LATEST_COOL.name,),
     "external_storage": ("example_external_storage.raw",),
     "virtual": ("example_virtual_a.h5", "example_virtual_b.h5"),
+    "virtual_printf": tuple(f"example_virtual_printf_{k}.h5" for k in range(3)),
 }
 # columns a fixture stores big-endian (read as h5py reads them: in that
 # byte order)
@@ -307,10 +392,16 @@ def write_fixture(name, directory=DATA):
 
 def stored_columns(name):
     """{path: array} of example.cool's datasets as fixture ``name`` stores
-    them (``BIG_ENDIAN`` columns big-endian)."""
+    them (``BIG_ENDIAN`` columns big-endian; the printf-style fixture's
+    pixel columns followed by the fill value up to whole blocks)."""
     columns, _ = example_columns(EXAMPLE_COOL)
-    return {key: value.astype(value.dtype.newbyteorder(">"))
-            if key in BIG_ENDIAN.get(name, ()) else value for key, value in columns.items()}
+    out = {key: value.astype(value.dtype.newbyteorder(">"))
+           if key in BIG_ENDIAN.get(name, ()) else value for key, value in columns.items()}
+    if name == "virtual_printf":
+        for key in [k for k in out if k.startswith("pixels/")]:
+            pad = -len(out[key]) % PRINTF_BLOCK
+            out[key] = np.concatenate([out[key], np.zeros(pad, out[key].dtype)])
+    return out
 
 
 def fixture_uri(name, directory=DATA):

@@ -199,7 +199,9 @@ def assert_reads_like_h5py(path, full=True):
                 assert_same(mine[()], obj[()], name)
             if obj.chunks is not None:
                 offsets, addrs, sizes, masks = mine._chunk_index()
-                got = {tuple(o): (int(a), int(s), int(m) & 0xFFFFFFFF)
+                # h5py gives a chunk's offset in the file, the index its
+                # address after the user block
+                got = {tuple(o): (int(a) + ours._base, int(s), int(m) & 0xFFFFFFFF)
                        for o, a, s, m in zip(offsets.tolist(), addrs, sizes, masks)}
                 ref_chunks = h5py_chunks(obj)
                 if all(all(o < n for o, n in zip(k, obj.shape)) for k in ref_chunks):
@@ -471,13 +473,17 @@ def read_everything(f):
 # -- what stays outside the subset --------------------------------------- #
 
 def _user_block(path):
-    with h5py.File(path, "w", userblock_size=512) as f:
+    """A user block of 512 bytes before 2-byte offsets and lengths."""
+    fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+    fcpl.set_userblock(512)
+    fcpl.set_sizes(2, 2)
+    with h5py.File(h5py.h5f.create(bytes(path), h5py.h5f.ACC_TRUNC, fcpl=fcpl)) as f:
         f["bins/start"] = np.arange(3)
 
 
 def _small_offsets(path):
     fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
-    fcpl.set_sizes(4, 4)
+    fcpl.set_sizes(2, 2)
     with h5py.File(h5py.h5f.create(bytes(path), h5py.h5f.ACC_TRUNC, fcpl=fcpl)) as f:
         f["bins/start"] = np.arange(3)
 
@@ -485,17 +491,23 @@ def _small_offsets(path):
 @pytest.mark.parametrize("make", [_user_block, _small_offsets],
                          ids=["user_block", "small_offsets"])
 def test_writing_outside_the_subset_raises(tmp_path, make):
-    """Writing to a file with a user block or with offsets and lengths
-    narrower than 8 bytes raises NotImplementedError naming it and its
-    file offset (every group shape is written: see
-    tests/test_torch_hdf5_groups.py); the file is left as h5py wrote
-    it."""
+    """Writing past what a file's offsets address (2-byte offsets: 64 KiB,
+    user block included) raises OSError (EFBIG) before a byte is
+    written: the file is left as h5py wrote it.  Within reach the port
+    writes to such files (every size and user block: see
+    tests/test_torch_hdf5_userblock.py), and h5py reads what it wrote."""
     path = tmp_path / "w.h5"
     make(path)
     before = path.read_bytes()
-    with hdf5.File(path, "r+") as f, pytest.raises(NotImplementedError, match="at file offset"):
-        f.write_dataset("bins/weight", np.zeros(3))
+    with hdf5.File(path, "r+") as f, pytest.raises(OSError, match="2-byte offsets"):
+        f.write_dataset("bins/weight", np.zeros(9000))
     assert path.read_bytes() == before
+    assert_reads_like_h5py(path)
+    with hdf5.File(path, "r+") as f:
+        f.write_dataset("bins/weight", np.arange(3.0))
+    with h5py.File(path, "r") as f:
+        assert f["bins/weight"][()].tolist() == [0.0, 1.0, 2.0]
+        assert f["bins/start"][()].tolist() == [0, 1, 2]
     assert_reads_like_h5py(path)
 
 

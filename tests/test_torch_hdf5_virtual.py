@@ -10,11 +10,17 @@ in the port:
   source, selections of HDF5's versions 1 (libver "earliest") and 3
   ("latest"): read as h5py reads them, whole and in slices across the
   mappings' edges;
+* unlimited mappings, resolved as HDF5 resolves them on open: a
+  printf-style source name (``%b``, the block number; ``%%``) over three
+  and four source files, the extent following the files there are; a
+  source that grows after the virtual file was written; a missing block
+  file, whose block and those after it read as the fill value; unlimited
+  counts of blocks with gaps and an unlimited block;
 * the mappings' lookup3 checksum is checked: a flipped byte raises;
 * what stays outside the subset raises NotImplementedError naming it and
-  its file offset: unlimited selections, printf-style source names,
-  selections of part of an inner axis, mappings deeper than
-  ``LINK_DEPTH``;
+  its file offset: unlimited selections along an inner axis (with a
+  printf-style name or not), selections of part of an inner axis,
+  mappings deeper than ``LINK_DEPTH``;
 * source files are opened with the virtual file's mode and closed with
   it;
 * the JAX package's CLI (h5py reading tests/data/example_virtual.cool)
@@ -177,28 +183,32 @@ def test_mappings_checksum_checked(tmp_path):
         f["v"][:]
 
 
-def _unlimited(path):
-    with h5py.File(path.parent / "src.h5", "w") as f:
-        f.create_dataset("x", data=np.arange(4), maxshape=(None,), chunks=(2,))
-    layout = h5py.VirtualLayout(shape=(4,), maxshape=(None,), dtype="i8")
-    layout[0:h5py.h5s.UNLIMITED] = h5py.VirtualSource(
-        "src.h5", "x", shape=(4,), maxshape=(None,))[0:h5py.h5s.UNLIMITED]
+def _inner_unlimited(path, name):
+    """A 2-D virtual dataset unlimited along its second axis, mapped from
+    ``name`` (a printf-style one or not) by an unlimited selection there."""
+    with h5py.File(path.parent / "src_0.h5", "w") as f:
+        f.create_dataset("x", data=np.arange(8).reshape(2, 4), maxshape=(2, None), chunks=(2, 2))
+    unlimited = h5py.h5s.UNLIMITED
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    virtual = h5py.h5s.create_simple((2, 4), (2, unlimited))
+    virtual.select_hyperslab((0, 0), (1, unlimited), stride=(1, 4), block=(2, 4))
+    source = h5py.h5s.create_simple((2, 4), (2, unlimited))
+    source.select_hyperslab((0, 0), (1, 1), block=(2, 4))
+    if b"%b" not in name:
+        source.select_hyperslab((0, 0), (1, unlimited), stride=(1, 4), block=(2, 4))
+    dcpl.set_virtual(virtual, name, b"x", source)
     with h5py.File(path, "w", libver="latest") as f:
-        f.create_virtual_dataset("v", layout)
-    return "unlimited"
+        h5py.h5d.create(f.id, b"v", h5py.h5t.STD_I64LE, h5py.h5s.create_simple(
+            (2, 4), (2, unlimited)), dcpl=dcpl)
+    return "unlimited virtual dataset selection along an inner axis"
+
+
+def _unlimited(path):
+    return _inner_unlimited(path, b"src_0.h5")
 
 
 def _printf(path):
-    """Source files src_0.h5, src_1.h5, ... named by block (``%b``), each
-    10 rows of an unlimited virtual selection."""
-    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
-    virtual = h5py.h5s.create_simple((20,), (h5py.h5s.UNLIMITED,))
-    virtual.select_hyperslab((0,), (h5py.h5s.UNLIMITED,), stride=(10,), block=(10,))
-    dcpl.set_virtual(virtual, b"src_%b.h5", b"x", h5py.h5s.create_simple((10,)))
-    with h5py.File(path, "w", libver="latest") as f:
-        h5py.h5d.create(f.id, b"v", h5py.h5t.STD_I64LE, h5py.h5s.create_simple((20,),
-                        (h5py.h5s.UNLIMITED,)), dcpl=dcpl)
-    return "printf-style"
+    return _inner_unlimited(path, b"src_%b.h5")
 
 
 def _inner_axis(path):
@@ -232,6 +242,157 @@ def test_outside_the_subset_raises(tmp_path, monkeypatch, make):
     with hdf5.File(path) as f, pytest.raises(NotImplementedError,
                                              match=f"{what}.* at file offset"):
         f["v"][:]
+
+
+# -- unlimited mappings ---------------------------------------------------- #
+
+UNLIMITED = h5py.h5s.UNLIMITED
+BLOCK = 6
+
+
+def _block_files(directory, n, pattern="src_{}.h5", dataset="x", skip=()):
+    """``n`` source files of ``BLOCK`` rows each (block k's rows 100 k +
+    0..5), but those in ``skip``."""
+    for k in range(n):
+        if k not in skip:
+            with h5py.File(directory / pattern.format(k), "w") as f:
+                f[dataset] = np.arange(BLOCK) + 100 * k
+
+
+def _virtual(path, mappings, dims=0, fill=-1):
+    """A virtual dataset "v" (int64, unlimited, ``dims`` rows at first) of
+    ``mappings`` [(virtual selection, source file, source dataset, source
+    dataspace and its selection)], selections as callables on the spaces."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_fill_value(np.array([fill]))
+    for virtual_sel, file_name, dataset, source_dims, source_sel in mappings:
+        virtual = h5py.h5s.create_simple((dims,), (UNLIMITED,))
+        virtual_sel(virtual)
+        source = h5py.h5s.create_simple(source_dims, (UNLIMITED,))
+        source_sel(source)
+        dcpl.set_virtual(virtual, file_name, dataset, source)
+    with h5py.File(path, "w", libver="latest") as f:
+        h5py.h5d.create(f.id, b"v", h5py.h5t.STD_I64LE,
+                        h5py.h5s.create_simple((dims,), (UNLIMITED,)), dcpl=dcpl)
+
+
+def _by_block(virtual, start=0, stride=BLOCK):
+    virtual.select_hyperslab((start,), (UNLIMITED,), stride=(stride,), block=(BLOCK,))
+
+
+def _one_block(source):
+    source.select_hyperslab((0,), (1,), block=(BLOCK,))
+
+
+def _printf_files(n):
+    def make(path):
+        _block_files(path.parent, n)
+        _virtual(path, [(_by_block, b"src_%b.h5", b"x", (BLOCK,), _one_block)])
+    return make
+
+
+def _percent(path):
+    """``%%`` in a source file's name is a ``%``; blocks with gaps between
+    them, the source selection "all"."""
+    _block_files(path.parent, 3, pattern="src%_{}.h5")
+    _virtual(path, [(lambda v: _by_block(v, start=2, stride=BLOCK + 3), b"src%%_%b.h5", b"x",
+                     (BLOCK,), lambda s: s.select_all())])
+
+
+def _printf_dataset(path):
+    """``%b`` in the source dataset's name, the sources in this file."""
+    with h5py.File(path.parent / "blocks.h5", "w") as f:
+        for k in range(4):
+            f[f"x{k}"] = np.arange(BLOCK) + 100 * k
+    _virtual(path, [(_by_block, b"blocks.h5", b"x%b", (BLOCK,), _one_block)])
+
+
+def _missing_block(path):
+    """Block 1 of four missing: blocks 1 to 3 read as the fill value (HDF5
+    maps blocks up to the first missing source), the extent set by a
+    second, limited mapping."""
+    _block_files(path.parent, 4, skip=(1,))
+    _block_files(path.parent, 1, pattern="tail_{}.h5")
+
+    def tail(virtual):
+        virtual.select_hyperslab((4 * BLOCK + 2,), (1,), block=(BLOCK,))
+
+    _virtual(path, [(_by_block, b"src_%b.h5", b"x", (BLOCK,), _one_block),
+                    (tail, b"tail_0.h5", b"x", (BLOCK,), _one_block)], dims=5 * BLOCK + 2)
+
+
+def _missing_alone(path):
+    """Block 2 of four missing and nothing else mapped: the extent ends
+    with block 1."""
+    _block_files(path.parent, 4, skip=(2,))
+    _virtual(path, [(_by_block, b"src_%b.h5", b"x", (BLOCK,), _one_block)], dims=40)
+
+
+def _growing(path, grow):
+    """An unlimited mapping of source rows 3.. of a resizable source into
+    virtual rows 1.., read before the source grows and (``grow``) after."""
+    with h5py.File(path.parent / "grows.h5", "w") as f:
+        f.create_dataset("x", data=np.arange(11), maxshape=(None,), chunks=(4,))
+
+    def contiguous(start):
+        return lambda space: space.select_hyperslab((start,), (UNLIMITED,), stride=(1,),
+                                                    block=(1,))
+
+    _virtual(path, [(contiguous(1), b"grows.h5", b"x", (11,), contiguous(3))], dims=2)
+    if grow:
+        with h5py.File(path.parent / "grows.h5", "a") as f:
+            f["x"].resize((30,))
+            f["x"][11:] = np.arange(11, 30) * 10
+
+
+def _gaps(path):
+    """Unlimited counts of 2-row blocks 3 rows apart on both sides, over a
+    source of 16 rows (a partial last block), and an unlimited block."""
+    with h5py.File(path.parent / "src.h5", "w") as f:
+        f.create_dataset("x", data=np.arange(16) + 50, maxshape=(None,), chunks=(4,))
+
+    def gapped(start):
+        return lambda space: space.select_hyperslab((start,), (UNLIMITED,), stride=(3,),
+                                                    block=(2,))
+
+    def whole(start):
+        return lambda space: space.select_hyperslab((start,), (1,), block=(UNLIMITED,))
+
+    _virtual(path, [(gapped(1), b"src.h5", b"x", (16,), gapped(0))])
+    _virtual(path.parent / "whole.h5", [(whole(4), b"src.h5", b"x", (16,), whole(5))])
+
+
+UNLIMITED_CASES = {
+    "printf_three": _printf_files(3), "printf_four": _printf_files(4), "percent": _percent,
+    "printf_dataset": _printf_dataset, "missing_block": _missing_block,
+    "missing_alone": _missing_alone, "grown_before": lambda p: _growing(p, False),
+    "grown_after": lambda p: _growing(p, True), "gaps": _gaps,
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNLIMITED_CASES))
+def test_unlimited_reads_like_h5py(tmp_path, monkeypatch, case):
+    """Each unlimited mapping resolves as HDF5 resolves it: the shape h5py
+    gives, the rows whole and in every slice of up to 3 rows and across
+    blocks, the fill value where no source maps."""
+    monkeypatch.chdir(tmp_path)
+    UNLIMITED_CASES[case](tmp_path / "virtual.h5")
+    names = ["virtual.h5"] + (["whole.h5"] if case == "gaps" else [])
+    for name in names:
+        with h5py.File(tmp_path / name, "r") as ref, hdf5.File(tmp_path / name) as ours:
+            theirs, mine = ref["v"], ours["v"]
+            assert mine.shape == theirs.shape and theirs.shape[0] > BLOCK, (name, theirs.shape)
+            want = theirs[()]
+            assert mine[()].tobytes() == want.tobytes(), (name, mine[()], want)
+            n = theirs.shape[0]
+            for lo in range(n):
+                for hi in (lo + 1, lo + 3, lo + BLOCK + 1):
+                    assert mine[lo:hi].tobytes() == want[lo:hi].tobytes(), (name, lo, hi)
+            assert ours.walked["virtual mapping"] > 0
+    if case == "missing_block":
+        assert (want[BLOCK : 4 * BLOCK] == -1).all() and (want[4 * BLOCK + 2:] >= 0).all()
+    if case == "grown_after":
+        assert want.tolist() == [-1] + list(range(3, 11)) + [v * 10 for v in range(11, 30)]
 
 
 def test_sources_open_with_the_files_mode(tmp_path, monkeypatch):

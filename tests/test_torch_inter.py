@@ -284,7 +284,7 @@ def test_carried_inter_map_gives_jax_pearson(example_cool, form, request):
         if form == "dense":
             mask = miss[0][:, None] | miss[1][None, :]
             ref = j_normxcorr2_dense(cm.dense, kernel, missing_mask=mask, **args)
-            got = normxcorr2_dense(port.dense, kernel, missing_mask=torch.from_numpy(mask), **args)
+            got = normxcorr2_dense(port.dense_dev, kernel, missing_mask=torch.from_numpy(mask), **args)
             ref, got = np.asarray(ref[0]), got[0].numpy()
         else:
             ref = j_tiled(cm.sparse, kernel, missing_vectors=miss, **args)[0].toarray()

@@ -181,13 +181,13 @@ class FakeMap:
 
     def __init__(self, index, device):
         self.name, self.device = f"m{index}", device
-        self.band = self.dense = self.sparse = None
+        self.band_dev = self.dense_dev = self.sparse = None
 
     def create_mat(self):
-        self.band = torch.full((4,), float(self.name[1:]))
+        self.band_dev = torch.full((4,), float(self.name[1:]))
 
     def destroy_mat(self):
-        self.band = None
+        self.band_dev = None
 
 
 def test_scheduler_order_and_counts_under_stress():
@@ -203,13 +203,13 @@ def test_scheduler_order_and_counts_under_stress():
         maps = [FakeMap(i, devices[i % 3]) for i in range(200)]
         MAPS_RUN.clear()
         out = bounded(
-            lambda: list(sched.scan(list(enumerate(maps)), lambda cm: float(cm.band.sum())))
+            lambda: list(sched.scan(list(enumerate(maps)), lambda cm: float(cm.band_dev.sum())))
         )
     finally:
         sys.setswitchinterval(before)
     assert out == [4.0 * i for i in range(200)]
     assert sum(MAPS_RUN.values()) == 200 and len(MAPS_RUN) == 18
-    assert all(m.band is None for m in maps)
+    assert all(m.band_dev is None for m in maps)
     assert not [t for t in threading.enumerate() if t.name.startswith("map-")]
 
 
