@@ -113,7 +113,17 @@ Phases, one line or block each; any failure raises (non-zero exit):
             ``detect`` once more from memory: tables and windows byte for
             byte phase 5's, the bytes read from each pixel column (the
             count path never reads bin1_id), ``io: fetch+scatter``, ``io:
-            upload`` and walls side by side; the file deleted.
+            upload`` and walls side by side; the file is the bench's cached
+            genome (``chromosight_torch.bench.genome``), kept for 8g;
+8g. bench   ``python3 bench_torch.py`` in a process of its own on 8b's
+            file (the user's genome detect bench, ``--threads 4``): one
+            stdout line with bench.py's contract keys and ``device``,
+            ``peak_memory_bytes`` and ``idle_share``, the card's name and
+            power limit, recall >= 0.95, 13 band launches a timed pass, its
+            table byte for byte 8b's; its wall, rate, baseline, link,
+            stages and idle share printed; then the quantify bench
+            (``chromosight_torch.bench.quantify``): 624 coordinates, scored
+            as in phase 5; the file deleted.
 8c. cooler-genome  phase 5's genome (not cut) written by the port in
             cooler's own layout as ``genome.mcool::/resolutions/5000`` (int64
             ids, int32 counts, every dataset chunked, 6,094 / 12,188 rows a
@@ -174,7 +184,8 @@ Phases, one line or block each; any failure raises (non-zero exit):
             a ``.cool`` by the port's ``create_cool`` and read back: the same
             calls, score max|d| < 5e-5, log10 p max|d| < 1e-3 from the
             unrounded p-values, and the log10 p max|d| between the written
-            tables printed;
+            tables printed; the file is written under the bench's cache
+            name, for phase 12 (as is phase 7's genome);
 11. instruments  chromosight_torch.observability on the loops run of
             phase 5's genome (it runs after phase 5): compute accounting per
             program family, link bytes, device_peaks(), FLOP/s per family
@@ -185,6 +196,17 @@ Phases, one line or block each; any failure raises (non-zero exit):
             passes (the card's busy and idle share, device time by
             kernel); the exit report of a command-line process with
             CHROMOSIGHT_TPU_TIMINGS=1.
+12. baseline-configs  the eight BASELINE rows through
+            ``chromosight_torch.bench.baseline_configs``: rows 1, 2, 3 and 5b
+            on data_test/example.cool, row 4 (``-n force -m 50000 -M
+            1000000`` on a copy), 5 (``--tsvd``) and 5c (``-I``) on phase
+            10's and phase 7's genomes from their files: every row ``ok``
+            with the JAX package's pattern counts (85, 53, 57, 55, 68, 159,
+            90), row 5c with 159, the reference's own calls of
+            tests/data/golden_genome_loops.tsv (the JAX record says 157:
+            ROADMAP.md §3), walls printed; then the ``--inter`` bench
+            (``chromosight_torch.bench.inter``) on row 5c's file, two reps
+            with row 5c's calls.
 
 It prints the kernel table and the card's ``nvidia-smi`` name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line, after
@@ -199,6 +221,7 @@ import contextlib
 import copy
 import csv
 import ctypes
+import hashlib
 import io
 import json
 import os
@@ -225,6 +248,11 @@ import chromosight_torch.observability as observability  # noqa: E402
 import chromosight_torch.ops.band_pearson as bp  # noqa: E402
 import chromosight_torch.ops.tiled as tiled  # noqa: E402
 import chromosight_torch.runtime.contact_map as contact_map  # noqa: E402
+from chromosight_torch.bench import baseline_configs as bench_rows  # noqa: E402
+from chromosight_torch.bench import genome as bench_genome  # noqa: E402
+from chromosight_torch.bench import inter as bench_inter  # noqa: E402
+from chromosight_torch.bench import quantify as bench_quantify  # noqa: E402
+from chromosight_torch.bench.detect import device_busy  # noqa: E402
 from chromosight_torch.cli.main import detect, main, parse_args, quantify  # noqa: E402
 from chromosight_torch.detection import (  # noqa: E402
     detect_multi,
@@ -239,7 +267,6 @@ from chromosight_torch.io.config import load_kernel_config  # noqa: E402
 from chromosight_torch.io.cool import (  # noqa: E402
     CoolFile,
     bins_frame,
-    create_cool,
     write_cooler_layout,
 )
 from chromosight_torch.io.source import (  # noqa: E402
@@ -414,8 +441,9 @@ def band_uploads(source, tag, modes=COUNT_MODES):
     total = sum(packed_bytes(r) for r in records)
     line = (", ".join(f"{n} {m}" for m, n in sorted(taken.items()))
             + f"; exceptions {min(exceptions)}-{max(exceptions)} a map; {total} bytes")
-    if line not in UPLOADS_SHOWN:
-        # a run whose uploads repeat ones already shown prints nothing more
+    if line not in UPLOADS_SHOWN and modes != ("f32",):
+        # a run whose uploads repeat ones already shown prints nothing
+        # more; the float32 bands' bytes are in the instruments line
         print(f"[{tag}] band uploads: {line}")
         UPLOADS_SHOWN.add(line)
     left = [c for c, r in zip(source.chromnames, records) if r["mode"] not in modes]
@@ -691,8 +719,8 @@ def bound_ms(sig_p, mask_p, kernels, rate):
     ops = fmas + 3 * (mk + nk) * pixels
     nbytes = 2 * 4 * sig_p.numel() + pixels * n_k * 9 + n_k * (3 * mk * nk * 8 + 8)
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernels] work at {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): taps on a non-zero x "
-          f"{x_taps / (pixels * mk * nk):.4f}, on a mask bit {m_taps / (pixels * mk * nk):.4f}; "
+    print(f"[kernels] work {n_k}x{mk}x{nk} on ({n_pad}, {w_out}): taps on x "
+          f"{x_taps / (pixels * mk * nk):.4f}, on mask {m_taps / (pixels * mk * nk):.4f}; "
           f"{fmas:.6g} of {dense:.6g} FMAs")
     return (t_ops, "operations", fmas, dense) if t_ops >= t_bytes else (
         t_bytes, "bytes", fmas, dense)
@@ -1173,14 +1201,15 @@ def phase_formats(workdir):
                                    "EADB", "FAHD", "FADB", "chunk index 1"),
                      LATEST_MCOOL: ("superblock v3", "BTHD type 5", "FHDB", "EAHD", "FAHD",
                                     "LZF chunk")}
+    timings = []
     for path, signatures in expect_walked.items():
         (t_open, t_index, t_read), n, n_bytes, walked = timed_read(path)
-        print(f"[formats] {short_path(path)}: open {t_open:.6f} s, index walk "
-              f"{t_index:.6f} s, read {t_read:.6f} s ({n} datasets, {n_bytes} bytes); "
-              f"walked " + " ".join(f"{sig} {walked.get(sig, 0)}" for sig in signatures[:4])
-              + ", ...")
+        timings.append(f"{short_path(path)} {t_open:.6f} / {t_index:.6f} / {t_read:.6f} s "
+                       f"({n} datasets, {n_bytes} B; " + " ".join(
+                           f"{sig} {walked.get(sig, 0)}" for sig in signatures[:3]) + ", ...)")
         missing = [sig for sig in signatures if not walked.get(sig)]
         check(not missing, f"{path}: structures not walked: {missing}")
+    print("[formats] open / index walk / read: " + "; ".join(timings))
     loops = ("golden_detect_loops", [], {"single": 3, "multi": 0}, 1e-6)
     borders = ("golden_detect_borders", ["--pattern", "borders"], {"single": 0, "multi": 3}, 1e-5)
     same_tables = []
@@ -1678,8 +1707,9 @@ def phase_golden_inter(workdir):
                           {"single": 3, "multi": 0}, show=tag == "dense")
             scanned = tiled.TILES["scanned"]
             check((scanned > 0) == (tag == "tiled"), f"{tag}: {scanned} tiles scanned")
-            print(f"[golden-inter] {tag} engine: {scanned} tiles scanned"
-                  + ("; the golden within its bounds again" if tag == "tiled" else ""))
+            if tag == "tiled":
+                print(f"[golden-inter] tiles scanned: dense engine 0, tiled engine {scanned}, "
+                      "the golden within its bounds again")
             rows[tag] = inter_quantify(workdir, tag)
         finally:
             contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = limit, tile
@@ -1781,6 +1811,9 @@ def phase_genome_inter(workdir):
     print(f"[genome-inter] synthetic genome {INTER_CHROMS} x {INTER_BINS} bins, trans "
           f"density {TRANS_DENSITY:g}: {source.nnz} pixels, generated and balanced in "
           f"{time.perf_counter() - t0:.1f} s")
+    # under the bench's cache name: phase baseline-configs reads it for row 5c
+    write_cool(source, str(bench_genome.genome_path(INTER_CHROMS, INTER_BINS, TRANS_DENSITY)),
+               "genome-inter")
     args = parse_args(["detect", "--no-plotting", "--inter", "synthetic",
                        f"{workdir}/inter"], "")
     tiled.TILES.update(scanned=0, skipped=0, scattered=0)
@@ -1898,7 +1931,9 @@ def phase_genome_golden(workdir):
           f"generated and balanced in {time.perf_counter() - t0:.1f} s; fingerprint "
           f"{json.dumps(got)}, the goldens' {got == meta['fingerprint']}")
     check(got == meta["fingerprint"], "genome-golden: fingerprint differs")
-    path = write_cool(source, f"{workdir}/genome_golden.cool", "genome-golden")
+    # under the bench's cache name: phase baseline-configs reads it for rows 4 and 5
+    path = write_cool(source, str(bench_genome.genome_path(GOLDEN_CHROMS, GOLDEN_BINS)),
+                      "genome-golden")
     del source
     for name, flags, expect in (("loops", [], {"single": GOLDEN_CHROMS, "multi": 0}),
                                 ("borders", ["--pattern", "borders"],
@@ -1911,27 +1946,29 @@ def phase_genome_golden(workdir):
             with contextlib.redirect_stdout(io.StringIO()):
                 return detect(open_contacts(path), args, DEVICE)
 
-        (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden")
+        (table, _), seen = run_genome(f"golden {name}", run_detect, tag="genome-golden",
+                                      show=None)
         n_calls, d_score, d_text, _, d_logp = compare_genome_golden(
             f"tests/data/golden_genome_{name}.tsv", prefix, table)
         print(f"[genome-golden] {name}: {n_calls}/{n_calls} reference calls identical; score "
               f"max|d| {d_score:.3g} (5e-5); log10 p max|d| {d_logp:.3g} (1e-3) unrounded, "
-              f"{d_text:.3g} written; {seen}")
+              f"{d_text:.3g} written; {seen}, wall {WALLS[f'golden {name}']:.2f} s")
         check(d_score < 5e-5 and d_logp < 1e-3, f"genome-golden {name}: outside the bounds")
         check(seen == expect, f"genome-golden {name}: launches {seen}")
 
 
 def write_cool(source, path, tag):
-    """``source`` written as a ``.cool`` by the port's ``create_cool``,
-    after checking that the directory can hold it (the phase fails if it
-    cannot); the path."""
+    """``source`` written as a ``.cool`` by the port's ``create_cool``
+    (through ``bench.genome.write_genome``: its planted loops beside it as
+    ``.truth.bed2d``), after checking that the directory can hold it (the
+    phase fails if it cannot); the path."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     need = source.nnz * (source.bin1.itemsize + source.bin2.itemsize + source.count.itemsize)
     need += 64 * source.n_bins + (1 << 20)
     free = shutil.disk_usage(os.path.dirname(path)).free
     check(free > need, f"{tag}: {free} bytes free, the .cool file needs {need}")
     t0 = time.perf_counter()
-    pixels = {"bin1_id": source.bin1, "bin2_id": source.bin2, "count": source.count}
-    create_cool(path, bins_frame(source), pixels)
+    bench_genome.write_genome(source, path)
     seconds = time.perf_counter() - t0
     size = os.path.getsize(path)
     print(f"[{tag}] create_cool wrote {os.path.basename(path)}: {source.nnz} pixels, {size} bytes in "
@@ -1958,62 +1995,184 @@ def phase_cool_genome(source, workdir):
     path), ``quantify`` of the planted loops from it, and ``detect`` once
     more from the in-memory source: each table and window file byte for
     byte phase 5's in-memory run; ``io: fetch+scatter`` and the wall of
-    each, side by side.  The file is deleted afterwards.  Returns the
-    bytes read from each column by run (``phase_cooler_genome`` prints
-    them beside its own)."""
+    each, side by side.  The file is the bench's cached genome
+    (``bench.genome.genome_path``), which phase ``bench`` reads next and
+    deletes.  Returns the bytes read from each column by run
+    (``phase_cooler_genome`` prints them beside its own)."""
     phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
-    path = write_cool(source, f"{workdir}/genome.cool", "cool-genome")
+    path = write_cool(source, str(bench_genome.genome_path(GENOME_CHROMS, GENOME_BINS)),
+                      "cool-genome")
     n_chroms = len(source.chromnames)
-    runs = {"memory (phase 5)": "detect loops"}
+    runs = {}
     read = {}
-    try:
-        for tag, quant in (("cool, pages dropped", False), ("cool, page cache", False),
-                           ("cool, page cache, f32 path", False), ("cool, page cache", True),
-                           ("memory", False)):
-            if tag == "cool, pages dropped":
-                evict(path)
-            prefix = f"{workdir}/cool_genome_{len(runs)}"
-            contacts = path if tag.startswith("cool") else "synthetic"
-            if quant:
-                argv = ["quantify", "--no-plotting", f"{workdir}/planted.bed2", contacts, prefix]
-            else:
-                argv = ["detect", "--no-plotting", contacts, prefix]
-            args = parse_args(argv, "")
-            f32 = tag.endswith("f32 path")
+    for tag, quant in (("cool, pages dropped", False), ("cool, page cache", False),
+                       ("cool, page cache, f32 path", False), ("cool, page cache", True),
+                       ("memory", False)):
+        if tag == "cool, pages dropped":
+            evict(path)
+        prefix = f"{workdir}/cool_genome_{len(runs) + 1}"
+        contacts = path if tag.startswith("cool") else "synthetic"
+        if quant:
+            argv = ["quantify", "--no-plotting", f"{workdir}/planted.bed2", contacts, prefix]
+        else:
+            argv = ["detect", "--no-plotting", contacts, prefix]
+        args = parse_args(argv, "")
+        f32 = tag.endswith("f32 path")
 
-            def run_main():
-                opened = open_contacts(path) if tag.startswith("cool") else source
-                with contextlib.redirect_stdout(io.StringIO()):
-                    return (quantify if quant else detect)(opened, args, DEVICE)
+        def run_main():
+            opened = open_contacts(path) if tag.startswith("cool") else source
+            with contextlib.redirect_stdout(io.StringIO()):
+                return (quantify if quant else detect)(opened, args, DEVICE)
 
-            name = f"{'quantify planted loops' if quant else 'detect loops'} from {tag}"
-            runs[f"{'quantify' if quant else 'loops'}, {tag}"] = name
-            with packing(None if f32 else contact_map.COUNT_PACKING), \
-                    counting_reads(read.setdefault(name, {})):
-                _, seen = run_genome(name, run_main, tag="cool-genome", show=None)
-            band_uploads(source, "cool-genome", modes=("f32",) if f32 else COUNT_MODES)
-            stored = phase5["quantify" if quant else "genome"]
-            check(outputs(prefix) == stored and stored,
-                  f"cool-genome: the {tag} table or windows differ from phase 5's")
-            check(seen == {"single": 0 if quant else n_chroms, "multi": 0},
-                  f"cool-genome: launches {seen}")
-            if tag.startswith("cool"):
-                # the count path reads bin2_id and count, never bin1_id
-                check(("pixels/bin1_id" in read[name]) == f32,
-                      f"cool-genome: {name} read {sorted(read[name])}")
-    finally:
-        os.unlink(path)
+        name = f"{'quantify planted loops' if quant else 'detect loops'} from {tag}"
+        runs[f"{'quantify' if quant else 'loops'}, {tag}"] = name
+        with packing(None if f32 else contact_map.COUNT_PACKING), \
+                counting_reads(read.setdefault(name, {})):
+            _, seen = run_genome(name, run_main, tag="cool-genome", show=None)
+        band_uploads(source, "cool-genome", modes=("f32",) if f32 else COUNT_MODES)
+        stored = phase5["quantify" if quant else "genome"]
+        check(outputs(prefix) == stored and stored,
+              f"cool-genome: the {tag} table or windows differ from phase 5's")
+        check(seen == {"single": 0 if quant else n_chroms, "multi": 0},
+              f"cool-genome: launches {seen}")
+        if tag.startswith("cool"):
+            # the count path reads bin2_id and count, never bin1_id
+            check(("pixels/bin1_id" in read[name]) == f32,
+                  f"cool-genome: {name} read {sorted(read[name])}")
     print(f"[cool-genome] phase 5's tables and windows, {n_chroms} single launches a loops run; "
           f"{nvidia_smi('name,power.limit')}")
-    shown = ""
+    shown, entries = "", []
     for tag, name in runs.items():
         got = bytes_read(read.get(name, {}))
-        print(f"[cool-genome] {tag}: io: fetch+scatter "
-              f"{STAGES[name].get('io: fetch+scatter', 0.0):.3f} s, io: upload "
-              f"{STAGES[name].get('io: upload', 0.0):.3f} s, wall {WALLS[name]:.2f} s"
-              + (f"; bytes read {got}" if got and got != shown else ""))
+        entries.append(f"{tag}: {STAGES[name].get('io: fetch+scatter', 0.0):.3f}, "
+                       f"{STAGES[name].get('io: upload', 0.0):.3f}, {WALLS[name]:.2f}"
+                       + (f" (read {got})" if got and got != shown else ""))
         shown = got or shown
+    print("[cool-genome] io: fetch+scatter, io: upload, wall s: " + "; ".join(entries[:2]))
+    for pair in range(2, len(entries), 2):
+        print("[cool-genome] " + "; ".join(entries[pair:pair + 2]))
     return read
+
+
+# tests/test_bench_contract.py:53-66's keys and the three the port adds
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "wall_s", "walls_s", "baseline",
+              "baseline_slice_s", "warm_compile_load_s", "recall_planted_loops", "stage_s",
+              "link", "compute", "device", "peak_memory_bytes", "idle_share")
+BASELINES = ("reference chromosight sparse engine (own code), engine-only slice",
+             "reference-formulation reimplementation")
+
+
+def phase_bench(workdir):
+    """``python3 bench_torch.py`` as a user runs it, in a process of its
+    own, on the ``.cool`` phase ``cool-genome`` wrote under the bench's
+    cache name: one stdout line with the contract keys, the card's name,
+    recall >= 0.95, 13 band launches a timed pass, its calls byte for byte
+    ``cool-genome``'s loops table; then the quantify bench in this process
+    (the planted loops scored as in phase 5).  The genome file is deleted
+    afterwards."""
+    path = bench_genome.genome_path(GENOME_CHROMS, GENOME_BINS)
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "bench_torch.py"], capture_output=True, text=True,
+                             timeout=900)
+        seconds = time.perf_counter() - t0
+        sys.stderr.write(res.stderr[-3000:])
+        check(res.returncode == 0, f"bench: bench_torch.py exited {res.returncode}")
+        lines = res.stdout.splitlines()
+        check(len(lines) == 1, f"bench: {len(lines)} stdout lines")
+        rec = json.loads(lines[0])
+        check(all(key in rec for key in BENCH_KEYS), f"bench: keys {sorted(rec)}")
+        card = rec["device"]
+        smi = nvidia_smi("name,power.limit")
+        check(f"{card['name']}, {card['power_limit']}" == smi
+              and card["kind"] == torch.cuda.get_device_name(0), f"bench: device {card}")
+        check(rec["baseline"] in BASELINES, f"bench: baseline {rec['baseline']}")
+        check(rec["recall_planted_loops"] >= 0.95, f"bench: recall {rec['recall_planted_loops']}")
+        launched = rec["compute"]["band_launches"]
+        check(launched == [GENOME_CHROMS] * len(rec["walls_s"]), f"bench: launches {launched}")
+        table = pathlib.Path(f"{workdir}/cool_genome_1.tsv").read_bytes()
+        calls = rec["calls"]
+        check(calls["sha256"] == hashlib.sha256(table).hexdigest(),
+              "bench: its table differs from cool-genome's")
+        link, comp = rec["link"], rec["compute"]
+        print(f"[bench] bench_torch.py ({seconds:.1f} s): wall {rec['wall_s']} s of "
+              f"{rec['walls_s']}, {rec['value']:.4g} windows/s, vs_baseline {rec['vs_baseline']} "
+              f"({rec['baseline'].split()[0]}, {rec['baseline_slice_s']} s); warm "
+              f"{rec['warm_compile_load_s']} s; recall {rec['recall_planted_loops']:.4f}; "
+              f"{calls['n']} calls = cool-genome's; launches {launched}; idle "
+              f"{rec['idle_share']}; peak {rec['peak_memory_bytes'] / 2**30:.3f} GiB; link "
+              f"{link['up_MBps']} / {link['down_MBps']} MB/s, rtt {link['rtt_ms']} ms, "
+              f"{link['attributable_s']} s; mfu {comp['mfu_detect_stage']} / {comp['mfu_e2e']}")
+        top = sorted(rec["stage_s"].items(), key=lambda kv: -kv[1])[:6]
+        print("[bench] stages (s): " + ", ".join(f"{k} {v}" for k, v in top)
+              + f"; cool-genome's page-cache loops wall "
+              f"{WALLS['detect loops from cool, page cache']:.2f} s")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench_quantify.main()
+        rec = json.loads(out.getvalue())
+        import pandas as pd
+
+        phase5 = pd.read_csv(f"{workdir}/quantify.tsv", sep="\t")
+        scored = int(phase5["score"].notna().sum())
+        print(f"[bench] quantify bench: {rec['n_coords']} coordinates, {rec['n_scored']} scored "
+              f"(phase 5: {scored}), median {rec['median_score']}; walls {rec['walls_s']} s")
+        check(rec["n_coords"] == len(phase5) and rec["n_scored"] == scored,
+              "bench: the quantify bench differs from phase 5")
+    finally:
+        for done in (path, bench_genome.truth_path(path)):
+            if os.path.exists(done):
+                os.unlink(done)
+
+
+# the patterns of BASELINE_RESULTS.md:7-14, row by row, but for row 5c:
+# the port calls 159 there, the JAX package's 157 is its round-3 run's
+# (ROADMAP.md §3)
+BASELINE_COUNTS = (85, 53, 57, 55, 68, 159, 159, 90)
+
+
+def phase_baseline_configs(workdir):
+    """The eight BASELINE rows through ``chromosight_torch.bench.
+    baseline_configs`` on the card: the example rows, and rows 4, 5 and 5c
+    on the 3 x 50,000 genomes phases ``genome-golden`` and ``genome-inter``
+    wrote under the bench's cache names; every row ``ok`` with the JAX
+    package's pattern counts.  Then the ``--inter`` bench on row 5c's file:
+    its calls, twice."""
+    genome = bench_genome.genome_path(GOLDEN_CHROMS, GOLDEN_BINS)
+    trans = bench_genome.genome_path(INTER_CHROMS, INTER_BINS, TRANS_DENSITY)
+    rowdir = pathlib.Path(workdir) / "rows"
+    rowdir.mkdir()
+    rows = bench_rows.run_configs(str(rowdir), str(genome), str(trans), DEVICE)
+    counts = tuple(r["patterns"] for r in rows)
+    print(f"[baseline-configs] {nvidia_smi('name,power.limit')}; row: patterns, wall s: "
+          + "; ".join(f"{r['name'].split()[0]} {r['patterns']}, {r['wall_s']:.2f}"
+                      + ("" if r["status"] == "ok" else f" {r['status']}") for r in rows))
+    check(all(r["status"] == "ok" for r in rows), "baseline-configs: a row failed")
+    check(counts == BASELINE_COUNTS, f"baseline-configs: patterns {counts}")
+    # the trans genome's cis contacts and cis-only weights are the golden
+    # genome's: row 5c's calls are the reference's own loops calls on it
+    import pandas as pd
+
+    key = ["chrom1", "start1", "chrom2", "start2"]
+    inter_calls = pd.read_csv(rows[6]["prefix"] + ".tsv", sep="\t")[key]
+    golden = pd.read_csv("tests/data/golden_genome_loops.tsv", sep="\t")[key]
+    same = inter_calls.sort_values(key).reset_index(drop=True).equals(
+        golden.sort_values(key).reset_index(drop=True))
+    check(same, "baseline-configs: row 5c's calls differ from the reference's genome calls")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        records = bench_inter.main([str(trans), "2"])
+    check([json.loads(line) for line in out.getvalue().splitlines()] == records,
+          "inter bench: its lines")
+    want = rows[6]["patterns"]
+    print(f"[baseline-configs] row 5c's {len(inter_calls)} calls = golden_genome_loops.tsv's "
+          f"{len(golden)}: {same}; --inter bench on its file: calls "
+          f"{[r['calls'] for r in records]}, walls {[r['wall_s'] for r in records]} s, tile scan "
+          f"{[r['stage_s'].get('tile scan') for r in records]} s")
+    check(all(r["rc"] == 0 and r["calls"] == want for r in records),
+          f"inter bench: {records}")
 
 
 def bytes_read(totals):
@@ -2106,16 +2265,18 @@ def phase_cooler_genome(source, workdir, contiguous_read):
     print(f"[{tag}] phase 5's tables and windows, {n_chroms} single launches a loops run; "
           f"{card}; beside cool-genome's runs, which read "
           f"{bytes_read(contiguous_read[next(iter(runs.values()))])}:")
-    shown = None
+    shown, entries = None, []
     for name, contiguous in runs.items():
         a, b = STAGES[name], STAGES[contiguous]
         got = bytes_read(read[name])
-        print(f"[{tag}] {name}: " + ", ".join(
-            f"{stage} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f}) s"
+        entries.append(f"{name.replace(' from .mcool', '')}: " + ", ".join(
+            f"{a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
             for stage in ("io: fetch+scatter", "io: upload"))
-            + f", wall {WALLS[name]:.2f} ({WALLS[contiguous]:.2f}) s"
+            + f", {WALLS[name]:.2f} ({WALLS[contiguous]:.2f})"
             + ("" if got == shown else f"; read {got}"))
         shown = got
+    print(f"[{tag}] fetch+scatter, upload, wall s: " + "; ".join(entries[:2]))
+    print(f"[{tag}] " + "; ".join(entries[2:]))
 
 
 def phase_latest_genome(source, workdir):
@@ -2283,7 +2444,7 @@ def phase_userblock_genome(source, workdir):
                   f"{tag}: run ({run}) weights differ from the genome's")
             other = f"({run}) {kind} from the newest layout"
             a, b = STAGES[name], STAGES.get(other, {})
-            lines.append(f"[{tag}] ({run}) {kind}: " + ", ".join(
+            lines.append(f"({run}) {kind}: " + ", ".join(
                 f"{stage.split(' ')[-1]} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
                 for stage in ("balance: ICE", "io: fetch+scatter") if stage in a)
                 + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f}) s")
@@ -2293,8 +2454,8 @@ def phase_userblock_genome(source, workdir):
             os.unlink(path)
     print(f"[{tag}] the genome's weights, phase 5's tables, {n_chroms} launches a loops run, "
           "the user block unchanged; s, in brackets latest-genome's:")
-    for line in lines:
-        print(line)
+    for pair in range(0, len(lines), 2):
+        print(f"[{tag}] " + "; ".join(lines[pair:pair + 2]))
 
 
 def phase_szip_genome(source, workdir):
@@ -2307,7 +2468,7 @@ def phase_szip_genome(source, workdir):
     cache, and ``quantify`` of the planted loops: tables and windows byte
     for byte phase 5's, 13 single launches a loops run and none a
     quantify run, szip chunks walked; ``io: fetch+scatter``, ``io:
-    upload`` and the wall beside ``cooler-genome``'s runs, one line a run.
+    upload`` and the wall beside ``cooler-genome``'s runs, on one line.
     The file is deleted afterwards."""
     tag = "szip-genome"
     os.makedirs(f"{workdir}/szip", exist_ok=True)
@@ -2321,6 +2482,7 @@ def phase_szip_genome(source, workdir):
     card = nvidia_smi("name,power.limit")
     n_chroms = len(source.chromnames)
     phase5 = {name: outputs(f"{workdir}/{name}") for name in ("genome", "quantify")}
+    entries, chunks = [], set()
     try:
         t0 = time.perf_counter()
         write_cooler_layout(path, bins_frame(source), {"bin1_id": source.bin1, "bin2_id":
@@ -2367,13 +2529,16 @@ def phase_szip_genome(source, workdir):
             check(walked > 0, f"{tag}: {name} decoded no szip chunk")
             other = f"{kind} from .mcool, {cache}"
             a, b = STAGES[name], STAGES.get(other, {})
-            print(f"[{tag}] {kind}, {cache}: phase 5's tables, {seen}, {walked} szip chunks; "
-                  + ", ".join(f"{stage[4:]} {a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
-                              for stage in ("io: fetch+scatter", "io: upload"))
-                  + f", wall {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f}) s")
+            entries.append(f"{kind}, {cache}: " + ", ".join(
+                f"{a.get(stage, 0.0):.3f} ({b.get(stage, 0.0):.3f})"
+                for stage in ("io: fetch+scatter", "io: upload"))
+                + f", {WALLS[name]:.2f} ({WALLS.get(other, 0.0):.2f})")
+            chunks.add(walked)
     finally:
         if os.path.exists(path):
             os.unlink(path)
+    print(f"[{tag}] phase 5's tables, {n_chroms} single launches a loops run, szip chunks "
+          f"{sorted(chunks)}; fetch+scatter, upload, wall s: " + "; ".join(entries))
 
 
 def phase_instruments(source, workdir):
@@ -2396,8 +2561,8 @@ def phase_instruments(source, workdir):
     compute = observability.compute_snapshot()
     stages, _, link = observability.snapshot()
     peak_flops, peak_bytes, label = observability.device_peaks()
-    print(f"[instruments] device_peaks(): {peak_flops} FLOP/s, {peak_bytes} bytes/s, {label}")
-    print(f"[instruments] link bytes: {json.dumps(link)}")
+    print(f"[instruments] device_peaks(): {peak_flops} FLOP/s, {peak_bytes} bytes/s, {label}; "
+          f"link bytes {json.dumps(link)}")
     family_stage = {"band_normxcorr": "correlate", "band_preprocess": "preprocess"}
     for name, rec in sorted(compute.items()):
         seconds = stages.get(family_stage.get(name, ""), 0.0)
@@ -2480,29 +2645,6 @@ def phase_instruments(source, workdir):
           "(on stderr), band_normxcorr's 3 dispatches in it")
     check("band_normxcorr " in report and "(3 dispatches)" in report,
           "instruments: no exit report")
-
-
-def device_busy(path, top=4):
-    """(seconds the card was busy, seconds the trace spans, device seconds
-    of its ``top`` kernels by name) of a torch.profiler Chrome trace: the
-    union of its kernel, memcpy and memset intervals, against the span of
-    all its complete events."""
-    events = [e for e in json.loads(pathlib.Path(path).read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, float("-inf")
-    for start, stop in device:
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
-    by_name = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            by_name[e["name"][:40]] = by_name.get(e["name"][:40], 0.0) + e["dur"] / 1e6
-    kernels = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
-    return busy / 1e6, span / 1e6, {k: round(v, 6) for k, v in kernels.items()}
 
 
 def quietly(fn, *args, **kwargs):
@@ -2708,6 +2850,10 @@ def run(quick):
           f"{time.perf_counter() - t0:.1f} s")
     times, bounds = phase_kernels_chromosome(source)
     with tempfile.TemporaryDirectory() as workdir:
+        # the bench's genomes are cached in the work directory, at its sizes
+        os.environ.update(CHROMOSIGHT_BENCH_CACHE=f"{workdir}/bench",
+                          CHROMOSIGHT_BENCH_GENOME_BINS=str(GENOME_CHROMS * GENOME_BINS),
+                          CHROMOSIGHT_BENCH_GENOME_CHROMS=str(GENOME_CHROMS))
         phase_golden(workdir)
         phase_formats(workdir)
         runs = phase_genome(source, workdir)
@@ -2715,6 +2861,7 @@ def run(quick):
         phase_surface_example(workdir)
         phase_surface_genome(source, workdir)
         contiguous_read = phase_cool_genome(source, workdir)
+        phase_bench(workdir)
         phase_cooler_genome(source, workdir, contiguous_read)
         phase_latest_genome(source, workdir)
         phase_userblock_genome(source, workdir)
@@ -2724,6 +2871,7 @@ def run(quick):
         phase_golden_inter(workdir)
         phase_genome_inter(workdir)
         phase_genome_golden(workdir)
+        phase_baseline_configs(workdir)
     check("jax" not in sys.modules, "jax was imported")
     check("h5py" not in sys.modules, "h5py was imported")
     check(not any(m.split(".")[0] == "chromosight_tpu" for m in sys.modules),

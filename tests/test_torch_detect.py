@@ -303,8 +303,9 @@ def test_imports_without_jax_h5py_pandas_jsonschema(tmp_path):
     """Every module of the package loads with jax, h5py, jsonschema and
     chromosight_tpu blocked (the card's machine has neither h5py nor jax;
     pandas is needed since the Python API returns the JAX package's
-    DataFrames), among them ``utils.*``, ``models``, ``io.cool`` and
-    ``version``; TUTORIAL's Python API block runs on the npz with
+    DataFrames), among them ``utils.*``, ``models``, ``io.cool``,
+    ``version`` and the benches ``bench.*`` (and
+    ``bench_torch.py``); TUTORIAL's Python API block runs on the npz with
     ``device="cpu"``; and detect (a short scan distance keeps the CPU run
     quick), quantify, detect --inter on the dense and on the tiled
     engine, list-kernels and generate-config run from the npz; and, as on
@@ -325,6 +326,12 @@ for name in names:
 assert "chromosight_torch.native" in names and "chromosight_torch.ops.balance" in names
 assert {{"chromosight_torch.models", "chromosight_torch.io.cool", "chromosight_torch.version",
          "chromosight_torch.utils"}} <= set(names)
+# the benches, and bench_torch.py, which imports none of bench.py
+assert {{"chromosight_torch.bench." + m for m in ("genome", "baseline", "detect", "quantify",
+                                                "inter", "baseline_configs")}} <= set(names)
+import runpy
+runpy.run_path({str(ROOT / "bench_torch.py")!r}, run_name="bench_torch")
+assert "bench" not in sys.modules
 for alias in ("detection", "preprocessing", "io", "stats", "plotting", "contacts_map"):
     importlib.import_module("chromosight_torch.utils." + alias)
 assert chromosight_torch.__version__ == chromosight_torch.version.__version__
