@@ -1319,6 +1319,14 @@ def feature_fixtures(workdir, forced, forced_table):
           "force (637 weights) as from example.cool: " + "; ".join(done))
 
 
+def tile_counts():
+    """The tiled engine's counters (``tiles: <kind>`` of
+    ``observability.counters()``) by kind."""
+    counts = observability.counters()
+    return {kind: counts.get(f"tiles: {kind}", 0)
+            for kind in ("scanned", "skipped", "scattered", "batches", "launches")}
+
+
 def run_genome(name, fn, tag="genome", show="short"):
     """One main-path run on a genome: launches counted from 0, stages
     (kept in ``STAGES``), wall (kept in ``WALLS``) and peak device memory,
@@ -1702,10 +1710,10 @@ def phase_golden_inter(workdir):
         if tag == "tiled":
             contact_map.DENSE_LIMIT, tiled.DEFAULT_TILE = 50, 128
         try:
-            tiled.TILES.update(scanned=0, skipped=0, scattered=0)
+            before = tile_counts()["scanned"]
             golden_detect(workdir, "golden_detect_loops_inter", ["--inter"],
                           {"single": 3, "multi": 0}, show=tag == "dense")
-            scanned = tiled.TILES["scanned"]
+            scanned = tile_counts()["scanned"] - before
             check((scanned > 0) == (tag == "tiled"), f"{tag}: {scanned} tiles scanned")
             if tag == "tiled":
                 print(f"[golden-inter] tiles scanned: dense engine 0, tiled engine {scanned}, "
@@ -1816,25 +1824,25 @@ def phase_genome_inter(workdir):
                "genome-inter")
     args = parse_args(["detect", "--no-plotting", "--inter", "synthetic",
                        f"{workdir}/inter"], "")
-    tiled.TILES.update(scanned=0, skipped=0, scattered=0)
     (table, _), seen = run_genome("detect --inter loops",
                                   lambda: detect(source, args, DEVICE), show="stages")
+    tiles = tile_counts()  # run_genome resets the counters first
     peak = torch.cuda.max_memory_allocated()
     dense_map = 4 * INTER_BINS * INTER_BINS
     trans = table["chrom1"] != table["chrom2"]
     recall = planted_recall(source, table)
     scan = stage_seconds().get("tile scan", 0.0)
-    pixels = tiled.TILES["scanned"] * tiled.DEFAULT_TILE ** 2
+    pixels = tiles["scanned"] * tiled.DEFAULT_TILE ** 2
     print(f"[genome-inter] {len(table['bin1'])} calls, {int(trans.sum())} trans; recall "
           f"{recall:.4f} ({len(source.planted)} planted, +-2 bins); tiles "
-          f"{json.dumps(tiled.TILES)} of {tiled.DEFAULT_TILE}, batches of "
+          f"{json.dumps(tiles)} of {tiled.DEFAULT_TILE}, batches of "
           f"{tiled.TILE_BATCH}; tile scan {scan:.3f} s for {pixels:.4g} output pixels; "
           f"peak device memory {peak / 2**30:.3f} GiB, {100 * peak / dense_map:.1f}% of one "
           f"dense f32 trans map ({dense_map / 2**30:.2f} GiB)")
     check(seen == {"single": INTER_CHROMS, "multi": 0}, f"--inter launches {seen}")
     check(recall >= 0.95, f"--inter recall {recall} below 0.95")
-    check(tiled.TILES["scanned"] > 0, "no tile scanned")
-    check(tiled.TILES["scattered"] == tiled.TILES["scanned"],
+    check(tiles["scanned"] > 0, "no tile scanned")
+    check(tiles["scattered"] == tiles["scanned"],
           "a sparse trans tile took the dense conv2d numerator")
     check(peak < dense_map / 2, f"peak device memory {peak} near a dense trans map")
     check(all(np.isfinite(table["score"])) and all(np.isfinite(table["pvalue"])),
@@ -2612,20 +2620,23 @@ def phase_instruments(source, workdir):
           f"{sum(t.stat().st_size for t in traces)} bytes, {len(symbols)} band kernel symbol(s)")
     check(len(traces) == 1 and symbols, "instruments: the trace names no band kernel")
 
-    # the card's busy share over the genome's detect passes, from a trace
+    # the card's busy share over the genome's whole detect run (open, maps,
+    # scan, write), from a trace: maybe_trace wraps the command in `main`,
+    # so a direct `detect` call takes it here
     trace_dir = pathlib.Path(workdir) / "genome_trace"
     os.environ["CHROMOSIGHT_TPU_PROFILE"] = str(trace_dir)
     try:
         t0 = time.perf_counter()
-        run_detect()
+        with observability.maybe_trace():
+            run_detect()
         wall = time.perf_counter() - t0
     finally:
         del os.environ["CHROMOSIGHT_TPU_PROFILE"]
     traces = sorted(trace_dir.glob("*.pt.trace.json"))
-    check(len(traces) == 1, "instruments: no trace of the genome's detect passes")
+    check(len(traces) == 1, "instruments: no trace of the genome's detect run")
     busy, span, kernels = device_busy(traces[0], top=3)
     print(f"[instruments] genome loops detect under the profiler: wall {wall:.2f} s; the "
-          f"traced detect passes span {span:.3f} s, the card busy {busy:.4f} s of it "
+          f"traced detect run spans {span:.3f} s, the card busy {busy:.4f} s of it "
           f"({100 * busy / span:.2f}%, idle {100 - 100 * busy / span:.2f}%); device s by "
           "kernel: " + ", ".join(f"{k.split('::')[-1][:24]} {v:.4f}" for k, v in kernels.items()))
 

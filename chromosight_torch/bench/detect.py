@@ -17,8 +17,8 @@ in windows/s, ``unit``, ``vs_baseline``, ``wall_s``, ``walls_s``,
 ``compute``, ``note``) and three more: ``device`` (the card's name and
 count, and its name and power limit as ``nvidia-smi`` gives them),
 ``peak_memory_bytes`` (``torch.cuda.max_memory_allocated`` over the best
-pass) and ``idle_share`` (the card's idle share of the detect passes in a
-``torch.profiler`` trace of one more pass, not counted in ``walls_s``).
+pass) and ``idle_share`` (the card's idle share of one more whole ``detect``
+command in a ``torch.profiler`` trace, not counted in ``walls_s``).
 ``calls`` gives the last pass's number of calls and the SHA-256 of its
 table; ``compute.band_launches`` the band kernel's launches in each
 timed pass.
@@ -162,9 +162,10 @@ def device_busy(path, top=4):
 
 
 def traced_idle_share(cool_path, workdir, device):
-    """The card's idle share of the detect passes of one more ``detect``
-    run, traced by ``torch.profiler`` (``CHROMOSIGHT_TPU_PROFILE``); None
-    where the trace holds no device event."""
+    """The card's idle share of one more whole ``detect`` command (open,
+    maps, scan, write), traced by ``torch.profiler``
+    (``CHROMOSIGHT_TPU_PROFILE``); None where the trace holds no device
+    event."""
     trace_dir = pathlib.Path(workdir) / "trace"
     old = os.environ.get("CHROMOSIGHT_TPU_PROFILE")
     os.environ["CHROMOSIGHT_TPU_PROFILE"] = str(trace_dir)

@@ -151,10 +151,9 @@ from contextlib import contextmanager
 import numpy as np
 
 import chromosight_torch.detection as cid
-from chromosight_torch import __version__
+from chromosight_torch import __version__, observability
 from chromosight_torch.cli.args import CliError, parse_args
 from chromosight_torch.device import resolve_devices, stage
-from chromosight_torch.observability import maybe_trace
 from chromosight_torch.io.bed2d import read_bed2d
 from chromosight_torch.io.config import load_kernel_config
 from chromosight_torch.io.writers import (
@@ -318,15 +317,16 @@ def _iterative_scan(genome, cfg, scheduler):
         found = [(sub, t, w) for sub, (t, w) in zip(subs, results) if t is not None]
         if not found:
             return None
-        table = _concat_tables(
-            [genome.get_full_mat_pattern(sub.chr1, sub.chr2, t) for sub, t, _ in found]
-        )
-        n_rows = len(table["bin1"])
-        table["kernel_id"] = np.full(n_rows, kernel_id, dtype=np.int64)
-        table["iteration"] = np.full(n_rows, iteration, dtype=np.int64)
-        windows = np.concatenate([w for _, _, w in found], axis=0)
-        per_pass[(kernel_id, iteration)] = (table, windows)
-        return cid.pileup_patterns(windows)
+        with observability.stage("scan: collect"):
+            table = _concat_tables(
+                [genome.get_full_mat_pattern(sub.chr1, sub.chr2, t) for sub, t, _ in found]
+            )
+            n_rows = len(table["bin1"])
+            table["kernel_id"] = np.full(n_rows, kernel_id, dtype=np.int64)
+            table["iteration"] = np.full(n_rows, iteration, dtype=np.int64)
+            windows = np.concatenate([w for _, _, w in found], axis=0)
+            per_pass[(kernel_id, iteration)] = (table, windows)
+            return cid.pileup_patterns(windows)
 
     tsvd = cfg["tsvd"]
     run_id = kernel_id = iteration = 0
@@ -429,10 +429,11 @@ def _open_genome(source, args, cfg, devices, rng, **kw):
     """The genome of a detect or quantify run on ``devices``, its maps'
     ``--subsample`` draws from ``rng``, and the scheduler of
     ``--threads`` over its devices."""
-    genome = HicGenome(
-        source, inter=bool(args["--inter"]), kernel_config=cfg,
-        sample=_parse_subsample(args["--subsample"]), device=devices, rng=rng, **kw,
-    )
+    with observability.stage("genome: open"):
+        genome = HicGenome(
+            source, inter=bool(args["--inter"]), kernel_config=cfg,
+            sample=_parse_subsample(args["--subsample"]), device=devices, rng=rng, **kw,
+        )
     return genome, MapScheduler(genome.devices, int(args["--threads"]))
 
 
@@ -449,7 +450,8 @@ def detect(source, args, device=None, rng=None):
     win_fmt = args["--win-fmt"]
     _check_outputs(args)
     devices = resolve_devices(device)
-    cfg = scan_config(args)
+    with observability.stage("scan: config"):
+        cfg = scan_config(args)
     if args["--inter"]:
         sys.stderr.write(
             "WARNING: Detection on interchromosomal matrices is expensive in RAM\n"
@@ -459,11 +461,12 @@ def detect(source, args, device=None, rng=None):
         smooth=bool(args["--smooth-trend"]),
     )
     device = genome.device
-    genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
-    genome.make_sub_matrices()
+    with observability.stage("genome: normalize"):
+        genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
+    with observability.stage("genome: maps"):
+        genome.make_sub_matrices()
     sys.stderr.write("Detecting patterns...\n")
-    with maybe_trace():  # a torch.profiler trace with CHROMOSIGHT_TPU_PROFILE=<dir>
-        table, windows = _iterative_scan(genome, cfg, scheduler)
+    table, windows = _iterative_scan(genome, cfg, scheduler)
     if table is None:
         sys.stderr.write("No pattern detected ! Exiting.\n")
         return None, None
@@ -555,25 +558,28 @@ def quantify(source, args, device=None, rng=None):
             "These patterns will not be scanned unless --inter is used.\n"
         )
     devices = resolve_devices(device)
-    cfg = _load_scan_config(
-        args,
-        {
-            "max_perc_zero": (args["--perc-zero"], float),
-            "max_perc_undetected": (args["--perc-undetected"], float),
-        },
-    )
+    with observability.stage("scan: config"):
+        cfg = _load_scan_config(
+            args,
+            {
+                "max_perc_zero": (args["--perc-zero"], float),
+                "max_perc_undetected": (args["--perc-undetected"], float),
+            },
+        )
     genome, scheduler = _open_genome(source, args, cfg, devices, rng)
     # scan exactly as far as the furthest requested pair
     furthest = int(np.max(bed2d["start2"] - bed2d["start1"]))
     cfg["max_dist"] = min(furthest, genome.clr.n_bins * genome.clr.binsize)
     cfg["min_dist"] = 0
     cfg["tsvd"] = TSVD_ENERGY if args["--tsvd"] else None
-    genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
+    with observability.stage("genome: normalize"):
+        genome.normalize(args["--norm"], float(args["--n-mads"]), int(args["--threads"]))
     km, kn = cfg["kernels"][0].shape
     if args["--win-size"] != "auto":
         km = kn = _resize_config_kernels(cfg, args["--win-size"])
     genome.compute_max_dist()
-    genome.make_sub_matrices()
+    with observability.stage("genome: maps"):
+        genome.make_sub_matrices()
 
     n_rows = len(bed2d["chrom1"])
     subs = list(genome.sub_mats.itertuples())
@@ -704,13 +710,17 @@ def cmd_detect(args, device=None, rng=None):
     """``detect`` with the parsed options ``args``, its map opened from
     ``<contact_map>`` (the JAX package's ``cmd_detect``); ``device`` and
     ``rng`` as for ``detect``."""
-    return detect(open_contacts(args["<contact_map>"]), args, device, rng)
+    with observability.stage("genome: open"):
+        source = open_contacts(args["<contact_map>"])
+    return detect(source, args, device, rng)
 
 
 def cmd_quantify(args, device=None, rng=None):
     """``quantify`` with the parsed options ``args``, its map opened from
     ``<contact_map>`` (the JAX package's ``cmd_quantify``)."""
-    return quantify(open_contacts(args["<contact_map>"]), args, device, rng)
+    with observability.stage("genome: open"):
+        source = open_contacts(args["<contact_map>"])
+    return quantify(source, args, device, rng)
 
 
 def cmd_generate_config(args, device=None):
@@ -847,16 +857,19 @@ def main(argv=None, device=None, rng=None):
         args = parse_args(argv, __doc__, version=version)
     except CliError as exc:
         return exc.code
-    if args["test"]:
-        _run_self_test(args, device)
-    elif args["detect"]:
-        cmd_detect(args, device, rng)
-    elif args["generate-config"]:
-        cmd_generate_config(args, device)
-    elif args["list-kernels"]:
-        cmd_list_kernels(args)
-    elif args["quantify"]:
-        cmd_quantify(args, device, rng)
+    # a torch.profiler trace of the whole command with
+    # CHROMOSIGHT_TPU_PROFILE=<dir>; ``command`` is the root of its spans
+    with observability.maybe_trace(), observability.stage("command"):
+        if args["test"]:
+            _run_self_test(args, device)
+        elif args["detect"]:
+            cmd_detect(args, device, rng)
+        elif args["generate-config"]:
+            cmd_generate_config(args, device)
+        elif args["list-kernels"]:
+            cmd_list_kernels(args)
+        elif args["quantify"]:
+            cmd_quantify(args, device, rng)
     return 0
 
 

@@ -423,7 +423,8 @@ def _band_tail(
     if dump is not None:
         _dump_correlation(contact_map, corr, dump)
     if detect_mode:
-        coords = _pick_foci(contact_map, corr, cand, dump)
+        with observability.stage("host: foci"):
+            coords = _pick_foci(contact_map, corr, cand, dump)
         if coords is None:
             return None, None
     coords = np.array(coords, dtype=np.int64, copy=True).reshape(-1, 2)
@@ -441,18 +442,19 @@ def _band_tail(
     in_band = (coords[:, 0] >= 0) & (coords[:, 0] < n) & (dsc_h >= 0) & (dsc_h < width)
     score_vec = np.where(in_band, tail[:, 0], 0.0)
     logp_vec = np.where(in_band, tail[:, 1], np.nan)
-    table, windows, valid = _validate_patterns_band(
-        coords,
-        (n, width),
-        raw_windows,
-        miss_flags,
-        score_vec,
-        kernel_matrix,
-        big_k=max(km, kn),
-        drop=detect_mode,
-        zero_tol=kernel_config["max_perc_zero"] / 100,
-        missing_tol=kernel_config["max_perc_undetected"] / 100,
-    )
+    with observability.stage("host: validate"):
+        table, windows, valid = _validate_patterns_band(
+            coords,
+            (n, width),
+            raw_windows,
+            miss_flags,
+            score_vec,
+            kernel_matrix,
+            big_k=max(km, kn),
+            drop=detect_mode,
+            zero_tol=kernel_config["max_perc_zero"] / 100,
+            missing_tol=kernel_config["max_perc_undetected"] / 100,
+        )
     table["pvalue"] = 10 ** (logp_vec[valid] if detect_mode else logp_vec)
     return table, windows
 
@@ -995,7 +997,8 @@ def _pattern_detector_sparse(
     Then foci and the two-phase sparse validation on the host, with
     virtual padding in full mode."""
     source = contact_map.sparse if contact_map.sparse is not None else contact_map.matrix
-    smat = source.tocsr()
+    with observability.stage("host: csr"):
+        smat = source.tocsr()
     km, kn = kernel_matrix.shape
     if min(smat.shape) <= max(kernel_matrix.shape):
         return None, None

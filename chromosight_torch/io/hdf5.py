@@ -114,7 +114,7 @@ import zlib
 
 import numpy as np
 
-from chromosight_torch import native
+from chromosight_torch import native, observability
 from chromosight_torch.io import hdf5_index as index
 from chromosight_torch.io import hdf5_write as hw
 
@@ -1618,7 +1618,9 @@ class Dataset:
         row = self._type.size * int(np.prod(tail, dtype=np.int64))
         if self._class == 1 and not self._type.vlen and self._external is None:
             out = np.empty(shape, dtype=self.dtype)
-            self.file._read_into(self._address + lo * row, out)
+            with observability.stage("io: read"):
+                self.file._read_into(self._address + lo * row, out)
+            observability.count("io: bytes read", out.nbytes)
             return out
         raw = self._contiguous_bytes(lo * row, (hi - lo) * row)
         if not self._type.vlen:
@@ -1864,15 +1866,16 @@ class Dataset:
     def _chunk_index(self):
         """Chunk offsets (n, rank), addresses, stored sizes and filter
         masks, sorted by offset, of the chunks inside the dataset: the
-        chunk index walked once."""
+        chunk index walked once (stage ``io: index``)."""
         if self._chunks is None:
             rank = len(self._chunk_shape)
-            if self._index_type is None:
-                offsets, addrs, sizes, masks = self._btree1_chunks(rank)
-            else:
-                offsets, addrs, sizes, masks = self._v4_chunks(rank)
-                if not self._filters:
-                    sizes = np.full(len(addrs), self._chunk_bytes, np.int64)
+            with observability.stage("io: index"):
+                if self._index_type is None:
+                    offsets, addrs, sizes, masks = self._btree1_chunks(rank)
+                else:
+                    offsets, addrs, sizes, masks = self._v4_chunks(rank)
+            if self._index_type is not None and not self._filters:
+                sizes = np.full(len(addrs), self._chunk_bytes, np.int64)
             offsets = np.asarray(offsets, np.int64).reshape(len(addrs), rank)
             inside = np.all(offsets < np.array(self.shape, np.int64), axis=1)
             offsets, addrs = offsets[inside], np.asarray(addrs, np.uint64)[inside]
@@ -2048,14 +2051,24 @@ class Dataset:
         buf = np.empty(int(spans.sum()), np.uint8)
         bases = np.r_[0, np.cumsum(spans)[:-1]]
         in_off = np.empty(len(addrs), np.int64)
-        for first, last, base, span in zip(firsts, lasts, bases, spans):
-            self.file._read_into(int(addrs[first]), buf[base : base + span])
-            in_off[first : last + 1] = base + addrs[first : last + 1] - addrs[first]
-        if kinds[-1] == SZIP:
-            return native.szip_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
-                                      self._filters[-1][1], element, THREADS)
-        return native.inflate_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
-                                     element, THREADS)
+        with observability.stage("io: read"):
+            for first, last, base, span in zip(firsts, lasts, bases, spans):
+                self.file._read_into(int(addrs[first]), buf[base : base + span])
+                in_off[first : last + 1] = base + addrs[first : last + 1] - addrs[first]
+        with observability.stage("io: decode"):
+            if kinds[-1] == SZIP:
+                done = native.szip_chunks(buf, in_off, sizes, flat, starts, self._chunk_bytes,
+                                          self._filters[-1][1], element, THREADS)
+            else:
+                done = native.inflate_chunks(buf, in_off, sizes, flat, starts,
+                                             self._chunk_bytes, element, THREADS)
+        if done:
+            # counted only here: on False the caller's ``_decode`` reads
+            # and counts these chunks again
+            observability.count("io: bytes read", len(buf))
+            observability.count("io: chunks decoded", len(addrs))
+            observability.count("io: bytes decoded", len(addrs) * self._chunk_bytes)
+        return done
 
     def _decode(self, addr, size, mask, index, into=None):
         """The bytes of the chunk ``index`` (``size`` bytes stored at
@@ -2063,39 +2076,47 @@ class Dataset:
         pipeline order; written into ``into`` (a uint8 array of the
         chunk's bytes) when given."""
         on = [i for i in range(len(self._filters)) if not mask & (1 << i)]
+        observability.count("io: bytes read", size)
         if not on and into is not None and size == len(into):
-            self.file._read_into(addr, into)
+            with observability.stage("io: read"):
+                self.file._read_into(addr, into)
             return into
-        raw = self.file._read(addr, size)
-        for i in reversed(on):
-            fid, values = self._filters[i]
-            if fid == DEFLATE:
-                raw = zlib.decompress(raw, bufsize=self._chunk_bytes)
-            elif fid == LZF:
-                n_out = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
-                raw = native.lzf_decompress(raw, n_out)
-            elif fid == SZIP:
-                # the size it stores: the chunk's, or a little more before
-                # fletcher32 or another coder
-                raw = native.szip_decode(raw, values, 2 * self._chunk_bytes + 64)
-            elif fid == NBIT:
-                self.file.walked["n-bit chunk"] += 1
-                raw = native.nbit_decode(raw, values)
-            elif fid == SCALEOFFSET:
-                self.file.walked["scale-offset chunk"] += 1
-                raw = native.scaleoffset_decode(raw, values)
-            elif fid == SHUFFLE:
-                element = values[0] if values else self._type.size
-                if i == on[0] and into is not None and len(raw) == len(into):
-                    return native.unshuffle(raw, element, into)
-                raw = native.unshuffle(raw, element)
-            else:
-                raw = _fletcher32_checked(raw, f"{self.file.filename}:{self.name} chunk {index}")
-        if into is not None:
-            if len(raw) < len(into):
-                raise OSError(f"{self.file.filename}:{self.name} chunk {index}: {len(raw)} "
-                              f"bytes decoded, {len(into)} expected")
-            into[:] = np.frombuffer(raw, np.uint8, len(into))
+        with observability.stage("io: read"):
+            raw = self.file._read(addr, size)
+        if on:
+            observability.count("io: chunks decoded")
+            observability.count("io: bytes decoded", self._chunk_bytes)
+        with observability.stage("io: decode"):
+            for i in reversed(on):
+                fid, values = self._filters[i]
+                if fid == DEFLATE:
+                    raw = zlib.decompress(raw, bufsize=self._chunk_bytes)
+                elif fid == LZF:
+                    n_out = values[2] if len(values) > 2 and values[2] else self._chunk_bytes
+                    raw = native.lzf_decompress(raw, n_out)
+                elif fid == SZIP:
+                    # the size it stores: the chunk's, or a little more before
+                    # fletcher32 or another coder
+                    raw = native.szip_decode(raw, values, 2 * self._chunk_bytes + 64)
+                elif fid == NBIT:
+                    self.file.walked["n-bit chunk"] += 1
+                    raw = native.nbit_decode(raw, values)
+                elif fid == SCALEOFFSET:
+                    self.file.walked["scale-offset chunk"] += 1
+                    raw = native.scaleoffset_decode(raw, values)
+                elif fid == SHUFFLE:
+                    element = values[0] if values else self._type.size
+                    if i == on[0] and into is not None and len(raw) == len(into):
+                        return native.unshuffle(raw, element, into)
+                    raw = native.unshuffle(raw, element)
+                else:
+                    raw = _fletcher32_checked(
+                        raw, f"{self.file.filename}:{self.name} chunk {index}")
+            if into is not None:
+                if len(raw) < len(into):
+                    raise OSError(f"{self.file.filename}:{self.name} chunk {index}: {len(raw)} "
+                                  f"bytes decoded, {len(into)} expected")
+                into[:] = np.frombuffer(raw, np.uint8, len(into))
         return raw
 
 

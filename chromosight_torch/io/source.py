@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from chromosight_torch import native
+from chromosight_torch import native, observability
 from chromosight_torch.io import hdf5
 
 
@@ -108,22 +108,24 @@ class _PixelSource:
             return np.zeros((n_rows, width), dtype=np.float32)
         b1, b2, ct = self._pixels(lo, hi)
         weights = self._weight if balance else None
-        band = native.band_scatter_fused(
-            b1, b2, ct, weights, s, e, width, n_rows=n_rows
-        )
-        if band is not None:
+        observability.count("io: pixels scattered", len(b2))
+        with observability.stage("io: scatter"):
+            band = native.band_scatter_fused(
+                b1, b2, ct, weights, s, e, width, n_rows=n_rows
+            )
+            if band is not None:
+                return band
+            d = b2.astype(np.int64) - b1.astype(np.int64)
+            keep = (d >= 0) & (d < width) & (b2 < e)
+            b1, d, ct = b1[keep].astype(np.int64), d[keep], ct[keep]
+            vals = ct.astype(np.float32)
+            if balance:
+                vals = (
+                    ct.astype(np.float64) * weights[b1] * weights[b1 + d]
+                ).astype(np.float32)
+            band = np.zeros((n_rows, width), dtype=np.float32)
+            band[b1 - s, d] = vals
             return band
-        d = b2.astype(np.int64) - b1.astype(np.int64)
-        keep = (d >= 0) & (d < width) & (b2 < e)
-        b1, d, ct = b1[keep].astype(np.int64), d[keep], ct[keep]
-        vals = ct.astype(np.float32)
-        if balance:
-            vals = (
-                ct.astype(np.float64) * weights[b1] * weights[b1 + d]
-            ).astype(np.float32)
-        band = np.zeros((n_rows, width), dtype=np.float32)
-        band[b1 - s, d] = vals
-        return band
 
     def pixels_upper(self, extent, balance=False, dtype=np.float32, max_diag=None):
         """The stored upper triangle of the intra map ``extent`` = (s, e):
@@ -193,20 +195,27 @@ class _PixelSource:
             return ("u16", np.zeros((n_rows, width), dtype=np.uint16))
         b2, ct = self._pixels_b2_ct(lo, hi)
         indptr = self._bin1_offset[s : e + 1]
-        if allow_u4 and allow_u8 and 0 < u4_head <= width // 2:
-            out = native.band_scatter_counts_u4_indptr(
-                indptr, b2, ct, s, e, width, u4_head, n_rows=n_rows
-            )
-            if out is not None:
-                return ("u4",) + out
-        if allow_u8:
-            out = native.band_scatter_counts_u8_indptr(
-                indptr, b2, ct, s, e, width, n_rows=n_rows
-            )
-            if out is not None:
-                return ("u8",) + out
-        band = native.band_scatter_counts_indptr(indptr, b2, ct, s, e, width, n_rows=n_rows)
-        return None if band is None else ("u16", band)
+        # the pixels are counted once, by the form that took them: u4 and
+        # u8 decline where their exceptions outgrow what they save
+        out = None
+        with observability.stage("io: scatter"):
+            if allow_u4 and allow_u8 and 0 < u4_head <= width // 2:
+                out = native.band_scatter_counts_u4_indptr(
+                    indptr, b2, ct, s, e, width, u4_head, n_rows=n_rows
+                )
+                out = None if out is None else ("u4",) + out
+            if out is None and allow_u8:
+                out = native.band_scatter_counts_u8_indptr(
+                    indptr, b2, ct, s, e, width, n_rows=n_rows
+                )
+                out = None if out is None else ("u8",) + out
+            if out is None:
+                band = native.band_scatter_counts_indptr(indptr, b2, ct, s, e, width,
+                                                         n_rows=n_rows)
+                out = None if band is None else ("u16", band)
+        if out is not None:
+            observability.count("io: pixels scattered", len(b2))
+        return out
 
     def _bbox(self, s1, e1, s2, e2):
         """Stored (upper-triangle) pixels with bin1 in [s1, e1) and bin2
@@ -260,15 +269,18 @@ class _PixelSource:
         if balance:
             w1, w2 = self._weight[s1:e1], self._weight[s2:e2]
         indptr = self._bin1_offset[s1 : e1 + 1]
-        out = native.trans_coo_balanced(indptr, b2, ct, s2, e2, w1, w2)
-        if out is not None:
-            return out
-        rows = np.repeat(np.arange(e1 - s1, dtype=np.int32), np.diff(indptr))
-        keep = (b2 >= s2) & (b2 < e2)
-        rows, cols, ct = rows[keep], (b2[keep] - s2).astype(np.int32), ct[keep]
-        if balance:
-            return rows, cols, (ct.astype(np.float64) * w1[rows] * w2[cols]).astype(np.float32)
-        return rows, cols, ct.astype(np.float32)
+        observability.count("io: pixels scattered", len(b2))
+        with observability.stage("io: scatter"):
+            out = native.trans_coo_balanced(indptr, b2, ct, s2, e2, w1, w2)
+            if out is not None:
+                return out
+            rows = np.repeat(np.arange(e1 - s1, dtype=np.int32), np.diff(indptr))
+            keep = (b2 >= s2) & (b2 < e2)
+            rows, cols, ct = rows[keep], (b2[keep] - s2).astype(np.int32), ct[keep]
+            if balance:
+                return rows, cols, (
+                    ct.astype(np.float64) * w1[rows] * w2[cols]).astype(np.float32)
+            return rows, cols, ct.astype(np.float32)
 
     def _check_balance(self, balance):
         if balance and self._weight is None:

@@ -16,6 +16,8 @@ from os.path import dirname, isdir
 
 import numpy as np
 
+from chromosight_torch import observability
+
 # seconds a download may wait on the network before it fails
 DOWNLOAD_TIMEOUT = 10
 
@@ -30,25 +32,28 @@ def _format_column(values, dec):
 
 def write_patterns(coords, output_prefix, dec=10):
     """Write the pattern table ``coords`` (a dict of columns or a
-    DataFrame) to ``<prefix>.tsv``."""
-    names = list(coords)
-    cols = [_format_column(coords[name], dec) for name in names]
-    lines = ["\t".join(names)]
-    lines += ["\t".join(row) for row in zip(*cols)]
-    with open(output_prefix + ".tsv", "w") as handle:
-        handle.write("\n".join(lines) + "\n")
+    DataFrame) to ``<prefix>.tsv`` (stage ``write: table``)."""
+    with observability.stage("write: table"):
+        names = list(coords)
+        cols = [_format_column(coords[name], dec) for name in names]
+        lines = ["\t".join(names)]
+        lines += ["\t".join(row) for row in zip(*cols)]
+        with open(output_prefix + ".tsv", "w") as handle:
+            handle.write("\n".join(lines) + "\n")
 
 
 def save_windows(windows, output_prefix, fmt="json"):
-    """Save the 3-D stack of windows around detected patterns."""
-    if fmt == "npy":
-        np.save(output_prefix + ".npy", windows)
-    elif fmt == "json":
-        json_wins = {idx: win.tolist() for idx, win in enumerate(windows)}
-        with open(output_prefix + ".json", "w") as handle:
-            json.dump(json_wins, handle, indent=4)
-    else:
+    """Save the 3-D stack of windows around detected patterns (stage
+    ``write: windows``)."""
+    if fmt not in ("npy", "json"):
         raise ValueError("window format must be either npy or json.")
+    with observability.stage("write: windows"):
+        if fmt == "npy":
+            np.save(output_prefix + ".npy", windows)
+        else:
+            json_wins = {idx: win.tolist() for idx, win in enumerate(windows)}
+            with open(output_prefix + ".json", "w") as handle:
+                json.dump(json_wins, handle, indent=4)
 
 
 def download_file(url, file, length=16 * 1024):

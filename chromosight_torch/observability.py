@@ -4,7 +4,13 @@ The port's counterpart of ``chromosight_tpu/observability.py``, with its
 names, dict keys, report format and environment variables:
 
 * ``stage(name)`` - context manager recording wall time per pipeline
-  stage (``device.stage`` wraps it with a device synchronise);
+  stage (``device.stage`` wraps it with a device synchronise) and, by
+  the spans open on the same thread, its self time (``self_seconds``);
+  while a ``torch.profiler`` records, also a ``stage: <name>`` range;
+* ``on_map(name)`` - the map whose work the calling thread does: under a
+  profiler a ``map: <name>`` range around its spans;
+* ``count(name, n)`` and ``counters()`` - work done at the spans'
+  boundaries (bytes read and decoded, pixels scattered, tiles);
 * ``add_bytes(channel, n)`` - bytes crossing the host-device link
   ("upload", "download"), counted on the CPU path too;
 * ``record_band_upload(name, ...)`` and ``band_uploads()`` - the form
@@ -35,6 +41,10 @@ from contextlib import contextmanager
 
 _STAGE_TOTALS = defaultdict(float)
 _STAGE_COUNTS = defaultdict(int)
+# per stage name: its seconds less those of the spans opened inside it on
+# the same thread
+_SELF_TOTALS = defaultdict(float)
+_COUNTERS = defaultdict(int)
 _BYTE_TOTALS = defaultdict(int)
 # map name -> {"mode", "exceptions", "shape"} of its last band upload
 _BAND_UPLOADS = {}
@@ -49,6 +59,9 @@ _ENABLED = os.environ.get("CHROMOSIGHT_TPU_TIMINGS", "") not in ("", "0")
 # scheduler's map workers, the tiled engine's device threads, the ICE
 # block pool); += on a dict slot is not atomic
 _LOCK = threading.Lock()
+# per thread: ``spans``, the child seconds of each span open on it,
+# innermost last
+_LOCAL = threading.local()
 
 # Public peak rates by card name, (FLOP/s, memory bytes/s).  The H100
 # SXM's FLOP/s is the float64 tensor-core peak (132 SMs x 128 FMA per
@@ -82,16 +95,37 @@ def band_uploads():
         return {name: dict(rec) for name, rec in _BAND_UPLOADS.items()}
 
 
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTERS[name] += int(n)
+
+
+def counters():
+    """{counter name: total} since the last ``reset`` (a copy)."""
+    with _LOCK:
+        return dict(_COUNTERS)
+
+
 def snapshot():
     """(stage_totals, stage_counts, byte_totals) copies for benchmarks."""
     with _LOCK:
         return dict(_STAGE_TOTALS), dict(_STAGE_COUNTS), dict(_BYTE_TOTALS)
 
 
-def reset():
-    """Clear accumulated stage, byte, band-upload and compute counters."""
+def self_seconds():
+    """{stage name: self seconds}: each stage's time less that of the
+    stages opened inside it on the same thread (a copy)."""
     with _LOCK:
-        for totals in (_STAGE_TOTALS, _STAGE_COUNTS, _BYTE_TOTALS, _BAND_UPLOADS, _DISPATCHES):
+        return dict(_SELF_TOTALS)
+
+
+def reset():
+    """Clear accumulated stage, self-time, counter, byte, band-upload and
+    compute totals."""
+    with _LOCK:
+        for totals in (_STAGE_TOTALS, _STAGE_COUNTS, _SELF_TOTALS, _COUNTERS, _BYTE_TOTALS,
+                       _BAND_UPLOADS, _DISPATCHES):
             totals.clear()
 
 
@@ -266,17 +300,58 @@ def device_peaks(device=None):
     return flops, rate, label
 
 
+def _range(label):
+    """A started ``torch.profiler`` range named ``label`` while a profiler
+    records (close it with ``__exit__``), else None; torch is loaded
+    wherever a profiler records."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    rec = torch.profiler.record_function(label)
+    rec.__enter__()
+    return rec
+
+
 @contextmanager
 def stage(name):
-    """Accumulate wall-clock time for a named pipeline stage."""
+    """Accumulate wall-clock time for a named pipeline stage: its total
+    and count, and its self time, less the stages opened inside it on the
+    same thread.  While a profiler records, the stage is also the range
+    ``stage: <name>``, so the device trace's idle gaps can be put down to
+    it."""
+    spans = getattr(_LOCAL, "spans", None)
+    if spans is None:
+        spans = _LOCAL.spans = []
+    spans.append(0.0)
+    rec = _range(f"stage: {name}")
     t0 = time.perf_counter()
     try:
         yield
     finally:
         dt = time.perf_counter() - t0
+        if rec is not None:
+            rec.__exit__(None, None, None)
+        children = spans.pop()
+        if spans:
+            spans[-1] += dt
         with _LOCK:
             _STAGE_TOTALS[name] += dt
             _STAGE_COUNTS[name] += 1
+            _SELF_TOTALS[name] += dt - children
+
+
+@contextmanager
+def on_map(name):
+    """The calling thread works on the map ``name`` inside: while a
+    profiler records, the range ``map: <name>`` holds the spans it opens
+    (``record_function``'s argument string does not reach the exported
+    trace).  Totals stay keyed by stage name alone."""
+    rec = _range(f"map: {name}")
+    try:
+        yield
+    finally:
+        if rec is not None:
+            rec.__exit__(None, None, None)
 
 
 def report(file=None):
@@ -286,9 +361,16 @@ def report(file=None):
     stages, counts, _ = snapshot()
     if not stages:
         return
+    own = self_seconds()
     file.write("\n-- chromosight-torch stage timings --\n")
     for name, total in sorted(stages.items(), key=lambda kv: -kv[1]):
-        file.write(f"  {name:<28} {total:8.3f}s  ({counts[name]} calls)\n")
+        file.write(f"  {name:<28} {total:8.3f}s  ({counts[name]} calls)  "
+                   f"self {own.get(name, 0.0):8.3f}s\n")
+    tallies = counters()
+    if tallies:
+        file.write("-- counters --\n")
+        for name, total in sorted(tallies.items()):
+            file.write(f"  {name:<28} {total:>16,d}\n")
     compute = compute_snapshot()
     if compute:
         file.write("-- compute accounting (per program family) --\n")
@@ -308,8 +390,8 @@ if _ENABLED:
 def maybe_trace():
     """A ``torch.profiler`` trace of the block (the CPU, and the card where
     there is one), written TensorBoard-readable into the directory
-    CHROMOSIGHT_TPU_PROFILE names; without it, nothing (torch.profiler is
-    not imported)."""
+    CHROMOSIGHT_TPU_PROFILE names, the stages as ``stage: <name>``
+    ranges; without it, nothing (torch.profiler is not imported)."""
     trace_dir = os.environ.get("CHROMOSIGHT_TPU_PROFILE")
     if not trace_dir:
         yield

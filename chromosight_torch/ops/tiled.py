@@ -30,13 +30,14 @@ of one map round-robin over them, one thread and stream each
 assembled in batch order, so the output does not depend on the devices.
 
 The results come back as scipy CSR matrices on the host, as the JAX
-package returns them.  ``TILES`` counts the tiles scanned, skipped and
-scattered.
+package returns them.  ``observability.counters()`` holds the tiles
+scanned, skipped and scattered (``tiles: <name>``) and, of the Pearson
+scans, the batches, the Pearson calls (``tiles: launches``) and the
+kept pixels; each batch's steps are the stages ``tile: scatter``,
+``tile: mask``, ``tile: pearson`` and ``tile: kept``.
 """
 
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
@@ -80,17 +81,13 @@ PEARSON_TILES = 2
 # pixels forms its window sums by scatter-add: entries x taps of work
 # against pixels x taps for the dense float64 conv2d.
 SCATTER_DENSITY = 1 / 16
-# Tiles scanned, skipped (their block held no signal), and scanned with
-# the scatter-add numerator, since the last reset, over every call;
-# updated under _LOCK (batches run on several threads).
-TILES = {"scanned": 0, "skipped": 0, "scattered": 0}
-_LOCK = threading.Lock()
 
 
-def _count(**counts):
-    with _LOCK:
-        for key, value in counts.items():
-            TILES[key] += value
+def _count_tiles(tiles):
+    """Count the tiles of a scan: scanned, and skipped (their block held
+    no signal)."""
+    observability.count("tiles: scanned", len(tiles.ids))
+    observability.count("tiles: skipped", tiles.n_tiles - len(tiles.ids))
 
 
 def _tile_size(tile):
@@ -180,7 +177,7 @@ class _Tiles:
         (the Pearson then convolves ``blocks``)."""
         if hi - lo > SCATTER_DENSITY * blocks.numel():
             return None
-        _count(scattered=blocks.shape[0])
+        observability.count("tiles: scattered", blocks.shape[0])
         return window_sums_entries(
             slot, self.slot_rows[lo:hi], self.slot_cols[lo:hi],
             values[self.src[lo:hi]], blocks.shape, taps,
@@ -327,8 +324,10 @@ def normxcorr2_sparse_tiled(
             raise ValueError("missing_vectors only supports sym_upper=False maps")
         if missing_mask is not None:
             raise ValueError("pass missing_mask or missing_vectors, not both")
-    framed = zero_pad_sparse(signal, nk - 1, mk - 1, fmt="csr") if full else signal
-    rows, cols, vals = _coo(framed, np.float32)
+    with observability.stage("host: frame"):
+        framed = zero_pad_sparse(signal, nk - 1, mk - 1, fmt="csr") if full else signal
+    with observability.stage("host: coo"):
+        rows, cols, vals = _coo(framed, np.float32)
     Ms, Ns = framed.shape
     mrows = mcols = None
     if missing_mask is not None:
@@ -372,61 +371,69 @@ def normxcorr2_sparse_tiled(
             mask_ids = {int(t): k for k, t in enumerate(mask_tiles.ids)}
             mask_true = torch.ones(len(mrows), dtype=torch.bool, device=device)
         if which == 0:
-            _count(scanned=len(tiles.ids), skipped=tiles.n_tiles - len(tiles.ids))
+            _count_tiles(tiles)
         parts = {}
         for index, (ids, lo, hi, slot) in enumerate(tiles.batches(TILE_BATCH)):
             if index % len(devices) != which:
                 continue
-            blocks = tiles.scatter(ids, lo, hi, slot, values, torch.float32)
-            r0, c0 = tiles.origins(ids, device)
+            observability.count("tiles: batches")
+            with observability.stage("tile: scatter"):
+                blocks = tiles.scatter(ids, lo, hi, slot, values, torch.float32)
+                r0, c0 = tiles.origins(ids, device)
             mblocks = rvb = cvb = None
-            if vectors is not None:
-                rvb = tiles.vector_blocks(vectors[0], r0, tiles.bm, hm0)
-                cvb = tiles.vector_blocks(vectors[1], c0, tiles.bn, hn0)
-                if not crossing:
-                    mblocks = rvb[:, :, None] | cvb[:, None, :]
-            elif mask_tiles is not None:
-                mblocks = torch.zeros(blocks.shape, dtype=torch.bool, device=device)
-                for k, t in enumerate(ids.tolist()):
-                    j = mask_ids.get(t)
-                    if j is None:
-                        continue
-                    m_lo, m_hi = int(mask_tiles.starts[j]), int(mask_tiles.starts[j + 1])
-                    mblocks[k].index_put_(
-                        (mask_tiles.slot_rows[m_lo:m_hi], mask_tiles.slot_cols[m_lo:m_hi]),
-                        mask_true[mask_tiles.src[m_lo:m_hi]],
-                    )
+            with observability.stage("tile: mask"):
+                if vectors is not None:
+                    rvb = tiles.vector_blocks(vectors[0], r0, tiles.bm, hm0)
+                    cvb = tiles.vector_blocks(vectors[1], c0, tiles.bn, hn0)
+                    if not crossing:
+                        mblocks = rvb[:, :, None] | cvb[:, None, :]
+                elif mask_tiles is not None:
+                    mblocks = torch.zeros(blocks.shape, dtype=torch.bool, device=device)
+                    for k, t in enumerate(ids.tolist()):
+                        j = mask_ids.get(t)
+                        if j is None:
+                            continue
+                        m_lo, m_hi = int(mask_tiles.starts[j]), int(mask_tiles.starts[j + 1])
+                        mblocks[k].index_put_(
+                            (mask_tiles.slot_rows[m_lo:m_hi], mask_tiles.slot_cols[m_lo:m_hi]),
+                            mask_true[mask_tiles.src[m_lo:m_hi]],
+                        )
             mask_args = (rvb, cvb) if crossing else (mblocks,)
             observability.account_dispatch("tiled_batch", batch_cost, blocks, kernel,
                                            *mask_args)
-            sums = None
-            if tsvd_pack is None:
-                sums = tiles.window_sums(lo, hi, slot, values, blocks, k_num)
-            pieces = []
-            for b0 in range(0, len(ids), PEARSON_TILES):
-                cut = slice(b0, b0 + PEARSON_TILES)
-                part = None if sums is None else tuple(t[cut] for t in sums)
-                if crossing:
-                    pieces.append(crossing_pearson(
-                        blocks[cut], rvb[cut], cvb[cut], kernel, missing_tol, sums=part
-                    ))
-                else:
-                    mask = None if mblocks is None else mblocks[cut]
-                    pieces.append(pearson_valid(
-                        blocks[cut], mask, kernel, tsvd_pack, missing_tol, sums=part
-                    ))
-            del blocks, mblocks, sums
-            out = torch.cat([o for o, _ in pieces])
-            n_pres = None if pieces[0][1] is None else torch.cat([n for _, n in pieces])
-            del pieces
-            # kept pixels chosen on the float32 corr; log10 p from the float64
-            b, i, j, gi, gj = _kept(out.float(), r0, c0, T, (Ms, Ns), halo, sym_upper,
-                                    keep_min)
-            corr64 = out[b, i, j]
-            n_obs = n_pres[b, i, j] if window_nobs else torch.full_like(corr64, float(ksize))
-            corr, logp = rounded_pearson(corr64, n_obs, log10_pvalue)
-            logp = logp if pval else corr
-            parts[index] = tuple(download(t) for t in (gi, gj, corr, logp))
+            with observability.stage("tile: pearson"):
+                sums = None
+                if tsvd_pack is None:
+                    sums = tiles.window_sums(lo, hi, slot, values, blocks, k_num)
+                pieces = []
+                for b0 in range(0, len(ids), PEARSON_TILES):
+                    cut = slice(b0, b0 + PEARSON_TILES)
+                    part = None if sums is None else tuple(t[cut] for t in sums)
+                    if crossing:
+                        pieces.append(crossing_pearson(
+                            blocks[cut], rvb[cut], cvb[cut], kernel, missing_tol, sums=part
+                        ))
+                    else:
+                        mask = None if mblocks is None else mblocks[cut]
+                        pieces.append(pearson_valid(
+                            blocks[cut], mask, kernel, tsvd_pack, missing_tol, sums=part
+                        ))
+                observability.count("tiles: launches", len(pieces))
+                del blocks, mblocks, sums
+                out = torch.cat([o for o, _ in pieces])
+                n_pres = None if pieces[0][1] is None else torch.cat([n for _, n in pieces])
+                del pieces
+            with observability.stage("tile: kept"):
+                # kept pixels chosen on the float32 corr; log10 p from the float64
+                b, i, j, gi, gj = _kept(out.float(), r0, c0, T, (Ms, Ns), halo, sym_upper,
+                                        keep_min)
+                observability.count("tiles: kept pixels", len(b))
+                corr64 = out[b, i, j]
+                n_obs = (n_pres[b, i, j] if window_nobs
+                         else torch.full_like(corr64, float(ksize)))
+                corr, logp = rounded_pearson(corr64, n_obs, log10_pvalue)
+                logp = logp if pval else corr
+                parts[index] = tuple(download(t) for t in (gi, gj, corr, logp))
             del out, n_pres
         return parts
 
@@ -466,7 +473,7 @@ def xcorr2_sparse_tiled(signal, kernel, threshold=DEFAULT_THRESHOLD, tile=None,
     halo = ((hm0, hn0), (mk - 1 - hm0, nk - 1 - hn0))
     tiles = _Tiles(rows, cols, (Ms, Ns), T, (mk, nk), device)
     values = upload(vals, device)
-    _count(scanned=len(tiles.ids), skipped=tiles.n_tiles - len(tiles.ids))
+    _count_tiles(tiles)
     parts = []
     for ids, lo, hi, slot in tiles.batches(TILE_BATCH):
         blocks = tiles.scatter(ids, lo, hi, slot, values, torch.float32)

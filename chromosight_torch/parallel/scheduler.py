@@ -30,7 +30,9 @@ the worker's reads of it.
 
 Two stages say where a pipelined scan waits: ``schedule: producer
 wait``, the producer blocked on a busy worker, and ``schedule: result
-wait``, the caller blocked on the next map's result.
+wait``, the caller blocked on the next map's result.  A map's creation
+and task run inside ``observability.on_map``, so a profiler's trace
+puts their stages inside the map's range.
 """
 
 from __future__ import annotations
@@ -111,13 +113,14 @@ class MapScheduler:
 
     def _serial(self, items, task, keep):
         for _, cm in items:
-            if not _created(cm):
-                cm.create_mat()
-            try:
-                result = task(cm)
-            finally:
-                if not keep:
-                    cm.destroy_mat()
+            with observability.on_map(cm.name):
+                if not _created(cm):
+                    cm.create_mat()
+                try:
+                    result = task(cm)
+                finally:
+                    if not keep:
+                        cm.destroy_mat()
             _record("serial", 0, cm.device)
             yield result
 
@@ -138,7 +141,7 @@ class MapScheduler:
                     try:
                         if stop.is_set():
                             raise RuntimeError("scan stopped")
-                        with collect(logs[pos]):
+                        with collect(logs[pos]), observability.on_map(cm.name):
                             result = task(cm)
                     except BaseException as exc:
                         error = exc
@@ -184,7 +187,8 @@ class MapScheduler:
                         if cm.device not in streams:
                             streams[cm.device] = new_stream(cm.device)
                         stream = streams[cm.device]
-                        with on_stream(cm.device, stream), collect(logs[pos]):
+                        with on_stream(cm.device, stream), collect(logs[pos]), \
+                                observability.on_map(cm.name):
                             cm.create_mat()
                             if stream is not None:
                                 stream.synchronize()

@@ -33,6 +33,7 @@ import scipy.sparse as sp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+import chromosight_torch.observability as observability  # noqa: E402
 import chromosight_torch.ops.tiled as tiled  # noqa: E402
 from chromosight_torch.io.config import load_kernel_config  # noqa: E402
 
@@ -97,7 +98,7 @@ def main():
         (4096, 2, defaults[2]), (2048, 8, 0.0), (2048, 8, defaults[2]),
     ):
         tiled.DEFAULT_TILE, tiled.TILE_BATCH, tiled.SCATTER_DENSITY = tile, batch, density
-        tiled.TILES.update(scanned=0, skipped=0, scattered=0)
+        observability.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scan()
@@ -105,7 +106,8 @@ def main():
         wall = time.perf_counter() - t0
         print(f"[scan] {SHAPE[0]}x{SHAPE[1]} at {DENSITY:g}: tile {tile}, batch {batch}, "
               f"window sums by {'scatter-add' if density else 'conv2d'}: {wall:.3f} s, "
-              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {tiled.TILES}")
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              f"{observability.counters()}")
     tiled.DEFAULT_TILE, tiled.TILE_BATCH, tiled.SCATTER_DENSITY = defaults
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         scan()

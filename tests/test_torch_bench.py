@@ -25,7 +25,7 @@ import torch
 
 import chromosight_torch.bench.detect as tbench
 import chromosight_torch.kernels as ck
-import chromosight_torch.ops.tiled as tiled
+import chromosight_torch.observability as observability
 import chromosight_torch.runtime.contact_map as contact_map
 from chromosight_torch.bench import baseline, baseline_configs, genome, inter, quantify
 from torch_parity import torch_one_thread  # noqa: F401
@@ -264,7 +264,6 @@ def test_inter_bench_matches_jax(tmp_path, monkeypatch, capsys, engine):
     if engine == "tiled":
         monkeypatch.setattr(contact_map, "DENSE_LIMIT", 50)
         monkeypatch.setenv("CHROMOSIGHT_TPU_DENSE_LIMIT", "50")
-    tiled.TILES.update(scanned=0, skipped=0, scattered=0)
     path = str(genome.ensure_genome(2, 2000, genome.TRANS_DENSITY, seed=4))
     records = inter.main([path, "2"], device="cpu")
     lines = capsys.readouterr().out.strip().splitlines()
@@ -274,7 +273,7 @@ def test_inter_bench_matches_jax(tmp_path, monkeypatch, capsys, engine):
     n_ref = len(pd.read_csv(prefix + ".tsv", sep="\t"))
     assert [r["calls"] for r in records] == [n_ref, n_ref] and n_ref > 0
     assert all(r["rc"] == 0 and r["device"] == "cpu" for r in records)
-    assert (tiled.TILES["scanned"] > 0) == (engine == "tiled")
+    assert (observability.counters().get("tiles: scanned", 0) > 0) == (engine == "tiled")
 
 
 @pytest.mark.parametrize("row", list(EXAMPLE_ROWS))

@@ -374,7 +374,8 @@ for limit, suffix in ((8192, "_inter"), (50, "_tiled")):
     argv = ["detect", "--no-plotting", "--inter", "--max-dist", "60000",
             {str(EXAMPLE_NPZ)!r}, {prefix!r} + suffix]
     assert cli.main(argv, device="cpu") == 0
-assert tiled.TILES["scanned"] > 0
+import chromosight_torch.observability as observability
+assert observability.counters()["tiles: scanned"] > 0
 assert cli.main(["list-kernels", "--long", "--mat"]) == 0
 assert cli.main(["generate-config", "--preset", "borders", {prefix + "_cfg"!r}]) == 0
 

@@ -22,6 +22,7 @@ import scipy.sparse as sp
 import torch
 
 import chromosight_torch.detection as tdet
+import chromosight_torch.observability as obs
 import chromosight_torch.ops.tiled as ttiled
 import chromosight_torch.runtime.contact_map as tcm
 import chromosight_tpu.detection as jdet
@@ -363,9 +364,9 @@ def test_detect_inter_reproduces_golden(tmp_path, path, request):
     (tests/test_golden_outputs.py:192-196)."""
     if path == "tiled":
         request.getfixturevalue("tiled_path")
-    before = dict(ttiled.TILES)
+    before = obs.counters().get("tiles: scanned", 0)
     ours = _run_detect(str(tmp_path / "out"))
-    scanned = ttiled.TILES["scanned"] - before["scanned"]
+    scanned = obs.counters().get("tiles: scanned", 0) - before
     assert (scanned > 0) == (path == "tiled")
     golden = pd.read_csv(DATA / "golden_detect_loops_inter.tsv", sep="\t")
     assert len(ours) == len(golden)

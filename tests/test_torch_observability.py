@@ -14,6 +14,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -301,3 +302,285 @@ def test_maybe_trace_starts_no_profiler_unless_asked(tmp_path, monkeypatch):
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     traces = list(trace_dir.glob("*.pt.trace.json"))
     assert len(traces) == 1 and "aten::mm" in traces[0].read_text()
+
+
+# -- spans, self time and counters ------------------------------------- #
+def _spin(seconds):
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        pass
+
+
+def test_self_time_of_nested_spans():
+    """A span's self time is its duration less its children's on the same
+    thread; the totals and counts keep their meaning."""
+    with obs.stage("outer"):
+        _spin(0.01)
+        with obs.stage("inner"):
+            _spin(0.02)
+            with obs.stage("leaf"):
+                _spin(0.01)
+        with obs.stage("inner"):
+            pass
+    totals, counts, _ = obs.snapshot()
+    own = obs.self_seconds()
+    assert counts == {"outer": 1, "inner": 2, "leaf": 1}
+    assert own["leaf"] == pytest.approx(totals["leaf"])
+    assert own["inner"] == pytest.approx(totals["inner"] - totals["leaf"])
+    assert own["outer"] == pytest.approx(totals["outer"] - totals["inner"])
+    assert own["outer"] >= 0.01 and own["inner"] >= 0.02
+
+
+def test_spans_of_another_thread_are_not_children():
+    """A span opened on another thread while one is open here subtracts
+    nothing from it: each thread has its own stack."""
+    import threading
+
+    def work():
+        with obs.stage("worker"):
+            _spin(0.03)
+
+    with obs.stage("main"):
+        thread = threading.Thread(target=work)
+        thread.start()
+        thread.join(timeout=30)
+        assert not thread.is_alive()
+    totals, _, _ = obs.snapshot()
+    own = obs.self_seconds()
+    assert totals["worker"] >= 0.03
+    assert own["main"] == pytest.approx(totals["main"])
+    assert own["worker"] == pytest.approx(totals["worker"])
+
+
+def test_counters_from_several_threads_and_reset():
+    """``count`` adds under the lock from many threads at once (more
+    threads than cores, the switch interval shortened); ``reset`` clears
+    the counters and the self times."""
+    import threading
+
+    n_threads, n_adds = 4 * (os.cpu_count() or 1), 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def add():
+            for _ in range(n_adds):
+                obs.count("test: adds")
+                obs.count("test: pairs", 2)
+
+        threads = [threading.Thread(target=add) for _ in range(n_threads)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=120)
+        assert not any(thread.is_alive() for thread in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert obs.counters() == {"test: adds": n_threads * n_adds,
+                              "test: pairs": 2 * n_threads * n_adds}
+    got = obs.counters()
+    got["test: adds"] = 0
+    assert obs.counters()["test: adds"] == n_threads * n_adds
+    with obs.stage("s"):
+        pass
+    obs.reset()
+    assert obs.counters() == {} and obs.self_seconds() == {}
+
+
+def test_report_prints_self_time_and_counters():
+    with obs.stage("outer"):
+        with obs.stage("inner"):
+            pass
+    obs.count("io: pixels scattered", 1234567)
+    out = io.StringIO()
+    obs.report(out)
+    text = out.getvalue()
+    assert "outer" in text and " self " in text
+    assert "-- counters --" in text and "1,234,567" in text
+
+
+def test_no_profiler_range_without_a_profiler(monkeypatch, tmp_path):
+    """Without a profiler recording, neither a stage nor a map's work
+    enters a ``record_function`` range, through a whole CPU detect."""
+    import torch.autograd.profiler
+    import torch.profiler
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler range was opened")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    with obs.stage("s"), obs.on_map("chr1-chr1"):
+        pass
+    from chromosight_torch.cli.main import main
+
+    argv = ["detect", "--no-plotting", str(EXAMPLE_NPZ), str(tmp_path / "out")]
+    assert main(argv, device="cpu") == 0
+    assert obs.snapshot()[1]["command"] == 1
+
+
+def _ranges(trace_file):
+    """[(name, start, end, tid)] of the ``stage:`` and ``map:`` ranges of
+    a Chrome trace, in microseconds."""
+    import json
+
+    events = json.loads(pathlib.Path(trace_file).read_text())["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["tid"])
+            for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and str(e["name"]).startswith(("stage: ", "map: "))]
+
+
+def _inside(inner, outer):
+    return outer[3] == inner[3] and outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize("source", ["example.cool", "example_cooler_layout.cool"])
+def test_detect_trace_holds_the_spans(tmp_path, source):
+    """A CPU detect under ``torch.profiler`` exports ranges ``stage:
+    <name>`` on the profiler's clock: ``command`` encloses the genome's
+    open, the reader's read (and, in cooler's compressed layout, its
+    decode), its scatter and both writes; each map's stages lie in its
+    ``map: <name>`` range; ``command``'s duration is its self time plus
+    its direct children's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chromosight_torch.cli.main import main
+
+    path = ROOT / ("data_test" if source == "example.cool" else "tests/data") / source
+    argv = ["detect", "--no-plotting", str(path), str(tmp_path / "out")]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert main(argv, device="cpu") == 0
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    ranges = _ranges(tmp_path / "trace.json")
+    (command,) = [r for r in ranges if r[0] == "stage: command"]
+    names = {r[0] for r in ranges if _inside(r, command)}
+    wanted = {"genome: open", "genome: normalize", "genome: maps", "io: read", "io: scatter",
+              "io: fetch+scatter", "host: write", "write: table", "write: windows"}
+    if source != "example.cool":
+        wanted |= {"io: decode", "io: index"}
+    assert {f"stage: {n}" for n in wanted} <= names
+    maps = [r for r in ranges if r[0].startswith("map: ")]
+    assert sorted(r[0] for r in maps) == ["map: chr1-chr1", "map: chr2-chr2", "map: chr3-chr3"]
+    fetches = [r for r in ranges if r[0] == "stage: io: fetch+scatter"]
+    assert len(fetches) == 3
+    for fetch in fetches:
+        assert sum(_inside(fetch, m) for m in maps) == 1
+
+    # the stages directly inside ``command``: each name sits at one depth
+    stages = [r for r in ranges if r[0].startswith("stage: ")]
+
+    def parent(r):
+        outer = [o for o in stages if o is not r and _inside(r, o)]
+        return min(outer, key=lambda o: o[2] - o[1]) if outer else None
+
+    direct = {r[0][len("stage: "):] for r in stages if parent(r) is command}
+    deeper = {r[0][len("stage: "):] for r in stages if r is not command
+              and parent(r) is not command}
+    assert not direct & deeper
+    assert {"genome: open", "io: fetch+scatter", "host: write"} <= direct
+    assert {"io: read", "io: scatter", "write: table"} <= deeper
+    totals = obs.snapshot()[0]
+    children = sum(totals[name] for name in direct)
+    assert totals["command"] == pytest.approx(obs.self_seconds()["command"] + children, abs=1e-3)
+
+
+def test_detect_runs_under_the_benchmarks_stage_wrapper(tmp_path):
+    """The benchmark's traced runs wrap ``observability.stage`` in a range
+    of the same name (``perfbench.harness.stage_annotations``); a CPU
+    detect under that wrapper and a profiler completes, with the ranges
+    doubled and the totals counted once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chromosight_torch.cli.main import main
+    from perfbench import harness
+
+    timer = obs.stage
+    try:
+        harness.stage_annotations()
+        argv = ["detect", "--no-plotting", str(EXAMPLE_NPZ), str(tmp_path / "out")]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            assert main(argv, device="cpu") == 0
+    finally:
+        obs.stage = timer
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    commands = [r for r in _ranges(tmp_path / "trace.json") if r[0] == "stage: command"]
+    assert len(commands) == 2 and obs.snapshot()[1]["command"] == 1
+    assert (tmp_path / "out.tsv").read_bytes().count(b"\n") == 90
+
+
+def test_tile_counters(monkeypatch):
+    """The tiled engine's counters at a scan: tiles scanned and skipped
+    over the grid, one batch per ``TILE_BATCH`` scanned tiles, one Pearson
+    call per ``PEARSON_TILES`` tiles of a batch, and the kept pixels
+    (before the frame is cropped)."""
+    import scipy.sparse as sp
+
+    import chromosight_torch.ops.tiled as tiled
+
+    monkeypatch.setattr(tiled, "TILE_BATCH", 3)
+    rng = np.random.RandomState(3)
+    signal = sp.random(300, 420, density=0.01, random_state=rng, format="csr")
+    signal = signal.tolil()
+    signal[:, 250:] = 0
+    kernel = np.ones((5, 5)) + rng.rand(5, 5)
+    corr, _ = tiled.normxcorr2_sparse_tiled(signal.tocsr(), kernel, full=True, tile=64,
+                                            device="cpu")
+    got = obs.counters()
+    n_tiles = -(-(300 + 8) // 64) * -(-(420 + 8) // 64)
+    scanned = got["tiles: scanned"]
+    assert scanned + got["tiles: skipped"] == n_tiles and got["tiles: skipped"] > 0
+    assert got["tiles: batches"] == -(-scanned // 3)
+    batches = [min(3, scanned - k) for k in range(0, scanned, 3)]
+    assert got["tiles: launches"] == sum(-(-b // tiled.PEARSON_TILES) for b in batches)
+    assert got["tiles: kept pixels"] >= corr.nnz > 0
+
+
+def test_reader_counters_of_a_compressed_file(tmp_path):
+    """The reader's counters on cooler's compressed layout: every pixel of
+    the three chromosomes' rows scattered once (the u4 count path), the
+    chunks decoded and their bytes, and the compressed bytes read, fewer
+    than those decoded (a chunk across two chromosomes is read by both
+    maps)."""
+    from chromosight_torch.cli.main import main
+    from chromosight_torch.io.cool import CoolFile
+
+    path = ROOT / "tests" / "data" / "example_cooler_layout.cool"
+    argv = ["detect", "--no-plotting", str(path), str(tmp_path / "out")]
+    assert main(argv, device="cpu") == 0
+    got = obs.counters()
+    clr = CoolFile(str(path))
+    assert got["io: pixels scattered"] == clr.nnz
+    assert got["io: chunks decoded"] > 0
+    assert 0 < got["io: bytes read"] < got["io: bytes decoded"]
+
+
+@pytest.mark.parametrize("decline", ["u4", "native decode"])
+def test_reader_counts_once_where_a_fast_path_declines(tmp_path, monkeypatch, decline):
+    """Where the u4 packing declines (its exceptions outgrow what it
+    saves) the pixels are still counted once, by the form that takes them;
+    where the threaded native decode declines, the chunk-by-chunk decode
+    that follows counts its own reads and chunks, and the declined read is
+    not counted beside them."""
+    from chromosight_torch import native
+    from chromosight_torch.cli.main import main
+    from chromosight_torch.io.cool import CoolFile
+
+    path = ROOT / "tests" / "data" / "example_cooler_layout.cool"
+
+    def run(prefix):
+        obs.reset()
+        assert main(["detect", "--no-plotting", str(path), str(tmp_path / prefix)],
+                    device="cpu") == 0
+        return obs.counters()
+
+    fast = run("fast")
+    if decline == "u4":
+        monkeypatch.setattr(native, "band_scatter_counts_u4_indptr", lambda *a, **k: None)
+    else:
+        monkeypatch.setattr(native, "inflate_chunks", lambda *a, **k: False)
+        monkeypatch.setattr(native, "szip_chunks", lambda *a, **k: False)
+    got = run("declined")
+    assert got["io: pixels scattered"] == fast["io: pixels scattered"] == CoolFile(str(path)).nnz
+    assert got["io: chunks decoded"] == fast["io: chunks decoded"] > 0
+    assert got["io: bytes decoded"] == fast["io: bytes decoded"]
+    # the native path reads whole runs of nearby chunks, gaps included
+    assert 0 < got["io: bytes read"] <= fast["io: bytes read"]

@@ -13,6 +13,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import chromosight_torch.observability as obs
 import chromosight_torch.ops.tiled as ttiled
 import chromosight_tpu.preprocessing as jpre
 import chromosight_torch.ops.convolve as convolve
@@ -89,9 +90,10 @@ def test_tiled_matches_jax_and_dense(form, keep_min, numerator, monkeypatch):
     args = dict(full=True, pval=True, missing_tol=0.5, keep_min=keep_min)
     kw = _kwargs(form, miss_r, miss_c, signal.shape)
     ref = j_tiled(signal, kernel, tile=TILE, **args, **kw)
-    before = dict(ttiled.TILES)
+    before = obs.counters()
     got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args, **kw)
-    seen = sum(ttiled.TILES[k] - before[k] for k in ("scanned", "skipped"))
+    after = obs.counters()
+    seen = sum(after[k] - before.get(k, 0) for k in ("tiles: scanned", "tiles: skipped"))
     assert seen == 6 * 8  # the framed 332 x 452 map
     assert all(sp.issparse(m) and m.shape == SHAPE for m in got)
     both = assert_same_csr(ref[0], got[0], keep_min=keep_min)
@@ -164,10 +166,11 @@ def test_tiled_skips_empty_tiles():
     signal[:, 200:] = 0
     signal = signal.tocsr()
     args = dict(full=True, pval=True, missing_tol=0.5, missing_vectors=(miss_r, miss_c))
-    before = dict(ttiled.TILES)
+    before = obs.counters()
     got = ttiled.normxcorr2_sparse_tiled(signal, kernel, tile=TILE, device="cpu", **args)
-    scanned = ttiled.TILES["scanned"] - before["scanned"]
-    skipped = ttiled.TILES["skipped"] - before["skipped"]
+    after = obs.counters()
+    scanned = after["tiles: scanned"] - before.get("tiles: scanned", 0)
+    skipped = after["tiles: skipped"] - before.get("tiles: skipped", 0)
     assert scanned + skipped == 5 * 7 and skipped >= 10  # the framed 316 x 436 map
     assert_same_csr(j_tiled(signal, kernel, tile=TILE, **args)[0], got[0])
 
