@@ -5,6 +5,11 @@ equal-length numpy columns in output order.  ``write_patterns`` writes
 the bytes pandas' ``to_csv(sep="\\t", index=None, float_format="%.10f")``
 writes: a tab-joined header, integers without decimals, floats with ten
 decimals, NaN as an empty field, one ``\\n``-terminated line per row.
+``save_windows(..., fmt="json")`` writes the bytes
+``json.dump({i: window.tolist()}, handle, indent=4)`` writes; a 3-D stack
+of a float dtype is widened to float64 and formatted natively
+(``native.json_windows``, on ``hdf5.THREADS`` threads), anything else,
+or any stack without the native library, goes through ``json.dump``.
 """
 
 from __future__ import annotations
@@ -12,14 +17,17 @@ from __future__ import annotations
 import json
 import shutil
 import sys
-from os.path import dirname, isdir
+from os.path import dirname, getsize, isdir
 
 import numpy as np
 
-from chromosight_torch import observability
+from chromosight_torch import native, observability
+from chromosight_torch.io.hdf5 import THREADS
 
 # seconds a download may wait on the network before it fails
 DOWNLOAD_TIMEOUT = 10
+# values the native JSON formatter holds as text at a time (~15 MB)
+JSON_BLOCK_VALUES = 1 << 19
 
 
 def _format_column(values, dec):
@@ -51,9 +59,28 @@ def save_windows(windows, output_prefix, fmt="json"):
         if fmt == "npy":
             np.save(output_prefix + ".npy", windows)
         else:
-            json_wins = {idx: win.tolist() for idx, win in enumerate(windows)}
-            with open(output_prefix + ".json", "w") as handle:
-                json.dump(json_wins, handle, indent=4)
+            _save_json(windows, output_prefix + ".json")
+
+
+def _save_json(windows, path):
+    """``json.dump({i: window.tolist()}, indent=4)``'s bytes at ``path``,
+    counted as ``write: windows native`` or ``write: windows fallback``
+    and ``write: window bytes``."""
+    if (isinstance(windows, np.ndarray) and windows.ndim == 3
+            and windows.dtype.kind == "f" and windows.dtype.itemsize <= 8):
+        # float16 and float32 widen exactly: tolist() gives these doubles
+        stack = np.ascontiguousarray(windows, dtype=np.float64)
+        block = max(1, JSON_BLOCK_VALUES // max(1, stack.shape[1] * stack.shape[2]))
+        nbytes = native.json_windows(path, stack, block, THREADS)
+        if nbytes is not None:
+            observability.count("write: windows native", len(stack))
+            observability.count("write: window bytes", nbytes)
+            return
+    json_wins = {idx: win.tolist() for idx, win in enumerate(windows)}
+    with open(path, "w") as handle:
+        json.dump(json_wins, handle, indent=4)
+    observability.count("write: windows fallback", len(json_wins))
+    observability.count("write: window bytes", getsize(path))
 
 
 def download_file(url, file, length=16 * 1024):

@@ -26,6 +26,12 @@ filters) and ``aec.cpp`` (the szip filter's decoder and encoder, with
 ``aec_decode`` take their Python and numpy versions under the same rule,
 ``inflate_chunks`` and ``szip_chunks`` leave their chunks to the caller's
 Python decoding, and ``szip_encode_chunks`` (the writer's) raises.
+
+The window writer's formatter, ``jsonwin.cpp``, is built the same way into
+a library of its own: ``json_windows`` writes a float64 stack of windows
+as ``json.dump(..., indent=4)`` writes it, byte for byte, on threads, and
+returns None without the library, when ``io.writers.save_windows`` calls
+``json.dump`` itself.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ _SHUFFLE_SRC = pathlib.Path(__file__).parent / "shuffle.cpp"
 _INFLATE_SRC = pathlib.Path(__file__).parent / "inflate.cpp"
 _BITS_SRC = pathlib.Path(__file__).parent / "bits.cpp"
 _AEC_SRC = pathlib.Path(__file__).parent / "aec.cpp"
+_JSONWIN_SRC = pathlib.Path(__file__).parent / "jsonwin.cpp"
 BUILD_DIR = pathlib.Path(__file__).parents[2] / "build" / "chromosight_torch" / "native"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LIB = None
@@ -1007,7 +1014,8 @@ def marginal_sums(b1, b2, counts, bias, n_bins):
 def _filter_lib(src):
     """The library built from ``src`` (``lzf.cpp``, ``shuffle.cpp``,
     ``bits.cpp``, ``inflate.cpp`` with ``shuffle.cpp`` and zlib, or
-    ``aec.cpp`` with ``shuffle.cpp``: the HDF5 reader's filters) with g++
+    ``aec.cpp`` with ``shuffle.cpp``: the HDF5 reader's filters; or
+    ``jsonwin.cpp``, the window writer's formatter) with g++
     at first use, beside ``kernels.cpp``'s, or None under
     CHROMOSIGHT_TPU_NO_NATIVE or when it cannot be built or loaded (as
     ``get_lib``); tried once per process."""
@@ -1057,6 +1065,11 @@ def _filter_lib(src):
                     lib.hdf5_szip_encode_chunks.argtypes = [
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                         *[ctypes.c_int] * 4, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ]
+                elif lib is not None and name == "jsonwin":
+                    lib.json_windows_write.restype = ctypes.c_int64
+                    lib.json_windows_write.argtypes = [
+                        ctypes.c_char_p, ctypes.c_void_p, *[ctypes.c_int64] * 5,
                     ]
                 elif lib is not None and name == "inflate":
                     lib.hdf5_inflate_chunks.restype = ctypes.c_int64
@@ -1588,3 +1601,24 @@ def szip_encode_chunks(flat, chunk_bytes, values, element, threads):
         _aec_check(got, len(flat), len(flat))
     return [(slots[k, : lengths[k]].tobytes(), True) if lengths[k] else
             (slots[k, :chunk_bytes].tobytes(), False) for k in range(n)]
+
+
+def json_windows(path, windows, block, threads):
+    """Write the stack ``windows`` (a 3-D C-contiguous float64 array) to a
+    new file at ``path`` as ``json.dump({i: window.tolist()}, handle,
+    indent=4)`` writes it, byte for byte, with ``jsonwin.cpp``: ``block``
+    windows at a time on ``threads`` threads.  Returns the bytes written,
+    or None without the library (CHROMOSIGHT_TPU_NO_NATIVE, no compiler),
+    and then nothing was written; raises OSError when the file cannot be
+    opened or written."""
+    lib = _filter_lib(_JSONWIN_SRC)
+    if lib is None:
+        return None
+    if (windows.ndim != 3 or windows.dtype != np.float64
+            or not windows.flags.c_contiguous or block < 1):
+        raise ValueError("json_windows takes a C-contiguous 3-D float64 stack")
+    got = lib.json_windows_write(os.fsencode(path), windows.ctypes.data, *windows.shape,
+                                 int(block), int(threads))
+    if got < 0:
+        raise OSError(-got, os.strerror(-got), os.fspath(path))
+    return got
