@@ -2,10 +2,11 @@
 
     python3 perfbench/calibrate.py <cell> [--control N] [--fault NAME] <seed> [<seed> ...]
 
-For each seed, in one process: the cell's genome and file as a run makes
-them, one command of the port, then the port's outputs against the
-float64 reference (the lower reading of each number) and, on the first
-``--control`` seeds (all by default), the control against it: the same
+For each seed, in one process: the cell's genome, file and inputs as a
+run makes them (``harness.set_up``), one command of the port, then the
+port's outputs against the float64 reference of the cell's check (the
+lower reading of each number) and, on the first ``--control`` seeds
+(all by default), the control against it: the same
 reference one step below the configuration's precision (Pearson in
 float32, maps in bfloat16), put in the port's place (the upper reading).
 ``--fault`` plants one of ``FAULTS`` in the port first, so that the
@@ -56,10 +57,11 @@ def plant(name):
     setattr(mod, attr, wrap(getattr(mod, attr)))
 
 
-def rounded(table):
-    """The control's table as the port's writer prints it (ten decimals)."""
+def rounded(table, columns):
+    """The control's table as the port's writer prints it (ten decimals
+    in ``columns``, the check's value columns)."""
     out = dict(table)
-    for name in ("score", "pvalue", "qvalue"):
+    for name in columns:
         out[name] = np.round(np.asarray(table[name], np.float64), 10)
     return out
 
@@ -69,7 +71,6 @@ def main(argv):
     import torch
 
     from perfbench import check, harness
-    from perfbench.genome import make_genome
 
     p = argparse.ArgumentParser(prog="perfbench/calibrate.py")
     p.add_argument("cell")
@@ -86,36 +87,30 @@ def main(argv):
     device = torch.device("cuda", 0)
     if args.fault:
         plant(args.fault)
+    key, values = cell["checker"].KEY, cell["checker"].VALUES
     n_control = len(args.seeds) if args.control is None else args.control
     for n, seed in enumerate(args.seeds):
-        times = {}
-        t = time.perf_counter()
-        genome = make_genome(cell["config_data"], seed, device)
-        times["generate"] = time.perf_counter() - t
-        path, written = harness.ensure_file(genome, harness.cache_dir(cell["name"]), seed)
-        times.update(written)
-        genome.to("cpu")
-        torch.cuda.empty_cache()
-        command = harness.Command(cell, f"{path}::/{genome.config['layout']['group']}", [device])
+        genome, command, times = harness.set_up(cell, seed, device, [device])
         t = time.perf_counter()
         command()
         times["command"] = time.perf_counter() - t
         genome.to(device)
         table, windows = harness.read_outputs(command.prefix)
         t = time.perf_counter()
-        ref, ref_w = check.reference_of(cell, genome, device)
+        ref, ref_w = check.reference_of(cell, genome, device, inputs=command.inputs)
         times["reference"] = time.perf_counter() - t
         line = {
-            "cell": cell["name"], "seed": seed, "fault": args.fault, "rows": len(table["bin1"]),
-            "ref_rows": len(ref["bin1"]) if ref else 0,
+            "cell": cell["name"], "seed": seed, "fault": args.fault, "rows": len(table[key[0]]),
+            "ref_rows": len(ref[key[0]]) if ref else 0,
             "trans_rows": int(np.sum(table["chrom1"] != table["chrom2"])),
-            "port": check.compare(table, windows, ref, ref_w),
+            "port": check.compare(table, windows, ref, ref_w, key, values),
         }
         if n < n_control:
             t = time.perf_counter()
-            ctl, ctl_w = check.reference_of(cell, genome, device, control=True)
+            ctl, ctl_w = check.reference_of(cell, genome, device, control=True,
+                                            inputs=command.inputs)
             times["control"] = time.perf_counter() - t
-            line["control"] = check.compare(rounded(ctl), ctl_w, ref, ref_w)
+            line["control"] = check.compare(rounded(ctl, values), ctl_w, ref, ref_w, key, values)
         line["seconds"] = times
         print(json.dumps(line), flush=True)
         genome = None

@@ -1,29 +1,44 @@
 """The benchmark harness of chromosight_torch: one cell, one run.
 
-A run is one process (``perfbench/run.py``):
+A run is one process (``perfbench/run.py``), whose freed memory malloc
+keeps for reuse (``keep_freed_memory``):
 
 1. set-up (``setup_s``): the cell's genome drawn on the device from the
-   seed (``genome.make_genome``), its cooler file written into the cell's
-   cache directory inside the checkout unless that seed's file is there,
-   the port imported and one warm command run (which builds the port's
-   libraries under ``build/chromosight_torch/`` on a checkout's first
-   run);
+   seed (``genome.make_genome``), its cooler file and the traffic's
+   inputs written into the cell's cache directory inside the checkout
+   unless that seed's files are there (``set_up``), the port imported
+   and one warm command run (which builds the port's libraries under
+   ``build/chromosight_torch/`` on a checkout's first run);
 2. the window: the cell's command run back to back in process through
    ``chromosight_torch.cli.main.main`` until ``--seconds`` have passed
    (the last command runs to its end), under ``torch.profiler`` with
    ``--trace 1``;
 3. the check: the last command's table and windows against the plain
-   reference (``reference.detect``) on the same genome, each compared
-   number beside its limit (``check.compare``; limits in the cell file);
+   reference of the traffic's check on the same genome and inputs, each
+   compared number beside its limit (``check.compare``; limits in the
+   cell file);
 4. one JSON line, last on standard output.
 
 Everything that belongs to a cell, a configuration, a traffic mix or a
 per-layer metric is a file found by its name: ``cells/<cell>.json``
 (configuration, traffic, chips, limits), ``configs/<name>.json``,
-``traffic/<name>.json`` (the command's arguments, its pattern and
-whether it scans trans maps) and ``metrics/<metric>.py``.
-``BENCHMARK.json`` at the checkout's root says which metrics a cell
-reports.
+``traffic/<name>.json`` and ``metrics/<metric>.py``.  A traffic file
+gives the command's arguments (``argv``), its pattern and whether it
+scans trans maps, and may give:
+
+* ``"inputs": {"<name>": "<maker>"}``: files made from the seed in
+  set-up by ``inputs/<maker>.py`` (a ``SUFFIX`` and
+  ``make(genome, seed, path)``), kept for their seed like the cooler
+  file;
+* ``"check": "<name>"``: the check ``checks/<name>.py`` (``KEY``,
+  ``VALUES`` and ``reference(...)``, as ``check.py`` has them), in place
+  of ``check.py``'s ``detect`` check.
+
+Where ``argv`` holds ``"{map}"``, ``{map}``, ``{prefix}`` and
+``{<input name>}`` in it are replaced by the cooler URI, the output
+prefix and the inputs' paths; otherwise the command is
+``[*argv, <map>, <prefix>]``.  ``BENCHMARK.json`` at the checkout's
+root says which metrics a cell reports.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import io
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -43,6 +59,7 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "chromosight_tpu")
+PLACEHOLDER = re.compile(r"\{([^{}]*)\}")
 
 
 def log(msg):
@@ -59,14 +76,28 @@ def load_json(kind, name):
 
 def load_cell(name):
     """The cell ``cells/<name>.json`` with its configuration and traffic
-    loaded under ``config_data`` and ``traffic_data``."""
+    loaded under ``config_data`` and ``traffic_data``, its traffic's
+    input makers under ``makers`` ({input name: module}) and its check
+    under ``checker`` (``check.py`` itself where the traffic names
+    none)."""
+    from perfbench import check
     from perfbench.genome import load_config
 
     cell = load_json("cells", name)
     cell["name"] = name
     cell["config_data"] = load_config(cell["config"])
-    cell["traffic_data"] = load_json("traffic", cell["traffic"])
+    cell["traffic_data"] = traffic = load_json("traffic", cell["traffic"])
+    where = named_by(cell)
+    cell["makers"] = {key: load_module("inputs", maker, where)
+                      for key, maker in traffic.get("inputs", {}).items()}
+    cell["checker"] = load_module("checks", traffic["check"], where) if "check" in traffic else check
+    command_argv(cell, "", "", dict.fromkeys(cell["makers"], ""))  # every placeholder known
     return cell
+
+
+def named_by(cell):
+    """The traffic file of ``cell``, for an error about what it names."""
+    return f"traffic {cell['traffic']!r} ({HERE / 'traffic' / cell['traffic']}.json)"
 
 
 def benchmark_spec(root=ROOT):
@@ -80,16 +111,23 @@ def metrics_of(spec, cell, kind):
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def load_metric(name):
-    """The per-layer metric reader ``metrics/<name>.py``: a module with
-    UNIT, LAYER, MOVES and ``read(run)``."""
-    path = HERE / "metrics" / f"{name}.py"
+def load_module(kind, name, where=None):
+    """The module ``<kind>/<name>.py``; a missing one raises
+    FileNotFoundError naming it and ``where`` it was asked for."""
+    path = HERE / kind / f"{name}.py"
     if not path.is_file():
-        raise FileNotFoundError(f"no metric reader {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{name}", path)
+        asked = f" named by {where}" if where else ""
+        raise FileNotFoundError(f"no {kind} module {name!r}{asked} ({path})")
+    spec = importlib.util.spec_from_file_location(f"perfbench_{kind}_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_metric(name):
+    """The per-layer metric reader ``metrics/<name>.py``: a module with
+    UNIT, LAYER, MOVES and ``read(run)``."""
+    return load_module("metrics", name)
 
 
 def cache_dir(cell):
@@ -122,17 +160,86 @@ def ensure_file(genome, folder, seed):
     return path, {"pixels": t1 - t0, "write": time.perf_counter() - t1}
 
 
+def ensure_input(genome, folder, seed, name, maker):
+    """The input ``name`` of ``seed``, made by ``maker`` in ``folder``
+    unless it is there, as ``ensure_file`` keeps the cooler file: (path,
+    seconds spent making it, or None where it was kept)."""
+    path = folder / f"{name}-{seed}{maker.SUFFIX}"
+    if path.exists():
+        return path, None
+    own = re.compile(rf"{re.escape(name)}--?\d+{re.escape(maker.SUFFIX)}")
+    for old in folder.iterdir():
+        if own.fullmatch(old.name):
+            old.unlink()
+    t = time.perf_counter()
+    tmp = folder / f"partial-{name}{maker.SUFFIX}"
+    maker.make(genome, seed, tmp)
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t
+
+
+def set_up(cell, seed, device, devices, cache=None):
+    """The set-up that a run and a calibration share: the genome drawn on
+    ``device`` from ``seed``, its cooler file and the traffic's inputs
+    in ``cache`` (by default ``cache_dir``), then the genome moved to
+    the host and the command built for ``devices``.  (genome, command,
+    {part: seconds})."""
+    import torch
+
+    from perfbench import genome as genome_mod
+
+    parts = {}
+    t = time.perf_counter()
+    genome = genome_mod.make_genome(cell["config_data"], seed, device)
+    parts["generate"] = time.perf_counter() - t
+    folder = cache or cache_dir(cell["name"])
+    path, written = ensure_file(genome, folder, seed)
+    parts.update(written)
+    inputs = {}
+    for name, maker in cell["makers"].items():
+        inputs[name], seconds = ensure_input(genome, folder, seed, name, maker)
+        if seconds is not None:
+            parts[f"input {name}"] = seconds
+    t = time.perf_counter()
+    genome.to("cpu")  # the window's peak memory is the port's alone
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    parts["to_host"] = time.perf_counter() - t
+    command = Command(cell, f"{path}::/{genome.config['layout']['group']}", inputs,
+                      devices if device.type == "cuda" else device)
+    return genome, command, parts
+
+
+def command_argv(cell, uri, prefix, inputs):
+    """The arguments of ``cell``'s command: its traffic's ``argv`` with
+    ``{map}``, ``{prefix}`` and ``{<input name>}`` replaced where it
+    holds ``"{map}"``, else ``[*argv, uri, prefix]``."""
+    argv = cell["traffic_data"]["argv"]
+    if "{map}" not in argv:
+        return [*argv, uri, prefix]
+    values = {"map": uri, "prefix": prefix, **{k: str(v) for k, v in inputs.items()}}
+
+    def value(match):
+        if match[1] not in values:
+            raise ValueError(f"{named_by(cell)} names {match[0]}, which is neither "
+                             f"{{map}}, {{prefix}} nor one of its inputs {sorted(inputs)}")
+        return values[match[1]]
+
+    return [PLACEHOLDER.sub(value, arg) for arg in argv]
+
+
 class Command:
     """The cell's command through the port's command line, its output
     files under the run's temporary directory, its standard output and
-    error kept in memory (the last command's are kept for a failure)."""
+    error kept in memory (the last command's are kept for a failure).
+    ``inputs`` ({name: path}) are the traffic's input files."""
 
-    def __init__(self, cell, uri, device):
-        traffic = cell["traffic_data"]
+    def __init__(self, cell, uri, inputs, device):
         out_dir = pathlib.Path(tempfile.gettempdir()) / f"perfbench-{cell['name']}"
         out_dir.mkdir(parents=True, exist_ok=True)
         self.prefix = str(out_dir / "out")
-        self.argv = [*traffic["argv"], uri, self.prefix]
+        self.inputs = inputs
+        self.argv = command_argv(cell, uri, self.prefix, inputs)
         self.device = device
         self.last_log = ""
 
@@ -147,12 +254,15 @@ class Command:
             rc = main(list(self.argv), device=self.device)
         self.last_log = sink.getvalue()
         if rc not in (None, 0):
-            raise RuntimeError(f"detect exited {rc}")
+            raise RuntimeError(f"{self.argv[0]} exited {rc}")
 
 
 def read_outputs(prefix):
     """(table, windows) of a command's ``<prefix>.tsv`` and ``.json``;
-    (None, None) where the command wrote none (it found no pattern)."""
+    (None, None) where the command wrote none (it found no pattern).
+    An integer column that holds an empty or ``nan`` field (``quantify``
+    prints its bins so where a pair falls outside the map) reads as
+    float64 with NaN there."""
     import numpy as np
 
     if not os.path.exists(prefix + ".tsv"):
@@ -165,7 +275,8 @@ def read_outputs(prefix):
     for name, values in zip(header, cols):
         if name.startswith("chrom"):
             table[name] = np.array(values, dtype=str)
-        elif name in ("score", "pvalue", "qvalue"):
+        elif name in ("score", "pvalue", "qvalue") or any(
+                v in ("", "nan", "NaN") for v in values):
             table[name] = np.array([float(v) if v else np.nan for v in values])
         else:
             table[name] = np.array(values, dtype=np.int64)
@@ -232,6 +343,26 @@ def refuse_forbidden():
     return bool(found)
 
 
+def keep_freed_memory():
+    """Have glibc's malloc keep what this process frees for its later
+    allocations: no block is served by a mapping of its own, and the top
+    of the heap is never given back.  The port allocates every map's
+    decode output afresh (~3.7 GB a genome command); touching those
+    pages anew took 4-12 s of system CPU a command on an H100's 8-core
+    sandboxed host, swinging from run to run by more than a bound can
+    hold, and 0.3 s once they were reused.  True where the C library
+    took the settings."""
+    import ctypes
+
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    m_trim_threshold, m_top_pad, m_mmap_max = -1, -2, -4
+    return all([mallopt(m_mmap_max, 0), mallopt(m_trim_threshold, -1),
+                mallopt(m_top_pad, 1 << 30)])
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(prog="perfbench/run.py")
     p.add_argument("--workload", required=True)
@@ -243,6 +374,7 @@ def parse_args(argv):
 
 def main(argv, start):
     args = parse_args(argv)
+    kept = keep_freed_memory()
     # any kernel cache a library keeps goes to a fixed directory of the
     # checkout, so that only a checkout's first run fills it
     for var, name in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
@@ -262,17 +394,17 @@ def main(argv, start):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"cell {cell['name']} seed {args.seed} seconds {args.seconds} trace {args.trace}; "
-        f"card {card_power_limit()}")
+        f"card {card_power_limit()}; freed memory kept {kept}")
     return run_cell(cell, spec, args, start, device, devices)
 
 
 def run_cell(cell, spec, args, start, device, devices, cache=None):
     """Set-up, window, check and result line of one run on ``device``
-    (the port's maps on ``devices``), the cooler file cached in ``cache``
-    (by default ``cache_dir``); the exit code."""
+    (the port's maps on ``devices``), the cooler file and inputs cached
+    in ``cache`` (by default ``cache_dir``); the exit code."""
     import torch
 
-    from perfbench import check, genome as genome_mod, trace as trace_mod
+    from perfbench import check, trace as trace_mod
 
     parts = {}
     t = time.perf_counter()
@@ -283,18 +415,8 @@ def run_cell(cell, spec, args, start, device, devices, cache=None):
         log(f"the port imported from {package}, not from this checkout {ROOT}")
         return 4
     parts["import"] = time.perf_counter() - t
-    t = time.perf_counter()
-    genome = genome_mod.make_genome(cell["config_data"], args.seed, device)
-    parts["generate"] = time.perf_counter() - t
-    path, written = ensure_file(genome, cache or cache_dir(cell["name"]), args.seed)
-    parts.update(written)
-    t = time.perf_counter()
-    genome.to("cpu")  # the window's peak memory is the port's alone
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    parts["to_host"] = time.perf_counter() - t
-    command = Command(cell, f"{path}::/{genome.config['layout']['group']}",
-                      devices if device.type == "cuda" else device)
+    genome, command, made = set_up(cell, args.seed, device, devices, cache)
+    parts.update(made)
     t = time.perf_counter()
     command()
     parts["warm"] = time.perf_counter() - t
@@ -346,7 +468,8 @@ def run_cell(cell, spec, args, start, device, devices, cache=None):
     if error is None:
         genome.to(device)
         table, windows = read_outputs(command.prefix)
-        checks, work = check.compare_with_reference(cell, genome, table, windows, device)
+        checks, work = check.compare_with_reference(cell, genome, table, windows, device,
+                                                     command.inputs)
         correct = all(c["value"] <= c["limit"] for c in checks.values())
     genome = None
 
